@@ -15,7 +15,10 @@ repository around it. Phases, each printing one line or more:
      and, where one PyTorch call computes the same function, that call.
      K1, K2f and K2b must agree bit for bit; K3 (the 5x5 weight gradient)
      within 1e-4 of max|plain|, the float32 sums being taken in another
-     order.
+     order; K4 (the flash attention forward) at the served shape (8 heads
+     x 4096 x 64, causal, read by strides out of the qkv projection, f32
+     and bf16) and at odd shapes, O within 1e-5 (f32) or 2e-2 (bf16) and
+     LSE within 1e-5, timed beside scaled_dot_product_attention.
   3. Serving: the full-width Grasping44 CEM policy (num_convs (6, 6, 3),
      512x640 frames cropped to 472, CEM 64 x 3 with 10 elites) behind a
      PolicyServer with max_batch_size 8, answering requests from 4
@@ -33,7 +36,16 @@ repository around it. Phases, each printing one line or more:
      every gradient must agree), a profile of train steps, and one batch
      served on the trained variables, whose q must be the trained
      avg_params' forward and not the untrained weights'.
-  5. A JSON line of the kernels, the card's name and power limit, and
+  5. Seq2Act serving: the long-context RT-1-style policy at full width
+     (512-frame episodes, 4,096 tokens, 8 blocks, attention_mode 'flash',
+     float32 with TF32 off) restored by CheckpointPredictor from a
+     checkpoint of random weights and stepped by
+     SequentialRegressionPolicy, with the counters zeroed just before and
+     read just after: 1 K1 and 8 K4 launches a predict. Actions must be
+     finite bin centers in [-1, 1]; one forward through the kernels must
+     match the plain versions' (logits within 1e-4 of their max). Then a
+     profile of two SelectAction calls.
+  6. A JSON line of the kernels, the card's name and power limit, and
      the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.
@@ -617,9 +629,10 @@ def phase_train(device):
     state, trainer = result['state'], result['trainer']
     restored = checkpointing.CheckpointManager(model_dir).restore(
         device=device)
-  want = {'crop_convert': TRAIN_STEPS, 'max_pool': 3 * TRAIN_STEPS,
-          'max_pool_backward': 3 * TRAIN_STEPS,
-          'conv5x5_wgrad': BODY_CONVS * TRAIN_STEPS}
+  want = dict.fromkeys(kernels.LAUNCHES, 0)
+  want.update({'crop_convert': TRAIN_STEPS, 'max_pool': 3 * TRAIN_STEPS,
+               'max_pool_backward': 3 * TRAIN_STEPS,
+               'conv5x5_wgrad': BODY_CONVS * TRAIN_STEPS})
   check(launches == want, 'train launch counts {} != expected {} for {} '
         'steps'.format(launches, want, TRAIN_STEPS))
   loss = trainer.last_metrics['loss']
@@ -820,6 +833,210 @@ def phase_train_profile(trainer, model, state, raw, labels, steps=3):
                                                    name[:90]))
 
 
+# The served attention: episode_length 512 x 8 tokens, 8 heads of 64.
+SEQ2ACT_EPISODE, SEQ2ACT_STEPS = 512, 4
+FLASH_HEADS, FLASH_LEN, FLASH_DIM = 8, 4096, 64
+FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+LSE_ATOL = 1e-5
+LOGITS_RTOL = 1e-4   # of max|logits|: float32 sums in another order
+
+
+def flash_plain_blhd(q, k, v, causal=False):
+  """K4's plain version with ``flash_attention``'s signature, as the main
+  path calls it."""
+  from tensor2robot_tpu_torch.parallel import flash_attention
+
+  return flash_attention.flash_attention_plain_blhd(
+      q, k, v, causal, 1.0 / float(np.sqrt(q.shape[-1])))[0]
+
+
+def phase_flash(device, gen):
+  import torch.nn.functional as F
+  from tensor2robot_tpu_torch.parallel import flash_attention
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  h, l, d = FLASH_HEADS, FLASH_LEN, FLASH_DIM
+  err = 0.0
+  cases = [(1, l, h, d, True, 'served')]
+  # Odd shapes: ragged 64-row tiles, head dim 128, several batches.
+  cases += [(2, 200, 3, 128, True, 'odd'), (3, 72, 2, 64, False, 'odd')]
+  for b, length, heads, dim, causal, name in cases:
+    for dtype in (torch.float32, torch.bfloat16):
+      qkv = torch.randn((b, length, heads, 3, dim), device=device,
+                        generator=gen).to(dtype)
+      q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+      got = flash_attention.flash_attention(q, k, v, causal=causal)
+      want = flash_plain_blhd(q, k, v, causal)
+      bhld = [x.permute(0, 2, 1, 3).reshape(b * heads, length, dim)
+              for x in (q, k, v)]
+      got_o, got_lse = flash_attention.flash_attention_with_lse(
+          *bhld, causal=causal)
+      want_o, want_lse = flash_attention.flash_attention_plain(
+          *bhld, causal, 1.0 / float(np.sqrt(dim)))
+      torch.cuda.synchronize()
+      e = max(max_abs_err(got, want), max_abs_err(got_o, want_o))
+      e_lse = max_abs_err(got_lse, want_lse)
+      check(got.dtype == dtype and got.shape == want.shape and
+            got_lse.dtype == torch.float32 and
+            e <= FLASH_ATOL[dtype] and e_lse <= LSE_ATOL,
+            'flash_attention {} {}: max |dO| {} (tolerance {}), max |dLSE| '
+            '{} (tolerance {})'.format([b, length, heads, dim], dtype, e,
+                                       FLASH_ATOL[dtype], e_lse, LSE_ATOL))
+      if name == 'served' and dtype == torch.float32:
+        err = e
+      print('flash_attention {} {} {} {}: max |dO| {:.3g} (tolerance {:g}), '
+            'max |dLSE| {:.3g} (tolerance {:g})'.format(
+                name, [b, length, heads, dim], 'causal' if causal else
+                'full', str(dtype).split('.')[-1], e, FLASH_ATOL[dtype],
+                e_lse, LSE_ATOL))
+
+  # The served call: q, k, v strided views of one float32 qkv projection.
+  qkv = torch.randn((1, l, h, 3, d), device=device, generator=gen)
+  q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+  bhl = [x.transpose(1, 2) for x in (q, k, v)]   # [B, H, L, D] views
+
+  def library():
+    return F.scaled_dot_product_attention(*bhl, is_causal=True)
+
+  lib_err = max_abs_err(library().transpose(1, 2),
+                        flash_attention.flash_attention(q, k, v, causal=True))
+  check(lib_err <= 1e-2, 'scaled_dot_product_attention computes another '
+        'function ({:.3g})'.format(lib_err))
+  ms = median_ms(lambda: flash_attention.flash_attention(q, k, v,
+                                                         causal=True))
+  plain = median_ms(lambda: flash_plain_blhd(q, k, v, True))
+  lib = median_ms(library)
+  # The products with unmasked pairs (q_pos >= k_pos): two of D
+  # multiply-adds each, for s and for p @ v.
+  pairs = h * l * (l + 1) // 2
+  flops = 4 * d * pairs
+  bound, by = bound_ms(4 * q.numel() * 4 + h * l * 4, flops)
+  print('flash_attention served [1,{},{},{}] causal f32: {:.4f} ms ({:.1f} '
+        'TFLOP/s), plain {:.4f} ms, scaled_dot_product_attention {:.4f} ms '
+        '(differs by {:.3g}), bound {:.4f} ms ({}); {} calls per '
+        'predict'.format(l, h, d, ms, flops / ms / 1e9, plain, lib, lib_err,
+                         bound, by, 8))
+  return dict(name='flash_attention_fwd', route='cuda',
+              source='tensor2robot_tpu_torch/csrc/flash_attention_fwd.cu',
+              replaces='tensor2robot_tpu/parallel/flash_attention.py:202',
+              max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+              bound_by=by, library_ms=lib,
+              shapes='per launch: [1,{},{},{}] causal f32, q/k/v strided '
+              'views of the qkv projection'.format(l, h, d))
+
+
+def phase_seq2act(device):
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.export import export_generators
+  from tensor2robot_tpu_torch.models.abstract_model import TrainState
+  from tensor2robot_tpu_torch.parallel import flash_attention
+  from tensor2robot_tpu_torch.policies import SequentialRegressionPolicy
+  from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+  from tensor2robot_tpu_torch.preprocessors import pallas_crop
+  from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
+  from tensor2robot_tpu_torch.research.vrgripper import decoders
+  from tensor2robot_tpu_torch.trainer import checkpointing
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  model = Seq2ActBCModel(episode_length=SEQ2ACT_EPISODE,
+                         attention_mode='flash', device=device)
+  rng = np.random.RandomState(5)
+  frames = [rng.randint(0, 256, (136, 168, 3), dtype=np.uint8)
+            for _ in range(SEQ2ACT_STEPS + 1)]
+  with tempfile.TemporaryDirectory() as model_dir:
+    # Random weights at the flax initializers' fan-in scale, seed 4.
+    params = model.init_variables(torch.Generator().manual_seed(4))['params']
+    checkpointing.CheckpointManager(model_dir).save(TrainState(
+        step=1, params=params, model_state={}, opt_state=None))
+    predictor = CheckpointPredictor(model, model_dir, timeout=60.0)
+    policy = SequentialRegressionPolicy(model, predictor=predictor)
+    check(policy.restore() and predictor.model_version == 1,
+          'CheckpointPredictor did not restore the checkpoint')
+  policy.reset()
+  first = policy.SelectAction({'image': frames[0]}, None, 0)  # warm
+  torch.cuda.synchronize()
+  actions, wall_ms = [first], []
+  kernels.reset_launches()
+  for step, frame in enumerate(frames[1:], 1):
+    start = time.monotonic()
+    actions.append(policy.SelectAction({'image': frame}, None, step))
+    wall_ms.append((time.monotonic() - start) * 1e3)
+  launches = dict(kernels.LAUNCHES)
+  want = dict.fromkeys(kernels.LAUNCHES, 0)
+  want.update({'crop_convert': SEQ2ACT_STEPS,
+               'flash_attention_fwd': 8 * SEQ2ACT_STEPS})
+  check(launches == want, 'seq2act launch counts {} != expected {} for {} '
+        'predicts'.format(launches, want, SEQ2ACT_STEPS))
+  centers = set(decoders.get_discrete_bins(256, -1.0, 1.0).tolist())
+  for action in actions:
+    check(action.shape == (7,) and np.isfinite(action).all() and
+          np.abs(action).max() <= 1.0 and set(action.tolist()) <= centers,
+          'bad seq2act action {}'.format(action))
+  print('seq2act: {} SelectAction calls over a {}-frame window ({} tokens), '
+        'launches {}; wall per call median {:.2f} ms (min {:.2f}, max '
+        '{:.2f}); {} distinct actions; {}'.format(
+            SEQ2ACT_STEPS, SEQ2ACT_EPISODE, 8 * SEQ2ACT_EPISODE, launches,
+            statistics.median(wall_ms), min(wall_ms), max(wall_ms),
+            len({tuple(a) for a in actions}), smi_line()))
+
+  # One forward through the kernels and through the plain versions, on the
+  # window of the frames above.
+  serve = export_generators.make_serve_fn(model)
+  window = None
+  for frame in frames:
+    window = model.pack_features({'image': frame}, window, 0)
+  got = serve(predictor.variables, window)
+  with mock.patch.object(flash_attention, 'flash_attention',
+                         flash_plain_blhd), \
+      mock.patch.object(pallas_crop, 'crop_convert',
+                        pallas_crop.crop_convert_plain):
+    before = dict(kernels.LAUNCHES)
+    want_out = serve(predictor.variables, window)
+    check(kernels.LAUNCHES == before, 'the plain forward launched a kernel')
+  torch.cuda.synchronize()
+  scale = float(want_out['action_logits'].abs().max())
+  e = max_abs_err(got['action_logits'], want_out['action_logits'])
+  same = float((got['action'] == want_out['action']).float().mean())
+  check(e <= LOGITS_RTOL * scale, 'seq2act kernels vs plain: max |dlogit| '
+        '{} > {} of max {}'.format(e, LOGITS_RTOL, scale))
+  print('seq2act vs plain versions, one forward: max |dlogit| {:.3g} = '
+        '{:.3g} of max|logits| {:.3g} (tolerance {:g}); {:.1%} of the '
+        '{} step actions equal'.format(e, e / scale, scale, LOGITS_RTOL,
+                                       same, got['action'].numel()))
+  phase_seq2act_profile(policy, frames)
+  return launches
+
+
+def phase_seq2act_profile(policy, frames, calls=2):
+  """Where a SelectAction's time goes: device time by kernel and the
+  device's busy share of the wall time."""
+  from torch.profiler import ProfilerActivity, profile
+
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    start = time.monotonic()
+    for step in range(calls):
+      policy.SelectAction({'image': frames[step]}, None, step)
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - start) * 1e3 / calls
+  rows = [(e.self_device_time_total / 1e3 / calls, e.count // calls, e.key)
+          for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and
+          e.self_device_time_total > 0]
+  if not rows:
+    print('seq2act profile: the profiler saw no device time; not measured')
+    return
+  rows.sort(reverse=True)
+  busy_ms = sum(ms for ms, _, _ in rows)
+  print('seq2act profile: {:.2f} ms wall per SelectAction, kernels busy '
+        '{:.2f} ms ({:.1%})'.format(wall_ms, busy_ms, busy_ms / wall_ms))
+  for ms, count, name in rows[:16]:
+    print('  {:8.3f} ms {:5.1%} x{:<4d} {}'.format(ms, ms / busy_ms, count,
+                                                   name[:90]))
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; nothing measured.', file=sys.stderr)
@@ -832,18 +1049,22 @@ def main():
   pool = phase_pool(device, gen)
   pool_backward = phase_pool_backward(device, gen)
   wgrad_entry = phase_wgrad(device, gen)
+  flash = phase_flash(device, gen)
   served = phase_slice(device)
   trained = phase_train(device)
+  seq2act = phase_seq2act(device)
   # K1 and K2f report their serving launches, K2b and K3 their training
-  # ones; every path's counts are listed too.
-  for entry, main_path in ((crop, served), (pool, served),
-                           (pool_backward, trained), (wgrad_entry, trained)):
+  # ones, K4 its seq2act ones; every path's counts are listed too.
+  entries = ((crop, served), (pool, served), (pool_backward, trained),
+             (wgrad_entry, trained), (flash, seq2act))
+  for entry, main_path in entries:
     entry['launches'] = main_path[entry['name']]
     entry['launches_by_path'] = {'serve': served[entry['name']],
-                                 'train': trained[entry['name']]}
+                                 'train': trained[entry['name']],
+                                 'seq2act': seq2act[entry['name']]}
     check(entry['launches'] > 0, '{} never launched on the main path'
           .format(entry['name']))
-  print(json.dumps({'kernels': [crop, pool, pool_backward, wgrad_entry]}))
+  print(json.dumps({'kernels': [entry for entry, _ in entries]}))
   print(smi_line())
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -9,5 +9,10 @@ JAX and nothing of ``tensor2robot_tpu``.
 
 Ported so far: serving the QT-Opt Grasping44 CEM policy
 (``serving.serve`` -> ``serving.PolicyServer`` ->
-``research.qtopt.t2r_models`` -> ``research.qtopt.networks``).
+``research.qtopt.t2r_models`` -> ``research.qtopt.networks``), training
+its critic (``trainer.train_eval``), and serving the long-context Seq2Act
+policy (``policies.SequentialRegressionPolicy`` ->
+``predictors.CheckpointPredictor`` -> ``export.export_generators`` ->
+``research.seq2act`` -> ``layers.transformer`` ->
+``parallel.flash_attention``).
 """

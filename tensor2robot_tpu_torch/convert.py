@@ -9,12 +9,19 @@ as:
 
   * conv ``kernel`` HWIO -> ``weight`` OIHW (``transpose(3, 2, 0, 1)``);
   * dense ``kernel`` [in, out] -> ``weight`` [out, in];
-  * ``bias`` and batch norm ``scale`` keep their names;
+  * ``bias``, batch and layer norm ``scale``, the transformer's
+    ``pos_embedding`` and an ``nn.Embed``'s ``embedding`` keep their names;
   * ``batch_stats`` ``mean`` / ``var`` join the state dict of both
     ``params`` and ``avg_params`` (the EMA averages weights only).
 
-fc0 needs no row permutation: the port flattens final_conv in the same
-H, W, C order as the JAX network.
+The port's modules carry the flax names, so both networks map leaf for
+leaf: the Grasping44 critic (fc0 needs no row permutation: the port
+flattens final_conv in the same H, W, C order as the JAX network) and
+``RT1StyleNet`` (``tokenizer.conv{i}``, ``ln{i}``, ``embed``,
+``token_learner.{ln,map_in,map_out}``; ``transformer.pos_embedding``,
+``block{i}.{ln_attn,attn.qkv,attn.out,ln_mlp,mlp_in,mlp_out}``,
+``ln_final``; ``action_head`` and, where configured, ``task_embedding``
+and ``state_token``).
 
 ``train_state_from_flax`` builds the port's ``TrainState`` from a JAX
 ``TrainState`` whose leaves are numpy arrays: params and batch stats as

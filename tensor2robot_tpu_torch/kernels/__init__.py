@@ -58,6 +58,10 @@ KERNELS = {
     'conv5x5_wgrad': ('t2r_conv5x5_wgrad',
                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong,
                        _I, _P]),
+    'flash_attention_fwd': ('t2r_flash_attention_fwd',
+                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
+                            + [ctypes.c_longlong] * 9
+                            + [ctypes.c_float, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -1,5 +1,5 @@
-"""AbstractT2RModel: network, random init, the predict forward and the
-train step.
+"""AbstractT2RModel: network, random init, the predict step and the train
+step.
 
 The counterpart of the JAX package's ``models/abstract_model.py``. A model
 holds configuration and one network module on its device; the weights live
@@ -207,6 +207,23 @@ class AbstractT2RModel:
     return torch.func.functional_call(
         self.network, self.select_params(variables), (features,),
         {'mode': mode}, strict=True)
+
+  def create_export_outputs_fn(self, features, inference_outputs,
+                               mode: str) -> Dict[str, torch.Tensor]:
+    """The serving outputs from the network's outputs (the outputs
+    themselves unless a model says otherwise)."""
+    del features, mode
+    return dict(inference_outputs)
+
+  def predict_step(self, variables: Variables,
+                   features) -> Dict[str, torch.Tensor]:
+    """The serving forward: the PREDICT network on the served weights,
+    then ``create_export_outputs_fn``. ``features`` are preprocessed."""
+    with torch.inference_mode():
+      outputs = self.inference_network_fn(variables, features,
+                                          ModeKeys.PREDICT)
+      return self.create_export_outputs_fn(features, outputs,
+                                           ModeKeys.PREDICT)
 
   # -- loss ------------------------------------------------------------------
 

@@ -368,6 +368,19 @@ class TelemetryRegistry:
         name, 'histogram', lambda: Histogram(resolved),
         requested={'bounds': explicit}, config={'bounds': resolved})
 
+  def counter_family(self, name: str,
+                     label_names: Sequence[str]) -> _Family:
+    labels = tuple(label_names)
+    return self._get_or_create(
+        name, 'counter_family', lambda: _Family(Counter, labels),
+        requested={'labels': labels}, config={'labels': labels})
+
+  def gauge_family(self, name: str, label_names: Sequence[str]) -> _Family:
+    labels = tuple(label_names)
+    return self._get_or_create(
+        name, 'gauge_family', lambda: _Family(Gauge, labels),
+        requested={'labels': labels}, config={'labels': labels})
+
   def histogram_family(self, name: str, label_names: Sequence[str],
                        bounds: Optional[Sequence[float]] = None) -> _Family:
     """``bounds`` is the family DEFAULT; individual series may override

@@ -1,0 +1,11 @@
+"""Robot-time policies of the port (the JAX package's ``policies/``)."""
+
+from tensor2robot_tpu_torch.policies.policies import (
+    POLICY_LATENCY_HISTOGRAM,
+    Policy,
+    RegressionPolicy,
+    SequentialRegressionPolicy,
+)
+
+__all__ = ['POLICY_LATENCY_HISTOGRAM', 'Policy', 'RegressionPolicy',
+           'SequentialRegressionPolicy']

@@ -1,0 +1,10 @@
+"""Predictors of the port (the JAX package's ``predictors/``)."""
+
+from tensor2robot_tpu_torch.predictors.abstract_predictor import (
+    AbstractPredictor,
+)
+from tensor2robot_tpu_torch.predictors.checkpoint_predictor import (
+    CheckpointPredictor,
+)
+
+__all__ = ['AbstractPredictor', 'CheckpointPredictor']

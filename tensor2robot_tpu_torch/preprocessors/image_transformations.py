@@ -15,7 +15,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-__all__ = ['center_crop_offsets', 'crop_images', 'random_crop_offsets']
+__all__ = ['center_crop_episodes', 'center_crop_offsets', 'crop_images',
+           'random_crop_offsets']
 
 
 def _check_shapes(images: Sequence[torch.Tensor]) -> None:
@@ -83,3 +84,26 @@ def crop_images(images: List[torch.Tensor], offsets: torch.Tensor,
   cols = (ox[:, None] + torch.arange(tw, device=device))[:, None, :]
   frames = torch.arange(batch, device=device)[:, None, None]
   return [img[frames, rows, cols] for img in images]
+
+
+def center_crop_episodes(episodes: torch.Tensor,
+                         target_shape: Tuple[int, int]) -> torch.Tensor:
+  """Center crop of uint8 [B, T, H, W, C] episodes, converted to float32
+  in [0, 1]: [B, T, th, tw, C].
+
+  The JAX package's ``center_crop_episodes`` followed by the preprocessor's
+  ``/ 255.0``, in one pass of kernel K1 over the B * T frames, each at the
+  same center offset (a CPU tensor takes K1's plain version).
+  """
+  from tensor2robot_tpu_torch.preprocessors import pallas_crop
+
+  if episodes.dim() != 5:
+    raise ValueError('center_crop_episodes takes [B, T, H, W, C] episodes; '
+                     'got {}.'.format(tuple(episodes.shape)))
+  batch, steps, height, width, channels = episodes.shape
+  frames = episodes.reshape(batch * steps, height, width, channels)
+  offsets = center_crop_offsets(batch * steps, (height, width),
+                                target_shape, device=episodes.device)
+  cropped = pallas_crop.crop_convert(frames, offsets, target_shape,
+                                     torch.float32, 255.0)
+  return cropped.reshape((batch, steps) + tuple(cropped.shape[1:]))

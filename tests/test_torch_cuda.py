@@ -15,6 +15,11 @@ version's matrix products: it must agree within 1e-4 of max|plain|. These
 cases add to chip_smoke.py's shapes the odd ones: rows whose length is not
 a multiple of the crop's vector width, low padding, VALID tails, bf16 ties,
 channel counts that are not a multiple of the wgrad tile.
+K4 (flash attention) sums its products and softmax in another order than
+its dense plain version: O within 1e-5 in float32 and 2e-2 (one rounding
+of values of order 1) in bfloat16, LSE within 1e-5; its cases add lengths
+that are not a multiple of its 64-row tile, head dim 128 and several
+batches and heads.
 """
 
 import pytest
@@ -23,6 +28,7 @@ import torch
 from tensor2robot_tpu_torch import kernels
 from tensor2robot_tpu_torch.layers import pooling
 from tensor2robot_tpu_torch.layers import wgrad
+from tensor2robot_tpu_torch.parallel import flash_attention
 from tensor2robot_tpu_torch.preprocessors import pallas_crop
 
 pytestmark = pytest.mark.cuda
@@ -163,3 +169,51 @@ def test_conv5x5_wgrad_matches_plain(device, shape, dtype):
   # The same inputs give the same bits: the partial sums are reduced in a
   # fixed order.
   assert torch.equal(wgrad.conv5x5_wgrad(x, dy), got)
+
+
+FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('b,l,h,d', [
+    (2, 200, 3, 64),     # ragged last tile
+    (1, 72, 2, 128),     # head dim 128
+    (3, 8, 1, 64),       # shorter than one tile
+    (1, 1024, 4, 64),
+])
+def test_flash_attention_matches_plain(device, b, l, h, d, causal, dtype):
+  gen = _generator(device, 4)
+  qkv = torch.randn((b, l, h, 3, d), device=device, generator=gen).to(dtype)
+  q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+  bhld = [x.permute(0, 2, 1, 3).reshape(b * h, l, d) for x in (q, k, v)]
+  before = kernels.LAUNCHES['flash_attention_fwd']
+  got = flash_attention.flash_attention(q, k, v, causal=causal)
+  got_o, got_lse = flash_attention.flash_attention_with_lse(*bhld,
+                                                            causal=causal)
+  assert kernels.LAUNCHES['flash_attention_fwd'] == before + 2
+  want_o, want_lse = flash_attention.flash_attention_plain(
+      *bhld, causal, 1.0 / d ** 0.5)
+  torch.cuda.synchronize()
+  assert got.dtype == dtype and got.shape == (b, l, h, d)
+  assert got_lse.dtype == torch.float32 and got_lse.shape == (b * h, l)
+  blhd = want_o.reshape(b, h, l, d).permute(0, 2, 1, 3)
+  assert float((got.float() - blhd.float()).abs().max()) <= FLASH_ATOL[dtype]
+  assert float((got_o.float() - want_o.float()).abs().max()) <= (
+      FLASH_ATOL[dtype])
+  assert float((got_lse - want_lse).abs().max()) <= 1e-5
+
+
+def test_flash_attention_refuses_what_it_does_not_take(device):
+  x = torch.randn(1, 64, 2, 32, device=device)
+  with pytest.raises(ValueError, match='head dims'):
+    flash_attention.flash_attention(x, x, x)
+  y = torch.randn(1, 64, 2, 64, device=device)
+  with pytest.raises(ValueError, match='float32 or bfloat16'):
+    flash_attention.flash_attention(y.half(), y.half(), y.half())
+  with pytest.raises(ValueError, match='unit stride'):
+    t = y.transpose(-1, -2).contiguous().transpose(-1, -2)
+    flash_attention.flash_attention(t, t, t)
+  with pytest.raises(ValueError, match='multiple of 8'):
+    z = torch.randn(1, 100, 2, 64, device=device)
+    flash_attention.flash_attention(z, z, z)

@@ -23,6 +23,15 @@ _FORBIDDEN = re.compile(
     re.MULTILINE)
 
 
+# The Seq2Act serving slice's modules, each imported by the check above.
+SEQ2ACT_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
+    'export.export_generators', 'layers.transformer',
+    'meta_learning.meta_data', 'parallel.flash_attention',
+    'policies.policies', 'predictors.abstract_predictor',
+    'predictors.checkpoint_predictor', 'research.seq2act.seq2act_model',
+    'research.vrgripper.decoders'))
+
+
 def _port_sources():
   for root, _, files in os.walk(PORT):
     for name in sorted(files):
@@ -44,13 +53,15 @@ def test_importing_every_module_loads_no_jax():
                    if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                           'tensor2robot_tpu'))
       assert not bad, bad
-      print(len(names))
+      print(' '.join(names))
       ''')
   env = dict(os.environ, PYTHONPATH=REPO)
   result = subprocess.run([sys.executable, '-c', script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
   assert result.returncode == 0, result.stderr
-  assert int(result.stdout.split()[-1]) >= 30
+  names = set(result.stdout.split())
+  assert len(names) >= 40
+  assert set(SEQ2ACT_MODULES) <= names, set(SEQ2ACT_MODULES) - names
 
 
 def test_static_scan_finds_no_jax_import():
@@ -87,9 +98,13 @@ def test_entry_points_default_to_cuda():
       'device'].default == 'cuda'
   assert inspect.signature(AbstractT2RModel).parameters[
       'device'].default == 'cuda'
+  from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
+
   model = (t2r_models.
            Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom())
   assert model.device == torch.device('cuda')
+  assert Seq2ActBCModel().device == torch.device('cuda')
+  assert Seq2ActBCModel().compute_dtype == torch.float32
   # The GPU serves float32; bf16 only where asked for (or on a TPU).
   assert model.compute_dtype == torch.float32
   assert (t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(

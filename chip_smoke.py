@@ -18,7 +18,12 @@ repository around it. Phases, each printing one line or more:
      order; K4 (the flash attention forward) at the served shape (8 heads
      x 4096 x 64, causal, read by strides out of the qkv projection, f32
      and bf16) and at odd shapes, O within 1e-5 (f32) or 2e-2 (bf16) and
-     LSE within 1e-5, timed beside scaled_dot_product_attention.
+     LSE within 1e-5, timed beside scaled_dot_product_attention; K5a and
+     K5b (the flash attention backward: dk and dv, dq) at the training
+     shape (batch 8) in f32 and bf16 and at an odd shape, dq, dk and dv
+     within 1e-4 (f32) or 2e-2 (bf16) of each one's max|plain| and the
+     same bits run to run, timed each alone beside the plain backward
+     (median of 10) and the backward of scaled_dot_product_attention.
   3. Serving: the full-width Grasping44 CEM policy (num_convs (6, 6, 3),
      512x640 frames cropped to 472, CEM 64 x 3 with 10 elites) behind a
      PolicyServer with max_batch_size 8, answering requests from 4
@@ -45,7 +50,20 @@ repository around it. Phases, each printing one line or more:
      finite bin centers in [-1, 1]; one forward through the kernels must
      match the plain versions' (logits within 1e-4 of their max). Then a
      profile of two SelectAction calls.
-  6. A JSON line of the kernels, the card's name and power limit, and
+  6. Seq2Act training: ``train_eval_model`` trains the same full-width
+     512-frame binding for SEQ2ACT_TRAIN_STEPS steps at batch 8 with adam
+     (lr 1e-4) from random weights at the flax initializers' scale (seed
+     0) on random uint8 episodes, float32 with TF32 off, with the counters
+     zeroed just before and read just after: 1 K1 and 8 each of K4, K5a
+     and K5b launches a step. Every step's loss must be finite and the
+     checkpoint must restore equal. Then one step on one episode through
+     the kernels and through the plain versions (loss within 1e-5
+     relative, every gradient within 1e-4 of its scale), a profile of two
+     steps on a resident batch, and a SequentialRegressionPolicy over a
+     CheckpointPredictor restored from the trained checkpoint, whose
+     logits must be the trained params' predict_step (1e-4) and not the
+     untrained weights'.
+  7. A JSON line of the kernels, the card's name and power limit, and
      the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.
@@ -526,44 +544,43 @@ def phase_slice(device):
             q_err, a_err))
   print('slice vs plain versions, one batch: max |dq| {:.3g}, max '
         '|daction| {:.3g} (tolerance 1e-4)'.format(q_err, a_err))
-  phase_profile(batch_select, variables, stacked)
+  profile('profile', lambda i: batch_select(variables, stacked, i), 3,
+          'batch of {}'.format(MAX_BATCH), top=12)
   return launches
 
 
-def phase_profile(batch_select, variables, stacked, batches=3):
-  """Where a served batch's time goes: device time by kernel, from
-  torch.profiler over a few full batches, and the device's busy share."""
-  from torch.profiler import ProfilerActivity, profile
+def profile(label, run, calls, unit, top=16):
+  """Where the time of ``calls`` runs of ``run(i)`` goes: device time by
+  kernel from torch.profiler, the wall time per run (ending in a
+  synchronize) and the device's busy share of it. Returns the wall ms per
+  run."""
+  from torch.profiler import ProfilerActivity, profile as torch_profile
 
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+  with torch_profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
     start = time.monotonic()
-    for seed in range(batches):
-      batch_select(variables, stacked, seed)
+    for i in range(calls):
+      run(i)
     torch.cuda.synchronize()
-    wall_ms = (time.monotonic() - start) * 1e3
-  rows = []
-  for event in prof.key_averages():
-    # Kernels only: the host-side aten ops carry their kernels' device
-    # time too, and would count it twice.
-    if event.device_type != torch.autograd.DeviceType.CUDA:
-      continue
-    device_us = event.self_device_time_total
-    if device_us > 0:
-      rows.append((device_us / 1e3 / batches, event.count // batches,
-                   event.key))
+    wall_ms = (time.monotonic() - start) * 1e3 / calls
+  # Kernels only: the host-side aten ops carry their kernels' device time
+  # too, and would count it twice.
+  rows = [(e.self_device_time_total / 1e3 / calls, e.count // calls, e.key)
+          for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and
+          e.self_device_time_total > 0]
   if not rows:
-    print('profile: the profiler saw no device time; not measured')
-    return
+    print('{}: the profiler saw no device time; not measured'.format(label))
+    return wall_ms
   rows.sort(reverse=True)
   busy_ms = sum(ms for ms, _, _ in rows)
-  print('profile: {:.2f} ms wall per batch of {}, kernels busy {:.2f} ms '
-        '({:.1%})'.format(wall_ms / batches, MAX_BATCH, busy_ms,
-                          busy_ms / (wall_ms / batches)))
-  for ms, count, name in rows[:12]:
+  print('{}: {:.2f} ms wall per {}, kernels busy {:.2f} ms ({:.1%})'.format(
+      label, wall_ms, unit, busy_ms, busy_ms / wall_ms))
+  for ms, count, name in rows[:top]:
     print('  {:8.3f} ms {:5.1%} x{:<4d} {}'.format(ms, ms / busy_ms, count,
                                                    name[:90]))
+  return wall_ms
 
 
 def _states_equal(a, b):
@@ -720,7 +737,8 @@ def phase_train(device):
         .format(loss_err, ', '.join('{:.3g} at {}'.format(*e)
                                     for e in errors[:3]), *worst_zero))
 
-  phase_train_profile(trainer, model, state, raw, labels)
+  train_profile('train profile', trainer, model, state, raw, labels, 3,
+                TRAIN_BATCH)
   phase_train_serve(model, initial, state)
   return launches
 
@@ -793,44 +811,24 @@ def phase_train_serve(model, initial, state):
             q_err, spread, moved, max_abs_err(logits_avg, logits_params)))
 
 
-def phase_train_profile(trainer, model, state, raw, labels, steps=3):
-  """Where a train step's time goes: device time by kernel over a few
-  steps (crop + forward + backward + optimizer + EMA) and the device's
-  busy share of the wall time."""
-  from torch.profiler import ProfilerActivity, profile
+def train_profile(label, trainer, model, state, raw, labels, steps, batch):
+  """``profile`` of train steps (crop + forward + backward + optimizer)
+  on a resident batch, after one warm step; prints examples/s."""
   from tensor2robot_tpu_torch.modes import ModeKeys
 
-  def step(current):
+  current = [state]
+
+  def step(_):
     features, batch_labels = model.preprocessor.preprocess(
         raw, labels, ModeKeys.TRAIN, generator=trainer.crop_generator)
-    current, metrics = model.train_step(current, features, batch_labels)
+    current[0], metrics = model.train_step(current[0], features,
+                                           batch_labels)
     float(metrics['loss'])
-    return current
 
-  state = step(state)   # warm
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    start = time.monotonic()
-    for _ in range(steps):
-      state = step(state)
-    torch.cuda.synchronize()
-    wall_ms = (time.monotonic() - start) * 1e3 / steps
-  rows = [(e.self_device_time_total / 1e3 / steps, e.count // steps, e.key)
-          for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA and
-          e.self_device_time_total > 0]
-  if not rows:
-    print('train profile: the profiler saw no device time; not measured')
-    return
-  rows.sort(reverse=True)
-  busy_ms = sum(ms for ms, _, _ in rows)
-  print('train profile: {:.2f} ms wall per step of {}, kernels busy {:.2f} '
-        'ms ({:.1%})'.format(wall_ms, TRAIN_BATCH, busy_ms,
-                             busy_ms / wall_ms))
-  for ms, count, name in rows[:16]:
-    print('  {:8.3f} ms {:5.1%} x{:<4d} {}'.format(ms, ms / busy_ms, count,
-                                                   name[:90]))
+  step(0)   # warm
+  wall_ms = profile(label, step, steps, 'step of {}'.format(batch))
+  print('{}: {:.2f} examples/s on a resident batch'.format(
+      label, batch * 1e3 / wall_ms))
 
 
 # The served attention: episode_length 512 x 8 tokens, 8 heads of 64.
@@ -925,6 +923,126 @@ def phase_flash(device, gen):
               'views of the qkv projection'.format(l, h, d))
 
 
+BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # of max|plain|
+
+
+def phase_flash_backward(device, gen):
+  """K5a and K5b against the dense plain backward, at the training shape
+  (batch 8 of 8 heads x 4096 x 64, causal: q, k, v strided views of the
+  qkv projection) in f32 and bf16 and at an odd shape (D 128, Lq 200 !=
+  Lk 136, neither a multiple of 64, not causal), then timed."""
+  import torch.nn.functional as F
+  from tensor2robot_tpu_torch.parallel import flash_attention as fa
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  h, l, d = FLASH_HEADS, FLASH_LEN, FLASH_DIM
+  b = SEQ2ACT_TRAIN_BATCH
+  cases = [(b, l, l, h, d, True, 'training', torch.float32),
+           (b, l, l, h, d, True, 'training', torch.bfloat16),
+           (2, 200, 136, 3, 128, False, 'odd', torch.float32),
+           (2, 200, 136, 3, 128, False, 'odd', torch.bfloat16)]
+  err = {'dq': 0.0, 'dk': 0.0, 'dv': 0.0}
+  for batch, l_q, l_k, heads, dim, causal, name, dtype in cases:
+    scale = 1.0 / float(np.sqrt(dim))
+    qkv = torch.randn((batch, l_k, heads, 3, dim), device=device,
+                      generator=gen).to(dtype)
+    q = (qkv[..., 0, :] if l_q == l_k else torch.randn(
+        (batch, l_q, heads, dim), device=device, generator=gen).to(dtype))
+    k, v = qkv[..., 1, :], qkv[..., 2, :]
+    out, lse = fa.flash_attention_forward(q, k, v, causal, scale)
+    d_out = torch.randn(out.shape, device=device, generator=gen).to(dtype)
+    got = fa.flash_attention_backward(q, k, v, out, lse, d_out, causal,
+                                      scale)
+    again = fa.flash_attention_backward(q, k, v, out, lse, d_out, causal,
+                                        scale)
+    want = fa.flash_attention_bwd_plain_blhd(q, k, v, out, lse, d_out,
+                                             causal, scale)
+    torch.cuda.synchronize()
+    line = []
+    for key, g, w, g2 in zip(('dq', 'dk', 'dv'), got, want, again):
+      e = max_abs_err(g, w)
+      limit = BWD_RTOL[dtype] * float(w.float().abs().max())
+      check(g.dtype == dtype and g.shape == w.shape and e <= limit,
+            'flash backward {} {} {}: max |d{}| {} > {}'.format(
+                name, [batch, l_q, l_k, heads, dim], dtype, key, e, limit))
+      check(torch.equal(g, g2), 'flash backward {} is not the same from run '
+            'to run'.format(key))
+      if name == 'training' and dtype == torch.float32:
+        err[key] = e
+      line.append('{} {:.3g} of max'.format(key, e / float(
+          w.float().abs().max())))
+    print('flash backward {} [{},{}/{},{},{}] {} {}: {} (tolerance {:g}); '
+          'the same bits run to run'.format(
+              name, batch, l_q, l_k, heads, dim,
+              'causal' if causal else 'full', str(dtype).split('.')[-1],
+              ', '.join(line), BWD_RTOL[dtype]))
+    del got, again, want
+
+  # The training call, each kernel alone, float32.
+  scale = 1.0 / float(np.sqrt(d))
+  qkv = torch.randn((b, l, h, 3, d), device=device, generator=gen)
+  q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+  out, lse = fa.flash_attention_forward(q, k, v, True, scale)
+  d_out = torch.randn(out.shape, device=device, generator=gen)
+  delta = fa.flash_attention_delta(out, d_out)
+  kv_ms = median_ms(lambda: fa.flash_attention_bwd_kv(
+      q, k, v, d_out, lse, delta, True, scale))
+  q_ms = median_ms(lambda: fa.flash_attention_bwd_q(
+      q, k, v, d_out, lse, delta, True, scale))
+  delta_ms = median_ms(lambda: fa.flash_attention_delta(out, d_out))
+  # The plain backward holds five dense [B*H, L, L] float32 tensors (22 GB).
+  plain_ms = median_ms(lambda: fa.flash_attention_bwd_plain_blhd(
+      q, k, v, out, lse, d_out, True, scale), iters=10, warmup=2)
+
+  # The library: the backward alone of scaled_dot_product_attention on a
+  # saved forward, dq, dk and dv together from [B, H, L, D] views.
+  leaves = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+  lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True)
+  lib_do = d_out.transpose(1, 2)
+
+  def library():
+    return torch.autograd.grad(lib_out, leaves, lib_do, retain_graph=True)
+
+  ours = fa.flash_attention_backward(q, k, v, out, lse, d_out, True, scale)
+  lib_err = max(max_abs_err(g.transpose(1, 2), o) / float(o.abs().max())
+                for g, o in zip(library(), ours))
+  check(lib_err <= 1e-3, 'the library attention backward computes another '
+        'function ({:.3g} of max)'.format(lib_err))
+  lib_ms = median_ms(library)
+  del lib_out, leaves, ours
+
+  pairs = b * h * l * (l + 1) // 2
+  elem = q.numel() * 4                       # one [B, L, H, D] f32 tensor
+  rows = b * h * l * 4                       # one [B, H, L] f32 vector
+  kv_bound, kv_by = bound_ms(6 * elem + 2 * rows, 4 * 2 * d * pairs)
+  q_bound, q_by = bound_ms(5 * elem + 2 * rows, 3 * 2 * d * pairs)
+  print('flash backward training [{},{},{},{}] causal f32: K5a (dk, dv) '
+        '{:.4f} ms ({:.1f} TFLOP/s, bound {:.4f} ms by {}), K5b (dq) {:.4f} '
+        'ms ({:.1f} TFLOP/s, bound {:.4f} ms by {}), delta pass {:.4f} ms; '
+        'plain backward {:.4f} ms; scaled_dot_product_attention backward '
+        '(dq, dk, dv) {:.4f} ms against K5a + K5b + delta {:.4f} ms '
+        '(differs by {:.3g} of max); {}'.format(
+            b, l, h, d, kv_ms, 8 * d * pairs / kv_ms / 1e9, kv_bound, kv_by,
+            q_ms, 6 * d * pairs / q_ms / 1e9, q_bound, q_by, delta_ms,
+            plain_ms, lib_ms, kv_ms + q_ms + delta_ms, lib_err, smi_line()))
+  shapes = 'per launch: [{},{},{},{}] causal f32, q/k/v strided views of ' \
+           'the qkv projection'.format(b, l, h, d)
+  library_note = ('scaled_dot_product_attention backward, dq, dk and dv '
+                  'together: set against K5a + K5b + the delta pass')
+  return (dict(name='flash_attention_bwd_kv', route='cuda',
+               source='tensor2robot_tpu_torch/csrc/flash_attention_bwd_kv.cu',
+               replaces='tensor2robot_tpu/parallel/flash_attention.py:501',
+               max_abs_err=max(err['dk'], err['dv']), ms=kv_ms,
+               plain_ms=plain_ms, bound_ms=kv_bound, bound_by=kv_by,
+               library_ms=lib_ms, library_note=library_note, shapes=shapes),
+          dict(name='flash_attention_bwd_q', route='cuda',
+               source='tensor2robot_tpu_torch/csrc/flash_attention_bwd_q.cu',
+               replaces='tensor2robot_tpu/parallel/flash_attention.py:530',
+               max_abs_err=err['dq'], ms=q_ms, plain_ms=plain_ms,
+               bound_ms=q_bound, bound_by=q_by, library_ms=lib_ms,
+               library_note=library_note, delta_ms=delta_ms, shapes=shapes))
+
+
 def phase_seq2act(device):
   from tensor2robot_tpu_torch import kernels
   from tensor2robot_tpu_torch.export import export_generators
@@ -1004,37 +1122,205 @@ def phase_seq2act(device):
         '{:.3g} of max|logits| {:.3g} (tolerance {:g}); {:.1%} of the '
         '{} step actions equal'.format(e, e / scale, scale, LOGITS_RTOL,
                                        same, got['action'].numel()))
-  phase_seq2act_profile(policy, frames)
+  profile('seq2act profile', lambda i: policy.SelectAction(
+      {'image': frames[i]}, None, i), 2, 'SelectAction')
   return launches
 
 
-def phase_seq2act_profile(policy, frames, calls=2):
-  """Where a SelectAction's time goes: device time by kernel and the
-  device's busy share of the wall time."""
-  from torch.profiler import ProfilerActivity, profile
+# Seq2Act training: the long-context binding at full width, batch 8 (the
+# backward's activations take some 42 GB at 8, so the gin's 32 would not
+# fit the card's 80 GB).
+SEQ2ACT_TRAIN_BATCH, SEQ2ACT_TRAIN_STEPS = 8, 4
+# The TokenLearner's softmax runs over the tokens, so the map_out bias (one
+# constant a map) cancels in it: a gradient that is 0 in exact arithmetic.
+SEQ2ACT_ZERO_GRADIENTS = ('tokenizer.token_learner.map_out.bias',)
 
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    start = time.monotonic()
-    for step in range(calls):
-      policy.SelectAction({'image': frames[step]}, None, step)
+
+def phase_seq2act_train(device):
+  """Trains the full-width 512-frame Seq2Act policy through
+  ``train_eval_model``; checks launches, losses and the checkpoint; holds
+  one step against the plain versions; profiles; serves the result."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
+  from tensor2robot_tpu_torch.trainer import checkpointing
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  model = Seq2ActBCModel(episode_length=SEQ2ACT_EPISODE,
+                         attention_mode='flash', learning_rate=1e-4,
+                         device=device)
+  data = input_generators.DefaultRandomInputGenerator(
+      batch_size=SEQ2ACT_TRAIN_BATCH)
+  steps, batch = SEQ2ACT_TRAIN_STEPS, SEQ2ACT_TRAIN_BATCH
+  with tempfile.TemporaryDirectory() as model_dir:
     torch.cuda.synchronize()
-    wall_ms = (time.monotonic() - start) * 1e3 / calls
-  rows = [(e.self_device_time_total / 1e3 / calls, e.count // calls, e.key)
-          for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA and
-          e.self_device_time_total > 0]
-  if not rows:
-    print('seq2act profile: the profiler saw no device time; not measured')
-    return
-  rows.sort(reverse=True)
-  busy_ms = sum(ms for ms, _, _ in rows)
-  print('seq2act profile: {:.2f} ms wall per SelectAction, kernels busy '
-        '{:.2f} ms ({:.1%})'.format(wall_ms, busy_ms, busy_ms / wall_ms))
-  for ms, count, name in rows[:16]:
-    print('  {:8.3f} ms {:5.1%} x{:<4d} {}'.format(ms, ms / busy_ms, count,
-                                                   name[:90]))
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    start = time.monotonic()
+    # nan_policy 'raise' checks the loss on the host after every step.
+    result = train_eval.train_eval_model(
+        model, model_dir, data, max_train_steps=steps, log_every_n_steps=1,
+        save_checkpoints_steps=steps, nan_policy='raise', seed=0)
+    elapsed = time.monotonic() - start
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state, trainer = result['state'], result['trainer']
+    restored = checkpointing.CheckpointManager(model_dir).restore(
+        device=device)
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update({'crop_convert': steps,
+                 'flash_attention_fwd': 8 * steps,
+                 'flash_attention_bwd_kv': 8 * steps,
+                 'flash_attention_bwd_q': 8 * steps})
+    check(launches == want, 'seq2act train launch counts {} != expected {} '
+          'for {} steps'.format(launches, want, steps))
+    loss = trainer.last_metrics['loss']
+    check(state.step == steps and np.isfinite(loss),
+          'seq2act training ended at step {} with loss {}'.format(state.step,
+                                                                  loss))
+    check(_states_equal(restored, state),
+          'the seq2act checkpoint does not restore the final state')
+    del restored
+    # One log window a step, each ending with the metrics on the host. The
+    # first pays for cuDNN's set-up.
+    windows = trainer.windows[1:]
+    step_ms = statistics.median(w[1] * 1e3 for w in windows)
+    data_ms = statistics.median(w[2] * 1e3 for w in windows)
+    print('seq2act train: {} steps of batch {} x {} frames ({} tokens) in '
+          '{:.1f}s, launches {}; loss {:.4f}, action_accuracy {:.4f}, '
+          'action_mae {:.4f}; median step {:.1f} ms ({:.2f} examples/s), of '
+          'which {:.1f} ms waiting for the batch; peak memory {:.2f} GB '
+          '(max_memory_allocated); checkpoint restores equal; {}'.format(
+              steps, batch, SEQ2ACT_EPISODE, 8 * SEQ2ACT_EPISODE, elapsed,
+              launches, loss, trainer.last_metrics['action_accuracy'],
+              trainer.last_metrics['action_mae'], step_ms,
+              batch * 1e3 / step_ms, data_ms, peak_gb, smi_line()))
+
+    numpy_features, numpy_labels = next(data.create_dataset_iterator(
+        ModeKeys.TRAIN, seed=1, prefetch=0))
+    raw, labels = trainer.put_batch(numpy_features), trainer.put_batch(
+        numpy_labels)
+    phase_seq2act_train_vs_plain(model, state, raw, labels)
+    train_profile('seq2act train profile', trainer, model, state, raw,
+                  labels, 2, batch)
+    del raw, labels
+    phase_seq2act_train_serve(model, model_dir, state)
+  return launches
+
+
+def phase_seq2act_train_vs_plain(model, state, raw, labels):
+  """One step on one episode through the kernels and through the plain
+  versions (K1's, K4's and K5's): the loss and every gradient. Batch 1, so
+  that the plain attention's dense [8, 4096, 4096] scores fit."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.parallel import flash_attention
+  from tensor2robot_tpu_torch.preprocessors import pallas_crop
+
+  one = {k: v[:1] for k, v in raw.items()}
+  one_labels = {k: v[:1] for k, v in labels.items()}
+  offsets = torch.tensor([[3, 5]], dtype=torch.int32, device=model.device)
+
+  def one_step():
+    features, _ = model.preprocessor.preprocess(one, None, ModeKeys.TRAIN,
+                                                offsets=offsets)
+    return _gradients(model, state, features, one_labels)
+
+  before = dict(kernels.LAUNCHES)
+  got_loss, got = one_step()
+  check(all(kernels.LAUNCHES[k] > before[k] for k in (
+      'crop_convert', 'flash_attention_fwd', 'flash_attention_bwd_kv',
+      'flash_attention_bwd_q')), 'the kernel step did not launch the kernels')
+  with mock.patch.object(flash_attention, 'flash_attention_forward',
+                         flash_attention.flash_attention_plain_blhd), \
+      mock.patch.object(flash_attention, 'flash_attention_backward',
+                        flash_attention.flash_attention_bwd_plain_blhd), \
+      mock.patch.object(pallas_crop, 'crop_convert',
+                        pallas_crop.crop_convert_plain):
+    before = dict(kernels.LAUNCHES)
+    want_loss, want = one_step()
+    check(kernels.LAUNCHES == before, 'the plain step launched a kernel')
+  torch.cuda.synchronize()
+  check(got.keys() == want.keys() == set(state.params), 'gradient names '
+        'differ')
+  loss_err = abs(float(got_loss) - float(want_loss))
+  check(loss_err <= 1e-5 * abs(float(want_loss)),
+        'seq2act loss: kernels {} vs plain {}'.format(float(got_loss),
+                                                      float(want_loss)))
+  largest = max(float(g.abs().max()) for g in want.values())
+  worst_zero = max((max(float(got[k].abs().max()),
+                        float(want[k].abs().max())) / largest, k)
+                   for k in SEQ2ACT_ZERO_GRADIENTS)
+  check(worst_zero[0] <= 1e-6, 'gradients that are 0 in exact arithmetic '
+        'reach {:.3g} of the largest gradient at {}'.format(*worst_zero))
+  # Every other gradient within 1e-4 of its scale: its largest magnitude,
+  # no lower than 1e-3 of the network's largest gradient (cuDNN's input
+  # gradients may sum in another order between calls).
+  floor = 1e-3 * largest
+  errors = sorted(((max_abs_err(got[k], want[k]) /
+                    max(float(want[k].abs().max()), floor), k)
+                   for k in want if k not in SEQ2ACT_ZERO_GRADIENTS),
+                  reverse=True)
+  check(errors[0][0] <= 1e-4, 'seq2act gradients: kernels vs plain differ '
+        'by {:.3g} of their scale at {}'.format(*errors[0]))
+  print('seq2act train step, kernels vs plain versions (1 episode): |dloss| '
+        '{:.3g} (tolerance 1e-5 relative); worst gradients {} of their scale '
+        '(tolerance 1e-4); the zero-in-exact-arithmetic map_out bias at '
+        '{:.3g} of the largest gradient (tolerance 1e-6)'.format(
+            loss_err, ', '.join('{:.3g} at {}'.format(*e)
+                                for e in errors[:3]), worst_zero[0]))
+
+
+def phase_seq2act_train_serve(model, model_dir, state):
+  """The trained checkpoint serves: a SequentialRegressionPolicy over a
+  CheckpointPredictor restored from it answers with finite bin centers,
+  and its logits are the trained params' predict_step, not the untrained
+  weights'."""
+  from tensor2robot_tpu_torch.export import export_generators
+  from tensor2robot_tpu_torch.policies import SequentialRegressionPolicy
+  from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+  from tensor2robot_tpu_torch.research.vrgripper import decoders
+
+  predictor = CheckpointPredictor(model, model_dir, timeout=60.0)
+  policy = SequentialRegressionPolicy(model, predictor=predictor)
+  check(policy.restore() and predictor.model_version == state.step,
+        'CheckpointPredictor did not restore the trained checkpoint')
+  rng = np.random.RandomState(7)
+  frames = [rng.randint(0, 256, (136, 168, 3), dtype=np.uint8)
+            for _ in range(2)]
+  policy.reset()
+  actions = [policy.SelectAction({'image': f}, None, i)
+             for i, f in enumerate(frames)]
+  centers = set(decoders.get_discrete_bins(256, -1.0, 1.0).tolist())
+  for action in actions:
+    check(action.shape == (7,) and np.isfinite(action).all() and
+          set(action.tolist()) <= centers,
+          'bad trained seq2act action {}'.format(action))
+  window = None
+  for frame in frames:
+    window = model.pack_features({'image': frame}, window, 0)
+  served = torch.as_tensor(predictor.predict(window)['action_logits'])
+  serve = export_generators.make_serve_fn(model)
+  trained = serve(state.variables(), window)['action_logits'].cpu()
+  untrained_state = model.create_train_state(
+      torch.Generator().manual_seed(0))
+  untrained = serve(untrained_state.variables(), window)[
+      'action_logits'].cpu()
+  scale = float(trained.abs().max())
+  err = max_abs_err(served, trained)
+  moved = max_abs_err(trained, untrained)
+  check(err <= 1e-4 * scale, 'served logits differ from the trained '
+        'params\' predict_step by {:.3g} of max {:.3g}'.format(err, scale))
+  check(moved >= 1e-3 * scale, 'the trained logits are the untrained '
+        'weights\' (max |dlogit| {:.3g})'.format(moved))
+  print('seq2act train -> serve: the trained checkpoint (step {}) answers '
+        '{} SelectAction calls with bin centers; served logits equal the '
+        'trained params\' predict_step within {:.3g} of max {:.3g} '
+        '(tolerance 1e-4) and differ from the untrained weights\' by up to '
+        '{:.3g}'.format(state.step, len(actions), err / scale, scale, moved))
 
 
 def main():
@@ -1050,18 +1336,20 @@ def main():
   pool_backward = phase_pool_backward(device, gen)
   wgrad_entry = phase_wgrad(device, gen)
   flash = phase_flash(device, gen)
-  served = phase_slice(device)
-  trained = phase_train(device)
-  seq2act = phase_seq2act(device)
+  flash_kv, flash_q = phase_flash_backward(device, gen)
+  paths = {'serve': phase_slice(device), 'train': phase_train(device),
+           'seq2act': phase_seq2act(device),
+           'seq2act_train': phase_seq2act_train(device)}
   # K1 and K2f report their serving launches, K2b and K3 their training
-  # ones, K4 its seq2act ones; every path's counts are listed too.
-  entries = ((crop, served), (pool, served), (pool_backward, trained),
-             (wgrad_entry, trained), (flash, seq2act))
+  # ones, K4 its seq2act ones, K5a and K5b their seq2act training ones;
+  # every path's counts are listed too.
+  entries = ((crop, 'serve'), (pool, 'serve'), (pool_backward, 'train'),
+             (wgrad_entry, 'train'), (flash, 'seq2act'),
+             (flash_kv, 'seq2act_train'), (flash_q, 'seq2act_train'))
   for entry, main_path in entries:
-    entry['launches'] = main_path[entry['name']]
-    entry['launches_by_path'] = {'serve': served[entry['name']],
-                                 'train': trained[entry['name']],
-                                 'seq2act': seq2act[entry['name']]}
+    entry['launches'] = paths[main_path][entry['name']]
+    entry['launches_by_path'] = {path: launches[entry['name']]
+                                 for path, launches in paths.items()}
     check(entry['launches'] > 0, '{} never launched on the main path'
           .format(entry['name']))
   print(json.dumps({'kernels': [entry for entry, _ in entries]}))

@@ -25,9 +25,10 @@ and ``state_token``).
 
 ``train_state_from_flax`` builds the port's ``TrainState`` from a JAX
 ``TrainState`` whose leaves are numpy arrays: params and batch stats as
-above (apart, as ``params`` and ``model_state``), the optax momentum trace
-with each kernel transposed like its weight, the optimizer's update count,
-and the EMA's ``count`` and ``ema``.
+above (apart, as ``params`` and ``model_state``), the optax momentum
+``trace`` or adam's ``mu`` and ``nu`` with each kernel transposed like its
+weight, the optimizer's update count, and the EMA's ``count`` and
+``ema``.
 """
 
 from __future__ import annotations
@@ -100,11 +101,20 @@ def train_state_from_flax(state: Any):
   """The port's ``TrainState`` (CPU tensors) from a JAX ``TrainState``
   given as numpy trees (``jax.tree_util.tree_map(np.asarray, state)``)."""
   batch_stats = (state.model_state or {}).get('batch_stats')
-  trace, count = _field(state.opt_state, 'trace'), _field(state.opt_state,
-                                                          'count')
-  if trace is None or count is None:
-    raise ValueError('The optimizer state holds no momentum trace and '
-                     'update count; only the momentum optimizer converts.')
+  count = _field(state.opt_state, 'count')
+  moments = {name: _field(state.opt_state, name)
+             for name in ('trace', 'mu', 'nu')}
+  if count is not None and moments['trace'] is not None:
+    opt_state = {'count': _count(count),
+                 'trace': _state_dict(moments['trace'], None)}
+  elif count is not None and None not in (moments['mu'], moments['nu']):
+    opt_state = {'count': _count(count),
+                 'mu': _state_dict(moments['mu'], None),
+                 'nu': _state_dict(moments['nu'], None)}
+  else:
+    raise ValueError('The optimizer state holds neither a momentum trace '
+                     'nor adam moments with an update count; only the '
+                     'momentum and adam optimizers convert.')
   avg_params = ema_state = None
   if state.avg_params is not None:
     avg_params = _state_dict(state.avg_params, None)
@@ -114,5 +124,5 @@ def train_state_from_flax(state: Any):
       step=int(np.asarray(state.step)),
       params=_state_dict(state.params, None),
       model_state=_state_dict({}, batch_stats),
-      opt_state={'count': _count(count), 'trace': _state_dict(trace, None)},
+      opt_state=opt_state,
       avg_params=avg_params, ema_state=ema_state)

@@ -62,6 +62,14 @@ KERNELS = {
                             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
                             + [ctypes.c_longlong] * 9
                             + [ctypes.c_float, _I, _I, _P]),
+    'flash_attention_bwd_kv': ('t2r_flash_attention_bwd_kv',
+                               [_P] * 8 + [_I] * 5
+                               + [ctypes.c_longlong] * 18
+                               + [ctypes.c_float, _I, _I, _P]),
+    'flash_attention_bwd_q': ('t2r_flash_attention_bwd_q',
+                              [_P] * 7 + [_I] * 5
+                              + [ctypes.c_longlong] * 15
+                              + [ctypes.c_float, _I, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

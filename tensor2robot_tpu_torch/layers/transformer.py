@@ -14,12 +14,13 @@ name) and the same arithmetic:
     high on even sizes), and its map flattens in H, W, C order.
 
 Attention modes: ``'xla'`` is the dense oracle (``scaled_dot_attention``);
-``'flash'`` is ``parallel.flash_attention`` (kernel K4 on a CUDA tensor, its
-plain version on a CPU tensor); ``'auto'`` picks flash for a CUDA tensor
-when L >= 2048 and L % 128 == 0, where the JAX package picks it on a TPU,
-and dense otherwise. ``'ring'`` (sequence-sharded ring attention, kernel
-K6), tensor parallelism (``tp_axis``), the MoE MLP (``moe_experts``) and
-the pipelined stack (``pipe_axis``) are not ported yet and raise.
+``'flash'`` is ``parallel.flash_attention`` (kernel K4 forward and K5a,
+K5b backward on a CUDA tensor, the plain versions on a CPU tensor);
+``'auto'`` picks flash for a CUDA tensor when L >= 2048 and L % 128 == 0,
+where the JAX package picks it on a TPU, and dense otherwise. ``'ring'``
+(sequence-sharded ring attention, kernel K6), tensor parallelism
+(``tp_axis``), the MoE MLP (``moe_experts``), the pipelined stack
+(``pipe_axis``) and dropout in training are not ported yet and raise. (Dropout is the identity outside training, as flax's is.)
 
 Causality is at token granularity: tokens are frame-major, so a frame's
 tokens see all earlier frames and their predecessors within the frame.
@@ -176,10 +177,14 @@ class TransformerBlock(nn.Module):
     self.mlp_out = Dense(mlp_dim, features, dtype)
 
   def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    if train and self.dropout_rate:
+      raise NotImplementedError(
+          'Dropout in training (dropout_rate > 0) is not ported yet: it '
+          'needs an explicit generator (see ROADMAP queue 1).')
     h = self.attn(self.ln_attn(x).to(self.dtype))
-    x = x + F.dropout(h, self.dropout_rate, train)
+    x = x + h
     h = self.mlp_out(gelu(self.mlp_in(self.ln_mlp(x).to(self.dtype))))
-    return x + F.dropout(h, self.dropout_rate, train)
+    return x + h
 
 
 class TokenLearner(nn.Module):

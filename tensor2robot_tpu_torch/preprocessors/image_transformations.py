@@ -11,12 +11,12 @@ them Python-style).
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ['center_crop_episodes', 'center_crop_offsets', 'crop_images',
-           'random_crop_offsets']
+           'random_crop_episodes', 'random_crop_offsets']
 
 
 def _check_shapes(images: Sequence[torch.Tensor]) -> None:
@@ -106,4 +106,42 @@ def center_crop_episodes(episodes: torch.Tensor,
                                 target_shape, device=episodes.device)
   cropped = pallas_crop.crop_convert(frames, offsets, target_shape,
                                      torch.float32, 255.0)
+  return cropped.reshape((batch, steps) + tuple(cropped.shape[1:]))
+
+
+def random_crop_episodes(episodes: torch.Tensor,
+                         target_shape: Tuple[int, int],
+                         generator: Optional[torch.Generator] = None,
+                         offsets: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+  """Random crop of uint8 [B, T, H, W, C] episodes, converted to float32 in
+  [0, 1]: [B, T, th, tw, C].
+
+  One (y, x) per episode, shared by all its frames (a fixed camera does not
+  jitter within an episode): drawn uniformly with ``random_crop_offsets``
+  from ``generator``, or the caller's int [B, 2] ``offsets``. The JAX
+  package's ``random_crop_episodes`` followed by the preprocessor's
+  ``/ 255.0``, in one pass of kernel K1 over the B * T frames, the offsets
+  repeated over T (a CPU tensor takes K1's plain version).
+  """
+  from tensor2robot_tpu_torch.preprocessors import pallas_crop
+
+  if episodes.dim() != 5:
+    raise ValueError('random_crop_episodes takes [B, T, H, W, C] episodes; '
+                     'got {}.'.format(tuple(episodes.shape)))
+  batch, steps, height, width, channels = episodes.shape
+  if offsets is None:
+    if generator is None:
+      raise ValueError('random_crop_episodes needs a generator or offsets.')
+    offsets = random_crop_offsets(batch, (height, width), target_shape,
+                                  generator)
+  offsets = torch.as_tensor(offsets, dtype=torch.int32,
+                            device=episodes.device)
+  if tuple(offsets.shape) != (batch, 2):
+    raise ValueError('offsets must be [B, 2] = [{}, 2]; got {}.'.format(
+        batch, tuple(offsets.shape)))
+  frames = episodes.reshape(batch * steps, height, width, channels)
+  cropped = pallas_crop.crop_convert(
+      frames, offsets.repeat_interleave(steps, 0), target_shape,
+      torch.float32, 255.0)
   return cropped.reshape((batch, steps) + tuple(cropped.shape[1:]))

@@ -1,24 +1,27 @@
 """RT-1-style transformer behaviour cloning: episodes of frames -> actions.
 
 The counterpart of the JAX package's ``research/seq2act/seq2act_model.py``,
-for serving:
+for serving and training:
 
-  * ``Seq2ActPreprocessor`` center-crops uint8 episodes at source
-    resolution and converts them to float32 in [0, 1] (PREDICT and EVAL),
-    in one pass of kernel K1 over the episode's frames;
+  * ``Seq2ActPreprocessor`` crops uint8 episodes at source resolution and
+    converts them to float32 in [0, 1] in one pass of kernel K1 over the
+    episode's frames: the center in PREDICT and EVAL, one random offset
+    per episode in TRAIN;
   * ``RT1StyleNet`` tokenizes every frame (conv stem + TokenLearner), runs
     the causal transformer over the episode's frame-major tokens and reads
     each frame's last token into a per-step binned action head (float32);
   * ``Seq2ActBCModel`` holds the configuration, the specifications, the
-    robot-time ``pack_features`` window and the export outputs.
+    robot-time ``pack_features`` window, the export outputs, the discrete
+    action loss with its ``action_accuracy`` and ``action_mae`` metrics,
+    and adam as its optimizer.
 
 With ``attention_mode='flash'`` (the long-context binding of
 ``train_seq2act_bc.gin``: 512-frame episodes, 4,096 tokens) every block's
-attention on a CUDA tensor runs kernel K4.
+attention on a CUDA tensor runs kernel K4 forward and kernels K5a and K5b
+backward.
 
-Training (the TRAIN random crop, the discrete action loss, adam) and the
-MoE, tensor-parallel, pipelined and ring variants are not ported yet: they
-raise.
+The MoE, tensor-parallel, pipelined and ring variants, and dropout in
+training, are not ported yet: they raise.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from tensor2robot_tpu_torch.layers import transformer as transformer_lib
 from tensor2robot_tpu_torch.meta_learning.meta_data import multi_batch_apply
 from tensor2robot_tpu_torch.models.abstract_model import AbstractT2RModel
 from tensor2robot_tpu_torch.models.abstract_model import Variables
+from tensor2robot_tpu_torch.models import optimizers
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.preprocessors import image_transformations
 from tensor2robot_tpu_torch.research.vrgripper import decoders
@@ -52,10 +56,10 @@ def _is_image_key(key: str) -> bool:
 class Seq2ActPreprocessor:
   """uint8 episode frames at source resolution -> cropped float32 in [0, 1].
 
-  EVAL and PREDICT crop the center of every frame through K1 (float32
-  whatever the compute dtype, as the JAX preprocessor outputs). The TRAIN
-  random crop (one offset per episode) belongs to the training slice and
-  raises.
+  EVAL and PREDICT crop the center of every frame, TRAIN one random offset
+  per episode (shared by its frames and by every ``*image`` view, so that
+  the views stay registered), each through K1 (float32 whatever the
+  compute dtype, as the JAX preprocessor outputs).
   """
 
   def __init__(self, feature_spec_fn=None, label_spec_fn=None,
@@ -79,11 +83,17 @@ class Seq2ActPreprocessor:
   def get_out_feature_specification(self, mode: str) -> Dict[str, tuple]:
     return dict(self._feature_spec_fn(mode))
 
-  def preprocess(self, features, labels, mode: str):
-    """(features, labels) with every ``*image`` cropped and converted."""
-    if mode == ModeKeys.TRAIN:
-      raise NotImplementedError('The TRAIN preprocessing (random_crop_'
-                                'episodes) is not ported yet.')
+  def preprocess(self, features, labels, mode: str,
+                 generator: Optional[torch.Generator] = None,
+                 offsets: Optional[torch.Tensor] = None):
+    """(features, labels) with every ``*image`` cropped and converted.
+
+    TRAIN draws its per-episode offsets from ``generator`` (or takes the
+    caller's int [B, 2] ``offsets``) and raises without either.
+    """
+    if mode == ModeKeys.TRAIN and generator is None and offsets is None:
+      raise ValueError('TRAIN-mode preprocessing needs a generator (or '
+                       'offsets) for its random crop.')
     out_spec = self.get_out_feature_specification(mode)
     features = dict(features)
     for key in features:
@@ -94,7 +104,16 @@ class Seq2ActPreprocessor:
       if squeeze:
         images = images[None]
       target_hw = tuple(out_spec[key][0][-3:-1])
-      images = image_transformations.center_crop_episodes(images, target_hw)
+      if mode == ModeKeys.TRAIN:
+        if offsets is None:
+          offsets = image_transformations.random_crop_offsets(
+              images.shape[0], tuple(images.shape[2:4]), target_hw,
+              generator)
+        images = image_transformations.random_crop_episodes(
+            images, target_hw, offsets=offsets)
+      else:
+        images = image_transformations.center_crop_episodes(images,
+                                                            target_hw)
       features[key] = images[0] if squeeze else images
     return features, labels
 
@@ -208,13 +227,13 @@ def _flax_default_init(state: Dict[str, torch.Tensor],
 
 
 class Seq2ActBCModel(AbstractT2RModel):
-  """The T2R contract around ``RT1StyleNet`` (serving half).
+  """The T2R contract around ``RT1StyleNet``.
 
   The constructor keeps the JAX model's defaults (``episode_length`` 6,
   8 blocks of 8 heads x 64 at width 512, MLP 2048, 8 tokens a frame,
-  128x160 crops of 136x168 frames, 256 bins over [-1, 1]).
-  ``device_type`` defaults to ``'cpu'`` as in the JAX model; only
-  ``'tpu'`` makes the compute dtype bfloat16.
+  128x160 crops of 136x168 frames, 256 bins over [-1, 1], adam at
+  ``learning_rate``). ``device_type`` defaults to ``'cpu'`` as in the JAX
+  model; only ``'tpu'`` makes the compute dtype bfloat16.
   """
 
   label_key = 'action'
@@ -250,6 +269,9 @@ class Seq2ActBCModel(AbstractT2RModel):
       raise NotImplementedError('Device meshes (ring, tp, pipeline) are not '
                                 'ported yet.')
     kwargs.setdefault('device_type', 'cpu')
+    kwargs.setdefault(
+        'create_optimizer_fn',
+        lambda: optimizers.create_adam_optimizer(learning_rate=learning_rate))
     super().__init__(
         preprocessor_cls=functools.partial(Seq2ActPreprocessor,
                                            src_img_res=tuple(src_img_res)),
@@ -274,7 +296,7 @@ class Seq2ActBCModel(AbstractT2RModel):
     self._use_state_input = use_state_input
     self._state_size = state_size
     self._num_task_embeddings = num_task_embeddings
-    del learning_rate  # adam belongs to the training slice
+    self._action_min, self._action_max = action_min, action_max
     self._bin_centers = decoders.get_discrete_bins(
         vocab_size, np.full((action_size,), action_min, np.float32),
         np.full((action_size,), action_max, np.float32))
@@ -327,6 +349,30 @@ class Seq2ActBCModel(AbstractT2RModel):
     state = _flax_default_init(dict(self.create_network().state_dict()),
                                generator)
     return {'params': self.to_device(state)}
+
+  def model_train_fn(self, state, features, labels, inference_outputs,
+                     mode: str):
+    """(loss, {loss, action_accuracy, action_mae}): the discrete action
+    loss, and the share and mean error of the mode actions against the
+    labels (a prediction within half a bin, plus 1e-6, is accurate)."""
+    del state, features, mode
+    logits = inference_outputs['action_logits']      # [B, T, A * V]
+    actions = torch.as_tensor(labels[self.label_key]).to(torch.float32)
+    loss = decoders.get_discrete_action_loss(
+        logits, actions, self._bin_centers, self._vocab_size)
+    predicted = decoders.get_discrete_actions(
+        logits, self._action_size, self._vocab_size, self._bin_centers)
+    bin_width = (self._action_max - self._action_min) / self._vocab_size
+    error = (predicted - actions).abs()
+    within_bin = error <= (bin_width * 0.5 + 1e-6)
+    return loss, {'loss': loss,
+                  'action_accuracy': within_bin.to(torch.float32).mean(),
+                  'action_mae': error.mean()}
+
+  def model_eval_fn(self, state, features, labels, inference_outputs,
+                    mode: str) -> Dict[str, torch.Tensor]:
+    return self.model_train_fn(state, features, labels, inference_outputs,
+                               mode)[1]
 
   def pack_features(self, state, context, timestep) -> dict:
     """The rolling episode window for robot-time serving.

@@ -6,9 +6,10 @@ Each train step, on the model's device:
 
   1. the next batch of numpy arrays (made ahead by the input generator)
      is copied to the device from pinned memory;
-  2. the model's preprocessor runs in TRAIN mode (for the Grasping44
-     critic: the random crop and ``/ 255`` through kernel K1), its random
-     offsets drawn from a device generator seeded ``seed + 1``;
+  2. the model's preprocessor runs in TRAIN mode (the random crop and
+     ``/ 255`` through kernel K1: one offset per frame for the Grasping44
+     critic, one per episode for Seq2Act), its random offsets drawn from a
+     device generator seeded ``seed + 1``;
   3. ``model.train_step``: loss, autograd, optimizer, EMA.
 
 A step whose loss is not finite follows ``nan_policy``: ``'skip'`` (the
@@ -18,8 +19,10 @@ the step counter advances, and reports ``nonfinite_loss_skipped``;
 ``'raise'`` checks the loss on the host after every step and raises
 ``NonFiniteLossError``. Every ``log_every_n_steps`` the metrics reach the
 host and the observability registry (gauges ``train/loss``,
-``train/grasp_loss``, ``train/l2_loss``, ``train/steps_per_sec``,
-``train/examples_per_sec``; counter ``train/nonfinite_loss_skipped``).
+``train/grasp_loss`` and ``train/l2_loss`` (the critic),
+``train/action_accuracy`` and ``train/action_mae`` (Seq2Act),
+``train/steps_per_sec``, ``train/examples_per_sec``; counter
+``train/nonfinite_loss_skipped``).
 Checkpoints are written every ``save_checkpoints_steps`` and at the end;
 a trainer starts from the newest checkpoint in ``model_dir`` when there is
 one.
@@ -27,14 +30,19 @@ one.
 Not ported yet: continuous eval (eval-only), hooks, exporters, fault
 injection, the compiled-artifact store.
 
-Command line, with ``train_qtopt.gin``'s bindings as flags (random input
-batches; reading records from disk is not ported yet)::
+Command line, with ``train_qtopt.gin``'s bindings as flags (``--model
+qtopt``, the default) or ``train_seq2act_bc.gin``'s (``--model seq2act``:
+``--episode_length``, ``--attention_mode``, ``--learning_rate``; random
+input batches; reading records from disk is not ported yet)::
 
     python -m tensor2robot_tpu_torch.trainer.train_eval \\
         --model_dir /tmp/qtopt --max_train_steps 100
     python -m tensor2robot_tpu_torch.trainer.train_eval --device cpu \\
         --num_convs 1,1,1 --max_train_steps 2 --batch_size 2 \\
         --model_dir /tmp/qtopt_cpu
+    python -m tensor2robot_tpu_torch.trainer.train_eval --model seq2act \\
+        --episode_length 512 --attention_mode flash --batch_size 8 \\
+        --model_dir /tmp/seq2act --max_train_steps 100
 """
 
 from __future__ import annotations
@@ -57,10 +65,11 @@ from tensor2robot_tpu_torch.observability import get_registry
 from tensor2robot_tpu_torch.trainer.checkpointing import (
     CheckpointManager, latest_checkpoint_step)
 
-__all__ = ['NAN_POLICIES', 'NonFiniteLossError', 'Trainer', 'main',
-           'make_parser', 'train_eval_model']
+__all__ = ['MODELS', 'NAN_POLICIES', 'NonFiniteLossError', 'Trainer',
+           'main', 'make_model', 'make_parser', 'train_eval_model']
 
 NAN_POLICIES = ('skip', 'raise')
+MODELS = ('qtopt', 'seq2act')
 
 
 class NonFiniteLossError(RuntimeError):
@@ -158,7 +167,8 @@ class Trainer:
     self.last_metrics = values
     self.windows.append((steps, seconds, data_s))
     registry = self.registry
-    for key in ('loss', 'grasp_loss', 'l2_loss'):
+    for key in ('loss', 'grasp_loss', 'l2_loss', 'action_accuracy',
+                'action_mae'):
       if key in values:
         registry.gauge('train/' + key).set(values[key])
     steps_per_sec = steps / max(seconds, 1e-9)
@@ -270,16 +280,29 @@ def make_parser() -> argparse.ArgumentParser:
   parser.add_argument('--model_dir', required=True,
                       help='where checkpoints are written (and resumed '
                       'from)')
+  parser.add_argument('--model', default='qtopt', choices=MODELS,
+                      help="'qtopt': the Grasping44 critic "
+                      "(train_qtopt.gin); 'seq2act': the RT-1-style policy "
+                      '(train_seq2act_bc.gin)')
   parser.add_argument('--device', default='cuda',
                       help="'cuda' (default) or 'cpu'")
   parser.add_argument('--batch_size', type=int, default=32,
                       help='TRAIN_BATCH_SIZE')
   parser.add_argument('--max_train_steps', type=int, default=1000000)
   parser.add_argument('--learning_rate', type=float, default=1e-4)
-  parser.add_argument('--use_avg_model_params', type=int, default=1,
-                      choices=(0, 1))
+  parser.add_argument('--use_avg_model_params', type=int, default=None,
+                      choices=(0, 1),
+                      help="the model's own default when not given (1 for "
+                      'qtopt, 0 for seq2act)')
   parser.add_argument('--num_convs', default='6,6,3',
-                      help='depth of the three conv stacks')
+                      help='qtopt: depth of the three conv stacks')
+  parser.add_argument('--episode_length', type=int, default=6,
+                      help='seq2act: frames an episode (512 in the '
+                      'long-context binding)')
+  parser.add_argument('--attention_mode', default='auto',
+                      choices=('auto', 'xla', 'flash'),
+                      help="seq2act: the attention backend ('flash' in the "
+                      'long-context binding)')
   parser.add_argument('--seed', type=int, default=0,
                       help='seed of the initial weights (and, plus 1, of '
                       'the random crops)')
@@ -294,20 +317,31 @@ def make_parser() -> argparse.ArgumentParser:
   return parser
 
 
-def main(argv=None) -> int:
+def make_model(args, device: torch.device):
+  """The ``--model`` of the command line, on ``device``."""
+  kwargs = {'device': device, 'learning_rate': args.learning_rate}
+  if args.use_avg_model_params is not None:
+    kwargs['use_avg_model_params'] = bool(args.use_avg_model_params)
+  if args.model == 'seq2act':
+    from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
+
+    return Seq2ActBCModel(episode_length=args.episode_length,
+                          attention_mode=args.attention_mode, **kwargs)
   from tensor2robot_tpu_torch.research.qtopt import t2r_models
 
+  return t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+      network_kwargs={'num_convs': tuple(
+          int(n) for n in args.num_convs.split(','))}, **kwargs)
+
+
+def main(argv=None) -> int:
   args = make_parser().parse_args(argv)
   device = torch.device(args.device)
   if device.type == 'cuda':
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print('built CUDA kernels in {:.1f}s'.format(kernels.build()))
-  model = t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
-      device=device, learning_rate=args.learning_rate,
-      use_avg_model_params=bool(args.use_avg_model_params),
-      network_kwargs={'num_convs': tuple(
-          int(n) for n in args.num_convs.split(','))})
+  model = make_model(args, device)
   train = DefaultRandomInputGenerator(batch_size=args.batch_size)
   evaluate = (DefaultRandomInputGenerator(batch_size=args.batch_size)
               if args.eval_steps > 0 else None)
@@ -324,7 +358,8 @@ def main(argv=None) -> int:
   steps = sum(w[0] for w in trainer.windows)
   seconds = sum(w[1] for w in trainer.windows)
   print(json.dumps({
-      'step': result['state'].step, 'device': str(device),
+      'step': result['state'].step, 'model': args.model,
+      'device': str(device),
       'metrics': trainer.last_metrics, 'eval_metrics': result['eval_metrics'],
       'examples_per_sec': steps * args.batch_size / max(seconds, 1e-9),
       'checkpoint_step': latest_checkpoint_step(args.model_dir),

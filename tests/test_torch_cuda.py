@@ -19,7 +19,11 @@ K4 (flash attention) sums its products and softmax in another order than
 its dense plain version: O within 1e-5 in float32 and 2e-2 (one rounding
 of values of order 1) in bfloat16, LSE within 1e-5; its cases add lengths
 that are not a multiple of its 64-row tile, head dim 128 and several
-batches and heads.
+batches and heads. K5a and K5b (the flash attention backward) sum their
+products in another order than the dense plain backward: dq, dk and dv
+within 1e-4 of each one's max|plain| in float32 and 2e-2 of it (one bf16
+rounding of the result) in bfloat16, at ragged lengths, head dim 128 and
+Lq != Lk, causal and not.
 """
 
 import pytest
@@ -217,3 +221,65 @@ def test_flash_attention_refuses_what_it_does_not_take(device):
   with pytest.raises(ValueError, match='multiple of 8'):
     z = torch.randn(1, 100, 2, 64, device=device)
     flash_attention.flash_attention(z, z, z)
+
+
+BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('b,l_q,l_k,h,d', [
+    (2, 200, 200, 3, 64),    # ragged last tile
+    (1, 72, 136, 2, 128),    # head dim 128, Lq < Lk
+    (1, 130, 70, 2, 64),     # Lq > Lk: causal key tiles past the queries
+    (3, 8, 8, 1, 64),        # shorter than one tile
+    (1, 1024, 1024, 4, 64),
+])
+def test_flash_attention_backward_matches_plain(device, b, l_q, l_k, h, d,
+                                                causal, dtype):
+  gen = _generator(device, 5)
+  qkv = torch.randn((b, l_k, h, 3, d), device=device, generator=gen).to(
+      dtype)
+  q = torch.randn((b, l_q, h, d), device=device, generator=gen).to(dtype)
+  k, v = qkv[..., 1, :], qkv[..., 2, :]
+  scale = 1.0 / d ** 0.5
+  out, lse = flash_attention.flash_attention_forward(q, k, v, causal, scale)
+  d_out = torch.randn(out.shape, device=device, generator=gen).to(dtype)
+  before = dict(kernels.LAUNCHES)
+  got = flash_attention.flash_attention_backward(q, k, v, out, lse, d_out,
+                                                 causal, scale)
+  assert kernels.LAUNCHES['flash_attention_bwd_kv'] == (
+      before['flash_attention_bwd_kv'] + 1)
+  assert kernels.LAUNCHES['flash_attention_bwd_q'] == (
+      before['flash_attention_bwd_q'] + 1)
+  want = flash_attention.flash_attention_bwd_plain_blhd(
+      q, k, v, out, lse, d_out, causal, scale)
+  torch.cuda.synchronize()
+  for name, g, w in zip(('dq', 'dk', 'dv'), got, want):
+    assert g.dtype == dtype and g.shape == w.shape, name
+    assert g.is_contiguous(), name
+    err = float((g.float() - w.float()).abs().max())
+    assert err <= BWD_RTOL[dtype] * float(w.float().abs().max()), (name, err)
+  # A fixed summation order: the same bits from run to run.
+  again = flash_attention.flash_attention_backward(q, k, v, out, lse, d_out,
+                                                   causal, scale)
+  assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_attention_autograd_launches_k4_k5a_k5b(device):
+  gen = _generator(device, 6)
+  qkv = torch.randn((2, 136, 2, 3, 64), device=device, generator=gen)
+  qkv.requires_grad_()
+  before = dict(kernels.LAUNCHES)
+  out = flash_attention.flash_attention(qkv[..., 0, :], qkv[..., 1, :],
+                                        qkv[..., 2, :], causal=True)
+  (out * (1 + 0.01 * out)).sum().backward()
+  for name in ('flash_attention_fwd', 'flash_attention_bwd_kv',
+               'flash_attention_bwd_q'):
+    assert kernels.LAUNCHES[name] == before[name] + 1, name
+  ref = qkv.detach().cpu().requires_grad_()
+  out_cpu = flash_attention.flash_attention(ref[..., 0, :], ref[..., 1, :],
+                                            ref[..., 2, :], causal=True)
+  (out_cpu * (1 + 0.01 * out_cpu)).sum().backward()
+  err = float((qkv.grad.cpu() - ref.grad).abs().max())
+  assert err <= 1e-4 * float(ref.grad.abs().max()), err

@@ -32,6 +32,14 @@ SEQ2ACT_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
     'research.vrgripper.decoders'))
 
 
+# The Seq2Act training slice's modules.
+SEQ2ACT_TRAINING_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
+    'convert', 'data.input_generators', 'kernels', 'models.abstract_model',
+    'models.optimizers', 'preprocessors.image_transformations',
+    'preprocessors.pallas_crop', 'trainer.checkpointing',
+    'trainer.train_eval'))
+
+
 def _port_sources():
   for root, _, files in os.walk(PORT):
     for name in sorted(files):
@@ -62,6 +70,8 @@ def test_importing_every_module_loads_no_jax():
   names = set(result.stdout.split())
   assert len(names) >= 40
   assert set(SEQ2ACT_MODULES) <= names, set(SEQ2ACT_MODULES) - names
+  assert set(SEQ2ACT_TRAINING_MODULES) <= names, (
+      set(SEQ2ACT_TRAINING_MODULES) - names)
 
 
 def test_static_scan_finds_no_jax_import():
@@ -94,6 +104,10 @@ def test_entry_points_default_to_cuda():
   assert args.device == 'cuda'
   assert train_eval.make_parser().parse_args(
       ['--model_dir', 'unused']).device == 'cuda'
+  seq2act_args = train_eval.make_parser().parse_args(
+      ['--model_dir', 'unused', '--model', 'seq2act'])
+  assert train_eval.make_model(seq2act_args, torch.device(
+      seq2act_args.device)).device == torch.device('cuda')
   assert inspect.signature(serve.build_policy).parameters[
       'device'].default == 'cuda'
   assert inspect.signature(AbstractT2RModel).parameters[

@@ -63,7 +63,30 @@ repository around it. Phases, each printing one line or more:
      CheckpointPredictor restored from the trained checkpoint, whose
      logits must be the trained params' predict_step (1e-4) and not the
      untrained weights'.
-  7. A JSON line of the kernels, the card's name and power limit, and
+  7. Ring attention's kernel: K6 (the carried flash update, the ring's
+     hop) against its plain version at the 4-rank hop shape [8, 1024, 8,
+     64] (diagonal, full and hidden hops from a carried state, f32 and
+     bf16) and at an odd shape (Lq 100 != Lk 72, head dim 128), o, m and l
+     within 1e-5 of their max, a hidden hop leaving the state as it was;
+     the four-shard hop schedule of a [8, 4096, 8, 64] causal sequence
+     replayed on one card, O and LSE within 1e-5 of max of K4's over the
+     whole sequence; K6 timed at the main path's launch shape beside its
+     plain version and at the 4-rank diagonal and full hops.
+  8. Seq2Act ring training: ``min(4, cards)`` NCCL ranks, one process a
+     card, each train the full-width 512-frame binding with
+     ``attention_mode='ring'`` for RING_STEPS steps through
+     ``train_eval_model`` (batch 8 at one rank, the gin's 32 at four), with
+     the counters zeroed just before and read just after: 1 K1 and 8 x N
+     K6 launches a step a rank, no K4 or K5. Every loss finite, the weights
+     equal on every rank (per-tensor checksums, their minimum and maximum
+     over the ranks), rank 0's checkpoint restores equal; two resident
+     steps timed on every rank from a barrier, and two profiled on the
+     last rank (the one with the most unmasked hops); one ring step against one flash step from the same
+     state on the same 8 episodes and crops (loss within 1e-5 relative,
+     every gradient within 1e-4 of its scale); the trained checkpoint
+     served by the flash SequentialRegressionPolicy gives the trained
+     params' logits (1e-4).
+  9. A JSON line of the kernels, the card's name and power limit, and
      the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero.
@@ -565,18 +588,24 @@ def profile(label, run, calls, unit, top=16):
     torch.cuda.synchronize()
     wall_ms = (time.monotonic() - start) * 1e3 / calls
   # Kernels only: the host-side aten ops carry their kernels' device time
-  # too, and would count it twice.
+  # too, and would count it twice (as would the 'nccl:' annotations of the
+  # collectives' kernels).
   rows = [(e.self_device_time_total / 1e3 / calls, e.count // calls, e.key)
           for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA and
-          e.self_device_time_total > 0]
+          e.self_device_time_total > 0 and not e.key.startswith('nccl:')]
   if not rows:
     print('{}: the profiler saw no device time; not measured'.format(label))
     return wall_ms
   rows.sort(reverse=True)
-  busy_ms = sum(ms for ms, _, _ in rows)
-  print('{}: {:.2f} ms wall per {}, kernels busy {:.2f} ms ({:.1%})'.format(
-      label, wall_ms, unit, busy_ms, busy_ms / wall_ms))
+  # NCCL's kernels run on their own stream, beside the compute, and wait
+  # there for the peer ranks: counted apart.
+  comm_ms = sum(ms for ms, _, name in rows if name.startswith('nccl'))
+  busy_ms = sum(ms for ms, _, _ in rows) - comm_ms
+  print('{}: {:.2f} ms wall per {}, kernels busy {:.2f} ms ({:.1%}){}'.format(
+      label, wall_ms, unit, busy_ms, busy_ms / wall_ms,
+      ', NCCL kernels (waits for the peers included) {:.2f} ms'.format(
+          comm_ms) if comm_ms else ''))
   for ms, count, name in rows[:top]:
     print('  {:8.3f} ms {:5.1%} x{:<4d} {}'.format(ms, ms / busy_ms, count,
                                                    name[:90]))
@@ -1246,32 +1275,41 @@ def phase_seq2act_train_vs_plain(model, state, raw, labels):
   torch.cuda.synchronize()
   check(got.keys() == want.keys() == set(state.params), 'gradient names '
         'differ')
-  loss_err = abs(float(got_loss) - float(want_loss))
-  check(loss_err <= 1e-5 * abs(float(want_loss)),
-        'seq2act loss: kernels {} vs plain {}'.format(float(got_loss),
-                                                      float(want_loss)))
+  print('seq2act train step, kernels vs plain versions (1 episode): {}'
+        .format(compare_steps('kernels vs plain', got_loss, want_loss, got,
+                              want)))
+
+
+def compare_steps(label, got_loss, want_loss, got, want):
+  """Two Seq2Act steps' losses and gradients: the loss within 1e-5
+  relative; the gradients that are 0 in exact arithmetic within 1e-6 of
+  the largest; every other within 1e-4 of its scale, its largest
+  magnitude, no lower than 1e-3 of the network's largest gradient (cuDNN's
+  input gradients may sum in another order between calls). Returns what
+  it found, as text."""
+  got_loss, want_loss = float(got_loss), float(want_loss)
+  loss_err = abs(got_loss - want_loss)
+  check(loss_err <= 1e-5 * abs(want_loss), 'seq2act loss, {}: {} vs '
+        '{}'.format(label, got_loss, want_loss))
   largest = max(float(g.abs().max()) for g in want.values())
   worst_zero = max((max(float(got[k].abs().max()),
                         float(want[k].abs().max())) / largest, k)
                    for k in SEQ2ACT_ZERO_GRADIENTS)
   check(worst_zero[0] <= 1e-6, 'gradients that are 0 in exact arithmetic '
         'reach {:.3g} of the largest gradient at {}'.format(*worst_zero))
-  # Every other gradient within 1e-4 of its scale: its largest magnitude,
-  # no lower than 1e-3 of the network's largest gradient (cuDNN's input
-  # gradients may sum in another order between calls).
   floor = 1e-3 * largest
   errors = sorted(((max_abs_err(got[k], want[k]) /
                     max(float(want[k].abs().max()), floor), k)
                    for k in want if k not in SEQ2ACT_ZERO_GRADIENTS),
                   reverse=True)
-  check(errors[0][0] <= 1e-4, 'seq2act gradients: kernels vs plain differ '
-        'by {:.3g} of their scale at {}'.format(*errors[0]))
-  print('seq2act train step, kernels vs plain versions (1 episode): |dloss| '
-        '{:.3g} (tolerance 1e-5 relative); worst gradients {} of their scale '
-        '(tolerance 1e-4); the zero-in-exact-arithmetic map_out bias at '
-        '{:.3g} of the largest gradient (tolerance 1e-6)'.format(
-            loss_err, ', '.join('{:.3g} at {}'.format(*e)
-                                for e in errors[:3]), worst_zero[0]))
+  check(errors[0][0] <= 1e-4, 'seq2act gradients, {}: differ by {:.3g} of '
+        'their scale at {}'.format(label, *errors[0]))
+  return ('|dloss| {:.3g} (tolerance 1e-5 relative); worst gradients {} of '
+          'their scale (tolerance 1e-4); the zero-in-exact-arithmetic '
+          'map_out bias at {:.3g} of the largest gradient (tolerance '
+          '1e-6)'.format(loss_err, ', '.join('{:.3g} at {}'.format(*e)
+                                             for e in errors[:3]),
+                         worst_zero[0]))
 
 
 def phase_seq2act_train_serve(model, model_dir, state):
@@ -1323,6 +1361,386 @@ def phase_seq2act_train_serve(model, model_dir, state):
         '{:.3g}'.format(state.step, len(actions), err / scale, scale, moved))
 
 
+# Ring attention: the hop of 4 ranks over batch 8 of the 512-frame binding
+# (a [8, 1024, 8, 64] shard), and the ring's training run.
+RING_HOP = (8, 1024, 8, 64)
+CARRY_RTOL = 1e-5   # of max|plain|: float32 sums in another order
+RING_STEPS = 4
+RING_TIMEOUT_S = 900
+
+
+def causal_pairs(b, h, l_q, l_k, q_offset, k_offset):
+  """The (q, k) pairs a causal hop does not mask: q_offset + i >= k_offset
+  + j."""
+  rows = np.clip(q_offset + np.arange(l_q) - k_offset + 1, 0, l_k)
+  return b * h * int(rows.sum())
+
+
+def carry_state(b, h, l_q, d, device):
+  from tensor2robot_tpu_torch.parallel import flash_attention
+  return (torch.zeros((b, h, l_q, d), device=device),
+          torch.full((b, h, l_q), flash_attention.NEG_INF, device=device),
+          torch.zeros((b, h, l_q), device=device))
+
+
+def carry_errors(q, k, v, state, q_offset, k_offset, causal):
+  """K6 and its plain version from copies of one state: the largest error
+  of o, m and l relative to each one's max, and o's absolute error."""
+  from tensor2robot_tpu_torch.parallel import flash_attention as fa
+
+  scale = 1.0 / float(np.sqrt(q.shape[-1]))
+  got = [x.clone() for x in state]
+  want = [x.clone() for x in state]
+  fa.flash_attention_carry(q, k, v, *got, q_offset, k_offset, causal, scale)
+  fa.flash_attention_carry_plain(q, k, v, *want, q_offset, k_offset, causal,
+                                 scale)
+  torch.cuda.synchronize()
+  if causal and k_offset > q_offset + q.shape[1] - 1:
+    check(all(torch.equal(g, x) for g, x in zip(got, state)),
+          'K6 changed the state of a hop the mask hides')
+  rel = max(max_abs_err(g, w) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want))
+  return rel, max_abs_err(got[0], want[0])
+
+
+def phase_ring_kernel(device, gen, world):
+  """K6 against its plain version at the 4-rank hop shape (diagonal, full
+  and hidden hops from a carried state, f32 and bf16) and at an odd shape;
+  a replay of the four-shard hop schedule on one card against K4's O and
+  LSE over the whole sequence; then timed at the main path's launch shape
+  and at the 4-rank hop."""
+  from tensor2robot_tpu_torch.parallel import flash_attention as fa
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  b, l, h, d = RING_HOP
+  worst = 0.0
+  for dtype in (torch.float32, torch.bfloat16):
+    qkv = torch.randn((b, 2 * l, h, 3, d), device=device,
+                      generator=gen).to(dtype)
+    q = qkv[:, l:, :, 0]                     # rank 1's queries
+    # Rank 1's own block, rank 0's, and a block at positions past both.
+    blocks = (('diagonal', l, qkv[:, l:]), ('full', 0, qkv[:, :l]),
+              ('hidden', 2 * l, torch.randn((b, l, h, 3, d), device=device,
+                                            generator=gen).to(dtype)))
+    for name, k_offset, block in blocks:
+      state = carry_state(b, h, l, d, device)
+      # The state after rank 1's hop of rank 0's block.
+      fa.flash_attention_carry_plain(q, qkv[:, :l, :, 1], qkv[:, :l, :, 2],
+                                     *state, l, 0, True, d ** -0.5)
+      rel, _ = carry_errors(q, block[:, :, :, 1], block[:, :, :, 2], state,
+                            l, k_offset, True)
+      check(rel <= CARRY_RTOL, 'K6 {} hop {}: {:.3g} of max (tolerance '
+            '{:g})'.format(name, dtype, rel, CARRY_RTOL))
+      print('flash_attention_carry {} hop [{},{},{},{}] causal {}: o, m, l '
+            'within {:.3g} of their max (tolerance {:g})'.format(
+                name, b, l, h, d, str(dtype).split('.')[-1], rel,
+                CARRY_RTOL))
+      worst = max(worst, rel)
+  for dtype in (torch.float32, torch.bfloat16):
+    # Odd: Lq 100 != Lk 72 (ragged 64-row tiles), head dim 128, offsets that
+    # cross the diagonal.
+    q = torch.randn((2, 100, 3, 128), device=device, generator=gen).to(dtype)
+    kv = torch.randn((2, 72, 3, 2, 128), device=device,
+                     generator=gen).to(dtype)
+    rel, _ = carry_errors(q, kv[..., 0, :], kv[..., 1, :],
+                          carry_state(2, 3, 100, 128, device), 40, 30, True)
+    check(rel <= CARRY_RTOL, 'K6 odd shape {}: {:.3g} of max'.format(dtype,
+                                                                      rel))
+    print('flash_attention_carry odd [2,100/72,3,128] causal at offsets 40/30 '
+          '{}: within {:.3g} of max (tolerance {:g})'.format(
+              str(dtype).split('.')[-1], rel, CARRY_RTOL))
+
+  # The four-shard schedule of a [8, 4096, 8, 64] causal sequence, replayed
+  # on one card: shard r takes blocks r, r - 1, ... in ring order.
+  n, full = 4, 4 * l
+  qkv = torch.randn((b, full, h, 3, d), device=device, generator=gen)
+  q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+  want_o, want_lse = fa.flash_attention_forward(q, k, v, True, d ** -0.5)
+  outs, lses = [], []
+  for r in range(n):
+    o, m, lsum = carry_state(b, h, l, d, device)
+    for i in range(n):
+      src = (r - i) % n
+      fa.flash_attention_carry(q[:, r * l:(r + 1) * l],
+                               k[:, src * l:(src + 1) * l],
+                               v[:, src * l:(src + 1) * l], o, m, lsum,
+                               r * l, src * l, True, d ** -0.5)
+    lses.append(m + torch.log(lsum.clamp_min(1e-30)))
+    outs.append((o / lsum.clamp_min(1e-20)[..., None]).permute(0, 2, 1, 3))
+  torch.cuda.synchronize()
+  o_err = max_abs_err(torch.cat(outs, 1), want_o) / float(want_o.abs().max())
+  lse_err = (max_abs_err(torch.cat(lses, 2), want_lse) /
+             float(want_lse.abs().max()))
+  check(o_err <= CARRY_RTOL and lse_err <= CARRY_RTOL,
+        'the four-shard replay differs from K4: O {:.3g}, LSE {:.3g} of max'
+        .format(o_err, lse_err))
+  print('flash_attention_carry four-shard replay of [{},{},{},{}] causal '
+        '(16 hops) vs K4 on the whole sequence: O within {:.3g}, LSE within '
+        '{:.3g} of max (tolerance {:g})'.format(b, full, h, d, o_err,
+                                                lse_err, CARRY_RTOL))
+  del qkv, q, k, v, want_o, want_lse, outs, lses
+
+  def timed(shape, q_offset, k_offset, plain=False):
+    tb, tl, th, td = shape
+    tq = torch.randn((tb, tl, th, 3, td), device=device, generator=gen)
+    state = carry_state(tb, th, tl, td, device)
+    args = (tq[..., 0, :], tq[..., 1, :], tq[..., 2, :], *state, q_offset,
+            k_offset, True, td ** -0.5)
+    ms = median_ms(lambda: fa.flash_attention_carry(*args))
+    plain_ms = (median_ms(lambda: fa.flash_attention_carry_plain(*args),
+                          iters=10, warmup=2) if plain else None)
+    pairs = causal_pairs(tb, th, tl, tl, q_offset, k_offset)
+    # q, k, v read once; o, m, l read and written.
+    nbytes = 3 * tb * tl * th * td * 4 + 2 * (tb * th * tl * (td + 2) * 4)
+    bound, by = bound_ms(nbytes, 4 * td * pairs)
+    return ms, plain_ms, bound, by, pairs
+
+  batch = 8 if world == 1 else 32
+  main_shape = (batch, 4 * l // world, h, d)
+  # The main path's launches: at one rank the diagonal hop over the whole
+  # sequence; at four, full hops (and diagonal and hidden ones).
+  main_offsets = (0, 0) if world == 1 else (main_shape[1], 0)
+  ms, plain, bound, by, pairs = timed(main_shape, *main_offsets, plain=True)
+  err = carry_errors(*(torch.randn(main_shape, device=device, generator=gen)
+                       for _ in range(3)),
+                     carry_state(batch, h, main_shape[1], d, device),
+                     *main_offsets, True)
+  check(err[0] <= CARRY_RTOL, 'K6 at the main path\'s shape: {:.3g} of max'
+        .format(err[0]))
+  diag = timed(RING_HOP, l, l)
+  full_hop = timed(RING_HOP, 2 * l, 0)
+  print('flash_attention_carry per launch at the main path\'s shape {} '
+        'causal f32 at offsets {}: {:.4f} ms ({:.1f} TFLOP/s), plain {:.4f} ms, '
+        'bound {:.4f} ms ({}); no single PyTorch call takes a carried (o, m, '
+        'l); at the 4-rank hop [{},{},{},{}]: diagonal {:.4f} ms (bound '
+        '{:.4f}), full {:.4f} ms (bound {:.4f}); {}'.format(
+            list(main_shape), main_offsets, ms, 4 * d * pairs / ms / 1e9,
+            plain, bound, by, b, l, h, d, diag[0], diag[2], full_hop[0],
+            full_hop[2], smi_line()))
+  return dict(name='flash_attention_carry', route='cuda',
+              source='tensor2robot_tpu_torch/csrc/flash_attention_carry.cu',
+              replaces='tensor2robot_tpu/parallel/flash_attention.py:342',
+              max_abs_err=err[1], ms=ms, plain_ms=plain, bound_ms=bound,
+              bound_by=by, library_ms=None,
+              library_note='no single PyTorch call takes a carried (o, m, l)',
+              shapes='per launch: {} causal f32 at offsets {}'.format(
+                  list(main_shape), main_offsets),
+              hop_ms={'diagonal': diag[0], 'full': full_hop[0]},
+              hop_bound_ms={'diagonal': diag[2], 'full': full_hop[2]},
+              max_rel_err=max(worst, err[0]))
+
+
+def phase_ring_train(world):
+  """Spawns ``world`` NCCL ranks (``ring_rank``), one a card; each trains
+  the full-width 512-frame binding with ring attention. Returns rank 0's
+  report."""
+  import torch.multiprocessing as torch_mp
+
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  with tempfile.TemporaryDirectory() as out_dir:
+    context = torch_mp.start_processes(
+        ring_rank, args=(world, out_dir), nprocs=world, join=False,
+        start_method='spawn')
+    deadline = time.monotonic() + RING_TIMEOUT_S
+    done = False
+    try:
+      while not done and time.monotonic() < deadline:
+        done = context.join(timeout=max(deadline - time.monotonic(), 0.1))
+    finally:
+      for process in context.processes:
+        if process.is_alive():
+          process.kill()
+    check(done, 'a ring rank did not finish within {} s'.format(
+        RING_TIMEOUT_S))
+    reports = [json.loads(open(os.path.join(
+        out_dir, 'rank{}.json'.format(r))).read()) for r in range(world)]
+  batch = reports[0]['batch']
+  print('seq2act ring train: world {}; by rank: peak memory {} GB, the '
+        'loop\'s median step {} ms, a resident step {} ms ({:.2f} episodes/s '
+        'on rank 0)'.format(
+            world, [round(r['peak_gb'], 2) for r in reports],
+            [round(r['step_ms'], 1) for r in reports],
+            [round(r['resident_ms'], 2) for r in reports],
+            batch * 1e3 / reports[0]['resident_ms']))
+  return reports[0]
+
+
+def ring_rank(rank, world, out_dir):
+  """One rank of ``phase_ring_train``: trains RING_STEPS steps through
+  ``train_eval_model`` and checks the launches, the losses, the weights on
+  every rank and the checkpoint; one ring step against one flash step;
+  a profile; the trained checkpoint served by the flash policy."""
+  import torch.distributed as dist
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.parallel import mesh
+  from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
+  from tensor2robot_tpu_torch.trainer import checkpointing
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  sequence = mesh.init_sequence_group(
+      'cuda', init_method='file://' + os.path.join(out_dir, 'init'),
+      rank=rank, world_size=world, local_rank=rank)
+  device, group = sequence.device, sequence.group
+  batch = 8 if world == 1 else 32
+  model = Seq2ActBCModel(episode_length=SEQ2ACT_EPISODE,
+                         attention_mode='ring', process_group=group,
+                         learning_rate=1e-4, device=device)
+  data = input_generators.DefaultRandomInputGenerator(batch_size=batch)
+  model_dir = os.path.join(out_dir, 'model')
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  kernels.reset_launches()
+  start = time.monotonic()
+  result = train_eval.train_eval_model(
+      model, model_dir, data, max_train_steps=RING_STEPS, log_every_n_steps=1,
+      save_checkpoints_steps=RING_STEPS, nan_policy='raise', seed=0)
+  elapsed = time.monotonic() - start
+  launches = dict(kernels.LAUNCHES)
+  peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+  state, trainer = result['state'], result['trainer']
+  want = dict.fromkeys(kernels.LAUNCHES, 0)
+  want.update({'crop_convert': RING_STEPS,
+               'flash_attention_carry': 8 * world * RING_STEPS})
+  check(launches == want, 'rank {}: ring train launch counts {} != expected '
+        '{}'.format(rank, launches, want))
+  loss = trainer.last_metrics['loss']
+  check(state.step == RING_STEPS and np.isfinite(loss),
+        'ring training ended at step {} with loss {}'.format(state.step, loss))
+  # Equal weights on every rank: per-tensor sums and sums of squares, their
+  # minimum and maximum over the ranks.
+  sums = torch.stack([torch.stack([p.double().sum(), p.double().square()
+                                   .sum()]) for p in state.params.values()])
+  low, high = sums.clone(), sums.clone()
+  dist.all_reduce(low, dist.ReduceOp.MIN)
+  dist.all_reduce(high, dist.ReduceOp.MAX)
+  check(torch.equal(low, high), 'the ranks\' weights differ after training')
+  dist.barrier()
+  if rank == 0:
+    restored = checkpointing.CheckpointManager(model_dir).restore(
+        device=device)
+    check(_states_equal(restored, state),
+          'the ring checkpoint does not restore the final state')
+    del restored
+  windows = trainer.windows[1:]
+  step_ms = statistics.median(w[1] * 1e3 for w in windows)
+  data_ms = statistics.median(w[2] * 1e3 for w in windows)
+  report = dict(rank=rank, world=world, batch=batch, launches=launches,
+                peak_gb=peak_gb, step_ms=step_ms, data_ms=data_ms, loss=loss,
+                metrics=trainer.last_metrics, seconds=elapsed)
+  if rank == 0:
+    print('seq2act ring train: world {}, {} steps of batch {} x {} frames '
+          '({} tokens, {} a rank) in {:.1f}s, launches a rank {}; loss {:.4f}, '
+          'action_accuracy {:.4f}, action_mae {:.4f}; median step {:.1f} ms '
+          '({:.2f} episodes/s), of which {:.1f} ms waiting for the batch; peak '
+          'memory {:.2f} GB on rank 0 (max_memory_allocated); weights equal '
+          'on every rank; checkpoint restores equal; {}'.format(
+              world, RING_STEPS, batch, SEQ2ACT_EPISODE, 8 * SEQ2ACT_EPISODE,
+              8 * SEQ2ACT_EPISODE // world, elapsed, launches, loss,
+              trainer.last_metrics['action_accuracy'],
+              trainer.last_metrics['action_mae'], step_ms,
+              batch * 1e3 / step_ms, data_ms, peak_gb, smi_line()))
+
+  numpy_features, numpy_labels = next(data.create_dataset_iterator(
+      ModeKeys.TRAIN, seed=1, prefetch=0))
+  raw, labels = trainer.put_batch(numpy_features), trainer.put_batch(
+      numpy_labels)
+
+  # The resident-batch step: timed on every rank from a barrier, then
+  # profiled on the last rank while the others step with it.
+  current = [state]
+
+  def step(_):
+    features, batch_labels = model.preprocessor.preprocess(
+        raw, labels, ModeKeys.TRAIN, generator=trainer.crop_generator)
+    current[0], metrics = model.train_step(current[0], features,
+                                           batch_labels)
+    float(metrics['loss'])
+
+  step(0)   # warm
+  dist.barrier()
+  start = time.monotonic()
+  for i in range(2):
+    step(i)
+  torch.cuda.synchronize()
+  report['resident_ms'] = (time.monotonic() - start) * 1e3 / 2
+  if rank == world - 1:
+    # The last rank sees every other rank's block unmasked: the most work.
+    profile('seq2act ring train profile (rank {})'.format(rank), step, 2,
+            'step of {}'.format(batch))
+  else:
+    for i in range(2):
+      step(i)
+  del current, raw, labels
+  ring_vs_flash(model, state, numpy_features, numpy_labels, rank, device)
+  dist.barrier()
+  if rank == 0:
+    flash = Seq2ActBCModel(episode_length=SEQ2ACT_EPISODE,
+                           attention_mode='flash', device=device)
+    phase_seq2act_train_serve(flash, model_dir, state)
+  dist.barrier()
+  with open(os.path.join(out_dir, 'rank{}.json'.format(rank)), 'w') as f:
+    json.dump(report, f)
+  dist.destroy_process_group()
+
+
+# One ring step against one flash step: batch 8, the flash training phase's
+# batch, which one card holds.
+RING_VS_FLASH_BATCH = 8
+
+
+def ring_vs_flash(model, state, numpy_features, numpy_labels, rank, device):
+  """One ring step (gradients summed over the group) and, on rank 0, one
+  flash step from the same state on the same RING_VS_FLASH_BATCH episodes
+  and crop offsets: the loss within 1e-5 relative, every gradient within
+  1e-4 of its scale."""
+  import torch.distributed as dist
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
+
+  b = RING_VS_FLASH_BATCH
+  offsets = torch.tensor([[3, 5]] * b, dtype=torch.int32, device=device)
+
+  def batch_of(arrays, shard):
+    arrays = {k: v[:b] for k, v in arrays.items()}
+    arrays = model.shard_batch(arrays) if shard else arrays
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in arrays.items()}
+
+  features, _ = model.preprocessor.preprocess(
+      batch_of(numpy_features, True), None, ModeKeys.TRAIN, offsets=offsets)
+  before = dict(kernels.LAUNCHES)
+  _, ring_out, _, ring_grads = model.gradients(
+      state, features, batch_of(numpy_labels, True))
+  check(kernels.LAUNCHES['flash_attention_carry'] > before[
+      'flash_attention_carry'], 'the ring step launched no K6')
+  ring_loss = ring_out['loss']
+  del features
+  dist.barrier()
+  if rank == 0:
+    flash = Seq2ActBCModel(episode_length=SEQ2ACT_EPISODE,
+                           attention_mode='flash', device=device)
+    features, _ = flash.preprocessor.preprocess(
+        batch_of(numpy_features, False), None, ModeKeys.TRAIN,
+        offsets=offsets)
+    flash_loss, _, _, flash_grads = flash.gradients(
+        state, features, batch_of(numpy_labels, False))
+    del features
+    torch.cuda.synchronize()
+    print('seq2act ring step vs flash step (batch {}, the same state, '
+          'episodes and crops): {}'.format(b, compare_steps(
+              'ring vs flash', ring_loss, flash_loss, ring_grads,
+              flash_grads)))
+    del flash_grads
+  del ring_grads
+  torch.cuda.empty_cache()
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; nothing measured.', file=sys.stderr)
@@ -1330,6 +1748,7 @@ def main():
   sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
   device = torch.device('cuda')
   gen = torch.Generator(device=device).manual_seed(0)
+  world = min(4, torch.cuda.device_count())
   phase_device()
   crop = phase_crop(device, gen)
   pool = phase_pool(device, gen)
@@ -1341,11 +1760,20 @@ def main():
            'seq2act': phase_seq2act(device),
            'seq2act_train': phase_seq2act_train(device)}
   # K1 and K2f report their serving launches, K2b and K3 their training
-  # ones, K4 its seq2act ones, K5a and K5b their seq2act training ones;
-  # every path's counts are listed too.
-  entries = ((crop, 'serve'), (pool, 'serve'), (pool_backward, 'train'),
+  # ones, K4 its seq2act ones, K5a and K5b their seq2act training ones, K6
+  # its ring training ones; every path's counts are listed too.
+  entries = [(crop, 'serve'), (pool, 'serve'), (pool_backward, 'train'),
              (wgrad_entry, 'train'), (flash, 'seq2act'),
-             (flash_kv, 'seq2act_train'), (flash_q, 'seq2act_train'))
+             (flash_kv, 'seq2act_train'), (flash_q, 'seq2act_train')]
+  carry = phase_ring_kernel(device, gen, world)
+  ring = phase_ring_train(world)
+  # The ring path's counts are rank 0's (every rank checked its own).
+  paths['seq2act_ring_train'] = ring['launches']
+  carry['world_size'] = world
+  carry['ring_step_ms'] = ring['step_ms']
+  carry['ring_resident_ms'] = ring['resident_ms']
+  carry['ring_peak_gb'] = ring['peak_gb']
+  entries.append((carry, 'seq2act_ring_train'))
   for entry, main_path in entries:
     entry['launches'] = paths[main_path][entry['name']]
     entry['launches_by_path'] = {path: launches[entry['name']]

@@ -21,7 +21,10 @@ flattens final_conv in the same H, W, C order as the JAX network) and
 ``token_learner.{ln,map_in,map_out}``; ``transformer.pos_embedding``,
 ``block{i}.{ln_attn,attn.qkv,attn.out,ln_mlp,mlp_in,mlp_out}``,
 ``ln_final``; ``action_head`` and, where configured, ``task_embedding``
-and ``state_token``).
+and ``state_token``). The attention mode does not change the weights: a
+model trained with ring attention (JAX's ``mesh=``, the port's
+``process_group=``) has the flash model's state dict, and each rank holds
+all of it.
 
 ``train_state_from_flax`` builds the port's ``TrainState`` from a JAX
 ``TrainState`` whose leaves are numpy arrays: params and batch stats as

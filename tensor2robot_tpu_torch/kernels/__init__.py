@@ -70,6 +70,11 @@ KERNELS = {
                               [_P] * 7 + [_I] * 5
                               + [ctypes.c_longlong] * 15
                               + [ctypes.c_float, _I, _I, _P]),
+    'flash_attention_carry': ('t2r_flash_attention_carry',
+                              [_P] * 6 + [_I] * 5
+                              + [ctypes.c_longlong] * 9
+                              + [ctypes.c_float, _I, ctypes.c_longlong,
+                                 ctypes.c_longlong, _I, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

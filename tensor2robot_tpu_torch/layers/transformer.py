@@ -17,10 +17,14 @@ Attention modes: ``'xla'`` is the dense oracle (``scaled_dot_attention``);
 ``'flash'`` is ``parallel.flash_attention`` (kernel K4 forward and K5a,
 K5b backward on a CUDA tensor, the plain versions on a CPU tensor);
 ``'auto'`` picks flash for a CUDA tensor when L >= 2048 and L % 128 == 0,
-where the JAX package picks it on a TPU, and dense otherwise. ``'ring'``
-(sequence-sharded ring attention, kernel K6), tensor parallelism
-(``tp_axis``), the MoE MLP (``moe_experts``), the pipelined stack
-(``pipe_axis``) and dropout in training are not ported yet and raise. (Dropout is the identity outside training, as flax's is.)
+where the JAX package picks it on a TPU, and dense otherwise. ``'ring'`` is
+``parallel.ring_attention`` over the ``group`` of ranks that hold the
+sequence in shards (kernel K6 on every hop of a CUDA tensor's forward, the
+plain blockwise backward); ``CausalTransformer`` then adds each rank its
+own slice of the positions. Tensor parallelism (``tp_axis``), the MoE MLP
+(``moe_experts``), the pipelined stack (``pipe_axis``) and dropout in
+training are not ported yet and raise. (Dropout is the identity outside
+training, as flax's is.)
 
 Causality is at token granularity: tokens are frame-major, so a frame's
 tokens see all earlier frames and their predecessors within the frame.
@@ -35,7 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import flash_attention as flash_lib
+from tensor2robot_tpu_torch.parallel import ring_attention as ring_lib
 from tensor2robot_tpu_torch.research.qtopt.networks import Conv
 
 __all__ = ['CausalTransformer', 'Dense', 'ImageTokenizer', 'LayerNorm',
@@ -114,35 +120,38 @@ def resolve_attention_mode(mode: str, seq_length: int,
 
 
 def run_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  mode: str, causal: bool) -> torch.Tensor:
-  """[B, L, H, D] self-attention by the selected backend."""
+                  mode: str, causal: bool, group=None) -> torch.Tensor:
+  """[B, L, H, D] self-attention by the selected backend; under ``'ring'``
+  the [B, L/N, H, D] shard of this rank of ``group``."""
   mode = resolve_attention_mode(mode, q.shape[1], q.device)
   if mode == 'xla':
     return scaled_dot_attention(q, k, v, causal)
   if mode == 'flash':
     return flash_lib.flash_attention(q, k, v, causal=causal)
   if mode == 'ring':
-    raise NotImplementedError(
-        "attention_mode='ring' (ring attention over torch.distributed, "
-        'kernel K6) is not ported yet; see ROADMAP queue 1.')
+    if group is None:
+      raise ValueError("attention_mode='ring' requires a process group "
+                       '(group=).')
+    return ring_lib.ring_self_attention(q, k, v, group, causal=causal)
   raise ValueError('Unknown attention mode: {!r}'.format(mode))
 
 
 class MultiHeadAttention(nn.Module):
   """Self-attention with a head-major qkv projection: its columns are
   grouped [H, 3, Dh], so q, k and v are strided views of one tensor that
-  the flash kernel reads in place."""
+  the flash kernel reads in place. ``group``: the ranks of ring attention."""
 
   def __init__(self, in_features: int, num_heads: int, head_dim: int,
                attention_mode: str = 'auto', causal: bool = True,
                tp_axis: Optional[str] = None,
-               dtype: torch.dtype = torch.float32):
+               dtype: torch.dtype = torch.float32, group=None):
     super().__init__()
     if tp_axis:
       raise NotImplementedError('Tensor parallelism (tp_axis) is not ported '
                                 'yet.')
     self.num_heads, self.head_dim = num_heads, head_dim
     self.attention_mode, self.causal = attention_mode, causal
+    self.group = group
     features = num_heads * head_dim
     self.qkv = Dense(in_features, 3 * features, dtype)
     self.out = Dense(features, in_features, dtype)
@@ -152,7 +161,7 @@ class MultiHeadAttention(nn.Module):
     qkv = self.qkv(x).reshape(b, l, self.num_heads, 3, self.head_dim)
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     out = run_attention(q, k, v, mode=self.attention_mode,
-                        causal=self.causal)
+                        causal=self.causal, group=self.group)
     return self.out(out.reshape(b, l, self.num_heads * self.head_dim))
 
 
@@ -163,7 +172,7 @@ class TransformerBlock(nn.Module):
                mlp_dim: int, attention_mode: str = 'auto',
                causal: bool = True, tp_axis: Optional[str] = None,
                moe_experts: int = 0, dropout_rate: float = 0.0,
-               dtype: torch.dtype = torch.float32):
+               dtype: torch.dtype = torch.float32, group=None):
     super().__init__()
     if moe_experts:
       raise NotImplementedError('The MoE MLP (moe_experts > 0) is not '
@@ -171,7 +180,8 @@ class TransformerBlock(nn.Module):
     self.dtype, self.dropout_rate = dtype, dropout_rate
     self.ln_attn = LayerNorm(features)
     self.attn = MultiHeadAttention(features, num_heads, head_dim,
-                                   attention_mode, causal, tp_axis, dtype)
+                                   attention_mode, causal, tp_axis, dtype,
+                                   group)
     self.ln_mlp = LayerNorm(features)
     self.mlp_in = Dense(features, mlp_dim, dtype)
     self.mlp_out = Dense(mlp_dim, features, dtype)
@@ -258,34 +268,37 @@ class ImageTokenizer(nn.Module):
 
 class CausalTransformer(nn.Module):
   """Learned positions (a float32 parameter) + N causal blocks + a final
-  float32 LN; returns float32 [B, L, D]."""
+  float32 LN; returns float32 [B, L, D]. Under ring attention it takes and
+  returns this rank's [B, L/N, D] shard, at positions from ``rank * L/N``."""
 
   def __init__(self, features: int, num_layers: int, num_heads: int,
                head_dim: int, mlp_dim: int, max_length: int,
                attention_mode: str = 'auto', tp_axis: Optional[str] = None,
                moe_experts: int = 0, pipe_axis: Optional[str] = None,
                dropout_rate: float = 0.0,
-               dtype: torch.dtype = torch.float32):
+               dtype: torch.dtype = torch.float32, group=None):
     super().__init__()
     if pipe_axis:
       raise NotImplementedError('The pipelined stack (pipe_axis) is not '
                                 'ported yet.')
     self.num_layers, self.max_length = num_layers, max_length
+    self.group = group if attention_mode == 'ring' else None
     self.pos_embedding = nn.Parameter(torch.empty(max_length, features))
     for i in range(num_layers):
       self.add_module('block{}'.format(i), TransformerBlock(
           features, num_heads, head_dim, mlp_dim, attention_mode,
           causal=True, tp_axis=tp_axis, moe_experts=moe_experts,
-          dropout_rate=dropout_rate, dtype=dtype))
+          dropout_rate=dropout_rate, dtype=dtype, group=group))
     self.ln_final = LayerNorm(features)
 
   def forward(self, tokens: torch.Tensor, train: bool = False
               ) -> torch.Tensor:
     l = tokens.shape[1]
-    if l > self.max_length:
+    start = collectives.rank(self.group) * l
+    if start + l > self.max_length:
       raise ValueError('Sequence length {} exceeds max_length {}.'.format(
-          l, self.max_length))
-    x = tokens + self.pos_embedding[None, :l].to(tokens.dtype)
+          start + l, self.max_length))
+    x = tokens + self.pos_embedding[None, start:start + l].to(tokens.dtype)
     for i in range(self.num_layers):
       x = getattr(self, 'block{}'.format(i))(x, train=train)
     return self.ln_final(x)

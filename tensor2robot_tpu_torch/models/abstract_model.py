@@ -20,6 +20,12 @@ JAX package's: the loss and its gradient through autograd, the optimizer
 update (after an optional global-norm clip), then the EMA of the new
 weights. ``TrainState.variables()`` is the serving dict above.
 
+With a ``process_group`` (the ranks of ring attention, each holding its
+shard of every episode), ``train_step`` sums the gradients over the group
+in one flat all-reduce before the clip and the optimizer, so that every
+rank applies the same update to the same weights. ``shard_batch`` cuts a
+rank's share out of a batch that every rank drew alike.
+
 As in the JAX package, activations are bfloat16 only where
 ``device_type == 'tpu'``; the port computes float32 on the GPU unless
 ``compute_dtype`` asks for bfloat16.
@@ -35,6 +41,7 @@ from torch import nn
 
 from tensor2robot_tpu_torch.models import optimizers
 from tensor2robot_tpu_torch.modes import ModeKeys
+from tensor2robot_tpu_torch.parallel import collectives
 
 __all__ = ['AbstractT2RModel', 'TrainState', 'Variables']
 
@@ -106,7 +113,8 @@ class AbstractT2RModel:
                compute_dtype: Optional[torch.dtype] = None,
                create_optimizer_fn: Optional[Callable[[], Any]] = None,
                avg_model_params_decay: float = 0.9999,
-               gradient_clip_norm: Optional[float] = None):
+               gradient_clip_norm: Optional[float] = None,
+               process_group=None):
     """Args:
       preprocessor_cls: factory of the model's preprocessor, called with
         the model's feature and label specification functions.
@@ -119,8 +127,11 @@ class AbstractT2RModel:
         with ``init`` and ``update``, see ``models/optimizers.py``).
       avg_model_params_decay: the EMA's decay.
       gradient_clip_norm: optional global-norm clip ahead of the optimizer.
+      process_group: the ``torch.distributed`` group whose ranks each hold a
+        shard of the batch; gradients are summed over it.
     """
     self.device = torch.device(device)
+    self.process_group = process_group
     self._preprocessor_cls = preprocessor_cls
     self._preprocessor = None
     self.use_avg_model_params = use_avg_model_params
@@ -283,29 +294,50 @@ class AbstractT2RModel:
                                               outputs, mode)
     return loss, (train_outputs, outputs, new_model_state)
 
-  def train_step(self, state: TrainState, features, labels
-                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One step: loss and gradients, optimizer, EMA. Returns the new state
-    (new tensors; ``state`` is left as it was) and the scalar metrics
-    (``loss`` and the model's train outputs), on the device."""
+  def shard_batch(self, arrays):
+    """This rank's share of a batch of numpy arrays that every rank of
+    ``process_group`` drew alike: the whole batch, unless a model says
+    otherwise."""
+    return arrays
+
+  def gradients(self, state: TrainState, features, labels):
+    """(loss, scalar train outputs, new_model_state, grads) of one TRAIN
+    forward and backward, all detached; with a ``process_group``, the
+    gradients summed over it."""
     params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
     with torch.enable_grad():
       loss, (train_outputs, _, new_model_state) = self.loss_fn(
           params, state.model_state, features, labels, ModeKeys.TRAIN)
       grads = torch.autograd.grad(loss, list(params.values()),
                                   allow_unused=True)
-    params = {k: v.detach() for k, v in params.items()}
     # A parameter the loss does not reach (the stem bias in training) has
     # gradient 0, as jax.grad gives it.
     grads = {k: torch.zeros_like(params[k]) if g is None else g
              for k, g in zip(params, grads)}
+    if collectives.world_size(self.process_group) > 1:
+      flat = collectives.all_reduce_sum(
+          torch.cat([g.reshape(-1) for g in grads.values()]),
+          self.process_group)
+      grads = dict(zip(grads, (part.view_as(g) for part, g in zip(
+          flat.split([g.numel() for g in grads.values()]),
+          grads.values()))))
+    return loss.detach(), _scalars(train_outputs), new_model_state, grads
+
+  def train_step(self, state: TrainState, features, labels
+                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One step: loss and gradients, optimizer, EMA. Returns the new state
+    (new tensors; ``state`` is left as it was) and the scalar metrics
+    (``loss`` and the model's train outputs), on the device."""
+    loss, train_outputs, new_model_state, grads = self.gradients(
+        state, features, labels)
+    params = {k: v.detach() for k, v in state.params.items()}
     new_params, opt_state = self.create_optimizer().update(
         grads, state.opt_state, params)
     avg_params, ema_state = state.avg_params, state.ema_state
     if self.use_avg_model_params:
       avg_params, ema_state = optimizers.create_ema(
           self.avg_model_params_decay).update(new_params, state.ema_state)
-    metrics = {'loss': loss.detach(), **_scalars(train_outputs)}
+    metrics = {'loss': loss, **train_outputs}
     return TrainState(step=state.step + 1, params=new_params,
                       model_state=new_model_state, opt_state=opt_state,
                       avg_params=avg_params, ema_state=ema_state), metrics

@@ -1,5 +1,5 @@
-"""Flash attention, forward and backward: kernels K4, K5a and K5b of the
-port.
+"""Flash attention, forward and backward, and the ring hop: kernels K4,
+K5a, K5b and K6 of the port.
 
 The JAX package's ``parallel/flash_attention.py`` runs exact attention as a
 Pallas TPU kernel (``_flash_bhld``): an online softmax over k/v blocks that
@@ -29,6 +29,14 @@ divides raises ``ValueError``. They do not tile the CUDA kernels, which run
 their own 64 x 64 tiles and mask a ragged tail; the plain versions are
 dense. The JAX wrapper's zero padding of the head dim to 128 is a Mosaic
 lane rule and is not carried over: the kernels take D = 64 or 128 as it is.
+
+``flash_attention_carry`` is the inner step of ring attention
+(``parallel/ring_attention.py``), the JAX package's ``flash_attention_carry``
+(``_flash_carry_kernel``): one unnormalized online-softmax update of a
+carried (o, m, l) with a k/v block at global positions, in place. A CUDA
+tensor goes through kernel K6 (``csrc/flash_attention_carry.cu``), a CPU
+tensor through ``flash_attention_carry_plain``, ``_block_update`` over the
+whole block at once.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from tensor2robot_tpu_torch import kernels
 __all__ = ['NEG_INF', 'flash_attention', 'flash_attention_backward',
            'flash_attention_bwd_kv', 'flash_attention_bwd_plain',
            'flash_attention_bwd_plain_blhd', 'flash_attention_bwd_q',
+           'flash_attention_carry', 'flash_attention_carry_plain',
            'flash_attention_delta', 'flash_attention_forward',
            'flash_attention_plain', 'flash_attention_plain_blhd',
            'flash_attention_with_lse']
@@ -388,3 +397,113 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
   scale = _resolve(q4, k4, v4, scale, block_q, block_k, None, None)
   out, lse = _FlashAttention.apply(q4, k4, v4, causal, scale)
   return out[:, :, 0, :], lse[:, 0, :]
+
+
+# -- K6: the ring hop ----------------------------------------------------------
+
+
+def check_carry_lengths(l_q: int, l_k: int, block_q: int = 128,
+                        block_k: int = 128) -> None:
+  """The JAX wrapper's rule: a shard length above the block (128) must be a
+  multiple of it. K6 itself masks a ragged tile; the rule is kept so that
+  the same lengths raise."""
+  block_q, block_k = min(block_q, l_q), min(block_k, l_k)
+  if l_q % block_q or l_k % block_k:
+    raise ValueError(
+        'Shard lengths ({}, {}) must be multiples of the block sizes '
+        '({}, {}).'.format(l_q, l_k, block_q, block_k))
+
+
+def _check_carry(q, k, v, o, m, l) -> None:
+  if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or (
+      q.shape[0], q.shape[2], q.shape[3]) != (k.shape[0], k.shape[2],
+                                              k.shape[3]):
+    raise ValueError('flash_attention_carry takes q [B, Lq, H, D] and k, v '
+                     '[B, Lk, H, D]; got {}, {}, {}.'.format(
+                         tuple(q.shape), tuple(k.shape), tuple(v.shape)))
+  b, l_q, h, d = q.shape
+  if (tuple(o.shape) != (b, h, l_q, d) or tuple(m.shape) != (b, h, l_q) or
+      tuple(l.shape) != (b, h, l_q)):
+    raise ValueError('flash_attention_carry carries o [B, H, Lq, D] = {} and '
+                     'm, l [B, H, Lq]; got {}, {}, {}.'.format(
+                         (b, h, l_q, d), tuple(o.shape), tuple(m.shape),
+                         tuple(l.shape)))
+  check_carry_lengths(l_q, k.shape[1])
+
+
+def flash_attention_carry_plain(q, k, v, o, m, l, q_offset: int,
+                                k_offset: int, causal: bool, scale: float):
+  """``_block_update`` over the whole k/v block at once, in place.
+
+  Float32 scores (float64 for float64 inputs) ``q k^T * scale``, ``NEG_INF``
+  where causal and ``q_offset + i < k_offset + j``; ``m' = max(m, rowmax)``,
+  ``p = exp(s - m')`` zeroed where ``s <= NEG_INF / 2`` (and ``m'`` taken
+  as 0 there), the correction ``exp(m - m')`` zeroed where ``m <= NEG_INF /
+  2``; ``l = l * corr + rowsum(p)``, ``o = o * corr + p v``. Returns the
+  updated (o, m, l), the tensors it was given.
+  """
+  acc = _acc_dtype(q)
+  neg_inf = torch.full((), NEG_INF, dtype=acc, device=q.device)
+  zero = torch.zeros((), dtype=acc, device=q.device)
+  s = torch.einsum('bqhd,bkhd->bhqk', q.to(acc), k.to(acc)) * scale
+  if causal:
+    keep = (q_offset + torch.arange(q.shape[1], device=q.device))[:, None] >= (
+        k_offset + torch.arange(k.shape[1], device=q.device))[None, :]
+    s = torch.where(keep, s, neg_inf)
+  m_prev = m.to(acc)
+  m_new = torch.maximum(m_prev, s.amax(-1))
+  safe_m = torch.where(m_new <= NEG_INF / 2, zero, m_new)
+  p = torch.exp(s - safe_m[..., None])
+  p = torch.where(s <= NEG_INF / 2, zero, p)
+  del s
+  corr = torch.where(m_prev <= NEG_INF / 2, zero, torch.exp(m_prev - safe_m))
+  l_new = l.to(acc) * corr + p.sum(-1)
+  o_new = o.to(acc) * corr[..., None] + torch.einsum('bhqk,bkhd->bhqd', p,
+                                                     v.to(acc))
+  o.copy_(o_new)
+  m.copy_(m_new)
+  l.copy_(l_new)
+  return o, m, l
+
+
+def _flash_carry_cuda(q, k, v, o, m, l, q_offset: int, k_offset: int,
+                      causal: bool, scale: float):
+  """K6 on [B, L, H, D] strided views of CUDA tensors; (o, m, l) in place."""
+  _check_cuda('flash_attention_carry', q, k, v)
+  for name, t in (('o', o), ('m', m), ('l', l)):
+    if (t.dtype != torch.float32 or not t.is_contiguous() or
+        t.device != q.device or t.data_ptr() % 16):
+      raise ValueError('flash_attention_carry carries a contiguous, 16-byte '
+                       'aligned float32 {} on {}; got {} on {}.'.format(
+                           name, q.device, t.dtype, t.device))
+  b, l_q, h, d = q.shape
+  kernels.launch('flash_attention_carry', q.device, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
+                 l.data_ptr(), b, h, l_q, k.shape[1], d, *_strides(q, k, v),
+                 float(scale), int(causal), int(q_offset), int(k_offset),
+                 int(q.dtype == torch.bfloat16))
+  return o, m, l
+
+
+def flash_attention_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                          q_offset: int, k_offset: int, causal: bool,
+                          scale: float):
+  """One unnormalized flash update of the carried (o, m, l) with a new k/v
+  block: K6 for a CUDA tensor, the plain version for a CPU tensor.
+
+  q [B, Lq, H, D] and k, v [B, Lk, H, D] may be strided views with unit
+  stride along D. The state is float32: o [B, H, Lq, D] and m, l [B, H,
+  Lq], starting from 0, ``NEG_INF`` and 0. It is updated IN PLACE (each
+  block of the kernel owns its query rows) and returned. ``q_offset`` and
+  ``k_offset`` are the global positions of q's and k's first rows, for the
+  causal mask. Shard lengths above 128 must be multiples of 128, as in the
+  JAX wrapper. Forward only: ring attention's backward recomputes
+  blockwise from the LSE.
+  """
+  _check_carry(q, k, v, o, m, l)
+  if _device_type(q) == 'cpu':
+    return flash_attention_carry_plain(q, k, v, o, m, l, q_offset, k_offset,
+                                       causal, scale)
+  return _flash_carry_cuda(q, k, v, o, m, l, q_offset, k_offset, causal,
+                           scale)

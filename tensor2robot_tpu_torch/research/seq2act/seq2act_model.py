@@ -20,8 +20,17 @@ With ``attention_mode='flash'`` (the long-context binding of
 attention on a CUDA tensor runs kernel K4 forward and kernels K5a and K5b
 backward.
 
-The MoE, tensor-parallel, pipelined and ring variants, and dropout in
-training, are not ported yet: they raise.
+With ``attention_mode='ring'`` and a ``process_group`` of N ranks (the
+gin's long-context training variant; JAX's ``mesh=``), rank r holds frames
+``[r T/N, (r + 1) T/N)`` of every episode (``shard_batch``): the tokenizer,
+the transformer's per-token layers and the action head run on those frames
+alone, and every hop of every block's attention on a CUDA tensor runs
+kernel K6. The loss, ``action_accuracy`` and ``action_mae`` are means over
+the whole episodes (local sums and counts summed over the group), and the
+gradients are summed over it, so the step is the unsharded model's.
+
+The MoE, tensor-parallel and pipelined variants, and dropout in training,
+are not ported yet: they raise.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from tensor2robot_tpu_torch.models.abstract_model import AbstractT2RModel
 from tensor2robot_tpu_torch.models.abstract_model import Variables
 from tensor2robot_tpu_torch.models import optimizers
 from tensor2robot_tpu_torch.modes import ModeKeys
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.preprocessors import image_transformations
 from tensor2robot_tpu_torch.research.vrgripper import decoders
 
@@ -138,7 +148,8 @@ class RT1StyleNet(nn.Module):
   first call whether the tokenizer needs its TokenLearner).
   ``forward(features, mode)`` takes ``image`` float [B, T, H, W, 3] (and
   ``task_id`` int [B, 1], ``state`` [B, T, S] where configured) and returns
-  ``{'action_logits': float32 [B, T, action_size * vocab_size]}``.
+  ``{'action_logits': float32 [B, T, action_size * vocab_size]}``; under
+  ring attention T is this rank's frames, the r-th T of the episode.
   """
 
   def __init__(self, action_size: int, vocab_size: int,
@@ -151,7 +162,7 @@ class RT1StyleNet(nn.Module):
                dropout_rate: float = 0.0,
                dtype: torch.dtype = torch.float32,
                use_state_input: bool = False, state_size: int = 7,
-               num_task_embeddings: int = 0):
+               num_task_embeddings: int = 0, group=None):
     super().__init__()
     self.dtype, self.embed_dim = dtype, embed_dim
     self.num_task_embeddings = num_task_embeddings
@@ -172,7 +183,7 @@ class RT1StyleNet(nn.Module):
         max_length=max_episode_length * tokens,
         attention_mode=attention_mode, tp_axis=tp_axis,
         moe_experts=moe_experts, pipe_axis=pipe_axis,
-        dropout_rate=dropout_rate, dtype=dtype)
+        dropout_rate=dropout_rate, dtype=dtype, group=group)
     self.action_head = transformer_lib.Dense(
         embed_dim, action_size * vocab_size, torch.float32)
 
@@ -234,9 +245,15 @@ class Seq2ActBCModel(AbstractT2RModel):
   128x160 crops of 136x168 frames, 256 bins over [-1, 1], adam at
   ``learning_rate``). ``device_type`` defaults to ``'cpu'`` as in the JAX
   model; only ``'tpu'`` makes the compute dtype bfloat16.
+  ``process_group`` (in place of JAX's ``mesh``) goes with
+  ``attention_mode='ring'`` and no other mode: its N ranks must divide the
+  episode, and the rank's tokens must suit the carry kernel's blocks (the
+  first attention raises otherwise).
   """
 
   label_key = 'action'
+  # The keys whose second axis is the episode's frames (after the batch's).
+  _FRAME_KEYS = ('image', 'state', 'action')
 
   def __init__(self,
                episode_length: int = 6,
@@ -254,7 +271,7 @@ class Seq2ActBCModel(AbstractT2RModel):
                action_min: float = -1.0,
                action_max: float = 1.0,
                attention_mode: str = 'auto',
-               mesh: Optional[object] = None,
+               process_group=None,
                tp_axis: Optional[str] = None,
                moe_experts: int = 0,
                pipe_axis: Optional[str] = None,
@@ -265,9 +282,16 @@ class Seq2ActBCModel(AbstractT2RModel):
                num_task_embeddings: int = 0,
                learning_rate: float = 1e-4,
                **kwargs):
-    if mesh is not None:
-      raise NotImplementedError('Device meshes (ring, tp, pipeline) are not '
-                                'ported yet.')
+    if (attention_mode == 'ring') != (process_group is not None):
+      raise ValueError("attention_mode='ring' requires a process_group, and "
+                       'a process_group requires ring attention; got {!r} '
+                       'and {}.'.format(attention_mode, process_group))
+    if process_group is not None:
+      world = collectives.world_size(process_group)
+      if episode_length % world:
+        raise ValueError('Ring attention over {} ranks needs an episode '
+                         'length that they divide; got {}.'.format(
+                             world, episode_length))
     kwargs.setdefault('device_type', 'cpu')
     kwargs.setdefault(
         'create_optimizer_fn',
@@ -275,7 +299,7 @@ class Seq2ActBCModel(AbstractT2RModel):
     super().__init__(
         preprocessor_cls=functools.partial(Seq2ActPreprocessor,
                                            src_img_res=tuple(src_img_res)),
-        **kwargs)
+        process_group=process_group, **kwargs)
     self._episode_length = episode_length
     self._action_size = action_size
     self._vocab_size = vocab_size
@@ -341,7 +365,20 @@ class Seq2ActBCModel(AbstractT2RModel):
         dtype=self.compute_dtype,
         use_state_input=self._use_state_input,
         state_size=self._state_size,
-        num_task_embeddings=self._num_task_embeddings)
+        num_task_embeddings=self._num_task_embeddings,
+        group=self.process_group)
+
+  def shard_batch(self, arrays):
+    """This rank's frames ``[r T/N, (r + 1) T/N)`` of every episode, of
+    each array keyed in ``_FRAME_KEYS``; the others (``task_id``) whole."""
+    if arrays is None or self.process_group is None:
+      return arrays
+    n = collectives.world_size(self.process_group)
+    per_rank = self._episode_length // n
+    start = collectives.rank(self.process_group) * per_rank
+    return {key: (value[:, start:start + per_rank]
+                  if key in self._FRAME_KEYS else value)
+            for key, value in arrays.items()}
 
   def init_variables(self, generator: torch.Generator) -> Variables:
     """Random weights from ``generator`` at the flax initializers' scales
@@ -354,7 +391,13 @@ class Seq2ActBCModel(AbstractT2RModel):
                      mode: str):
     """(loss, {loss, action_accuracy, action_mae}): the discrete action
     loss, and the share and mean error of the mode actions against the
-    labels (a prediction within half a bin, plus 1e-6, is accurate)."""
+    labels (a prediction within half a bin, plus 1e-6, is accurate).
+
+    With a ``process_group`` each rank holds some frames of every episode:
+    the three are means over all of them (the local sums and counts summed
+    over the group), and the loss returned to differentiate is this rank's
+    share of the global mean, whose gradients the group sums.
+    """
     del state, features, mode
     logits = inference_outputs['action_logits']      # [B, T, A * V]
     actions = torch.as_tensor(labels[self.label_key]).to(torch.float32)
@@ -365,9 +408,19 @@ class Seq2ActBCModel(AbstractT2RModel):
     bin_width = (self._action_max - self._action_min) / self._vocab_size
     error = (predicted - actions).abs()
     within_bin = error <= (bin_width * 0.5 + 1e-6)
-    return loss, {'loss': loss,
-                  'action_accuracy': within_bin.to(torch.float32).mean(),
-                  'action_mae': error.mean()}
+    if self.process_group is None:
+      return loss, {'loss': loss,
+                    'action_accuracy': within_bin.to(torch.float32).mean(),
+                    'action_mae': error.mean()}
+    count = float(error.numel())
+    totals = collectives.all_reduce_sum(torch.stack([
+        loss.detach() * count, within_bin.to(torch.float32).sum(),
+        error.sum(), torch.tensor(count, device=error.device)]),
+                                        self.process_group)
+    means = totals[:3] / totals[3]
+    return loss * (count / totals[3]), {
+        'loss': means[0], 'action_accuracy': means[1],
+        'action_mae': means[2]}
 
   def model_eval_fn(self, state, features, labels, inference_outputs,
                     mode: str) -> Dict[str, torch.Tensor]:

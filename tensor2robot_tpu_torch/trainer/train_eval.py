@@ -27,6 +27,17 @@ Checkpoints are written every ``save_checkpoints_steps`` and at the end;
 a trainer starts from the newest checkpoint in ``model_dir`` when there is
 one.
 
+Ring attention (``--attention_mode ring``) trains one model over the N
+ranks of a ``torch.distributed`` group, one process per card, each holding
+its T/N frames of every episode. Every rank draws the same batch from the
+same seed and uploads only its frames (``model.shard_batch``): the train
+batch of global step k from ``seed + k``, so that a segment after an eval
+and a resumed run go on with new batches, and every eval the same batches
+from ``seed + EVAL_SEED_OFFSET`` on, apart from every train batch. The crop
+generator is seeded alike, so an episode gets one offset on every rank.
+Rank 0 writes the checkpoints (and the command line's JSON line); every
+rank restores them.
+
 Not ported yet: continuous eval (eval-only), hooks, exporters, fault
 injection, the compiled-artifact store.
 
@@ -43,6 +54,9 @@ input batches; reading records from disk is not ported yet)::
     python -m tensor2robot_tpu_torch.trainer.train_eval --model seq2act \\
         --episode_length 512 --attention_mode flash --batch_size 8 \\
         --model_dir /tmp/seq2act --max_train_steps 100
+    torchrun --nproc_per_node 4 -m tensor2robot_tpu_torch.trainer.train_eval \\
+        --model seq2act --episode_length 512 --attention_mode ring \\
+        --batch_size 32 --model_dir /tmp/seq2act_ring --max_train_steps 100
 """
 
 from __future__ import annotations
@@ -55,6 +69,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tensor2robot_tpu_torch import kernels
 from tensor2robot_tpu_torch.data.input_generators import (
@@ -62,6 +77,7 @@ from tensor2robot_tpu_torch.data.input_generators import (
 from tensor2robot_tpu_torch.models.abstract_model import TrainState
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.observability import get_registry
+from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.trainer.checkpointing import (
     CheckpointManager, latest_checkpoint_step)
 
@@ -70,6 +86,10 @@ __all__ = ['MODELS', 'NAN_POLICIES', 'NonFiniteLossError', 'Trainer',
 
 NAN_POLICIES = ('skip', 'raise')
 MODELS = ('qtopt', 'seq2act')
+# Under a group, eval batches are drawn from seeds this far above the train
+# batches' (batch i of an iterator seeded s draws seeds s + i and s + i +
+# 977).
+EVAL_SEED_OFFSET = 1 << 30
 
 
 class NonFiniteLossError(RuntimeError):
@@ -106,6 +126,8 @@ class Trainer:
     self.nan_policy = nan_policy
     self.checkpoint_manager = CheckpointManager(model_dir,
                                                 keep_checkpoint_max)
+    # Rank 0 of the model's group writes the checkpoints.
+    self.is_chief = collectives.rank(model.process_group) == 0
     self.registry = get_registry()
     self._crop_generator = None
     # (steps, seconds, seconds waiting for data) of every log window.
@@ -130,8 +152,10 @@ class Trainer:
         torch.Generator().manual_seed(self.seed))
 
   def put_batch(self, arrays) -> Optional[Dict[str, torch.Tensor]]:
-    """numpy arrays -> tensors on the model's device (through pinned
-    memory to a CUDA device)."""
+    """numpy arrays -> this rank's share of them (``model.shard_batch``) as
+    tensors on the model's device (through pinned memory to a CUDA
+    device)."""
+    arrays = self.model.shard_batch(arrays)
     if arrays is None:
       return None
     device = self.model.device
@@ -144,6 +168,16 @@ class Trainer:
         tensor = tensor.to(device)
       out[key] = tensor
     return out
+
+  def _iterator(self, input_generator: AbstractInputGenerator, mode: str,
+                step: int = 0):
+    """The batches of ``mode``, TRAIN's from global step ``step`` on. The
+    ranks of a group draw each batch alike, each keeping its share."""
+    seed = None
+    if self.model.process_group is not None:
+      seed = self.seed + (EVAL_SEED_OFFSET if mode == ModeKeys.EVAL
+                          else step)
+    return input_generator.create_dataset_iterator(mode, seed=seed)
 
   def _step(self, state: TrainState, batch):
     features, labels = batch
@@ -185,7 +219,7 @@ class Trainer:
     if state.step >= max_train_steps:
       return state
     skipped = self.registry.counter('train/nonfinite_loss_skipped')
-    iterator = input_generator.create_dataset_iterator(ModeKeys.TRAIN)
+    iterator = self._iterator(input_generator, ModeKeys.TRAIN, state.step)
     try:
       window_start, window_steps, data_s = time.perf_counter(), 0, 0.0
       window_skipped = 0
@@ -207,18 +241,22 @@ class Trainer:
           window_start, window_steps, data_s = time.perf_counter(), 0, 0.0
           window_skipped = 0
         if state.step % self.save_checkpoints_steps == 0:
-          self.checkpoint_manager.save(state)
+          self.save(state)
     finally:
       iterator.close()
     if state.step % self.save_checkpoints_steps:
-      self.checkpoint_manager.save(state)
+      self.save(state)
     return state
+
+  def save(self, state: TrainState) -> None:
+    if self.is_chief:
+      self.checkpoint_manager.save(state)
 
   def evaluate(self, input_generator: AbstractInputGenerator,
                eval_steps: int, state: TrainState) -> Dict[str, float]:
     """Eval metrics averaged over ``eval_steps`` batches."""
     input_generator.set_specification_from_model(self.model, ModeKeys.EVAL)
-    iterator = input_generator.create_dataset_iterator(ModeKeys.EVAL)
+    iterator = self._iterator(input_generator, ModeKeys.EVAL)
     totals: Dict[str, float] = {}
     count = 0
     try:
@@ -300,9 +338,11 @@ def make_parser() -> argparse.ArgumentParser:
                       help='seq2act: frames an episode (512 in the '
                       'long-context binding)')
   parser.add_argument('--attention_mode', default='auto',
-                      choices=('auto', 'xla', 'flash'),
+                      choices=('auto', 'xla', 'flash', 'ring'),
                       help="seq2act: the attention backend ('flash' in the "
-                      'long-context binding)')
+                      "long-context binding; 'ring' shards the episodes' "
+                      'frames over the ranks that torchrun starts, one a '
+                      'card)')
   parser.add_argument('--seed', type=int, default=0,
                       help='seed of the initial weights (and, plus 1, of '
                       'the random crops)')
@@ -317,8 +357,9 @@ def make_parser() -> argparse.ArgumentParser:
   return parser
 
 
-def make_model(args, device: torch.device):
-  """The ``--model`` of the command line, on ``device``."""
+def make_model(args, device: torch.device, process_group=None):
+  """The ``--model`` of the command line, on ``device`` (a rank of
+  ``process_group`` under ring attention)."""
   kwargs = {'device': device, 'learning_rate': args.learning_rate}
   if args.use_avg_model_params is not None:
     kwargs['use_avg_model_params'] = bool(args.use_avg_model_params)
@@ -326,7 +367,8 @@ def make_model(args, device: torch.device):
     from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
 
     return Seq2ActBCModel(episode_length=args.episode_length,
-                          attention_mode=args.attention_mode, **kwargs)
+                          attention_mode=args.attention_mode,
+                          process_group=process_group, **kwargs)
   from tensor2robot_tpu_torch.research.qtopt import t2r_models
 
   return t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
@@ -336,31 +378,47 @@ def make_model(args, device: torch.device):
 
 def main(argv=None) -> int:
   args = make_parser().parse_args(argv)
-  device = torch.device(args.device)
-  if device.type == 'cuda':
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print('built CUDA kernels in {:.1f}s'.format(kernels.build()))
-  model = make_model(args, device)
-  train = DefaultRandomInputGenerator(batch_size=args.batch_size)
-  evaluate = (DefaultRandomInputGenerator(batch_size=args.batch_size)
-              if args.eval_steps > 0 else None)
-  start = time.perf_counter()
-  result = train_eval_model(
-      model, args.model_dir, train, evaluate,
-      max_train_steps=args.max_train_steps, eval_steps=args.eval_steps,
-      eval_throttle_steps=args.eval_throttle_steps,
-      keep_checkpoint_max=args.keep_checkpoint_max,
-      save_checkpoints_steps=args.save_checkpoints_steps,
-      log_every_n_steps=args.log_every_n_steps, nan_policy=args.nan_policy,
-      seed=args.seed)
+  device, group = torch.device(args.device), None
+  if args.attention_mode == 'ring':
+    if args.model != 'seq2act':
+      raise ValueError('--attention_mode ring trains --model seq2act.')
+    from tensor2robot_tpu_torch.parallel import mesh
+
+    sequence = mesh.init_sequence_group(args.device)
+    device, group = sequence.device, sequence.group
+  try:
+    if device.type == 'cuda':
+      torch.backends.cudnn.allow_tf32 = False
+      torch.backends.cuda.matmul.allow_tf32 = False
+      print('built CUDA kernels in {:.1f}s'.format(kernels.build()))
+    model = make_model(args, device, group)
+    train = DefaultRandomInputGenerator(batch_size=args.batch_size)
+    evaluate = (DefaultRandomInputGenerator(batch_size=args.batch_size)
+                if args.eval_steps > 0 else None)
+    start = time.perf_counter()
+    result = train_eval_model(
+        model, args.model_dir, train, evaluate,
+        max_train_steps=args.max_train_steps, eval_steps=args.eval_steps,
+        eval_throttle_steps=args.eval_throttle_steps,
+        keep_checkpoint_max=args.keep_checkpoint_max,
+        save_checkpoints_steps=args.save_checkpoints_steps,
+        log_every_n_steps=args.log_every_n_steps, nan_policy=args.nan_policy,
+        seed=args.seed)
+  finally:
+    if group is not None:
+      dist.destroy_process_group()
   trainer = result['trainer']
+  if not trainer.is_chief:
+    return 0
   steps = sum(w[0] for w in trainer.windows)
   seconds = sum(w[1] for w in trainer.windows)
   print(json.dumps({
       'step': result['state'].step, 'model': args.model,
       'device': str(device),
+      'world_size': collectives.world_size(group),
       'metrics': trainer.last_metrics, 'eval_metrics': result['eval_metrics'],
+      # Episodes (or critic examples) a second, however many ranks share
+      # them.
       'examples_per_sec': steps * args.batch_size / max(seconds, 1e-9),
       'checkpoint_step': latest_checkpoint_step(args.model_dir),
       'seconds': time.perf_counter() - start}))

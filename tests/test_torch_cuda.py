@@ -23,7 +23,11 @@ batches and heads. K5a and K5b (the flash attention backward) sum their
 products in another order than the dense plain backward: dq, dk and dv
 within 1e-4 of each one's max|plain| in float32 and 2e-2 of it (one bf16
 rounding of the result) in bfloat16, at ragged lengths, head dim 128 and
-Lq != Lk, causal and not.
+Lq != Lk, causal and not. K6 (the ring hop) sums in another order than
+its dense plain version: the carried o, m and l within 1e-5 of each one's
+max, at ragged tiles, head dim 128, Lq != Lk, global offsets that cross the
+diagonal, a hop the causal mask hides (which must leave the state as it
+was, bit for bit) and a carried state as well as the initial one.
 """
 
 import pytest
@@ -283,3 +287,66 @@ def test_flash_attention_autograd_launches_k4_k5a_k5b(device):
   (out_cpu * (1 + 0.01 * out_cpu)).sum().backward()
   err = float((qkv.grad.cpu() - ref.grad).abs().max())
   assert err <= 1e-4 * float(ref.grad.abs().max()), err
+
+
+CARRY_RTOL = 1e-5   # of max|plain|, for o, m and l
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('b,l_q,l_k,h,d,q_offset,k_offset,causal,carried', [
+    (2, 100, 72, 3, 128, 40, 30, True, True),    # ragged, crosses the diagonal
+    (2, 100, 72, 3, 128, 0, 0, False, False),
+    (3, 8, 8, 1, 64, 8, 0, True, False),          # shorter than one tile
+    (1, 64, 128, 2, 64, 64, 0, False, True),      # Lq < Lk
+    (2, 256, 128, 2, 64, 128, 64, True, True),    # Lq > Lk, partly masked
+    (1, 128, 64, 2, 64, 0, 64, True, True),       # hidden by the mask
+])
+def test_flash_attention_carry_matches_plain(device, b, l_q, l_k, h, d,
+                                             q_offset, k_offset, causal,
+                                             carried, dtype):
+  gen = _generator(device, 7)
+  qkv = torch.randn((b, l_q, h, 3, d), device=device, generator=gen).to(
+      dtype)
+  kv = torch.randn((b, l_k, h, 2, d), device=device, generator=gen).to(dtype)
+  q, k, v = qkv[..., 0, :], kv[..., 0, :], kv[..., 1, :]
+  scale = 1.0 / d ** 0.5
+  state = (torch.zeros((b, h, l_q, d), device=device),
+           torch.full((b, h, l_q), flash_attention.NEG_INF, device=device),
+           torch.zeros((b, h, l_q), device=device))
+  if carried:   # the state after an earlier full hop
+    flash_attention.flash_attention_carry_plain(
+        q, qkv[..., 1, :], qkv[..., 2, :], *state, q_offset, q_offset - l_q,
+        causal, scale)
+  got = tuple(x.clone() for x in state)
+  want = tuple(x.clone() for x in state)
+  before = kernels.LAUNCHES['flash_attention_carry']
+  out = flash_attention.flash_attention_carry(q, k, v, *got, q_offset,
+                                              k_offset, causal, scale)
+  assert kernels.LAUNCHES['flash_attention_carry'] == before + 1
+  assert all(o is g for o, g in zip(out, got))
+  flash_attention.flash_attention_carry_plain(q, k, v, *want, q_offset,
+                                              k_offset, causal, scale)
+  torch.cuda.synchronize()
+  for name, g, w in zip('oml', got, want):
+    err = float((g - w).abs().max())
+    assert err <= CARRY_RTOL * float(w.abs().max()), (name, err)
+  if causal and k_offset > q_offset + l_q - 1:
+    assert all(torch.equal(g, s) for g, s in zip(got, state))
+
+
+def test_flash_attention_carry_refuses_what_it_does_not_take(device):
+  q = torch.randn(1, 64, 2, 64, device=device)
+  state = (torch.zeros(1, 2, 64, 64, device=device),
+           torch.zeros(1, 2, 64, device=device),
+           torch.zeros(1, 2, 64, device=device))
+  with pytest.raises(ValueError, match='float32'):
+    flash_attention.flash_attention_carry(
+        q, q, q, state[0].double(), *state[1:], 0, 0, True, 0.125)
+  with pytest.raises(ValueError, match='contiguous'):
+    flash_attention.flash_attention_carry(
+        q, q, q, state[0].transpose(2, 3), *state[1:], 0, 0, True, 0.125)
+  with pytest.raises(ValueError, match='head dims'):
+    x = torch.randn(1, 64, 2, 32, device=device)
+    flash_attention.flash_attention_carry(
+        x, x, x, torch.zeros(1, 2, 64, 32, device=device), *state[1:], 0, 0,
+        True, 0.125)

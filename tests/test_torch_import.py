@@ -40,6 +40,11 @@ SEQ2ACT_TRAINING_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
     'trainer.train_eval'))
 
 
+# The ring attention slice's modules.
+RING_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
+    'parallel.collectives', 'parallel.mesh', 'parallel.ring_attention'))
+
+
 def _port_sources():
   for root, _, files in os.walk(PORT):
     for name in sorted(files):
@@ -72,6 +77,7 @@ def test_importing_every_module_loads_no_jax():
   assert set(SEQ2ACT_MODULES) <= names, set(SEQ2ACT_MODULES) - names
   assert set(SEQ2ACT_TRAINING_MODULES) <= names, (
       set(SEQ2ACT_TRAINING_MODULES) - names)
+  assert set(RING_MODULES) <= names, set(RING_MODULES) - names
 
 
 def test_static_scan_finds_no_jax_import():

@@ -332,7 +332,7 @@ def test_attention_modes_resolve_as_in_jax():
   assert resolve('auto', 4096 + 64, cuda) == 'xla'  # not 128-aligned
   assert jax_transformer.resolve_attention_mode('auto', 4096) == 'xla'
   q = torch.zeros(1, 16, 2, 8)
-  with pytest.raises(NotImplementedError, match='K6'):
+  with pytest.raises(ValueError, match='process group'):
     transformer.run_attention(q, q, q, mode='ring', causal=True)
   with pytest.raises(ValueError, match='Unknown'):
     transformer.run_attention(q, q, q, mode='sparse', causal=True)
@@ -350,8 +350,8 @@ def test_unported_variants_raise():
     model.preprocessor.preprocess(
         {'image': torch.zeros(1, 8, 36, 40, 3, dtype=torch.uint8)}, None,
         ModeKeys.TRAIN)
-  with pytest.raises(NotImplementedError, match='mesh'):
-    Seq2ActBCModel(device='cpu', mesh=object())
+  with pytest.raises(ValueError, match='process_group'):
+    Seq2ActBCModel(device='cpu', attention_mode='ring')
 
 
 def test_multi_batch_apply_merges_and_splits():

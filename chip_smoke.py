@@ -13,9 +13,10 @@ repository around it. Phases, each printing one line or more:
      version on the card, at the shapes the serving and training paths
      give it, timed (median of 30 CUDA-event-timed calls) beside its bound
      and, where one PyTorch call computes the same function, that call.
-     K1, K2f and K2b must agree bit for bit; K3 (the 5x5 weight gradient)
-     within 1e-4 of max|plain|, the float32 sums being taken in another
-     order; K4 (the flash attention forward) at the served shape (8 heads
+     K1, K2f and K2b must agree bit for bit; K3 (the 5x5 weight gradient,
+     float32-grade 3xTF32 products on the tensor cores) within 1e-4 of
+     max|plain|, the float32 sums being taken in another order; K4 (the
+     flash attention forward) at the served shape (8 heads
      x 4096 x 64, causal, read by strides out of the qkv projection, f32
      and bf16) and at odd shapes, O within 1e-5 (f32) or 2e-2 (bf16) and
      LSE within 1e-5, timed beside scaled_dot_product_attention; K5a and
@@ -23,14 +24,21 @@ repository around it. Phases, each printing one line or more:
      shape (batch 8) in f32 and bf16 and at an odd shape, dq, dk and dv
      within 1e-4 (f32) or 2e-2 (bf16) of each one's max|plain| and the
      same bits run to run, timed each alone beside the plain backward
-     (median of 10) and the backward of scaled_dot_product_attention.
+     (median of 10) and the backward of scaled_dot_product_attention. K3
+     and K5a (3xTF32 on the tensor cores) print two bounds, the CUDA cores'
+     float32 rate's and three TF32 passes at the tensor cores' rate (the
+     one in the JSON line), and the HMMA count of their SASS (cuobjdump),
+     which must not be 0.
   3. Serving: the full-width Grasping44 CEM policy (num_convs (6, 6, 3),
      512x640 frames cropped to 472, CEM 64 x 3 with 10 elites) behind a
      PolicyServer with max_batch_size 8, answering requests from 4
      threads. The kernels' launch counters are zeroed just before and
      read just after; every kernel must have launched as often as the
      batches imply. Then one request at a time, one batch rerun through
-     the plain versions, and a profile of full batches.
+     the plain versions, the served critic's q and logits for 16 actions a
+     state against the same weights and states on the CPU (CPU
+     convolutions and plain versions; 1e-4 of their max), and a profile of
+     full batches.
   4. Training: ``train_eval_model`` trains the full-width critic for
      TRAIN_STEPS steps at batch 32 on random uint8 frames, resuming from
      a step-0 checkpoint of random weights at fan-in scale in a temporary
@@ -38,9 +46,13 @@ repository around it. Phases, each printing one line or more:
      1 K1, 3 K2f, 3 K2b and 6 K3 launches a step. The loss must be finite
      and the checkpoint must restore equal to the final state. Then one
      step through the kernels and through the plain versions (loss and
-     every gradient must agree), a profile of train steps, and one batch
-     served on the trained variables, whose q must be the trained
-     avg_params' forward and not the untrained weights'.
+     every gradient must agree); the same step on the CPU (CPU
+     convolutions and plain versions) replaying the card's max-pool window
+     indices and ReLU gates, the loss within 1e-4 relative and every
+     gradient within 1e-4 of the largest; what summing the weight gradients
+     of the non-K3 convs in float64 costs; a profile of train steps, and
+     one batch served on the trained variables, whose q must be the
+     trained avg_params' forward and not the untrained weights'.
   5. Seq2Act serving: the long-context RT-1-style policy at full width
      (512-frame episodes, 4,096 tokens, 8 blocks, attention_mode 'flash',
      float32 with TF32 off) restored by CheckpointPredictor from a
@@ -48,8 +60,9 @@ repository around it. Phases, each printing one line or more:
      SequentialRegressionPolicy, with the counters zeroed just before and
      read just after: 1 K1 and 8 K4 launches a predict. Actions must be
      finite bin centers in [-1, 1]; one forward through the kernels must
-     match the plain versions' (logits within 1e-4 of their max). Then a
-     profile of two SelectAction calls.
+     match the plain versions' (logits within 1e-4 of their max), and the
+     same forward on the CPU (CPU convolutions and plain versions) too.
+     Then a profile of two SelectAction calls.
   6. Seq2Act training: ``train_eval_model`` trains the same full-width
      512-frame binding for SEQ2ACT_TRAIN_STEPS steps at batch 8 with adam
      (lr 1e-4) from random weights at the flax initializers' scale (seed
@@ -105,10 +118,12 @@ from unittest import mock
 import numpy as np
 import torch
 
-# H100 SXM (NVIDIA's data sheet): HBM3 bytes/s and float32 (non-tensor
-# core) operations/s, the rates at the full 700 W power limit.
+# H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32 (non-tensor core)
+# operations/s and dense TF32 tensor-core operations/s, the rates at the
+# full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 MAX_BATCH = 8
 CEM_SAMPLES, CEM_ITERS, NUM_ELITES = 64, 3, 10
@@ -166,6 +181,22 @@ def bound_ms(nbytes, ops):
   t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
   t_ops = ops / FP32_OPS_PER_S * 1e3
   return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def tensor_core_bound_ms(flops):
+  """The least time for float32-grade products on the tensor cores: three
+  TF32 passes (3xTF32, csrc/tf32_mma.cuh) of every product."""
+  return 3 * flops / TF32_OPS_PER_S * 1e3
+
+
+def sass_hmma(name):
+  """The tensor-core (HMMA) instructions in a built kernel's SASS."""
+  from tensor2robot_tpu_torch import kernels
+  tool = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin',
+                      'cuobjdump')
+  sass = subprocess.run([tool, '--dump-sass', str(kernels.library_path(name))],
+                        check=True, capture_output=True, text=True).stdout
+  return sum('HMMA' in line for line in sass.splitlines())
 
 
 def max_abs_err(a, b):
@@ -417,18 +448,25 @@ def phase_wgrad(device, gen):
   rows = sum(max(h - abs(a - 2), 0) for a in range(5))
   cols = sum(max(w - abs(a - 2), 0) for a in range(5))
   flops = 2 * c * c * b * rows * cols
-  bound, by = bound_ms((x.numel() + dy.numel()) * 4 + 25 * c * c * 4, flops)
+  fp32_bound, by = bound_ms((x.numel() + dy.numel()) * 4 + 25 * c * c * 4,
+                            flops)
+  bound = tensor_core_bound_ms(flops)
+  hmma = sass_hmma('conv5x5_wgrad')
+  check(hmma > 0, 'the SASS of conv5x5_wgrad holds no HMMA')
   print('conv5x5_wgrad {} f32: {:.4f} ms ({:.1f} TFLOP/s), plain {:.4f} ms, '
         'cuDNN conv2d_weight (TF32 off) {:.4f} ms (differs from K3 by '
-        '{:.3g} of its max), bound {:.4f} ms ({}); {} calls per train step'
-        .format(list(BODY_CONV), ms, flops / ms / 1e9, plain, lib, lib_err,
-                bound, by, BODY_CONVS))
+        '{:.3g} of its max); bound {:.4f} ms on the CUDA cores\' float32 '
+        'rate ({}), {:.4f} ms for 3xTF32 on the tensor cores; {} HMMA in its '
+        'SASS; {} calls per train step; {}'.format(
+            list(BODY_CONV), ms, flops / ms / 1e9, plain, lib, lib_err,
+            fp32_bound, by, bound, hmma, BODY_CONVS, smi_line()))
   return dict(name='conv5x5_wgrad', route='cuda',
               source='tensor2robot_tpu_torch/csrc/conv5x5_wgrad.cu',
               replaces='tensor2robot_tpu/layers/pallas_wgrad.py:112',
               max_abs_err=err, ms=BODY_CONVS * ms,
               plain_ms=BODY_CONVS * plain, bound_ms=BODY_CONVS * bound,
-              bound_by=by, library_ms=BODY_CONVS * lib,
+              bound_by='operations', fp32_bound_ms=BODY_CONVS * fp32_bound,
+              library_ms=BODY_CONVS * lib, sass_hmma=hmma,
               shapes='per train step: {} x {} f32'.format(
                   BODY_CONVS, list(BODY_CONV)))
 
@@ -567,6 +605,7 @@ def phase_slice(device):
             q_err, a_err))
   print('slice vs plain versions, one batch: max |dq| {:.3g}, max '
         '|daction| {:.3g} (tolerance 1e-4)'.format(q_err, a_err))
+  card_vs_cpu_served_q(model, variables['avg_params'], stacked, got['action'])
   profile('profile', lambda i: batch_select(variables, stacked, i), 3,
           'batch of {}'.format(MAX_BATCH), top=12)
   return launches
@@ -731,23 +770,42 @@ def phase_train(device):
     check(kernels.LAUNCHES == before, 'the plain step launched a kernel')
   torch.cuda.synchronize()
   check(torch.equal(image, plain_image), 'the TRAIN crop differs from plain')
+  print('train step, kernels vs plain versions: {}; crop bit-exact'.format(
+      compare_critic_steps('kernels vs plain', model, got_loss, want_loss,
+                           got, want)))
+  card_vs_cpu_critic_step(model, state, raw, labels, offsets)
+  time_float64_weight_grads(device)
+
+  train_profile('train profile', trainer, model, state, raw, labels, 3,
+                TRAIN_BATCH)
+  phase_train_serve(model, initial, state)
+  return launches
+
+
+def compare_critic_steps(label, model, got_loss, want_loss, got, want):
+  """Two critic steps' losses and gradients: the loss within 1e-5
+  relative; the gradients that are 0 in exact arithmetic within 1e-6 of the
+  largest; every other within 1e-4 of its scale. Returns what it found, as
+  text."""
+  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+
   check(got.keys() == want.keys(), 'gradient names differ')
   loss_err = abs(float(got_loss) - float(want_loss))
   check(loss_err <= 1e-5 * abs(float(want_loss)),
-        'loss: kernels {} vs plain {}'.format(float(got_loss),
-                                              float(want_loss)))
+        'loss, {}: {} vs {}'.format(label, float(got_loss),
+                                    float(want_loss)))
   # The biases of the per-block grasp denses are 0 in exact arithmetic:
   # the train-mode bngrasp subtracts the batch mean of their sum. Both
-  # sides are rounding noise there (run F read some 8e-8 of the network's
-  # largest gradient), held to 1e-6 of that gradient.
+  # sides are rounding noise there (run F of PR 5 read some 8e-8 of the
+  # network's largest gradient), held to 1e-6 of that gradient.
   largest = max(float(g.abs().max()) for g in want.values())
   zero = {'{}.{}.bias'.format(t2r_models._NETWORK, name) for name, _, _
           in getattr(model.network, t2r_models._NETWORK)._blocks}
   check(zero <= want.keys(), 'no gradient of {}'.format(zero - want.keys()))
   worst_zero = max((max_abs_err(got[k], want[k]) / largest, k) for k in zero)
   check(worst_zero[0] <= 1e-6, 'gradients that are 0 in exact arithmetic: '
-        'kernels vs plain differ by {:.3g} of the largest gradient at {}'
-        .format(*worst_zero))
+        '{} differ by {:.3g} of the largest gradient at {}'.format(
+            label, *worst_zero))
   # Every other gradient within 1e-4 of its scale: its largest magnitude,
   # taken no lower than 1e-3 of the network's largest gradient. cuDNN's
   # input gradients sum in an order that can change between calls, which
@@ -757,27 +815,227 @@ def phase_train(device):
   errors = sorted(((max_abs_err(got[k], want[k]) /
                     max(float(want[k].abs().max()), floor), k)
                    for k in want if k not in zero), reverse=True)
-  check(errors[0][0] <= 1e-4, 'gradients: kernels vs plain differ by {:.3g} '
-        'of their scale at {}'.format(*errors[0]))
-  print('train step, kernels vs plain versions: |dloss| {:.3g} (tolerance '
-        '1e-5 relative); worst gradients {} of their scale (tolerance 1e-4);'
-        ' the zero-in-exact-arithmetic grasp biases differ by at most {:.3g} '
-        'of the largest gradient at {} (tolerance 1e-6); crop bit-exact'
-        .format(loss_err, ', '.join('{:.3g} at {}'.format(*e)
-                                    for e in errors[:3]), *worst_zero))
+  check(errors[0][0] <= 1e-4, 'gradients, {}: differ by {:.3g} of their '
+        'scale at {}'.format(label, *errors[0]))
+  return ('|dloss| {:.3g} (tolerance 1e-5 relative); worst gradients {} of '
+          'their scale (tolerance 1e-4); the zero-in-exact-arithmetic grasp '
+          'biases differ by at most {:.3g} of the largest gradient at {} '
+          '(tolerance 1e-6)'.format(
+              loss_err, ', '.join('{:.3g} at {}'.format(*e)
+                                  for e in errors[:3]), *worst_zero))
 
-  train_profile('train profile', trainer, model, state, raw, labels, 3,
-                TRAIN_BATCH)
-  phase_train_serve(model, initial, state)
-  return launches
+
+def compare_across_devices(label, got_loss, want_loss, got, want):
+  """A step's loss and gradients on the card against the CPU's: the loss
+  within 1e-4 relative and every gradient within 1e-4 of the step's largest
+  gradient. Returns what it found, as text."""
+  check(got.keys() == want.keys(), 'gradient names differ')
+  loss_err = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+  check(loss_err <= 1e-4, 'loss, {}: {} vs {}'.format(
+      label, float(got_loss), float(want_loss)))
+  largest = max(float(g.abs().max()) for g in want.values())
+  worst = max((max_abs_err(got[k], want[k]) / largest, k) for k in want)
+  check(worst[0] <= 1e-4, 'gradients, {}: differ by {:.3g} of the largest '
+        'gradient at {}'.format(label, *worst))
+  own = max((max_abs_err(got[k], want[k]) /
+             max(float(want[k].abs().max()), 1e-3 * largest), k)
+            for k in want)
+  return ('loss within {:.3g} relative (tolerance 1e-4); gradients within '
+          '{:.3g} of the largest at {} (tolerance 1e-4); of their own scale '
+          'at most {:.3g} at {}'.format(loss_err, *worst, *own))
+
+
+def to_cpu(tree):
+  if isinstance(tree, dict):
+    return {k: to_cpu(v) for k, v in tree.items()}
+  return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def cpu_critic():
+  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+  return t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+      device='cpu', network_kwargs={'num_convs': NUM_CONVS})
+
+
+def critic_q(model, weights, states, candidates):
+  """q and logits [B, n] of the critic for n candidate actions [B, n, 8]
+  of B served states, through ``model.network`` on explicitly named
+  weights (batch norm statistics included), on the model's device, without
+  the serving code."""
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.research.qtopt import networks
+
+  device = model.device
+  b, n = candidates.shape[:2]
+  scalars = {k: torch.as_tensor(states[k], dtype=torch.float32).to(device)
+             .reshape(b, 1, 1).expand(b, n, 1)
+             for k in ('gripper_closed', 'height_to_bottom')}
+  grasp = torch.cat([candidates.to(device), scalars['gripper_closed'],
+                     scalars['height_to_bottom']], dim=-1).reshape(-1, 10)
+  features = {'state/image': model.preprocessor.preprocess_images(
+      torch.as_tensor(states['image']).to(device))}
+  for key, (offset, size) in zip(networks.E2E_GRASP_PARAM_KEYS,
+                                 networks.E2E_GRASP_PARAM_NAMES.values()):
+    features['action/' + key] = grasp[:, offset:offset + size]
+  with torch.inference_mode():
+    outputs = torch.func.functional_call(
+        model.network, weights, (features,), {'mode': ModeKeys.PREDICT},
+        strict=True)
+  return (outputs['q_predicted'].reshape(b, n),
+          outputs['q_logits'].reshape(b, n))
+
+
+def card_vs_cpu_served_q(model, weights, states, actions):
+  """The served critic's q on the card (cuDNN convolutions, TF32 off, and
+  the kernels) against the same weights and inputs on the CPU (CPU
+  convolutions and the plain versions): the served actions and 15 random
+  ones a state, q and logits within 1e-4 of their max."""
+  b = actions.shape[0]
+  candidates = torch.cat([actions.cpu()[:, None], torch.rand(
+      (b, 15, 8), generator=torch.Generator().manual_seed(9)) * 2 - 1], 1)
+  q, logits = critic_q(model, weights, states, candidates)
+  start = time.monotonic()
+  want_q, want_logits = critic_q(cpu_critic(), to_cpu(weights), states,
+                                 candidates)
+  seconds = time.monotonic() - start
+  errors = [max_abs_err(got.cpu(), want) / float(want.abs().max())
+            for got, want in ((q, want_q), (logits, want_logits))]
+  check(max(errors) <= 1e-4, 'served critic, card vs CPU: q {:.3g}, logits '
+        '{:.3g} of their max (tolerance 1e-4)'.format(*errors))
+  print('served critic, card vs CPU ({} states x 16 actions, the same '
+        'weights): q within {:.3g}, logits within {:.3g} of their max '
+        '(tolerance 1e-4); the CPU took {:.1f} s'.format(b, *errors, seconds))
+
+
+def card_vs_cpu_critic_step(model, state, raw, labels, offsets):
+  """One critic train step's loss and gradients on the card (cuDNN
+  convolutions, TF32 off, and the kernels) against the same on the CPU
+  (CPU convolutions and the plain versions), from the same state on the
+  same batch of TRAIN_BATCH at the same crop offsets.
+
+  A max pool's window index and a ReLU's gate are discrete: where two cells
+  of a window, or a pre-activation and 0, are within float32 rounding of
+  each other, the card and the CPU may choose differently, and the
+  gradient then flows through another cell, however exact both sides'
+  arithmetic. So the CPU step replays the card's choices (its window
+  indices and ReLU gates, in call order); the choices the CPU would have
+  made otherwise are counted.
+
+  """
+  from tensor2robot_tpu_torch.layers import pooling
+  from tensor2robot_tpu_torch.models.abstract_model import TrainState
+  from tensor2robot_tpu_torch.modes import ModeKeys
+
+  functional = torch.nn.functional
+  pool_forward, relu = pooling.max_pool_forward, functional.relu
+  cpu = cpu_critic()
+  cpu_state = TrainState(step=state.step, params=to_cpu(state.params),
+                         model_state=to_cpu(state.model_state),
+                         opt_state=None)
+  card_features, _ = model.preprocessor.preprocess(
+      raw, None, ModeKeys.TRAIN, offsets=offsets)
+  cpu_features, _ = cpu.preprocessor.preprocess(
+      to_cpu(raw), None, ModeKeys.TRAIN, offsets=offsets.cpu())
+
+  def compare():
+    choices = {'pool': [], 'relu': []}
+
+    def record_pool(x, window, strides, padding='VALID', return_index=False):
+      out = pool_forward(x, window, strides, padding, return_index)
+      if return_index:
+        choices['pool'].append(out[1].cpu())
+      return out
+
+    def record_relu(x, inplace=False):
+      choices['relu'].append((x > 0).cpu())
+      return relu(x, inplace)
+
+    with mock.patch.object(pooling, 'max_pool_forward', record_pool), \
+        mock.patch.object(functional, 'relu', record_relu):
+      got_loss, got = _gradients(model, state, card_features, labels)
+    pools, gates = iter(choices['pool']), iter(choices['relu'])
+    other = {'pool': 0, 'relu': 0}
+
+    def replay_pool(x, window, strides, padding='VALID', return_index=False):
+      idx = next(pools)
+      other['pool'] += int((pooling.max_pool_plain(
+          x, window, strides, padding, True)[1] != idx).sum())
+      chosen = pooling.max_pool_backward_plain(
+          torch.ones(idx.shape, dtype=x.dtype), idx, x.shape, window,
+          padding) > 0
+      out = pooling.max_pool_plain(
+          torch.where(chosen, x, torch.full((), -float('inf'))), window,
+          strides, padding)
+      return (out, idx) if return_index else out
+
+    def replay_relu(x, inplace=False):
+      gate = next(gates)
+      other['relu'] += int((gate != (x > 0)).sum())
+      return x * gate.to(x.dtype)
+
+    start = time.monotonic()
+    with mock.patch.object(pooling, 'max_pool_forward', replay_pool), \
+        mock.patch.object(functional, 'relu', replay_relu):
+      want_loss, want = _gradients(cpu, cpu_state, cpu_features,
+                                   to_cpu(labels))
+    seconds = time.monotonic() - start
+    check(next(pools, None) is None and next(gates, None) is None,
+          'the CPU step made fewer pools or ReLUs than the card\'s')
+    return ('the CPU replays the card\'s {} window indices and {} ReLU gates, '
+            'of which it would have chosen {} and {} otherwise; {}; the CPU '
+            'took {:.1f} s'.format(
+                sum(int(i.numel()) for i in choices['pool']),
+                sum(int(g.numel()) for g in choices['relu']), other['pool'],
+                other['relu'], compare_across_devices(
+                    'card vs CPU', got_loss, want_loss, to_cpu(got), want),
+                seconds))
+
+  print('train step, card vs CPU ({} examples, the same state and crops): '
+        '{}'.format(TRAIN_BATCH, compare()))
+
+
+# The critic's training convs whose weight gradient is not K3's, at batch
+# 32: (name, NCHW input, OIHW weight, stride, padding, count a step).
+FLOAT64_WGRAD_CONVS = (
+    ('stem 6x6/2', (TRAIN_BATCH, 3, 472, 472), (64, 3, 6, 6), 2, 2, 1),
+    ('3x3 SAME 27', (TRAIN_BATCH, 64, 27, 27), (64, 64, 3, 3), 1, 1, 6),
+    ('3x3 VALID 14', (TRAIN_BATCH, 64, 14, 14), (64, 64, 3, 3), 1, 0, 1),
+    ('3x3 VALID 12', (TRAIN_BATCH, 64, 12, 12), (64, 64, 3, 3), 1, 0, 1),
+    ('3x3 VALID 10', (TRAIN_BATCH, 64, 10, 10), (64, 64, 3, 3), 1, 0, 1),
+)
+
+
+def time_float64_weight_grads(device):
+  """What summing the critic's other weight gradients in float64
+  (``networks._ConvFloat64WeightGrad``, cuDNN's float64 algorithms) costs a
+  train step, against cuDNN's float32 ones (TF32 off)."""
+  gen = torch.Generator(device=device).manual_seed(11)
+  totals = {torch.float32: 0.0, torch.float64: 0.0}
+  for _, shape, w_shape, stride, padding, count in FLOAT64_WGRAD_CONVS:
+    x = torch.randn(shape, device=device, generator=gen).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.randn(w_shape, device=device, generator=gen)
+    dy = torch.randn(torch.nn.functional.conv2d(x, w, None, stride,
+                                                padding).shape,
+                     device=device, generator=gen).contiguous(
+                         memory_format=torch.channels_last)
+    for dtype in totals:
+      totals[dtype] += count * median_ms(
+          lambda dtype=dtype, x=x, dy=dy, w=w, s=stride, p=padding:
+          torch.nn.grad.conv2d_weight(x.to(dtype), w.shape, dy.to(dtype), s,
+                                      p).float(), iters=10)
+  print('the critic\'s weight gradients other than K3\'s ({} convs a step) '
+        'summed in float64: {:.3f} ms a step, against cuDNN\'s float32 ones\' '
+        '{:.3f} ms (TF32 off): {:+.3f} ms a step; {}'.format(
+            sum(c[-1] for c in FLOAT64_WGRAD_CONVS), totals[torch.float64],
+            totals[torch.float32],
+            totals[torch.float64] - totals[torch.float32], smi_line()))
 
 
 def phase_train_serve(model, initial, state):
   """The trained variables are the serving dict: a served batch scores its
   chosen actions as a forward of the trained ``avg_params`` and batch norm
   statistics does, and otherwise than the untrained weights."""
-  from tensor2robot_tpu_torch.modes import ModeKeys
-  from tensor2robot_tpu_torch.research.qtopt import networks
   from tensor2robot_tpu_torch.serving import serve
 
   batch_select = model.make_batched_select_action(CEM_SAMPLES, CEM_ITERS,
@@ -794,28 +1052,12 @@ def phase_train_serve(model, initial, state):
 
   # The served action and 15 random ones per state, scored by the network
   # on explicitly named weights, without the serving code.
-  device = model.device
-  candidates = torch.cat([served['action'][:, None], torch.rand(
-      (MAX_BATCH, 15, 8), generator=torch.Generator().manual_seed(3)).to(
-          device) * 2 - 1], dim=1)
-  scalars = {k: torch.as_tensor(states[k], dtype=torch.float32).to(device)
-             .reshape(MAX_BATCH, 1, 1).expand(MAX_BATCH, 16, 1)
-             for k in ('gripper_closed', 'height_to_bottom')}
-  grasp = torch.cat([candidates, scalars['gripper_closed'],
-                     scalars['height_to_bottom']], dim=-1).reshape(-1, 10)
-  features = {'state/image': model.preprocessor.preprocess_images(
-      torch.as_tensor(states['image']).to(device))}
-  for key, (offset, size) in zip(networks.E2E_GRASP_PARAM_KEYS,
-                                 networks.E2E_GRASP_PARAM_NAMES.values()):
-    features['action/' + key] = grasp[:, offset:offset + size]
+  candidates = torch.cat([served['action'].cpu()[:, None], torch.rand(
+      (MAX_BATCH, 15, 8), generator=torch.Generator().manual_seed(3)) * 2 - 1],
+                         dim=1)
 
   def score(weights, buffers):
-    with torch.inference_mode():
-      outputs = torch.func.functional_call(
-          model.network, {**weights, **buffers}, (features,),
-          {'mode': ModeKeys.PREDICT}, strict=True)
-    return (outputs['q_predicted'].reshape(MAX_BATCH, 16),
-            outputs['q_logits'].reshape(MAX_BATCH, 16))
+    return critic_q(model, {**weights, **buffers}, states, candidates)
 
   q_avg, logits_avg = score(state.avg_params, state.model_state)
   _, logits_params = score(state.params, state.model_state)
@@ -849,7 +1091,8 @@ def train_profile(label, trainer, model, state, raw, labels, steps, batch):
 
   def step(_):
     features, batch_labels = model.preprocessor.preprocess(
-        raw, labels, ModeKeys.TRAIN, generator=trainer.crop_generator)
+        raw, labels, ModeKeys.TRAIN,
+        generator=trainer.crop_generator(current[0].step))
     current[0], metrics = model.train_step(current[0], features,
                                            batch_labels)
     float(metrics['loss'])
@@ -989,6 +1232,8 @@ def phase_flash_backward(device, gen):
     torch.cuda.synchronize()
     line = []
     for key, g, w, g2 in zip(('dq', 'dk', 'dv'), got, want, again):
+      check(bool(torch.isfinite(w).all()), 'the plain backward\'s {} is not '
+            'finite'.format(key))
       e = max_abs_err(g, w)
       limit = BWD_RTOL[dtype] * float(w.float().abs().max())
       check(g.dtype == dtype and g.shape == w.shape and e <= limit,
@@ -1043,17 +1288,22 @@ def phase_flash_backward(device, gen):
   pairs = b * h * l * (l + 1) // 2
   elem = q.numel() * 4                       # one [B, L, H, D] f32 tensor
   rows = b * h * l * 4                       # one [B, H, L] f32 vector
-  kv_bound, kv_by = bound_ms(6 * elem + 2 * rows, 4 * 2 * d * pairs)
+  kv_fp32_bound, _ = bound_ms(6 * elem + 2 * rows, 4 * 2 * d * pairs)
+  kv_bound, kv_by = tensor_core_bound_ms(4 * 2 * d * pairs), 'operations'
   q_bound, q_by = bound_ms(5 * elem + 2 * rows, 3 * 2 * d * pairs)
+  kv_hmma = sass_hmma('flash_attention_bwd_kv')
+  check(kv_hmma > 0, 'the SASS of flash_attention_bwd_kv holds no HMMA')
   print('flash backward training [{},{},{},{}] causal f32: K5a (dk, dv) '
-        '{:.4f} ms ({:.1f} TFLOP/s, bound {:.4f} ms by {}), K5b (dq) {:.4f} '
-        'ms ({:.1f} TFLOP/s, bound {:.4f} ms by {}), delta pass {:.4f} ms; '
-        'plain backward {:.4f} ms; scaled_dot_product_attention backward '
-        '(dq, dk, dv) {:.4f} ms against K5a + K5b + delta {:.4f} ms '
-        '(differs by {:.3g} of max); {}'.format(
-            b, l, h, d, kv_ms, 8 * d * pairs / kv_ms / 1e9, kv_bound, kv_by,
-            q_ms, 6 * d * pairs / q_ms / 1e9, q_bound, q_by, delta_ms,
-            plain_ms, lib_ms, kv_ms + q_ms + delta_ms, lib_err, smi_line()))
+        '{:.4f} ms ({:.1f} TFLOP/s; bound {:.4f} ms on the CUDA cores\' '
+        'float32 rate, {:.4f} ms for 3xTF32 on the tensor cores; {} HMMA in '
+        'its SASS), K5b (dq) {:.4f} ms ({:.1f} TFLOP/s, bound {:.4f} ms by '
+        '{}), delta pass {:.4f} ms; plain backward {:.4f} ms; '
+        'scaled_dot_product_attention backward (dq, dk, dv) {:.4f} ms '
+        'against K5a + K5b + delta {:.4f} ms (differs by {:.3g} of max); {}'
+        .format(b, l, h, d, kv_ms, 8 * d * pairs / kv_ms / 1e9, kv_fp32_bound,
+                kv_bound, kv_hmma, q_ms, 6 * d * pairs / q_ms / 1e9, q_bound,
+                q_by, delta_ms, plain_ms, lib_ms, kv_ms + q_ms + delta_ms,
+                lib_err, smi_line()))
   shapes = 'per launch: [{},{},{},{}] causal f32, q/k/v strided views of ' \
            'the qkv projection'.format(b, l, h, d)
   library_note = ('scaled_dot_product_attention backward, dq, dk and dv '
@@ -1063,7 +1313,8 @@ def phase_flash_backward(device, gen):
                replaces='tensor2robot_tpu/parallel/flash_attention.py:501',
                max_abs_err=max(err['dk'], err['dv']), ms=kv_ms,
                plain_ms=plain_ms, bound_ms=kv_bound, bound_by=kv_by,
-               library_ms=lib_ms, library_note=library_note, shapes=shapes),
+               fp32_bound_ms=kv_fp32_bound, library_ms=lib_ms,
+               library_note=library_note, sass_hmma=kv_hmma, shapes=shapes),
           dict(name='flash_attention_bwd_q', route='cuda',
                source='tensor2robot_tpu_torch/csrc/flash_attention_bwd_q.cu',
                replaces='tensor2robot_tpu/parallel/flash_attention.py:530',
@@ -1151,9 +1402,33 @@ def phase_seq2act(device):
         '{:.3g} of max|logits| {:.3g} (tolerance {:g}); {:.1%} of the '
         '{} step actions equal'.format(e, e / scale, scale, LOGITS_RTOL,
                                        same, got['action'].numel()))
+  card_vs_cpu_seq2act(predictor.variables, window, got['action_logits'])
   profile('seq2act profile', lambda i: policy.SelectAction(
       {'image': frames[i]}, None, i), 2, 'SelectAction')
   return launches
+
+
+def card_vs_cpu_seq2act(variables, window, logits):
+  """The served Seq2Act logits on the card (cuDNN tokenizer convolutions,
+  cuBLAS, TF32 off, and the kernels) against the same weights and window on
+  the CPU (CPU convolutions and the plain versions), within 1e-4 of their
+  max."""
+  from tensor2robot_tpu_torch.export import export_generators
+  from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
+
+  cpu = Seq2ActBCModel(episode_length=SEQ2ACT_EPISODE, attention_mode='flash',
+                       device='cpu')
+  start = time.monotonic()
+  want = export_generators.make_serve_fn(cpu)(to_cpu(variables), window)[
+      'action_logits']
+  seconds = time.monotonic() - start
+  scale = float(want.abs().max())
+  e = max_abs_err(logits.cpu(), want)
+  check(e <= LOGITS_RTOL * scale, 'seq2act logits, card vs CPU: {:.3g} of '
+        'their max (tolerance {:g})'.format(e / scale, LOGITS_RTOL))
+  print('seq2act logits, card vs CPU ({}-frame window, the same weights): '
+        'within {:.3g} of their max (tolerance {:g}); the CPU took {:.1f} s'
+        .format(SEQ2ACT_EPISODE, e / scale, LOGITS_RTOL, seconds))
 
 
 # Seq2Act training: the long-context binding at full width, batch 8 (the
@@ -1645,10 +1920,12 @@ def ring_rank(rank, world, out_dir):
               trainer.last_metrics['action_mae'], step_ms,
               batch * 1e3 / step_ms, data_ms, peak_gb, smi_line()))
 
+  # The whole batch, for the comparison with a flash step below; this
+  # rank's frames of it for the resident-batch step.
   numpy_features, numpy_labels = next(data.create_dataset_iterator(
       ModeKeys.TRAIN, seed=1, prefetch=0))
-  raw, labels = trainer.put_batch(numpy_features), trainer.put_batch(
-      numpy_labels)
+  raw = trainer.put_batch(model.shard_batch(numpy_features))
+  labels = trainer.put_batch(model.shard_batch(numpy_labels))
 
   # The resident-batch step: timed on every rank from a barrier, then
   # profiled on the last rank while the others step with it.
@@ -1656,7 +1933,8 @@ def ring_rank(rank, world, out_dir):
 
   def step(_):
     features, batch_labels = model.preprocessor.preprocess(
-        raw, labels, ModeKeys.TRAIN, generator=trainer.crop_generator)
+        raw, labels, ModeKeys.TRAIN,
+        generator=trainer.crop_generator(current[0].step))
     current[0], metrics = model.train_step(current[0], features,
                                            batch_labels)
     float(metrics['loss'])

@@ -1,5 +1,5 @@
 // Weight gradient of a 5x5, stride 1, SAME convolution on NHWC, accumulated
-// in float32.
+// in float32, on Hopper's tensor cores.
 //
 // Replaces the TPU kernel tensor2robot_tpu/layers/pallas_wgrad.py
 // `conv5x5_wgrad` (kernel body `_wgrad_kernel`). For x and dy of shape
@@ -10,141 +10,274 @@
 //
 // where xpad is x with 2 zero rows and columns on every side (the SAME pad of
 // a 5x5 stride-1 conv): 25 shifted products of [positions, C]^T [positions, C].
-// Inputs are float32 or bfloat16; products and sums are float32, as the
-// Pallas kernel's `preferred_element_type=jnp.float32` makes them. (A product
-// of two bfloat16 values is exact in float32.)
+// Inputs are float32 or bfloat16; sums are float32, as the Pallas kernel's
+// `preferred_element_type=jnp.float32` makes them.
 //
 // What bounds it on an H100: operations. At the body convs' [32, 79, 79, 64]
 // the products with real data are 64 * 64 * 32 * 389 * 389 multiply-adds
 // (offset a covers 79 - |a - 2| rows, so 389 rows and 389 columns summed over
-// the offsets; the other 3% of the 25 * 79 * 79 offset-position pairs
-// multiply the SAME pad's zeros), 39.7 GFLOP, against 102 MB of inputs:
-// 0.59 ms at the 67 TFLOP/s float32 rate, 0.03 ms at 3.35 TB/s. This first
-// version multiplies the pad's zeros too (40.9 GFLOP of FMAs) and uses plain
-// float32 FMAs on the CUDA cores (TF32 or `wgmma` are later work), so the
-// design keeps the FMA units fed:
-//   * a block owns one (a, b) offset and one 64 x 64 (ci, co) tile of the
-//     output, and walks a contiguous range of positions in stages of 32:
-//     each stage copies the 32 shifted x rows and the 32 dy rows (64
-//     channels each, zeros outside the image) into shared memory with
-//     coalesced 16-byte (float32) or 8-byte (bfloat16) loads;
-//   * each of the 64 threads keeps an 8 x 8 block of the tile in registers
-//     and, per position, reads 8 x and 8 dy values (four 16-byte shared
-//     loads) for 64 FMAs;
-//   * the position range is split across blocks (the grid's z), so that
-//     some 2,000 blocks fill the 132 SMs; each block writes its own partial
-//     tile, and a second pass sums the partials in a fixed order. No
-//     atomics: the result is the same from run to run.
+// the offsets), 39.7 GFLOP, against 102 MB of inputs: 0.59 ms at the CUDA
+// cores' 67 TFLOP/s float32 rate, and 0.24 ms for the three TF32 passes of
+// float32-grade products at the tensor cores' 495 TFLOP/s; 0.03 ms at
+// 3.35 TB/s. The design:
+//   * float32-grade products on the tensor cores (tf32_mma.cuh): each float32
+//     operand is split once, as it is staged, into TF32 big and small halves,
+//     and mma.sync m16n8k8 sums small*big + big*small + big*big in float32.
+//     bfloat16 inputs are exact in TF32 and take the big pass alone;
+//   * a block owns one row offset a, all five column offsets b and a 64 x 64
+//     (ci, co) tile of the output: 5 x 64 x 64 float32 accumulators over 8
+//     warps, 80 registers a thread. Its stage is a segment of one image row:
+//     80 dy positions and the 84 x positions of the shifted row (a 2-column
+//     halo each side, zeros outside the image). The five b offsets read the
+//     same staged x strip shifted by b rows, so every x and dy element is
+//     copied and split once a stage and used by five products;
+//   * only rows whose shifted x row lies in the image are staged (the SAME
+//     pad's zero rows are skipped); positions are decoded once a segment;
+//   * the next segment's raw copy is in flight (cp.async, zero-filled outside
+//     the image and the channels) while the tensor cores work on this one;
+//   * the split tiles are float2 {big, small} rows of 64 channels whose
+//     4-channel groups are XOR-swizzled by the row (r & 3): an A fragment's
+//     four rows r..r+3 (any r: the b shift) and a B fragment's rows fall in
+//     distinct banks, so fragment loads are free of conflicts;
+//   * segments are split over blocks (the grid's x) so that the grid fills
+//     the SMs (one block of 126 KB of shared memory a SM); each block writes
+//     its own partial tile and a second pass sums the partials in a fixed
+//     order. No atomics: the result is the same from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
 constexpr int kSide = 5;       // kernel side
 constexpr int kPad = 2;        // SAME pad of a 5x5 stride-1 conv
 constexpr int kTile = 64;      // (ci, co) tile of one block
-constexpr int kChunk = 32;     // positions per shared-memory stage
-constexpr int kThreads = 64;   // 8 x 8 register block per thread
-constexpr int kVec = 4;        // channels per global load
+constexpr int kSeg = 80;       // dy positions of one image row per stage
+constexpr int kXRows = kSeg + kSide - 1;   // x positions of a stage
+constexpr int kThreads = 256;  // 8 warps: 4 (ci) x 2 (co) of 16 x 32
+constexpr int kChunks = kTile / 4;         // 4-channel copies a row
 constexpr int kReduceThreads = 256;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
+template <typename T>
+struct Smem {
+  float2 xs[kXRows * kTile];   // split x strip, swizzled
+  float2 ds[kSeg * kTile];     // split dy strip, swizzled
+  T xr[kXRows * kTile];        // raw copy of the next stage
+  T dr[kSeg * kTile];
+};
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 lo = __bfloat1622float2(q[0]);
-  const float2 hi = __bfloat1622float2(q[1]);
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
+// The 4-channel group swizzle of row r.
+__device__ __forceinline__ int swz(int r) { return (r & 3) << 2; }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                         float* __restrict__ partials, int B, int H, int W,
-                         int C, int64_t per_split) {
-  __shared__ __align__(16) float xs[kChunk][kTile];
-  __shared__ __align__(16) float ds[kChunk][kTile];
+struct Geometry {
+  const T* x;
+  const T* dy;
+  int H, W, C, a, ci0, co0, h_lo, rows, per_row;
+};
 
-  const int ab = blockIdx.x;              // offset (a, b), row-major
-  const int a = ab / kSide;
-  const int b = ab % kSide;
+// Starts the raw copy of segment s: dy positions w0 .. w0 + 79 of image row
+// (n, h) and x positions w0 - 2 .. w0 + 81 of row h + a - 2.
+template <typename T>
+__device__ __forceinline__ void stage(Smem<T>& sm, const Geometry<T>& geo,
+                                      int64_t s) {
+  const int w0 = static_cast<int>(s % geo.per_row) * kSeg;
+  const int64_t r = s / geo.per_row;
+  const int h = geo.h_lo + static_cast<int>(r % geo.rows);
+  const int64_t n = r / geo.rows;
+  const int64_t row_elems = static_cast<int64_t>(geo.W) * geo.C;
+  const T* dy_row = geo.dy + (n * geo.H + h) * row_elems + geo.co0;
+  const T* x_row = geo.x + (n * geo.H + h + geo.a - kPad) * row_elems + geo.ci0;
+  for (int e = threadIdx.x; e < (kSeg + kXRows) * kChunks; e += kThreads) {
+    int row = e / kChunks;
+    const int c = (e % kChunks) * 4;
+    if (row < kSeg) {
+      const int w = w0 + row;
+      const bool in = w < geo.W && geo.co0 + c < geo.C;
+      t2r::cp_async4(&sm.dr[row * kTile + c],
+                     in ? dy_row + static_cast<int64_t>(w) * geo.C + c : geo.dy,
+                     in);
+    } else {
+      row -= kSeg;
+      const int w = w0 + row - kPad;
+      const bool in = w >= 0 && w < geo.W && geo.ci0 + c < geo.C;
+      t2r::cp_async4(&sm.xr[row * kTile + c],
+                     in ? x_row + static_cast<int64_t>(w) * geo.C + c : geo.x,
+                     in);
+    }
+  }
+  t2r::cp_async_commit();
+}
+
+template <typename T, int kPasses>
+__global__ void __launch_bounds__(kThreads, 1)
+    wgrad_tc_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                    float* __restrict__ partials, int H, int W, int C,
+                    int batch) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  Smem<T>& sm = *reinterpret_cast<Smem<T>*>(smem_bytes);
+
+  const int split = blockIdx.x;
+  const int splits = gridDim.x;
   const int tiles = (C + kTile - 1) / kTile;
-  const int ci_base = (blockIdx.y / tiles) * kTile;
-  const int co_base = (blockIdx.y % tiles) * kTile;
-  const int64_t positions = static_cast<int64_t>(B) * H * W;
-  const int64_t p_begin = static_cast<int64_t>(blockIdx.z) * per_split;
-  const int64_t p_end =
-      p_begin + per_split < positions ? p_begin + per_split : positions;
+  Geometry<T> geo;
+  geo.x = x;
+  geo.dy = dy;
+  geo.H = H;
+  geo.W = W;
+  geo.C = C;
+  geo.a = blockIdx.z;
+  geo.ci0 = (blockIdx.y / tiles) * kTile;
+  geo.co0 = (blockIdx.y % tiles) * kTile;
+  // dy rows h whose shifted x row h + a - 2 lies in the image.
+  geo.h_lo = max(0, kPad - geo.a);
+  geo.rows = min(H, H + kPad - geo.a) - geo.h_lo;
+  geo.per_row = (W + kSeg - 1) / kSeg;
+  const int64_t segs =
+      geo.rows > 0 ? static_cast<int64_t>(batch) * geo.rows * geo.per_row : 0;
+  const int64_t s_begin = segs * split / splits;
+  const int64_t s_end = segs * (split + 1) / splits;
 
   const int tid = threadIdx.x;
-  const int ti = (tid / 8) * 8;           // this thread's ci rows in the tile
-  const int tj = (tid % 8) * 8;           // and co columns
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wm = (warp & 3) * 16;   // this warp's ci rows in the tile
+  const int wn = (warp >> 2) * 32;  // and co columns
 
-  float acc[8][8];
+  float acc[kSide][4][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int b = 0; b < kSide; ++b) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[b][j][i] = 0.0f;
+    }
   }
 
-  for (int64_t p0 = p_begin; p0 < p_end; p0 += kChunk) {
-    for (int e = tid; e < kChunk * (kTile / kVec); e += kThreads) {
-      const int row = e / (kTile / kVec);
-      const int c = (e % (kTile / kVec)) * kVec;
-      float4 xv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      float4 dv = xv;
-      const int64_t p = p0 + row;
-      if (p < p_end) {
-        const int w = static_cast<int>(p % W);
-        const int64_t r = p / W;
-        const int h = static_cast<int>(r % H);
-        const int n = static_cast<int>(r / H);
-        const int hs = h + a - kPad;
-        const int ws = w + b - kPad;
-        if (ci_base + c < C && hs >= 0 && hs < H && ws >= 0 && ws < W) {
-          xv = load4(x + ((static_cast<int64_t>(n) * H + hs) * W + ws) * C +
-                     ci_base + c);
-        }
-        if (co_base + c < C) dv = load4(dy + p * C + co_base + c);
+  if (s_begin < s_end) stage(sm, geo, s_begin);
+  for (int64_t s = s_begin; s < s_end; ++s) {
+    t2r::cp_async_wait_all();
+    __syncthreads();  // the copy has landed; the last stage's products ended
+    for (int e = tid; e < (kSeg + kXRows) * kChunks; e += kThreads) {
+      int row = e / kChunks;
+      const int c = (e % kChunks) * 4;
+      if (row < kSeg) {
+        t2r::store_split4<kPasses>(&sm.ds[row * kTile + (c ^ swz(row))],
+                                   t2r::to_float4(&sm.dr[row * kTile + c]));
+      } else {
+        row -= kSeg;
+        t2r::store_split4<kPasses>(&sm.xs[row * kTile + (c ^ swz(row))],
+                                   t2r::to_float4(&sm.xr[row * kTile + c]));
       }
-      *reinterpret_cast<float4*>(&xs[row][c]) = xv;
-      *reinterpret_cast<float4*>(&ds[row][c]) = dv;
     }
-    __syncthreads();
+    __syncthreads();  // split tiles ready; the raw buffer is free
+    if (s + 1 < s_end) stage(sm, geo, s + 1);
+
+    // This segment's sums start from zero and join the block's at its end:
+    // the tensor cores' float32 accumulation keeps fewer bits than a
+    // rounded float32 add, so its chains stay short (30 products deep).
+    float part[kSide][4][4];
+#pragma unroll
+    for (int b = 0; b < kSide; ++b) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[b][j][i] = 0.0f;
+      }
+    }
 #pragma unroll 2
-    for (int row = 0; row < kChunk; ++row) {
-      const float4 x0 = *reinterpret_cast<const float4*>(&xs[row][ti]);
-      const float4 x1 = *reinterpret_cast<const float4*>(&xs[row][ti + 4]);
-      const float4 d0 = *reinterpret_cast<const float4*>(&ds[row][tj]);
-      const float4 d1 = *reinterpret_cast<const float4*>(&ds[row][tj + 4]);
-      const float xr[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-      const float dr[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+    for (int kk = 0; kk < kSeg / 8; ++kk) {
+      const int k0 = kk * 8;
+      t2r::Frag<2> bf[4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int j = 0; j < 4; ++j) {
+        const int n = wn + 8 * j + g;
+        const int r0 = k0 + t, r1 = k0 + t + 4;
+        bf[j].set(0, sm.ds[r0 * kTile + (n ^ swz(r0))]);
+        bf[j].set(1, sm.ds[r1 * kTile + (n ^ swz(r1))]);
+      }
+      // Two offsets at a time, pass by pass: eight independent products in
+      // a row between two that share an accumulator.
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xr[i], dr[j], acc[i][j]);
+      for (int b0 = 0; b0 < kSide; b0 += 2) {
+        t2r::Frag<4> af[2];
+#pragma unroll
+        for (int bi = 0; bi < 2; ++bi) {
+          if (b0 + bi < kSide) {
+            // x position of dy position k0 + t at offset b: staged row
+            // k0 + t + b.
+            const int r0 = k0 + b0 + bi + t, r1 = r0 + 4;
+            const int m = wm + g;
+            af[bi].set(0, sm.xs[r0 * kTile + (m ^ swz(r0))]);
+            af[bi].set(1, sm.xs[r0 * kTile + ((m + 8) ^ swz(r0))]);
+            af[bi].set(2, sm.xs[r1 * kTile + (m ^ swz(r1))]);
+            af[bi].set(3, sm.xs[r1 * kTile + ((m + 8) ^ swz(r1))]);
+          }
+        }
+        if (kPasses == 3) {
+#pragma unroll
+          for (int bi = 0; bi < 2; ++bi) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (b0 + bi < kSide) {
+                t2r::mma_tf32(part[b0 + bi][j], af[bi].small, bf[j].big);
+              }
+            }
+          }
+#pragma unroll
+          for (int bi = 0; bi < 2; ++bi) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (b0 + bi < kSide) {
+                t2r::mma_tf32(part[b0 + bi][j], af[bi].big, bf[j].small);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int bi = 0; bi < 2; ++bi) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (b0 + bi < kSide) {
+              t2r::mma_tf32(part[b0 + bi][j], af[bi].big, bf[j].big);
+            }
+          }
+        }
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int b = 0; b < kSide; ++b) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[b][j][i] += part[b][j][i];
+      }
+    }
   }
 
-  // partials: [splits, 25, C, C]; this block's tile of its split.
+  // partials: [splits, 25, C, C]; this block's tiles of its split, row a.
+  const int64_t cc = static_cast<int64_t>(C) * C;
   float* out = partials +
-               (static_cast<int64_t>(blockIdx.z) * kSide * kSide + ab) * C * C;
+               (static_cast<int64_t>(split) * kSide * kSide + geo.a * kSide) * cc;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int ci = ci_base + ti + i;
-    if (ci >= C) continue;
+  for (int b = 0; b < kSide; ++b) {
 #pragma unroll
-    for (int j = 0; j < 8; j += kVec) {
-      const int co = co_base + tj + j;
-      if (co >= C) continue;   // C % 4 == 0: a vector is all in or all out
-      *reinterpret_cast<float4*>(out + static_cast<int64_t>(ci) * C + co) =
-          make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+    for (int j = 0; j < 4; ++j) {
+      const int co = geo.co0 + wn + 8 * j + 2 * t;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int ci = geo.ci0 + wm + g + 8 * half;
+        if (ci < C && co < C) {  // C % 4 == 0: co + 1 < C too
+          *reinterpret_cast<float2*>(out + b * cc +
+                                     static_cast<int64_t>(ci) * C + co) =
+              make_float2(acc[b][j][2 * half], acc[b][j][2 * half + 1]);
+        }
+      }
     }
   }
 }
@@ -161,33 +294,42 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ partials,
   }
 }
 
+template <typename T, int kPasses>
+cudaError_t launch_partials(const void* x, const void* dy, float* partials,
+                            int B, int H, int W, int C, int splits,
+                            cudaStream_t stream) {
+  const int bytes = static_cast<int>(sizeof(Smem<T>));
+  const cudaError_t status = cudaFuncSetAttribute(
+      wgrad_tc_kernel<T, kPasses>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (status != cudaSuccess) return status;
+  const int tiles = (C + kTile - 1) / kTile;
+  const dim3 grid(splits, tiles * tiles, kSide);
+  wgrad_tc_kernel<T, kPasses><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), partials, H, W, C,
+      B);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // x, dy: float32 or bfloat16 [B, H, W, C], contiguous, C % 4 == 0, 16-byte
 // aligned; partials: float32 [splits, 5, 5, C, C] scratch; out: float32
-// [5, 5, C, C]. Positions [s * per_split, (s + 1) * per_split) of the B*H*W
-// go to split s; every split must hold at least one position. Launches the
-// partial pass and the fixed-order reduction on `stream`. Returns
+// [5, 5, C, C]. The staged row segments of each row offset are divided
+// evenly over the `splits` blocks of each (offset, channel tile). Launches
+// the partial pass and the fixed-order reduction on `stream`. Returns
 // cudaGetLastError() after the launches (0 on success).
 int t2r_conv5x5_wgrad(const void* x, const void* dy, void* partials,
                       void* out, int B, int H, int W, int C, int splits,
-                      long long per_split, int is_bf16, void* stream) {
+                      int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int tiles = (C + kTile - 1) / kTile;
-  const dim3 grid(kSide * kSide, tiles * tiles, splits);
   float* part = static_cast<float*>(partials);
-  if (is_bf16) {
-    wgrad_partial_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(dy), part, B, H, W, C, per_split);
-  } else {
-    wgrad_partial_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(dy), part, B,
-        H, W, C, per_split);
-  }
-  const cudaError_t status = cudaGetLastError();
+  const cudaError_t status =
+      is_bf16 ? launch_partials<__nv_bfloat16, 1>(x, dy, part, B, H, W, C,
+                                                  splits, s)
+              : launch_partials<float, 3>(x, dy, part, B, H, W, C, splits, s);
   if (status != cudaSuccess) return static_cast<int>(status);
   const int64_t size = static_cast<int64_t>(kSide) * kSide * C * C;
   int64_t blocks = (size + kReduceThreads - 1) / kReduceThreads;

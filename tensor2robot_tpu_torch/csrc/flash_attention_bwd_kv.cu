@@ -22,93 +22,57 @@
 // Inputs q, k, v and dO are [B, L, H, D] views given by their strides
 // (b, h, l; d is unit stride), so q, k and v are read straight out of the
 // head-major [B, L, H, 3, D] qkv projection. lse and delta are contiguous
-// float32 [B, H, Lq]. dk and dv are written by strides too, with unit
-// stride along D and rows 16-byte aligned.
+// float32 [B, H, Lq]. Every row of q, k, v and dO is 16-byte aligned (the
+// tiles are copied 4 elements at a time). dk and dv are written by strides
+// too, with unit stride along D.
 //
 // What bounds it on an H100: operations. At the training shape (B*H = 64,
 // L = 4096, D = 64, causal) it does four products per unmasked (q, k) pair
 // (s, dp, p^T dO, ds^T q), 275 GFLOP, over 0.4 GB of q, k, v, dO, dk and
-// dv: some 700 operations a byte. This first version runs them as float32
-// FMAs on the CUDA cores (67 TFLOP/s at the card's peak: 4.10 ms), not on
-// the tensor cores; wgmma and TMA are later work. Its design:
-//   * one block of 256 threads per (bh, tile of 64 key rows), with k and v
-//     resident in shared memory and its dK and dV accumulators in
-//     registers; it loops over 64-row query tiles (the Pallas kernel's
-//     sequential grid axis), starting under the causal mask at the first
-//     tile that reaches the diagonal, so dK and dV are written once, at the
-//     end, without atomics, in a fixed order: the same bits run to run;
-//   * every tile is row-major in shared memory, rows padded to D + 4
-//     floats. For s and dp a thread owns query rows ty*4..ty*4+3 and key
-//     rows tx, tx+16, tx+32, tx+48: the query rows are the same for the 8
-//     threads of a quarter warp (a broadcast) and the key rows fall in 8
-//     distinct bank groups, so the 16-byte loads are conflict-free, 8
-//     FMAs a load;
-//   * p and ds go through shared memory ([query][key]) for the transposed
-//     products p^T dO and ds^T q, where a thread owns key rows ty*4..+3
-//     and columns tx*4..+3 of each 64-wide group of D, reading 16-byte
-//     vectors: 16 FMAs per 1 + D/64 loads for each product;
-//   * key tiles with the most work (the first, under the causal mask) are
-//     issued first.
-// Shared memory: 4 * 64 * (D + 4) + 2 * 64 * 68 + 128 floats (102.5 KB at
-// D = 64, 166.5 KB at D = 128), above the 48 KB default, set per launch
-// with cudaFuncSetAttribute.
+// dv: some 700 operations a byte. 4.10 ms at the CUDA cores' 67 TFLOP/s
+// float32 rate; 1.67 ms for the three TF32 passes of float32-grade products
+// at the tensor cores' 495 TFLOP/s. The design:
+//   * all four products on the tensor cores in float32 grade (tf32_mma.cuh):
+//     each operand is split once into TF32 big and small halves, and
+//     mma.sync m16n8k8 sums small*big + big*small + big*big in float32.
+//     bfloat16 inputs are exact in TF32 and take the big pass alone (p and
+//     ds, float32 values, are rounded to TF32 for it);
+//   * one block of 4 warps per (bh, tile of 64 key rows), each warp owning
+//     16 keys. k and v are split once into shared memory and stay there; dK
+//     and dV are accumulated in registers and written once, at the end,
+//     without atomics, in a fixed order: the same bits run to run. The block
+//     loops over 32-row query tiles (the Pallas kernel's sequential grid
+//     axis), starting under the causal mask at the first tile that reaches
+//     the diagonal; the grid issues the key tiles with the most work (the
+//     first, under the causal mask) first;
+//   * the next query tile's q, dO, lse and delta are in flight (cp.async,
+//     zero-filled past Lq) while the tensor cores work on this one; each
+//     tile is split once into float2 {big, small} rows whose 4-column
+//     groups are XOR-swizzled by the row ((r ^ r >> 2) & 3), so that the
+//     fragment loads below are free of bank conflicts;
+//   * s^T = k q^T and dp^T = v dO^T are computed transposed (keys as the
+//     rows), so their accumulator fragments, turned into p^T and ds^T in
+//     registers, are the A operands of dv += p^T dO and dk += ds^T q as they
+//     stand: the thread's two query columns (2t, 2t + 1) of a fragment become
+//     its two k slots (t, t + 4), and the B fragments read dO and q rows
+//     2t and 2t + 1 to match. p and ds never touch shared memory.
+// Shared memory: 8 * D * (2 * 64 + 2 * 32) bytes of split tiles, 2 * 32 * D
+// raw elements and 256 bytes of lse and delta: 112.5 KB at D = 64 (two
+// blocks a SM), 224.5 KB at D = 128 (one), set per launch with
+// cudaFuncSetAttribute.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kBlock = 64;    // rows of every q and k/v tile
-constexpr int kPad = 4;       // keeps rows 16-byte aligned, spreads banks
-constexpr int kPRow = kBlock + kPad;
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-struct Out4;
-
-template <>
-struct Out4<float> {
-  __device__ static void store(float* dst, const float* v) {
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Out4<__nv_bfloat16> {
-  __device__ static void store(__nv_bfloat16* dst, const float* v) {
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 packed;
-    packed.x = *reinterpret_cast<uint32_t*>(&lo);
-    packed.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(dst) = packed;
-  }
-};
-
-constexpr int smem_floats(int d) {
-  return 4 * kBlock * (d + kPad) + 2 * kBlock * kPRow + 2 * kBlock;
-}
-
-// Rows row0 .. row0 + 63 of one [L, D] view into a row-major float tile;
-// rows at or past `rows` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* tile, const T* src,
-                                          int64_t row_stride, int row0,
-                                          int rows) {
-  constexpr int kRow = D + kPad;
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    tile[r * kRow + d] =
-        row0 + r < rows ? to_float(src[(row0 + r) * row_stride + d]) : 0.0f;
-  }
-}
+constexpr int kBlockK = 64;   // key rows of a block
+constexpr int kBlockQ = 32;   // query rows of a tile
+constexpr int kThreads = 128; // 4 warps of 16 keys
 
 struct Strides {
   int64_t q_b, q_h, q_l, k_b, k_h, k_l, v_b, v_h, v_l, o_b, o_h, o_l;
@@ -116,6 +80,69 @@ struct Strides {
 };
 
 template <typename T, int D>
+struct Smem {
+  float2 ks[kBlockK * D];   // split tiles, swizzled
+  float2 vs[kBlockK * D];
+  float2 qs[kBlockQ * D];
+  float2 os[kBlockQ * D];
+  T q_raw[kBlockQ * D];     // raw copies of the next query tile
+  T o_raw[kBlockQ * D];
+  float lse_raw[kBlockQ];
+  float delta_raw[kBlockQ];
+  float lse[kBlockQ];       // this tile's
+  float delta[kBlockQ];
+};
+
+// The 4-column group swizzle of row r: distinct over any aligned 4 rows and
+// over rows {r, r + 2, r + 4, r + 6} for even or odd r.
+__device__ __forceinline__ int swz(int r) { return ((r ^ (r >> 2)) & 3) << 2; }
+
+template <int D>
+__device__ __forceinline__ float2 at(const float2* tile, int r, int c) {
+  return tile[r * D + (c ^ swz(r))];
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float a, float b);
+
+template <>
+__device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
+                                                      float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// Starts the copy of query tile q0: q and dO rows, lse and delta.
+template <typename T, int D>
+__device__ __forceinline__ void stage_q(Smem<T, D>& sm, const T* qb,
+                                        const T* ob, const float* lse_b,
+                                        const float* delta_b, int64_t q_l,
+                                        int64_t o_l, int q0, int Lq) {
+  constexpr int kChunks = D / 4;
+  for (int e = threadIdx.x; e < kBlockQ * kChunks; e += kThreads) {
+    const int r = e / kChunks;
+    const int c = (e % kChunks) * 4;
+    const bool in = q0 + r < Lq;
+    t2r::cp_async4(&sm.q_raw[r * D + c], in ? qb + (q0 + r) * q_l + c : qb,
+                   in);
+    t2r::cp_async4(&sm.o_raw[r * D + c], in ? ob + (q0 + r) * o_l + c : ob,
+                   in);
+  }
+  const int r = threadIdx.x % kBlockQ;
+  const bool in = q0 + r < Lq;
+  if (threadIdx.x < kBlockQ) {
+    t2r::cp_async1(&sm.lse_raw[r], in ? lse_b + q0 + r : lse_b, in);
+  } else if (threadIdx.x < 2 * kBlockQ) {
+    t2r::cp_async1(&sm.delta_raw[r], in ? delta_b + q0 + r : delta_b, in);
+  }
+  t2r::cp_async_commit();
+}
+
+template <typename T, int D, int kPasses>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ d_out,
@@ -123,25 +150,19 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dk,
                     T* __restrict__ dv, int H, int Lq, int Lk, Strides st,
                     float scale, int causal) {
-  constexpr int kGroups = D / 64;  // float4 column groups per thread
-  constexpr int kRow = D + kPad;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* ks = smem;                    // [64 keys][kRow]
-  float* vs = ks + kBlock * kRow;      // [64 keys][kRow]
-  float* qs = vs + kBlock * kRow;      // [64 queries][kRow]
-  float* dos = qs + kBlock * kRow;     // [64 queries][kRow]
-  float* ps = dos + kBlock * kRow;     // [64 queries][kPRow]
-  float* dss = ps + kBlock * kPRow;    // [64 queries][kPRow]
-  float* lse_s = dss + kBlock * kPRow; // [64]
-  float* delta_s = lse_s + kBlock;     // [64]
+  constexpr int kChunks = D / 4;
+  constexpr int kN = D / 8;   // n tiles of dk and dv
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  Smem<T, D>& sm = *reinterpret_cast<Smem<T, D>*>(smem_bytes);
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const int k_tile = blockIdx.x;  // the first tiles have the most work
-  const int k0 = k_tile * kBlock;
-  const int bh = blockIdx.y;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int k_tile = blockIdx.y;   // the first tiles have the most work
+  const int k0 = k_tile * kBlockK;
   const int b = bh / H;
   const int h = bh % H;
   const T* qb = q + b * st.q_b + h * st.q_h;
@@ -151,147 +172,206 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* lse_b = lse + static_cast<int64_t>(bh) * Lq;
   const float* delta_b = delta + static_cast<int64_t>(bh) * Lq;
 
-  load_tile<T, D>(ks, kb, st.k_l, k0, Lk);
-  load_tile<T, D>(vs, vb, st.v_l, k0, Lk);
-
-  float acc_dk[4][4 * kGroups], acc_dv[4][4 * kGroups];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4 * kGroups; ++j) {
-      acc_dk[i][j] = 0.0f;
-      acc_dv[i][j] = 0.0f;
-    }
+  const int n_q = (Lq + kBlockQ - 1) / kBlockQ;
+  // Under the causal mask, query tiles that end before this tile's first
+  // key see none of its keys: the first that reaches the diagonal starts at
+  // k0 (tiles are aligned from position 0).
+  const int q_start = causal ? k0 / kBlockQ : 0;
+  if (q_start < n_q) {
+    stage_q(sm, qb, ob, lse_b, delta_b, st.q_l, st.o_l, q_start * kBlockQ,
+            Lq);
+  }
+  for (int e = tid; e < kBlockK * kChunks; e += kThreads) {
+    const int r = e / kChunks;
+    const int c = (e % kChunks) * 4;
+    const bool in = k0 + r < Lk;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 kv = in ? t2r::to_float4(kb + (k0 + r) * st.k_l + c) : zero;
+    const float4 vv = in ? t2r::to_float4(vb + (k0 + r) * st.v_l + c) : zero;
+    t2r::store_split4<kPasses>(&sm.ks[r * D + (c ^ swz(r))], kv);
+    t2r::store_split4<kPasses>(&sm.vs[r * D + (c ^ swz(r))], vv);
   }
 
-  const int n_q = (Lq + kBlock - 1) / kBlock;
-  // Under the causal mask, query tiles that end before this tile's first
-  // key see none of its keys: the first that reaches the diagonal is
-  // k_tile itself (tiles are 64-aligned from position 0).
-  const int q_start = causal ? k_tile : 0;
-  for (int q_tile = q_start; q_tile < n_q; ++q_tile) {
-    const int q0 = q_tile * kBlock;
-    load_tile<T, D>(qs, qb, st.q_l, q0, Lq);
-    load_tile<T, D>(dos, ob, st.o_l, q0, Lq);
-    if (tid < kBlock) {
-      const bool in = q0 + tid < Lq;
-      lse_s[tid] = in ? lse_b[q0 + tid] : 0.0f;
-      delta_s[tid] = in ? delta_b[q0 + tid] : 0.0f;
+  float dk_acc[kN][4], dv_acc[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      dk_acc[n][i] = 0.0f;
+      dv_acc[n][i] = 0.0f;
     }
-    __syncthreads();
+  }
+  const int kr = warp * 16 + g;   // this lane's key rows kr and kr + 8
 
-    // s and dp for query rows ty*4 + i and key rows tx + 16 j.
+  for (int tile = q_start; tile < n_q; ++tile) {
+    const int q0 = tile * kBlockQ;
+    t2r::cp_async_wait_all();
+    __syncthreads();  // the copy has landed; the last tile's products ended
+    for (int e = tid; e < kBlockQ * kChunks; e += kThreads) {
+      const int r = e / kChunks;
+      const int c = (e % kChunks) * 4;
+      t2r::store_split4<kPasses>(&sm.qs[r * D + (c ^ swz(r))],
+                                 t2r::to_float4(&sm.q_raw[r * D + c]));
+      t2r::store_split4<kPasses>(&sm.os[r * D + (c ^ swz(r))],
+                                 t2r::to_float4(&sm.o_raw[r * D + c]));
+    }
+    if (tid < kBlockQ) {
+      sm.lse[tid] = sm.lse_raw[tid];
+      sm.delta[tid] = sm.delta_raw[tid];
+    }
+    __syncthreads();  // split tiles ready; the raw buffers are free
+    if (tile + 1 < n_q) {
+      stage_q(sm, qb, ob, lse_b, delta_b, st.q_l, st.o_l, q0 + kBlockQ, Lq);
+    }
+
+    // s^T = k q^T and dp^T = v dO^T: this warp's 16 keys x 32 queries, four
+    // n tiles of 8 queries each. Each pass runs over all eight products
+    // before the next, so that two products on one accumulator are eight
+    // apart.
     float s[4][4], dp[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int j = 0; j < 4; ++j) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = 0.0f;
-        dp[i][j] = 0.0f;
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = 0.0f;
+        dp[j][i] = 0.0f;
       }
     }
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 a[4], c[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = *reinterpret_cast<const float4*>(qs + (ty * 4 + i) * kRow + d);
-      }
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int c0 = kk * 8 + t;
+      t2r::Frag<4> ak, av;
+      ak.set(0, at<D>(sm.ks, kr, c0));
+      ak.set(1, at<D>(sm.ks, kr + 8, c0));
+      ak.set(2, at<D>(sm.ks, kr, c0 + 4));
+      ak.set(3, at<D>(sm.ks, kr + 8, c0 + 4));
+      av.set(0, at<D>(sm.vs, kr, c0));
+      av.set(1, at<D>(sm.vs, kr + 8, c0));
+      av.set(2, at<D>(sm.vs, kr, c0 + 4));
+      av.set(3, at<D>(sm.vs, kr + 8, c0 + 4));
+      t2r::Frag<2> bq[4], bo[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        c[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * kRow + d);
+        const int qr = 8 * j + g;
+        bq[j].set(0, at<D>(sm.qs, qr, c0));
+        bq[j].set(1, at<D>(sm.qs, qr, c0 + 4));
+        bo[j].set(0, at<D>(sm.os, qr, c0));
+        bo[j].set(1, at<D>(sm.os, qr, c0 + 4));
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      if (kPasses == 3) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          float x = s[i][j];
-          x = fmaf(a[i].x, c[j].x, x);
-          x = fmaf(a[i].y, c[j].y, x);
-          x = fmaf(a[i].z, c[j].z, x);
-          s[i][j] = fmaf(a[i].w, c[j].w, x);
+          t2r::mma_tf32(s[j], ak.small, bq[j].big);
+          t2r::mma_tf32(dp[j], av.small, bo[j].big);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          t2r::mma_tf32(s[j], ak.big, bq[j].small);
+          t2r::mma_tf32(dp[j], av.big, bo[j].small);
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = *reinterpret_cast<const float4*>(dos + (ty * 4 + i) * kRow + d);
-      }
-#pragma unroll
       for (int j = 0; j < 4; ++j) {
-        c[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * kRow + d);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float x = dp[i][j];
-          x = fmaf(a[i].x, c[j].x, x);
-          x = fmaf(a[i].y, c[j].y, x);
-          x = fmaf(a[i].z, c[j].z, x);
-          dp[i][j] = fmaf(a[i].w, c[j].w, x);
-        }
+        t2r::mma_tf32(s[j], ak.big, bq[j].big);
+        t2r::mma_tf32(dp[j], av.big, bo[j].big);
       }
     }
 
+    // p^T and ds^T in place: element i of n tile j is key kr + 8 (i >> 1),
+    // query 8 j + 2 t + (i & 1) of the tile.
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-      const int q_pos = q0 + r;
-      const float row_lse = lse_s[r];
-      const float row_delta = delta_s[r];
+    for (int j = 0; j < 4; ++j) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int k_pos = k0 + c;
+      for (int i = 0; i < 4; ++i) {
+        const int qi = 8 * j + 2 * t + (i & 1);
+        const int q_pos = q0 + qi;
+        const int k_pos = k0 + kr + 8 * (i >> 1);
         const bool keep =
             q_pos < Lq && k_pos < Lk && !(causal && q_pos < k_pos);
-        const float p = keep ? expf(s[i][j] * scale - row_lse) : 0.0f;
-        ps[r * kPRow + c] = p;
-        dss[r * kPRow + c] = p * (dp[i][j] - row_delta) * scale;
+        const float p = keep ? expf(s[j][i] * scale - sm.lse[qi]) : 0.0f;
+        s[j][i] = p;
+        dp[j][i] = p * (dp[j][i] - sm.delta[qi]) * scale;
       }
     }
-    __syncthreads();
 
-    // dv += p^T dO and dk += ds^T q for key rows ty*4 + i.
-#pragma unroll 2
-    for (int r = 0; r < kBlock; ++r) {
-      const float4 p4 = *reinterpret_cast<const float4*>(ps + r * kPRow +
-                                                         ty * 4);
-      const float4 ds4 = *reinterpret_cast<const float4*>(dss + r * kPRow +
-                                                          ty * 4);
-      const float pv[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float dsv[4] = {ds4.x, ds4.y, ds4.z, ds4.w};
+    // dv += p^T dO and dk += ds^T q over the tile's 32 queries, 8 a k step:
+    // the accumulator fragment of n tile j is the A fragment of k step j,
+    // its query 2t in slot t and 2t + 1 in slot t + 4. Four n tiles of dv
+    // and dk at a time, pass by pass; the tile's sums start from zero and
+    // join the block's at its end, as the tensor cores' float32
+    // accumulation keeps fewer bits than a rounded float32 add.
 #pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        const float4 o4 = *reinterpret_cast<const float4*>(
-            dos + r * kRow + g * 64 + tx * 4);
-        const float4 q4 = *reinterpret_cast<const float4*>(
-            qs + r * kRow + g * 64 + tx * 4);
-        const float ov[4] = {o4.x, o4.y, o4.z, o4.w};
-        const float qv[4] = {q4.x, q4.y, q4.z, q4.w};
+    for (int n0 = 0; n0 < kN; n0 += 4) {
+      float pv[4][4], pk[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
+          pv[n][i] = 0.0f;
+          pk[n][i] = 0.0f;
+        }
+      }
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc_dv[i][g * 4 + j] = fmaf(pv[i], ov[j], acc_dv[i][g * 4 + j]);
-            acc_dk[i][g * 4 + j] = fmaf(dsv[i], qv[j], acc_dk[i][g * 4 + j]);
+      for (int j = 0; j < 4; ++j) {
+        t2r::Frag<4> ap, ads;
+        ap.split<kPasses>(0, s[j][0]);
+        ap.split<kPasses>(1, s[j][2]);
+        ap.split<kPasses>(2, s[j][1]);
+        ap.split<kPasses>(3, s[j][3]);
+        ads.split<kPasses>(0, dp[j][0]);
+        ads.split<kPasses>(1, dp[j][2]);
+        ads.split<kPasses>(2, dp[j][1]);
+        ads.split<kPasses>(3, dp[j][3]);
+        const int r0 = 8 * j + 2 * t;
+        t2r::Frag<2> bo[4], bq[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int c = 8 * (n0 + n) + g;
+          bo[n].set(0, at<D>(sm.os, r0, c));
+          bo[n].set(1, at<D>(sm.os, r0 + 1, c));
+          bq[n].set(0, at<D>(sm.qs, r0, c));
+          bq[n].set(1, at<D>(sm.qs, r0 + 1, c));
+        }
+        if (kPasses == 3) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            t2r::mma_tf32(pv[n], ap.small, bo[n].big);
+            t2r::mma_tf32(pk[n], ads.small, bq[n].big);
           }
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            t2r::mma_tf32(pv[n], ap.big, bo[n].small);
+            t2r::mma_tf32(pk[n], ads.big, bq[n].small);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          t2r::mma_tf32(pv[n], ap.big, bo[n].big);
+          t2r::mma_tf32(pk[n], ads.big, bq[n].big);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dv_acc[n0 + n][i] += pv[n][i];
+          dk_acc[n0 + n][i] += pk[n][i];
         }
       }
     }
-    __syncthreads();  // q, dO, p and ds are overwritten by the next tile
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k_pos = k0 + ty * 4 + i;
+  for (int half = 0; half < 2; ++half) {
+    const int k_pos = k0 + kr + 8 * half;
     if (k_pos >= Lk) continue;
     T* dk_row = dk + b * st.dk_b + h * st.dk_h + k_pos * st.dk_l;
     T* dv_row = dv + b * st.dv_b + h * st.dv_h + k_pos * st.dv_l;
 #pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-      Out4<T>::store(dk_row + g * 64 + tx * 4, &acc_dk[i][g * 4]);
-      Out4<T>::store(dv_row + g * 64 + tx * 4, &acc_dv[i][g * 4]);
+    for (int n = 0; n < kN; ++n) {
+      const int c = 8 * n + 2 * t;
+      store2<T>(dk_row + c, dk_acc[n][2 * half], dk_acc[n][2 * half + 1]);
+      store2<T>(dv_row + c, dv_acc[n][2 * half], dv_acc[n][2 * half + 1]);
     }
   }
 }
@@ -301,13 +381,14 @@ int launch(const void* q, const void* k, const void* v, const void* d_out,
            const void* lse, const void* delta, void* dk, void* dv, int B,
            int H, int Lq, int Lk, const Strides& st, float scale, int causal,
            cudaStream_t stream) {
-  const int bytes = smem_floats(D) * static_cast<int>(sizeof(float));
+  constexpr int kPasses = sizeof(T) == 4 ? 3 : 1;
+  const int bytes = static_cast<int>(sizeof(Smem<T, D>));
   cudaError_t status = cudaFuncSetAttribute(
-      flash_bwd_kv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_bwd_kv_kernel<T, D, kPasses>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (status != cudaSuccess) return static_cast<int>(status);
-  const dim3 grid((Lk + kBlock - 1) / kBlock, B * H);
-  flash_bwd_kv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid(B * H, (Lk + kBlockK - 1) / kBlockK);
+  flash_bwd_kv_kernel<T, D, kPasses><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(d_out),
       static_cast<const float*>(lse), static_cast<const float*>(delta),

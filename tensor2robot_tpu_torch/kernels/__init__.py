@@ -4,8 +4,9 @@ Each kernel is one source under ``csrc/`` with a plain C interface. It is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into its own shared library,
 at first use, into ``_build/`` beside the sources (a directory git
 ignores), and loaded with ``ctypes``. A library's file name carries a hash
-of its source and flags, so an edited source is rebuilt and a built one is
-reused. ``build()`` starts one ``nvcc`` per source, all at once.
+of its source, of the ``csrc/*.cuh`` headers it includes and of the flags,
+so an edited source or header is rebuilt and a built one is reused.
+``build()`` starts one ``nvcc`` per source, all at once.
 
 Every wrapper counts its kernel launches in ``LAUNCHES``: one per launch,
 added where the kernel is launched and nowhere else, so a run can show
@@ -22,17 +23,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 import torch
 
-__all__ = ['LAUNCHES', 'KERNELS', 'build', 'launch', 'reset_launches',
-           'source_path']
+__all__ = ['LAUNCHES', 'KERNELS', 'build', 'launch', 'library_path',
+           'reset_launches', 'source_path']
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / 'csrc'
@@ -56,8 +58,7 @@ KERNELS = {
                           [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P]),
     'conv5x5_wgrad': ('t2r_conv5x5_wgrad',
-                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_longlong,
-                       _I, _P]),
+                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     'flash_attention_fwd': ('t2r_flash_attention_fwd',
                             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I]
                             + [ctypes.c_longlong] * 9
@@ -87,8 +88,32 @@ def source_path(name: str) -> Path:
   return CSRC_DIR / '{}.cu'.format(name)
 
 
-def _library_path(name: str) -> Path:
-  digest = hashlib.sha256(source_path(name).read_bytes())
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path) -> List[Path]:
+  """``path`` and every header it includes from ``csrc/`` (``#include
+  "name.cuh"``), recursively, each once, in the order first met."""
+  found, todo = [], [path]
+  while todo:
+    current = todo.pop(0)
+    if current in found:
+      continue
+    found.append(current)
+    for name in _INCLUDE.findall(current.read_bytes()):
+      header = current.parent / name.decode()
+      if header.exists():
+        todo.append(header)
+  return found
+
+
+def library_path(name: str) -> Path:
+  """The built library's path: its name carries a hash of the source, of
+  every ``csrc/`` header it includes and of the flags, so that an edit to
+  any of them rebuilds it."""
+  digest = hashlib.sha256()
+  for path in _sources(source_path(name)):
+    digest.update(path.name.encode() + b'\0' + path.read_bytes())
   digest.update(' '.join(NVCC_FLAGS).encode())
   return BUILD_DIR / '{}-{}.so'.format(name, digest.hexdigest()[:16])
 
@@ -114,14 +139,14 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> float:
   shared memory, spills) is kept in ``_build/<name>.log``.
   """
   start = time.monotonic()
-  todo = [name for name in names if not _library_path(name).exists()]
+  todo = [name for name in names if not library_path(name).exists()]
   if not todo:
     return time.monotonic() - start
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
   nvcc = _nvcc()
   jobs = []
   for name in todo:
-    target = _library_path(name)
+    target = library_path(name)
     tmp = target.with_suffix('.so.tmp{}'.format(os.getpid()))
     proc = subprocess.Popen(
         [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(source_path(name))],
@@ -145,7 +170,7 @@ def _function(name: str):
     loaded = _functions.get(name)
     if loaded is None:
       build([name])
-      library = ctypes.CDLL(str(_library_path(name)))
+      library = ctypes.CDLL(str(library_path(name)))
       symbol, argtypes = KERNELS[name]
       function = getattr(library, symbol)
       function.argtypes = argtypes

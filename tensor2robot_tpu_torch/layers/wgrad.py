@@ -29,12 +29,7 @@ KERNEL = 5
 PAD = 2
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# The kernel's grid: some 2,000 blocks of 64 threads fill the card; each
-# split of the positions holds at least this many of them.
-_TARGET_BLOCKS = 2048
-_MAX_SPLITS = 96
-_MIN_POSITIONS_PER_SPLIT = 256
-_CHUNK = 32   # positions per stage of csrc/conv5x5_wgrad.cu
+_TILE = 64   # (ci, co) tile of a block of csrc/conv5x5_wgrad.cu
 
 
 def _check(x: torch.Tensor, dy: torch.Tensor) -> None:
@@ -61,16 +56,12 @@ def conv5x5_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
   return out
 
 
-def _splits(positions: int, channels: int):
-  """(splits, positions per split) of the kernel's grid."""
-  tiles = -(-channels // 64)
-  per_offset = KERNEL * KERNEL * tiles * tiles
-  splits = min(_MAX_SPLITS, -(-_TARGET_BLOCKS // per_offset),
-               -(-positions // _MIN_POSITIONS_PER_SPLIT))
-  splits = max(1, splits)
-  per = -(-positions // splits)
-  per = -(-per // _CHUNK) * _CHUNK
-  return -(-positions // per), per
+def _splits(device: torch.device, channels: int) -> int:
+  """Blocks of the kernel's grid that share each (row offset, channel tile):
+  the most that keep the grid (one block a SM) in one wave."""
+  tiles = -(-channels // _TILE)
+  sms = torch.cuda.get_device_properties(device).multi_processor_count
+  return max(1, sms // (KERNEL * tiles * tiles))
 
 
 def conv5x5_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -96,12 +87,12 @@ def conv5x5_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                      'channels_last NCHW tensor permuted to NHWC is one).')
   if x.data_ptr() % 16 or dy.data_ptr() % 16:
     raise ValueError('conv5x5_wgrad expects 16-byte aligned x and dy.')
-  splits, per = _splits(b * h * w, c)
+  splits = _splits(x.device, c)
   partials = torch.empty((splits, KERNEL, KERNEL, c, c), dtype=torch.float32,
                          device=x.device)
   out = torch.empty((KERNEL, KERNEL, c, c), dtype=torch.float32,
                     device=x.device)
   kernels.launch('conv5x5_wgrad', x.device, x.data_ptr(), dy.data_ptr(),
-                 partials.data_ptr(), out.data_ptr(), b, h, w, c, splits, per,
+                 partials.data_ptr(), out.data_ptr(), b, h, w, c, splits,
                  int(x.dtype == torch.bfloat16))
   return out

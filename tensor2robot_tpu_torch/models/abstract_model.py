@@ -23,8 +23,9 @@ weights. ``TrainState.variables()`` is the serving dict above.
 With a ``process_group`` (the ranks of ring attention, each holding its
 shard of every episode), ``train_step`` sums the gradients over the group
 in one flat all-reduce before the clip and the optimizer, so that every
-rank applies the same update to the same weights. ``shard_batch`` cuts a
-rank's share out of a batch that every rank drew alike.
+rank applies the same update to the same weights. ``frame_shard`` names a
+rank's share of every episode (the trainer draws only that), and
+``shard_batch`` cuts it out of a batch of whole episodes.
 
 As in the JAX package, activations are bfloat16 only where
 ``device_type == 'tpu'``; the port computes float32 on the GPU unless
@@ -294,11 +295,19 @@ class AbstractT2RModel:
                                               outputs, mode)
     return loss, (train_outputs, outputs, new_model_state)
 
+  def frame_shard(self):
+    """The frames of every episode that this rank holds (a
+    ``data.input_generators.FrameShard``), for a model whose inputs are
+    episodes of frames shared out over ``process_group``; None: the whole
+    batch."""
+    return None
+
   def shard_batch(self, arrays):
-    """This rank's share of a batch of numpy arrays that every rank of
-    ``process_group`` drew alike: the whole batch, unless a model says
-    otherwise."""
-    return arrays
+    """This rank's share (``frame_shard``) of a batch of whole episodes."""
+    shard = self.frame_shard()
+    if arrays is None or shard is None:
+      return arrays
+    return shard.cut(arrays)
 
   def gradients(self, state: TrainState, features, labels):
     """(loss, scalar train outputs, new_model_state, grads) of one TRAIN

@@ -259,11 +259,24 @@ def flash_attention_delta(out: torch.Tensor,
   return (d_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+  """Whether every (batch, head, row) start of a [B, L, H, D] view is
+  16-byte aligned."""
+  return t.data_ptr() % 16 == 0 and all(
+      t.stride(i) * t.element_size() % 16 == 0 for i in range(3))
+
+
 def flash_attention_bwd_kv(q, k, v, d_out, lse, delta, causal: bool,
                            scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
   """K5a on [B, L, H, D] strided views of CUDA tensors: (dk, dv),
   contiguous [B, Lk, H, D] in q's dtype."""
   _check_bwd_cuda(q, k, v, d_out, lse, delta)
+  for i, t in enumerate((q, k, v, d_out)):
+    if not _rows_aligned(t):
+      raise ValueError('flash_attention_bwd_kv copies rows 4 elements at a '
+                       'time: operand {} needs 16-byte aligned rows; got '
+                       'strides {} at address {}.'.format(
+                           i, t.stride(), t.data_ptr()))
   b, l_q, h, d = q.shape
   l_k = k.shape[1]
   dk = torch.empty((b, l_k, h, d), dtype=q.dtype, device=q.device)
@@ -295,7 +308,7 @@ def flash_attention_bwd_q(q, k, v, d_out, lse, delta, causal: bool,
 
 def _flash_bwd_cuda(q, k, v, out, lse, d_out, causal: bool, scale: float):
   """The delta pass, K5a (dk, dv), then K5b (dq)."""
-  if d_out.stride(-1) != 1:
+  if d_out.stride(-1) != 1 or not _rows_aligned(d_out):
     d_out = d_out.contiguous()
   delta = flash_attention_delta(out, d_out)
   dk, dv = flash_attention_bwd_kv(q, k, v, d_out, lse, delta, causal, scale)
@@ -373,9 +386,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   O [B, Lq, H, D] in q's dtype.
 
   ``scale`` defaults to ``1 / sqrt(D)``. q, k and v may be strided views
-  (of one qkv projection, say) as long as D has unit stride: the CUDA
-  kernels read them where they lie, and K5a and K5b write their gradients
-  contiguous [B, L, H, D].
+  (of one qkv projection, say) as long as D has unit stride (and, for
+  K5a, every row starts on 16 bytes): the CUDA kernels read them where
+  they lie, and K5a and K5b write their gradients contiguous
+  [B, L, H, D].
   """
   scale = _resolve(q, k, v, scale, block_q, block_k, block_q_bwd,
                    block_k_bwd)

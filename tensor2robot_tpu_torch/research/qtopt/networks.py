@@ -34,8 +34,10 @@ gradient, as the JAX network applies it through ``stop_gradient``.
 The 5x5 stride-1 SAME body convs (conv2..conv7) take their weight gradient
 from kernel K3 (``layers.wgrad``); their forward and input gradient stay
 with the library (cuDNN on the card), as XLA computes them in the JAX
-package. ``l2_regularization_loss`` is the weight decay of the conv and
-dense weights.
+package. The network's other convs sum their weight gradients in float64
+(``_ConvFloat64WeightGrad``), on the card and on the CPU alike.
+``l2_regularization_loss`` is the weight decay of the conv and dense
+weights.
 
 With ``grasp_params`` of rank 3, ``[B, A, d]`` (the CEM megabatch), the
 image tower runs once per state and its output is repeated A times; the
@@ -110,6 +112,41 @@ class _Conv5x5Same(torch.autograd.Function):
     return dx, dw
 
 
+class _ConvFloat64WeightGrad(torch.autograd.Function):
+  """A convolution whose weight gradient is summed in float64.
+
+  Forward and input gradient are the library's in the inputs' type. The
+  weight gradient sums every position of the batch: at the stem, 1.78M
+  products a weight at batch 32, of pixels in [0, 1] that do not cancel
+  the way the gradient does, so two float32 summation orders of it (the
+  card's and the CPU's, or two of cuDNN's algorithms) differ by more than
+  1e-4 of the network's largest gradient. Summed in float64 (cuDNN's
+  float64 algorithms on the card), every order gives the same float32
+  result within that.
+  """
+
+  @staticmethod
+  def forward(ctx, x, weight, bias, stride, padding):
+    ctx.save_for_backward(x, weight)
+    ctx.stride, ctx.padding = stride, padding
+    return F.conv2d(x, weight, bias, stride, padding)
+
+  @staticmethod
+  def backward(ctx, dy):
+    x, weight = ctx.saved_tensors
+    dx = dw = db = None
+    if ctx.needs_input_grad[0]:
+      dx = torch.nn.grad.conv2d_input(x.shape, weight, dy, ctx.stride,
+                                      ctx.padding)
+    if ctx.needs_input_grad[1]:
+      dw = torch.nn.grad.conv2d_weight(
+          x.to(torch.float64), weight.shape, dy.to(torch.float64),
+          ctx.stride, ctx.padding).to(weight.dtype)
+    if ctx.needs_input_grad[2]:
+      db = dy.sum((0, 2, 3))
+    return dx, dw, db, None, None
+
+
 class Conv(nn.Module):
   """A square convolution with TF-style SAME or VALID padding.
 
@@ -117,14 +154,19 @@ class Conv(nn.Module):
   SAME pads with zeros through the convolution's own symmetric padding
   where the low and high pads agree, and through an explicit ``F.pad``
   where they differ. A 5x5 stride-1 SAME conv without bias goes through
-  ``_Conv5x5Same`` (weight gradient K3), in training and in eval alike.
-  ``stop_bias_gradient`` applies the bias without a gradient.
+  ``_Conv5x5Same`` (weight gradient K3), in training and in eval alike;
+  with ``float64_weight_grad`` the others go through
+  ``_ConvFloat64WeightGrad``. ``stop_bias_gradient`` applies the bias
+  without a gradient.
   """
 
   def __init__(self, in_features: int, features: int, kernel: int,
-               stride: int = 1, padding: str = 'SAME', bias: bool = False):
+               stride: int = 1, padding: str = 'SAME', bias: bool = False,
+               float64_weight_grad: bool = False):
     super().__init__()
     self.kernel, self.stride, self.padding = kernel, stride, padding
+    self._conv2d = (_ConvFloat64WeightGrad.apply if float64_weight_grad
+                    else F.conv2d)
     self.weight = nn.Parameter(torch.empty(features, in_features, kernel,
                                            kernel))
     self.bias = nn.Parameter(torch.empty(features)) if bias else None
@@ -139,14 +181,14 @@ class Conv(nn.Module):
         bias is None):
       return _Conv5x5Same.apply(x, weight)
     if self.padding == 'VALID':
-      return F.conv2d(x, weight, bias, self.stride)
+      return self._conv2d(x, weight, bias, self.stride, 0)
     ph = same_padding(x.shape[2], self.kernel, self.stride)
     pw = same_padding(x.shape[3], self.kernel, self.stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
-      return F.conv2d(x, weight, bias, self.stride, (ph[0], pw[0]))
+      return self._conv2d(x, weight, bias, self.stride, (ph[0], pw[0]))
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
     x = x.contiguous(memory_format=torch.channels_last)
-    return F.conv2d(x, weight, bias, self.stride)
+    return self._conv2d(x, weight, bias, self.stride, 0)
 
 
 class Dense(nn.Module):
@@ -275,11 +317,12 @@ class Grasping44Network(nn.Module):
     eps, decay = batch_norm_epsilon, batch_norm_decay
 
     def conv_bn(layer, kernel, padding):
-      self.add_module('conv{}'.format(layer), Conv(64, 64, kernel, 1,
-                                                   padding))
+      self.add_module('conv{}'.format(layer), Conv(
+          64, 64, kernel, 1, padding, float64_weight_grad=True))
       self.add_module('bn{}'.format(layer), BatchNorm(64, True, eps, decay))
 
-    self.conv1_1 = Conv(3, 64, 6, 2, 'SAME', bias=True)
+    self.conv1_1 = Conv(3, 64, 6, 2, 'SAME', bias=True,
+                        float64_weight_grad=True)
     self.bn1 = PrePoolStatsBatchNorm(64, eps, decay)
     layer = 2
     self._stacks = []

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tensor2robot_tpu_torch.data.input_generators import FrameShard
 from tensor2robot_tpu_torch.layers import transformer as transformer_lib
 from tensor2robot_tpu_torch.meta_learning.meta_data import multi_batch_apply
 from tensor2robot_tpu_torch.models.abstract_model import AbstractT2RModel
@@ -368,17 +369,14 @@ class Seq2ActBCModel(AbstractT2RModel):
         num_task_embeddings=self._num_task_embeddings,
         group=self.process_group)
 
-  def shard_batch(self, arrays):
-    """This rank's frames ``[r T/N, (r + 1) T/N)`` of every episode, of
-    each array keyed in ``_FRAME_KEYS``; the others (``task_id``) whole."""
-    if arrays is None or self.process_group is None:
-      return arrays
+  def frame_shard(self) -> FrameShard:
+    """This rank's frames ``[r T/N, (r + 1) T/N)`` of every episode, of each
+    array keyed in ``_FRAME_KEYS`` (the others, ``task_id``, whole): all T
+    without a ``process_group``. The trainer draws only these."""
     n = collectives.world_size(self.process_group)
     per_rank = self._episode_length // n
     start = collectives.rank(self.process_group) * per_rank
-    return {key: (value[:, start:start + per_rank]
-                  if key in self._FRAME_KEYS else value)
-            for key, value in arrays.items()}
+    return FrameShard(self._FRAME_KEYS, start, start + per_rank)
 
   def init_variables(self, generator: torch.Generator) -> Variables:
     """Random weights from ``generator`` at the flax initializers' scales

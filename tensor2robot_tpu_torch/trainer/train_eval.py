@@ -8,8 +8,9 @@ Each train step, on the model's device:
      is copied to the device from pinned memory;
   2. the model's preprocessor runs in TRAIN mode (the random crop and
      ``/ 255`` through kernel K1: one offset per frame for the Grasping44
-     critic, one per episode for Seq2Act), its random offsets drawn from a
-     device generator seeded ``seed + 1``;
+     critic, one per episode for Seq2Act), the random offsets of global
+     step k drawn from a device generator seeded from ``(seed + 1, k)``, as
+     the JAX step folds the step into its key;
   3. ``model.train_step``: loss, autograd, optimizer, EMA.
 
 A step whose loss is not finite follows ``nan_policy``: ``'skip'`` (the
@@ -27,16 +28,19 @@ Checkpoints are written every ``save_checkpoints_steps`` and at the end;
 a trainer starts from the newest checkpoint in ``model_dir`` when there is
 one.
 
+The train batch of global step k is drawn from ``seed + k`` and every
+eval's batches from ``seed + EVAL_SEED_OFFSET`` on, apart from every train
+batch: a segment after an eval and a resumed run go on with the batches
+and crops that an uninterrupted run would have drawn.
+
 Ring attention (``--attention_mode ring``) trains one model over the N
 ranks of a ``torch.distributed`` group, one process per card, each holding
-its T/N frames of every episode. Every rank draws the same batch from the
-same seed and uploads only its frames (``model.shard_batch``): the train
-batch of global step k from ``seed + k``, so that a segment after an eval
-and a resumed run go on with new batches, and every eval the same batches
-from ``seed + EVAL_SEED_OFFSET`` on, apart from every train batch. The crop
-generator is seeded alike, so an episode gets one offset on every rank.
-Rank 0 writes the checkpoints (and the command line's JSON line); every
-rank restores them.
+its T/N frames of every episode (``model.frame_shard``). Each rank draws
+only those frames of the batch, frame by frame from seeds of their own, and
+the per-episode keys (``task_id``) and the crop offsets alike on every rank:
+the ranks' shares concatenate to the batch that one rank draws alone. Rank
+0 writes the checkpoints (and the command line's JSON line); every rank
+restores them.
 
 Not ported yet: continuous eval (eval-only), hooks, exporters, fault
 injection, the compiled-artifact store.
@@ -86,10 +90,11 @@ __all__ = ['MODELS', 'NAN_POLICIES', 'NonFiniteLossError', 'Trainer',
 
 NAN_POLICIES = ('skip', 'raise')
 MODELS = ('qtopt', 'seq2act')
-# Under a group, eval batches are drawn from seeds this far above the train
-# batches' (batch i of an iterator seeded s draws seeds s + i and s + i +
-# 977).
+# Eval batches are drawn from seeds this far above the train batches' (batch
+# i of an iterator seeded s draws seeds s + i and s + i + 977).
 EVAL_SEED_OFFSET = 1 << 30
+# The crops of global step k are drawn from seed (seed + 1) * this + k.
+CROP_SEED_STRIDE = 1 << 32
 
 
 class NonFiniteLossError(RuntimeError):
@@ -134,12 +139,14 @@ class Trainer:
     self.windows: List[tuple] = []
     self.last_metrics: Dict[str, float] = {}
 
-  @property
-  def crop_generator(self) -> torch.Generator:
-    """The device generator of the TRAIN preprocessor's random draws."""
+  def crop_generator(self, step: int) -> torch.Generator:
+    """The device generator of the TRAIN preprocessor's random draws at
+    global step ``step``, seeded from ``(seed + 1, step)``: a resumed run
+    draws the crops that an uninterrupted one would have."""
     if self._crop_generator is None:
       self._crop_generator = torch.Generator(device=self.model.device)
-      self._crop_generator.manual_seed(self.seed + 1)
+    self._crop_generator.manual_seed(
+        ((self.seed + 1) * CROP_SEED_STRIDE + step) % (1 << 63))
     return self._crop_generator
 
   def init_state(self) -> TrainState:
@@ -152,10 +159,8 @@ class Trainer:
         torch.Generator().manual_seed(self.seed))
 
   def put_batch(self, arrays) -> Optional[Dict[str, torch.Tensor]]:
-    """numpy arrays -> this rank's share of them (``model.shard_batch``) as
-    tensors on the model's device (through pinned memory to a CUDA
-    device)."""
-    arrays = self.model.shard_batch(arrays)
+    """numpy arrays -> tensors on the model's device (through pinned memory
+    to a CUDA device)."""
     if arrays is None:
       return None
     device = self.model.device
@@ -169,21 +174,19 @@ class Trainer:
       out[key] = tensor
     return out
 
-  def _iterator(self, input_generator: AbstractInputGenerator, mode: str,
-                step: int = 0):
-    """The batches of ``mode``, TRAIN's from global step ``step`` on. The
-    ranks of a group draw each batch alike, each keeping its share."""
-    seed = None
-    if self.model.process_group is not None:
-      seed = self.seed + (EVAL_SEED_OFFSET if mode == ModeKeys.EVAL
-                          else step)
-    return input_generator.create_dataset_iterator(mode, seed=seed)
+  def dataset_iterator(self, input_generator: AbstractInputGenerator,
+                       mode: str, step: int = 0):
+    """This rank's share (``model.frame_shard``) of the batches of
+    ``mode``, TRAIN's from global step ``step`` on."""
+    seed = self.seed + (EVAL_SEED_OFFSET if mode == ModeKeys.EVAL else step)
+    return input_generator.create_dataset_iterator(
+        mode, seed=seed, frames=self.model.frame_shard())
 
   def _step(self, state: TrainState, batch):
     features, labels = batch
     features, labels = self.model.preprocessor.preprocess(
         self.put_batch(features), self.put_batch(labels), ModeKeys.TRAIN,
-        generator=self.crop_generator)
+        generator=self.crop_generator(state.step))
     new_state, metrics = self.model.train_step(state, features, labels)
     if self.nan_policy == 'raise':
       if not bool(torch.isfinite(metrics['loss']).all()):
@@ -219,7 +222,8 @@ class Trainer:
     if state.step >= max_train_steps:
       return state
     skipped = self.registry.counter('train/nonfinite_loss_skipped')
-    iterator = self._iterator(input_generator, ModeKeys.TRAIN, state.step)
+    iterator = self.dataset_iterator(input_generator, ModeKeys.TRAIN,
+                                     state.step)
     try:
       window_start, window_steps, data_s = time.perf_counter(), 0, 0.0
       window_skipped = 0
@@ -256,7 +260,7 @@ class Trainer:
                eval_steps: int, state: TrainState) -> Dict[str, float]:
     """Eval metrics averaged over ``eval_steps`` batches."""
     input_generator.set_specification_from_model(self.model, ModeKeys.EVAL)
-    iterator = self._iterator(input_generator, ModeKeys.EVAL)
+    iterator = self.dataset_iterator(input_generator, ModeKeys.EVAL)
     totals: Dict[str, float] = {}
     count = 0
     try:
@@ -344,8 +348,9 @@ def make_parser() -> argparse.ArgumentParser:
                       'frames over the ranks that torchrun starts, one a '
                       'card)')
   parser.add_argument('--seed', type=int, default=0,
-                      help='seed of the initial weights (and, plus 1, of '
-                      'the random crops)')
+                      help='seed of the initial weights, of the random '
+                      'batches (plus the step) and, plus 1, of the random '
+                      'crops')
   parser.add_argument('--save_checkpoints_steps', type=int, default=500)
   parser.add_argument('--keep_checkpoint_max', type=int, default=5)
   parser.add_argument('--log_every_n_steps', type=int, default=100)

@@ -12,7 +12,7 @@ of every case and writes what it found to ``rank<r>.pt``:
     ``sin(out).sum()``;
   * one Seq2Act train step with ring attention from the converted state:
     the loss, the metrics, the gradients (summed over the group) and the
-    parameters after adam;
+    parameters after adam, and after a second step on the same batch;
   * the messages of the ValueErrors that a bad configuration raises;
   * the kernels' launch counts (none: every tensor is on the CPU).
 """
@@ -99,6 +99,7 @@ def run(rank, world, init_file, out_dir):
   new_state, step_metrics = model.train_step(state, features, labels)
   found['step_metrics'] = {k: float(v) for k, v in step_metrics.items()}
   found['params'] = new_state.params
+  found['params_2'] = model.train_step(new_state, features, labels)[0].params
   found['errors'] = _errors(group, plan['config'])
   found['launches'] = dict(kernels.LAUNCHES)
   torch.save(found, os.path.join(out_dir, 'rank{}.pt'.format(rank)))

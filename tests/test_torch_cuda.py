@@ -10,20 +10,22 @@ The file imports no JAX, so that it runs where JAX is not installed:
 Tolerance: none for K1, K2f and K2b. They compute the same float32
 operations as their plain versions, or select or route input values, so
 they must agree bit for bit and the window index exactly. K3 sums some 10^3
-to 10^5 float32 products per output in another order than its plain
-version's matrix products: it must agree within 1e-4 of max|plain|. These
-cases add to chip_smoke.py's shapes the odd ones: rows whose length is not
-a multiple of the crop's vector width, low padding, VALID tails, bf16 ties,
-channel counts that are not a multiple of the wgrad tile.
+to 10^5 float32-grade (3xTF32) products per output in another order than
+its plain version's matrix products: it must agree within 1e-4 of
+max|plain|. These cases add to chip_smoke.py's shapes the odd ones: rows
+whose length is not a multiple of the crop's vector width, low padding,
+VALID tails, bf16 ties, channel counts of 32, 36 and 128 (not one 64-channel
+tile), rows that are not a multiple of K3's 80-position segment.
 K4 (flash attention) sums its products and softmax in another order than
 its dense plain version: O within 1e-5 in float32 and 2e-2 (one rounding
 of values of order 1) in bfloat16, LSE within 1e-5; its cases add lengths
 that are not a multiple of its 64-row tile, head dim 128 and several
 batches and heads. K5a and K5b (the flash attention backward) sum their
-products in another order than the dense plain backward: dq, dk and dv
-within 1e-4 of each one's max|plain| in float32 and 2e-2 of it (one bf16
-rounding of the result) in bfloat16, at ragged lengths, head dim 128 and
-Lq != Lk, causal and not. K6 (the ring hop) sums in another order than
+products in another order than the dense plain backward (K5a in 3xTF32 on
+the tensor cores): dq, dk and dv within 1e-4 of each one's max|plain| in
+float32 and 2e-2 of it (one bf16 rounding of the result) in bfloat16, at
+ragged lengths, head dim 128, Lq != Lk and lengths one past or one short
+of K5a's 32-query and 64-key tiles, causal and not. K6 (the ring hop) sums in another order than
 its dense plain version: the carried o, m and l within 1e-5 of each one's
 max, at ragged tiles, head dim 128, Lq != Lk, global offsets that cross the
 diagonal, a hop the causal mask hides (which must leave the state as it
@@ -161,6 +163,9 @@ def test_max_pool_autograd_launches_both_kernels(device):
     (3, 7, 11, 36),      # a partial channel tile
     (1, 5, 4, 8),        # smaller than the kernel's reach
     (2, 79, 79, 64),     # the body convs' map
+    (3, 9, 13, 32),      # C = 32: half a channel tile
+    (2, 30, 170, 128),   # C = 128: 2 x 2 tiles; rows of 2 segments + 10
+    (1, 3, 81, 64),      # a row one past the 80-position segment
 ])
 def test_conv5x5_wgrad_matches_plain(device, shape, dtype):
   gen = _generator(device, 3)
@@ -238,6 +243,9 @@ BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     (1, 130, 70, 2, 64),     # Lq > Lk: causal key tiles past the queries
     (3, 8, 8, 1, 64),        # shorter than one tile
     (1, 1024, 1024, 4, 64),
+    (1, 33, 65, 2, 64),      # one past a 32-query tile and a 64-key tile
+    (2, 96, 160, 2, 128),    # D = 128; 3 query tiles, 2.5 key tiles
+    (1, 191, 63, 2, 128),    # Lq > Lk, both one short of a tile
 ])
 def test_flash_attention_backward_matches_plain(device, b, l_q, l_k, h, d,
                                                 causal, dtype):
@@ -268,6 +276,17 @@ def test_flash_attention_backward_matches_plain(device, b, l_q, l_k, h, d,
   again = flash_attention.flash_attention_backward(q, k, v, out, lse, d_out,
                                                    causal, scale)
   assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_attention_bwd_kv_refuses_unaligned_rows(device):
+  """K5a copies rows 4 elements at a time: a view whose rows do not start
+  on 16 bytes raises instead of reading them."""
+  base = torch.randn(1 + 64 * 2 * 64, device=device)
+  q = base[1:].view(1, 64, 2, 64)        # 4 bytes past an aligned start
+  k = torch.randn(1, 64, 2, 64, device=device)
+  lse = torch.zeros(1, 2, 64, device=device)
+  with pytest.raises(ValueError, match='16-byte aligned'):
+    flash_attention.flash_attention_bwd_kv(q, k, k, k, lse, lse, True, 0.125)
 
 
 def test_flash_attention_autograd_launches_k4_k5a_k5b(device):

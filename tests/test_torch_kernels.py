@@ -201,3 +201,31 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     pallas_crop.crop_convert(images, torch.zeros(2, 2), (17, 8))
   with pytest.raises(ValueError, match=r'\[B, 2\]'):
     pallas_crop.crop_convert(images, torch.zeros(3, 2), (8, 8))
+
+
+def test_an_included_header_rebuilds_the_kernel(tmp_path, monkeypatch):
+  """A built library's name hashes the source and every csrc header it
+  includes (recursively), so an edit to a shared header rebuilds every
+  kernel that includes it. No nvcc needed: only the names are computed."""
+  (tmp_path / 'k.cu').write_text('#include "a.cuh"\n#include <stdint.h>\n'
+                                 'int f() { return 1; }\n')
+  (tmp_path / 'a.cuh').write_text('#pragma once\n#include "b.cuh"\n')
+  (tmp_path / 'b.cuh').write_text('#pragma once\n')
+  (tmp_path / 'other.cu').write_text('int g() { return 2; }\n')
+  monkeypatch.setattr(kernels, 'CSRC_DIR', tmp_path)
+  assert [p.name for p in kernels._sources(kernels.source_path('k'))] == [
+      'k.cu', 'a.cuh', 'b.cuh']
+  before = kernels.library_path('k')
+  other = kernels.library_path('other')
+  assert before == kernels.library_path('k')   # stable
+  (tmp_path / 'b.cuh').write_text('#pragma once\n// edited\n')
+  after = kernels.library_path('k')
+  assert after != before and after.name.startswith('k-')
+  assert kernels.library_path('other') == other   # includes no header
+  (tmp_path / 'a.cuh').write_text('#pragma once\n')   # drops b.cuh
+  assert kernels.library_path('k') not in (before, after)
+  # The port's own kernels: K3 and K5a share the 3xTF32 header.
+  monkeypatch.undo()
+  for name in ('conv5x5_wgrad', 'flash_attention_bwd_kv'):
+    assert 'tf32_mma.cuh' in [p.name for p in kernels._sources(
+        kernels.source_path(name))]

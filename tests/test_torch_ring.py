@@ -24,7 +24,11 @@ Tolerances, each with its reason:
     in other orders, a few float32 ulps a layer, doubled by the backward),
     the bins picked, and so ``action_accuracy``, exact; the parameters after
     adam within 2 * lr of JAX's (adam's first update is about lr * sign(g),
-    and a gradient near 0 may take the other sign) and equal on every rank;
+    and a gradient near 0 may take the other sign), each step's update over
+    two steps within 1e-4 * lr of JAX's (beyond one float32 rounding of the
+    new parameter) where the gradient is above 1e-2 of its tensor's largest
+    (``check_updates`` in
+    ``test_torch_seq2act_training.py``), and equal on every rank;
   * a ring of one rank against flash attention: the logits within 1e-6 and
     the gradients within 1e-5 of their max (the same operations but for the
     backward's order of sums).
@@ -56,12 +60,14 @@ from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import flash_attention
 from tensor2robot_tpu_torch.parallel import mesh
 from tensor2robot_tpu_torch.parallel import ring_attention
+from tensor2robot_tpu_torch.preprocessors import image_transformations
 from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
 from tensor2robot_tpu_torch.trainer import checkpointing
 from tensor2robot_tpu_torch.trainer import train_eval
 
 import _torch_ring_worker
 import test_torch_seq2act
+from test_torch_seq2act_training import check_updates
 
 jax_seq2act = test_torch_seq2act.jax_seq2act
 jax_flash = importlib.import_module('tensor2robot_tpu.parallel.flash_attention')
@@ -297,10 +303,26 @@ def test_ring_train_step_matches_jax(ring_setup):
     moved = max(moved, float((ranks[0]['params'][name] -
                               ring_setup['before'].params[name]).abs().max()))
   assert moved > 0.5 * LEARNING_RATE
+  # Each step's update against JAX's over two steps on the same batch.
+  grads_2 = jax.jit(jax.grad(
+      lambda p: jax_model.loss_fn(p, new_state.model_state, features, labels,
+                                  JaxModeKeys.TRAIN, None)[0]))(
+                                      new_state.params)
+  new_state_2, _ = jax.jit(jax_model.train_step)(
+      new_state, features, labels, jax.random.PRNGKey(2))
+  want_params_2 = convert.train_state_from_flax(
+      jax.tree_util.tree_map(np.asarray, new_state_2)).params
+  check_updates(
+      [ring_setup['before'].params, ranks[0]['params'],
+       ranks[0]['params_2']],
+      [ring_setup['before'].params, want_params, want_params_2],
+      [want_grads, convert.from_flax({'params': grads_2})['params']],
+      LEARNING_RATE)
   # The summed gradients leave the weights equal on every rank.
   for found in ranks[1:]:
-    for name, value in ranks[0]['params'].items():
-      assert torch.equal(found['params'][name], value), name
+    for key in ('params', 'params_2'):
+      for name, value in ranks[0][key].items():
+        assert torch.equal(found[key][name], value), (key, name)
 
 
 def test_ring_refuses_what_it_cannot_shard(ring_setup):
@@ -363,9 +385,9 @@ class _RecordingGenerator(input_generators.DefaultRandomInputGenerator):
     super().__init__(batch_size=1, prefetch=0)
     self.seeds = []
 
-  def _generate_batch(self, seed):
+  def _generate_batch(self, seed, frames=None):
     self.seeds.append(seed)
-    return super()._generate_batch(seed)
+    return super()._generate_batch(seed, frames)
 
 
 def test_ring_segments_and_resumed_runs_draw_new_batches(one_rank,
@@ -388,6 +410,62 @@ def test_ring_segments_and_resumed_runs_draw_new_batches(one_rank,
   train_eval.train_eval_model(model, str(tmp_path), train,
                               max_train_steps=3, seed=5)
   assert train.seeds == [5, 6, 7]
+
+
+@pytest.mark.parametrize('world', [2, 4])
+def test_ranks_draw_only_their_frames(world, monkeypatch, tmp_path):
+  """Under a group of N, each rank's train batch of step k holds only its
+  T/N frames of ``image``, ``state`` and ``action``, and the ranks' draws
+  concatenate to what one rank draws alone at steps 0 and 1; ``task_id``
+  and the crop offsets are drawn alike on every rank."""
+  config = dict(RING, use_state_input=True, num_task_embeddings=3)
+  frames = config['episode_length']
+  group = object()   # a stand-in: only its rank and size are asked for
+  monkeypatch.setattr(collectives, 'world_size',
+                      lambda g: 1 if g is None else world)
+
+  def draw(model, step):
+    data = input_generators.DefaultRandomInputGenerator(batch_size=2,
+                                                        prefetch=0)
+    data.set_specification_from_model(model, ModeKeys.TRAIN)
+    trainer = train_eval.Trainer(model, str(tmp_path), seed=3)
+    iterator = trainer.dataset_iterator(data, ModeKeys.TRAIN, step)
+    features, labels = next(iterator)
+    iterator.close()
+    offsets = image_transformations.random_crop_offsets(
+        2, RING['src_img_res'], RING['img_res'], trainer.crop_generator(step))
+    return {**features, **labels}, offsets
+
+  one = Seq2ActBCModel(device='cpu', attention_mode='flash', **config)
+  first = None
+  for step in (0, 1):
+    want, want_offsets = draw(one, step)
+    assert set(want) == {'image', 'state', 'task_id', 'action'}
+    shares = []
+    for r in range(world):
+      monkeypatch.setattr(collectives, 'rank',
+                          lambda g, r=r: 0 if g is None else r)
+      ring = Seq2ActBCModel(device='cpu', attention_mode='ring',
+                            process_group=group, **config)
+      assert ring.frame_shard() == (('image', 'state', 'action'),
+                                    r * frames // world,
+                                    (r + 1) * frames // world)
+      shares.append(draw(ring, step))
+    for key, value in want.items():
+      if key == 'task_id':
+        for share, _ in shares:
+          np.testing.assert_array_equal(share[key], value)
+      else:
+        assert all(share[key].shape[1] == frames // world
+                   for share, _ in shares), key
+        np.testing.assert_array_equal(
+            np.concatenate([share[key] for share, _ in shares], 1), value)
+    for _, offsets in shares:
+      assert torch.equal(offsets, want_offsets)
+    if first is None:
+      first = want
+    else:   # step 1 draws anew
+      assert not np.array_equal(first['image'], want['image'])
 
 
 def test_ring_without_a_group_raises():

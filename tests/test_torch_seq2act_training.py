@@ -28,7 +28,15 @@ Tolerances, each with its reason:
     arithmetic (``ZERO_GRADIENTS``) is noise held to 1e-6 of the largest
     gradient on both sides; the parameters after the step within
     2 * lr absolute, as adam's first update is lr * g / (|g| + eps), about
-    lr * sign(g), and a gradient near 0 may take the other sign.
+    lr * sign(g), and a gradient near 0 may take the other sign; each
+    parameter's update (new minus old) over two steps within 1e-4 * lr of
+    JAX's, beyond one float32 rounding of the new parameter, where the
+    step's gradient is above 1e-2 of its tensor's largest
+    (there the gradients agree to 1e-4 of their own size, and a zero,
+    halved or sign-flipped update misses by some lr);
+  * a run resumed from a checkpoint against one run of as many steps: the
+    same weights, optimizer state and crop offsets, bit for bit (the same
+    operations on the same batches and offsets).
 """
 
 import functools
@@ -431,6 +439,67 @@ def test_train_step_matches_jax_train_step():
                               before.params[name]).abs().max()))
   assert moved > 0.5 * LEARNING_RATE   # the step moved the weights
 
+  # Each step's update, parameter by parameter, against JAX's over two
+  # steps (b1 and b2 show in the second).
+  grads_2 = jax.jit(jax.grad(
+      lambda p: jax_model.loss_fn(p, new_state.model_state,
+                                  SpecStruct(**features),
+                                  SpecStruct(**labels), JaxModeKeys.TRAIN,
+                                  None)[0]))(new_state.params)
+  new_state_2, _ = jax.jit(jax_model.train_step)(
+      new_state, SpecStruct(**features), SpecStruct(**labels),
+      jax.random.PRNGKey(2))
+  want_2 = convert.train_state_from_flax(
+      jax.tree_util.tree_map(np.asarray, new_state_2))
+  got_2, _ = model.train_step(got, _torch_tree(features),
+                              _torch_tree(labels))
+  check_updates([before.params, got.params, got_2.params],
+                [before.params, want.params, want_2.params],
+                [want_grads, convert.from_flax({'params': grads_2})['params']],
+                LEARNING_RATE)
+
+
+def check_updates(got, want, grads, lr):
+  """Adam's update of every parameter (new minus old), step by step, within
+  1e-4 * lr of JAX's where the step's gradient is far above adam's eps.
+
+  ``got`` and ``want`` list the parameters before and after each step,
+  ``grads`` JAX's gradients of each step. Each package rounds its new
+  parameters to float32, so the two updates may also differ by one unit in
+  the last place of the new parameter (1.2e-7 at 1.0, above 1e-4 of a
+  1e-3 learning rate): that much is allowed beyond. There an update is lr
+  times a
+  function of the gradients alone (about lr * sign(g) on the first step),
+  so a zero, halved or sign-flipped update shows at once, wherever the two
+  packages' gradients agree to 1e-4 of their own size: entries below 1e-2
+  of their tensor's largest gradient, where the 1e-4-of-max agreement
+  of the gradients leaves their sign or size open, are left out.
+  """
+  worst, checked = 0.0, 0
+  for step, g_step in enumerate(grads):
+    for name, g in g_step.items():
+      if name in ZERO_GRADIENTS:
+        continue
+      g = np.abs(np.asarray(g, np.float32))
+      mask = g > max(UPDATE_GRAD_FLOOR * float(g.max()), 1e3 * ADAM_EPS)
+      got_update = (got[step + 1][name] - got[step][name]).numpy()
+      want_update = (want[step + 1][name] - want[step][name]).numpy()
+      # Beyond 1e-4 * lr, one float32 rounding of the new parameter itself.
+      err = np.abs(got_update - want_update)[mask] - np.spacing(
+          np.abs(want[step + 1][name].numpy()))[mask]
+      if err.size:
+        worst = max(worst, float(err.max()) / lr)
+        checked += err.size
+      assert err.size == 0 or float(err.max()) <= UPDATE_RTOL * lr, (
+          step, name, float(err.max()) / lr)
+  assert checked > 0
+  return worst, checked
+
+
+ADAM_EPS = 1e-8
+UPDATE_RTOL = 1e-4           # of the learning rate
+UPDATE_GRAD_FLOOR = 1e-2     # of each tensor's largest gradient
+
 
 # -- the trainer -------------------------------------------------------------
 
@@ -490,6 +559,44 @@ def test_trainer_trains_checkpoints_and_skips_nonfinite_losses(tmp_path):
       'nonfinite_loss_skipped'] == 1
   kept.step = state.step
   _states_equal(kept, state)
+
+
+def test_resumed_run_equals_uninterrupted_run(tmp_path, monkeypatch):
+  """2 steps, a checkpoint, and a run that resumes from it for 2 more end
+  where 4 steps in one run end, bit for bit, adam's state included: the
+  episodes of step k are drawn from seed + k and their crops from
+  (seed + 1, k)."""
+  data = input_generators.DefaultRandomInputGenerator(batch_size=2,
+                                                      prefetch=0)
+  drawn = []
+  draw = image_transformations.random_crop_offsets
+
+  def recording(*args, **kwargs):
+    offsets = draw(*args, **kwargs)
+    drawn.append(offsets.clone())
+    return offsets
+
+  monkeypatch.setattr(image_transformations, 'random_crop_offsets',
+                      recording)
+
+  def run(name, steps):
+    return train_eval.train_eval_model(
+        Seq2ActBCModel(device='cpu', **SMALL_FLASH), str(tmp_path / name),
+        data, max_train_steps=steps, save_checkpoints_steps=2,
+        seed=3)['state']
+
+  whole = run('whole', 4)
+  whole_crops = list(drawn)
+  del drawn[:]
+  run('resumed', 2)
+  resumed = run('resumed', 4)
+  assert resumed.step == whole.step == 4
+  assert int(resumed.opt_state['count']) == 4
+  _states_equal(resumed, whole)
+  assert len(drawn) == len(whole_crops) == 4
+  for got, want in zip(drawn, whole_crops):
+    assert torch.equal(got, want)
+  assert not torch.equal(whole_crops[0], whole_crops[1])
 
 
 def test_command_line_trains_seq2act_on_the_cpu(tmp_path, capsys):

@@ -45,6 +45,7 @@ from tensor2robot_tpu_torch.layers import pooling
 from tensor2robot_tpu_torch.layers import wgrad
 from tensor2robot_tpu_torch.models import optimizers
 from tensor2robot_tpu_torch.modes import ModeKeys
+from tensor2robot_tpu_torch.preprocessors import image_transformations
 from tensor2robot_tpu_torch.research.qtopt import networks
 from tensor2robot_tpu_torch.research.qtopt import optimizer_builder
 from tensor2robot_tpu_torch.research.qtopt import t2r_models
@@ -559,6 +560,47 @@ def test_train_eval_model_trains_checkpoints_and_serves(tmp_path):
   again = train_eval.train_eval_model(model, str(tmp_path), train,
                                       max_train_steps=3)
   assert again['state'].step == 3
+
+
+def _recorded_crops(monkeypatch):
+  """The TRAIN crop offsets drawn from now on, in order."""
+  drawn = []
+  draw = image_transformations.random_crop_offsets
+
+  def recording(*args, **kwargs):
+    offsets = draw(*args, **kwargs)
+    drawn.append(offsets.clone())
+    return offsets
+
+  monkeypatch.setattr(image_transformations, 'random_crop_offsets',
+                      recording)
+  return drawn
+
+
+def test_resumed_run_equals_uninterrupted_run(tmp_path, monkeypatch):
+  """2 steps, a checkpoint, and a run that resumes from it for 2 more end
+  where 4 steps in one run end, bit for bit: the batch of step k is drawn
+  from seed + k and its crops from (seed + 1, k)."""
+  data = input_generators.DefaultRandomInputGenerator(batch_size=2,
+                                                      prefetch=0)
+  drawn = _recorded_crops(monkeypatch)
+  whole = train_eval.train_eval_model(
+      _small_model(), str(tmp_path / 'whole'), data, max_train_steps=4,
+      save_checkpoints_steps=4, seed=7)['state']
+  whole_crops = list(drawn)
+  del drawn[:]
+  train_eval.train_eval_model(_small_model(), str(tmp_path / 'resumed'),
+                              data, max_train_steps=2,
+                              save_checkpoints_steps=2, seed=7)
+  resumed = train_eval.train_eval_model(
+      _small_model(), str(tmp_path / 'resumed'), data, max_train_steps=4,
+      save_checkpoints_steps=2, seed=7)['state']
+  assert resumed.step == whole.step == 4
+  _states_equal(resumed, whole)
+  assert len(drawn) == len(whole_crops) == 4
+  for got, want in zip(drawn, whole_crops):
+    assert torch.equal(got, want)
+  assert not torch.equal(whole_crops[0], whole_crops[1])
 
 
 def test_nonfinite_loss_is_skipped_or_raises(tmp_path):

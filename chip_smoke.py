@@ -13,9 +13,13 @@ repository around it. Phases, each printing one line or more:
      version on the card, at the shapes the serving and training paths
      give it, timed (median of 30 CUDA-event-timed calls) beside its bound
      and, where one PyTorch call computes the same function, that call.
-     K1, K2f and K2b must agree bit for bit; K3 (the 5x5 weight gradient,
-     float32-grade 3xTF32 products on the tensor cores) within 1e-4 of
-     max|plain|, the float32 sums being taken in another order; K4 (the
+     K1, K2f and K2b must agree bit for bit (K2f also at 5 channels, its
+     one-channel instance; it is timed behind a device sleep, so that the
+     events time the device and not the host queueing a short call, at the
+     served pools and with its index at the critic's training pools); K3
+     (the 5x5 weight gradient, float32-grade 3xTF32 products on the tensor
+     cores) within 1e-4 of max|plain|, the float32 sums being taken in
+     another order; K4 (the
      flash attention forward) at the served shape (8 heads
      x 4096 x 64, causal, read by strides out of the qkv projection, f32
      and bf16) and at odd shapes, O within 1e-5 (f32) or 2e-2 (bf16) and
@@ -24,11 +28,11 @@ repository around it. Phases, each printing one line or more:
      shape (batch 8) in f32 and bf16 and at an odd shape, dq, dk and dv
      within 1e-4 (f32) or 2e-2 (bf16) of each one's max|plain| and the
      same bits run to run, timed each alone beside the plain backward
-     (median of 10) and the backward of scaled_dot_product_attention. K3
-     and K5a (3xTF32 on the tensor cores) print two bounds, the CUDA cores'
-     float32 rate's and three TF32 passes at the tensor cores' rate (the
-     one in the JSON line), and the HMMA count of their SASS (cuobjdump),
-     which must not be 0.
+     (median of 10) and the backward of scaled_dot_product_attention. K3,
+     K5a and K5b (3xTF32 on the tensor cores) print two bounds, the CUDA
+     cores' float32 rate's and three TF32 passes at the tensor cores' rate
+     (the one in the JSON line), and the HMMA count of their SASS
+     (cuobjdump), which must not be 0.
   3. Serving: the full-width Grasping44 CEM policy (num_convs (6, 6, 3),
      512x640 frames cropped to 472, CEM 64 x 3 with 10 elites) behind a
      PolicyServer with max_batch_size 8, answering requests from 4
@@ -100,7 +104,10 @@ repository around it. Phases, each printing one line or more:
      served by the flash SequentialRegressionPolicy gives the trained
      params' logits (1e-4).
   9. A JSON line of the kernels, the card's name and power limit, and
-     the last line ``{"ok": true, "device": {...}}``.
+     the last line ``{"ok": true, "device": {...}}``. K2f's ms, plain_ms
+     and library_ms are device time, each call queued behind a device
+     sleep; its ms_with_host, and every other kernel's ms, is one call
+     between two events as the host queues it.
 
 Any failed check raises, so the script exits non-zero.
 """
@@ -160,14 +167,21 @@ def smi_line():
       check=True, capture_output=True, text=True).stdout.strip()
 
 
-def median_ms(fn, iters=30, warmup=5):
-  """Median device time of one call, from CUDA events around each call."""
+def median_ms(fn, iters=30, warmup=5, host_ahead=False):
+  """Median device time of one call, from CUDA events around each call.
+
+  A call that the device finishes sooner than the host queues it times the
+  host. With ``host_ahead`` each call waits behind a millisecond of device
+  sleep, by which time the host has queued it and its end event: the
+  events then time the device alone."""
   for _ in range(warmup):
     fn()
   torch.cuda.synchronize()
   events = [(torch.cuda.Event(enable_timing=True),
              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
   for start, end in events:
+    if host_ahead:
+      torch.cuda._sleep(2_000_000)   # some 1 ms of clock cycles
     start.record()
     fn()
     end.record()
@@ -266,6 +280,8 @@ def phase_pool(device, gen):
   err = 0.0
   cases = [(name, shape, k, 'SAME') for name, shape, k, _ in SERVED_POOLS]
   cases.append(('valid 29x31', (MAX_BATCH, 29, 31, 64), 3, 'VALID'))
+  # C = 5 takes the kernel's one-channel instance, the others 16 bytes.
+  cases.append(('5 channels', (MAX_BATCH, 25, 25, 5), 3, 'SAME'))
   for name, shape, k, padding in cases:
     for dtype in (torch.float32, torch.bfloat16):
       x = torch.randn(shape, device=device, generator=gen).to(dtype)
@@ -282,7 +298,8 @@ def phase_pool(device, gen):
   print('max_pool: bit-exact values and int8 index at {} geometries in '
         'f32 and bf16'.format(len(cases)))
 
-  totals = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0}
+  totals = {'ms': 0.0, 'ms_with_host': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
+            'library_ms': 0.0}
   bound_by = set()
   for name, shape, k, calls in SERVED_POOLS:
     x = torch.randn(shape, device=device, generator=gen)
@@ -296,25 +313,64 @@ def phase_pool(device, gen):
     check(torch.equal(library().permute(0, 2, 3, 1),
                       pooling.max_pool(x, (k, k), (k, k), 'SAME')),
           'F.max_pool2d computes another function at {}'.format(name))
-    ms = median_ms(lambda: pooling.max_pool(x, (k, k), (k, k), 'SAME'))
+
+    def kernel(x=x, k=k):
+      return pooling.max_pool(x, (k, k), (k, k), 'SAME')
+
+    # A pool can take the device less time than the host takes to queue it:
+    # the device's times, and the kernel's one call between events beside.
+    ms = median_ms(kernel, host_ahead=True)
+    ms_with_host = median_ms(kernel)
     plain = median_ms(
-        lambda: pooling.max_pool_plain(x, (k, k), (k, k), 'SAME'))
-    lib = median_ms(library)
+        lambda: pooling.max_pool_plain(x, (k, k), (k, k), 'SAME'),
+        host_ahead=True)
+    lib = median_ms(library, host_ahead=True)
     out_elems = shape[0] * ho * wo * shape[3]
     bound, by = bound_ms((x.numel() + out_elems) * 4, x.numel())
     bound_by.add(by)
-    print('max_pool {} {} f32: {:.4f} ms, plain {:.4f} ms, F.max_pool2d '
-          '{:.4f} ms, bound {:.4f} ms ({}); {} call(s) per batch'.format(
-              name, list(shape), ms, plain, lib, bound, by, calls))
-    for key, value in (('ms', ms), ('plain_ms', plain), ('bound_ms', bound),
+    print('max_pool {} {} f32: {:.4f} ms ({:.4f} ms one call with the '
+          'host), plain {:.4f} ms, F.max_pool2d {:.4f} ms, bound {:.4f} ms '
+          '({}); {} call(s) per batch'.format(
+              name, list(shape), ms, ms_with_host, plain, lib, bound, by,
+              calls))
+    for key, value in (('ms', ms), ('ms_with_host', ms_with_host),
+                       ('plain_ms', plain), ('bound_ms', bound),
                        ('library_ms', lib)):
       totals[key] += calls * value
+
+  # The critic's training step runs each training pool once, with the int8
+  # index that its backward (K2b) reads.
+  train = {'ms': 0.0, 'bound_ms': 0.0}
+  for name, shape, k in TRAIN_POOLS:
+    x = torch.randn(shape, device=device, generator=gen)
+    (ho, wo), _, _ = pooling.pool_geometry(shape, (k, k), (k, k), 'SAME')
+    ms = median_ms(lambda: pooling.max_pool_forward(x, (k, k), (k, k),
+                                                    'SAME', True),
+                   host_ahead=True)
+    out_elems = shape[0] * ho * wo * shape[3]
+    bound, by = bound_ms(x.numel() * 4 + out_elems * (4 + 1), x.numel())
+    print('max_pool with index {} {} f32: {:.4f} ms, bound {:.4f} ms ({}); '
+          'once a critic step'.format(name, list(shape), ms, bound, by))
+    train['ms'] += ms
+    train['bound_ms'] += bound
+  print('max_pool per served batch {:.4f} ms ({:.4f} one call at a time '
+        'with the host; bound {:.4f}, F.max_pool2d {:.4f}); with the index '
+        'per critic step {:.4f} ms (bound {:.4f}); {}'.format(
+            totals['ms'], totals['ms_with_host'], totals['bound_ms'],
+            totals['library_ms'], train['ms'], train['bound_ms'],
+            smi_line()))
   return dict(name='max_pool', route='cuda',
               source='tensor2robot_tpu_torch/csrc/max_pool.cu',
               replaces='tensor2robot_tpu/layers/pallas_pooling.py:205',
               max_abs_err=err, bound_by='/'.join(sorted(bound_by)),
               shapes='per batch: stem + pool2 + {} x pool3, f32'.format(
-                  CEM_ITERS + 1), **totals)
+                  CEM_ITERS + 1),
+              train_step_ms=train['ms'],
+              train_step_bound_ms=train['bound_ms'],
+              train_step_shapes='with the int8 index: {}, f32, once each a '
+                                'critic step'.format(
+                                    ' + '.join(n for n, _, _ in TRAIN_POOLS)),
+              **totals)
 
 
 def phase_pool_backward(device, gen):
@@ -1264,6 +1320,12 @@ def phase_flash_backward(device, gen):
   q_ms = median_ms(lambda: fa.flash_attention_bwd_q(
       q, k, v, d_out, lse, delta, True, scale))
   delta_ms = median_ms(lambda: fa.flash_attention_delta(out, d_out))
+  # K5b in bf16 runs one tensor-core pass where float32 runs three.
+  qkv16, o16 = qkv.to(torch.bfloat16), d_out.to(torch.bfloat16)
+  q_bf16_ms = median_ms(lambda: fa.flash_attention_bwd_q(
+      qkv16[..., 0, :], qkv16[..., 1, :], qkv16[..., 2, :], o16, lse, delta,
+      True, scale))
+  del qkv16, o16
   # The plain backward holds five dense [B*H, L, L] float32 tensors (22 GB).
   plain_ms = median_ms(lambda: fa.flash_attention_bwd_plain_blhd(
       q, k, v, out, lse, d_out, True, scale), iters=10, warmup=2)
@@ -1290,20 +1352,26 @@ def phase_flash_backward(device, gen):
   rows = b * h * l * 4                       # one [B, H, L] f32 vector
   kv_fp32_bound, _ = bound_ms(6 * elem + 2 * rows, 4 * 2 * d * pairs)
   kv_bound, kv_by = tensor_core_bound_ms(4 * 2 * d * pairs), 'operations'
-  q_bound, q_by = bound_ms(5 * elem + 2 * rows, 3 * 2 * d * pairs)
+  q_fp32_bound, _ = bound_ms(5 * elem + 2 * rows, 3 * 2 * d * pairs)
+  q_bound, q_by = tensor_core_bound_ms(3 * 2 * d * pairs), 'operations'
   kv_hmma = sass_hmma('flash_attention_bwd_kv')
+  q_hmma = sass_hmma('flash_attention_bwd_q')
   check(kv_hmma > 0, 'the SASS of flash_attention_bwd_kv holds no HMMA')
+  check(q_hmma > 0, 'the SASS of flash_attention_bwd_q holds no HMMA')
   print('flash backward training [{},{},{},{}] causal f32: K5a (dk, dv) '
         '{:.4f} ms ({:.1f} TFLOP/s; bound {:.4f} ms on the CUDA cores\' '
         'float32 rate, {:.4f} ms for 3xTF32 on the tensor cores; {} HMMA in '
-        'its SASS), K5b (dq) {:.4f} ms ({:.1f} TFLOP/s, bound {:.4f} ms by '
-        '{}), delta pass {:.4f} ms; plain backward {:.4f} ms; '
-        'scaled_dot_product_attention backward (dq, dk, dv) {:.4f} ms '
-        'against K5a + K5b + delta {:.4f} ms (differs by {:.3g} of max); {}'
-        .format(b, l, h, d, kv_ms, 8 * d * pairs / kv_ms / 1e9, kv_fp32_bound,
-                kv_bound, kv_hmma, q_ms, 6 * d * pairs / q_ms / 1e9, q_bound,
-                q_by, delta_ms, plain_ms, lib_ms, kv_ms + q_ms + delta_ms,
-                lib_err, smi_line()))
+        'its SASS), K5b (dq) {:.4f} ms ({:.1f} TFLOP/s; bound {:.4f} ms on '
+        'the CUDA cores\' float32 rate, {:.4f} ms for 3xTF32 on the tensor '
+        'cores; {} HMMA in its SASS; {:.4f} ms in bf16, one pass), delta '
+        'pass {:.4f} ms; plain backward '
+        '{:.4f} ms; scaled_dot_product_attention backward (dq, dk, dv) '
+        '{:.4f} ms against K5a + K5b + delta {:.4f} ms (differs by {:.3g} of '
+        'max); {}'.format(
+            b, l, h, d, kv_ms, 8 * d * pairs / kv_ms / 1e9, kv_fp32_bound,
+            kv_bound, kv_hmma, q_ms, 6 * d * pairs / q_ms / 1e9, q_fp32_bound,
+            q_bound, q_hmma, q_bf16_ms, delta_ms, plain_ms, lib_ms,
+            kv_ms + q_ms + delta_ms, lib_err, smi_line()))
   shapes = 'per launch: [{},{},{},{}] causal f32, q/k/v strided views of ' \
            'the qkv projection'.format(b, l, h, d)
   library_note = ('scaled_dot_product_attention backward, dq, dk and dv '
@@ -1319,8 +1387,10 @@ def phase_flash_backward(device, gen):
                source='tensor2robot_tpu_torch/csrc/flash_attention_bwd_q.cu',
                replaces='tensor2robot_tpu/parallel/flash_attention.py:530',
                max_abs_err=err['dq'], ms=q_ms, plain_ms=plain_ms,
-               bound_ms=q_bound, bound_by=q_by, library_ms=lib_ms,
-               library_note=library_note, delta_ms=delta_ms, shapes=shapes))
+               bound_ms=q_bound, bound_by=q_by, fp32_bound_ms=q_fp32_bound,
+               library_ms=lib_ms, library_note=library_note,
+               sass_hmma=q_hmma, bf16_ms=q_bf16_ms, delta_ms=delta_ms,
+               shapes=shapes))
 
 
 def phase_seq2act(device):

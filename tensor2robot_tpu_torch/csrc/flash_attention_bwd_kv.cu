@@ -66,6 +66,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tile.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -92,29 +93,6 @@ struct Smem {
   float lse[kBlockQ];       // this tile's
   float delta[kBlockQ];
 };
-
-// The 4-column group swizzle of row r: distinct over any aligned 4 rows and
-// over rows {r, r + 2, r + 4, r + 6} for even or odd r.
-__device__ __forceinline__ int swz(int r) { return ((r ^ (r >> 2)) & 3) << 2; }
-
-template <int D>
-__device__ __forceinline__ float2 at(const float2* tile, int r, int c) {
-  return tile[r * D + (c ^ swz(r))];
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* dst, float a, float b);
-
-template <>
-__device__ __forceinline__ void store2<float>(float* dst, float a, float b) {
-  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
-}
-
-template <>
-__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
-                                                      float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
-}
 
 // Starts the copy of query tile q0: q and dO rows, lse and delta.
 template <typename T, int D>
@@ -188,8 +166,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     const float4 kv = in ? t2r::to_float4(kb + (k0 + r) * st.k_l + c) : zero;
     const float4 vv = in ? t2r::to_float4(vb + (k0 + r) * st.v_l + c) : zero;
-    t2r::store_split4<kPasses>(&sm.ks[r * D + (c ^ swz(r))], kv);
-    t2r::store_split4<kPasses>(&sm.vs[r * D + (c ^ swz(r))], vv);
+    t2r::store_split4<kPasses>(&sm.ks[r * D + (c ^ t2r::swz(r))], kv);
+    t2r::store_split4<kPasses>(&sm.vs[r * D + (c ^ t2r::swz(r))], vv);
   }
 
   float dk_acc[kN][4], dv_acc[kN][4];
@@ -210,9 +188,9 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBlockQ * kChunks; e += kThreads) {
       const int r = e / kChunks;
       const int c = (e % kChunks) * 4;
-      t2r::store_split4<kPasses>(&sm.qs[r * D + (c ^ swz(r))],
+      t2r::store_split4<kPasses>(&sm.qs[r * D + (c ^ t2r::swz(r))],
                                  t2r::to_float4(&sm.q_raw[r * D + c]));
-      t2r::store_split4<kPasses>(&sm.os[r * D + (c ^ swz(r))],
+      t2r::store_split4<kPasses>(&sm.os[r * D + (c ^ t2r::swz(r))],
                                  t2r::to_float4(&sm.o_raw[r * D + c]));
     }
     if (tid < kBlockQ) {
@@ -241,22 +219,22 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int kk = 0; kk < D / 8; ++kk) {
       const int c0 = kk * 8 + t;
       t2r::Frag<4> ak, av;
-      ak.set(0, at<D>(sm.ks, kr, c0));
-      ak.set(1, at<D>(sm.ks, kr + 8, c0));
-      ak.set(2, at<D>(sm.ks, kr, c0 + 4));
-      ak.set(3, at<D>(sm.ks, kr + 8, c0 + 4));
-      av.set(0, at<D>(sm.vs, kr, c0));
-      av.set(1, at<D>(sm.vs, kr + 8, c0));
-      av.set(2, at<D>(sm.vs, kr, c0 + 4));
-      av.set(3, at<D>(sm.vs, kr + 8, c0 + 4));
+      ak.set(0, t2r::at<D>(sm.ks, kr, c0));
+      ak.set(1, t2r::at<D>(sm.ks, kr + 8, c0));
+      ak.set(2, t2r::at<D>(sm.ks, kr, c0 + 4));
+      ak.set(3, t2r::at<D>(sm.ks, kr + 8, c0 + 4));
+      av.set(0, t2r::at<D>(sm.vs, kr, c0));
+      av.set(1, t2r::at<D>(sm.vs, kr + 8, c0));
+      av.set(2, t2r::at<D>(sm.vs, kr, c0 + 4));
+      av.set(3, t2r::at<D>(sm.vs, kr + 8, c0 + 4));
       t2r::Frag<2> bq[4], bo[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qr = 8 * j + g;
-        bq[j].set(0, at<D>(sm.qs, qr, c0));
-        bq[j].set(1, at<D>(sm.qs, qr, c0 + 4));
-        bo[j].set(0, at<D>(sm.os, qr, c0));
-        bo[j].set(1, at<D>(sm.os, qr, c0 + 4));
+        bq[j].set(0, t2r::at<D>(sm.qs, qr, c0));
+        bq[j].set(1, t2r::at<D>(sm.qs, qr, c0 + 4));
+        bo[j].set(0, t2r::at<D>(sm.os, qr, c0));
+        bo[j].set(1, t2r::at<D>(sm.os, qr, c0 + 4));
       }
       if (kPasses == 3) {
 #pragma unroll
@@ -327,10 +305,10 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
           const int c = 8 * (n0 + n) + g;
-          bo[n].set(0, at<D>(sm.os, r0, c));
-          bo[n].set(1, at<D>(sm.os, r0 + 1, c));
-          bq[n].set(0, at<D>(sm.qs, r0, c));
-          bq[n].set(1, at<D>(sm.qs, r0 + 1, c));
+          bo[n].set(0, t2r::at<D>(sm.os, r0, c));
+          bo[n].set(1, t2r::at<D>(sm.os, r0 + 1, c));
+          bq[n].set(0, t2r::at<D>(sm.qs, r0, c));
+          bq[n].set(1, t2r::at<D>(sm.qs, r0 + 1, c));
         }
         if (kPasses == 3) {
 #pragma unroll
@@ -370,8 +348,8 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < kN; ++n) {
       const int c = 8 * n + 2 * t;
-      store2<T>(dk_row + c, dk_acc[n][2 * half], dk_acc[n][2 * half + 1]);
-      store2<T>(dv_row + c, dv_acc[n][2 * half], dv_acc[n][2 * half + 1]);
+      t2r::store2<T>(dk_row + c, dk_acc[n][2 * half], dk_acc[n][2 * half + 1]);
+      t2r::store2<T>(dv_row + c, dv_acc[n][2 * half], dv_acc[n][2 * half + 1]);
     }
   }
 }

@@ -1,6 +1,6 @@
 // Float32-grade products on Hopper's tensor cores ("3xTF32"), and the
-// cp.async copies that stage their tiles. Shared by conv5x5_wgrad.cu (K3)
-// and flash_attention_bwd_kv.cu (K5a).
+// cp.async copies that stage their tiles. Shared by conv5x5_wgrad.cu (K3),
+// flash_attention_bwd_kv.cu (K5a) and flash_attention_bwd_q.cu (K5b).
 //
 // A TF32 tensor-core product reads 10 explicit mantissa bits of each operand
 // and accumulates in float32. Splitting each float32 operand x into

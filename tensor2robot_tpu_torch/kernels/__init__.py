@@ -53,7 +53,7 @@ KERNELS = {
                       _I, _P]),
     'max_pool': ('t2r_max_pool',
                  [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                  _P]),
+                  _I, _P]),
     'max_pool_backward': ('t2r_max_pool_backward',
                           [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P]),

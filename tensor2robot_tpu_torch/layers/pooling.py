@@ -15,6 +15,9 @@ padded cells; VALID drops the tail that fits no whole window. With
 pallas_pooling.py: the first maximal row within each window column, then
 the first maximal column. The index is relative to the padded window.
 
+K2f loads ``vector_width(x)`` channels at once: 16 bytes' worth where the
+channel count and the input's address allow it, else one.
+
 ``max_pool`` is differentiable: under autograd it runs the forward with the
 index (kernel K2f) and its backward routes dy to the indexed cell (kernel
 K2b, ``csrc/max_pool_backward.cu``, the counterpart of pallas_pooling.py's
@@ -32,7 +35,8 @@ import torch.nn.functional as F
 from tensor2robot_tpu_torch import kernels
 
 __all__ = ['max_pool', 'max_pool_backward', 'max_pool_backward_plain',
-           'max_pool_forward', 'max_pool_plain', 'pool_geometry']
+           'max_pool_forward', 'max_pool_plain', 'pool_geometry',
+           'vector_width']
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -98,6 +102,16 @@ def max_pool_plain(x: torch.Tensor, window: Sequence[int],
   return out, k.squeeze(3).to(torch.int8)
 
 
+def vector_width(x: torch.Tensor) -> int:
+  """The channels K2f loads at once from NHWC ``x``: 16 bytes' worth (4
+  float32, 8 bfloat16) where C is a multiple of that and ``x`` starts on 16
+  bytes, else 1."""
+  width = 16 // x.element_size()
+  if x.shape[-1] % width or x.data_ptr() % 16:
+    return 1
+  return width
+
+
 def max_pool_forward(x: torch.Tensor, window: Sequence[int],
                      strides: Sequence[int], padding: str = 'VALID',
                      return_index: bool = False):
@@ -125,9 +139,12 @@ def max_pool_forward(x: torch.Tensor, window: Sequence[int],
   out = torch.empty((b, ho, wo, c), dtype=x.dtype, device=x.device)
   idx = (torch.empty((b, ho, wo, c), dtype=torch.int8, device=x.device)
          if return_index else None)
+  if out.numel() == 0:   # an empty map has nothing to pool
+    return (out, idx) if return_index else out
   kernels.launch('max_pool', x.device, x.data_ptr(), out.data_ptr(),
                  None if idx is None else idx.data_ptr(), b, h, w, c, wh, ww,
-                 ho, wo, pad_top, pad_left, int(x.dtype == torch.bfloat16))
+                 ho, wo, pad_top, pad_left, int(x.dtype == torch.bfloat16),
+                 vector_width(x))
   return (out, idx) if return_index else out
 
 

@@ -26,9 +26,9 @@ the dispatchers the ``autograd.Function`` calls.
 ``block_k_bwd``, defaulting by length as ``_bwd_default_blocks`` does) keep
 the JAX contract: a length that no block of the ladder (a multiple of 8)
 divides raises ``ValueError``. They do not tile the CUDA kernels, which run
-their own 64 x 64 tiles and mask a ragged tail; the plain versions are
-dense. The JAX wrapper's zero padding of the head dim to 128 is a Mosaic
-lane rule and is not carried over: the kernels take D = 64 or 128 as it is.
+their own tiles and mask a ragged tail; the plain versions are dense. The
+JAX wrapper's zero padding of the head dim to 128 is a Mosaic lane rule and
+is not carried over: the kernels take D = 64 or 128 as it is.
 
 ``flash_attention_carry`` is the inner step of ring attention
 (``parallel/ring_attention.py``), the JAX package's ``flash_attention_carry``
@@ -239,15 +239,30 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
   return out, lse
 
 
-def _check_bwd_cuda(q, k, v, d_out, lse, delta) -> None:
+def _rows_aligned(t: torch.Tensor) -> bool:
+  """Whether every (batch, head, row) start of a [B, L, H, D] view is
+  16-byte aligned."""
+  return t.data_ptr() % 16 == 0 and all(
+      t.stride(i) * t.element_size() % 16 == 0 for i in range(3))
+
+
+def _check_bwd_cuda(name: str, q, k, v, d_out, lse, delta) -> None:
+  """The checks of K5a and K5b, which copy rows 4 elements at a time and
+  so also need every row of q, k, v and dO 16-byte aligned."""
   _check_cuda('flash_attention_bwd', q, k, v, d_out)
+  for i, t in enumerate((q, k, v, d_out)):
+    if not _rows_aligned(t):
+      raise ValueError('{} copies rows 4 elements at a time: operand {} '
+                       'needs 16-byte aligned rows; got strides {} at '
+                       'address {}.'.format(name, i, t.stride(),
+                                            t.data_ptr()))
   b, l_q, h, _ = q.shape
-  for name, t in (('lse', lse), ('delta', delta)):
+  for label, t in (('lse', lse), ('delta', delta)):
     if (tuple(t.shape) != (b, h, l_q) or t.dtype != torch.float32 or
         not t.is_contiguous() or t.device != q.device):
-      raise ValueError('flash_attention_bwd takes a contiguous float32 {} '
-                       '[B, H, Lq] = {} on {}; got {} {} on {}.'.format(
-                           name, (b, h, l_q), q.device, t.dtype,
+      raise ValueError('{} takes a contiguous float32 {} [B, H, Lq] = {} '
+                       'on {}; got {} {} on {}.'.format(
+                           name, label, (b, h, l_q), q.device, t.dtype,
                            tuple(t.shape), t.device))
 
 
@@ -259,24 +274,11 @@ def flash_attention_delta(out: torch.Tensor,
   return (d_out.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _rows_aligned(t: torch.Tensor) -> bool:
-  """Whether every (batch, head, row) start of a [B, L, H, D] view is
-  16-byte aligned."""
-  return t.data_ptr() % 16 == 0 and all(
-      t.stride(i) * t.element_size() % 16 == 0 for i in range(3))
-
-
 def flash_attention_bwd_kv(q, k, v, d_out, lse, delta, causal: bool,
                            scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
   """K5a on [B, L, H, D] strided views of CUDA tensors: (dk, dv),
   contiguous [B, Lk, H, D] in q's dtype."""
-  _check_bwd_cuda(q, k, v, d_out, lse, delta)
-  for i, t in enumerate((q, k, v, d_out)):
-    if not _rows_aligned(t):
-      raise ValueError('flash_attention_bwd_kv copies rows 4 elements at a '
-                       'time: operand {} needs 16-byte aligned rows; got '
-                       'strides {} at address {}.'.format(
-                           i, t.stride(), t.data_ptr()))
+  _check_bwd_cuda('flash_attention_bwd_kv', q, k, v, d_out, lse, delta)
   b, l_q, h, d = q.shape
   l_k = k.shape[1]
   dk = torch.empty((b, l_k, h, d), dtype=q.dtype, device=q.device)
@@ -294,7 +296,7 @@ def flash_attention_bwd_q(q, k, v, d_out, lse, delta, causal: bool,
                           scale: float) -> torch.Tensor:
   """K5b on [B, L, H, D] strided views of CUDA tensors: dq, contiguous
   [B, Lq, H, D] in q's dtype."""
-  _check_bwd_cuda(q, k, v, d_out, lse, delta)
+  _check_bwd_cuda('flash_attention_bwd_q', q, k, v, d_out, lse, delta)
   b, l_q, h, d = q.shape
   l_k = k.shape[1]
   dq = torch.empty((b, l_q, h, d), dtype=q.dtype, device=q.device)

@@ -25,7 +25,11 @@ products in another order than the dense plain backward (K5a in 3xTF32 on
 the tensor cores): dq, dk and dv within 1e-4 of each one's max|plain| in
 float32 and 2e-2 of it (one bf16 rounding of the result) in bfloat16, at
 ragged lengths, head dim 128, Lq != Lk and lengths one past or one short
-of K5a's 32-query and 64-key tiles, causal and not. K6 (the ring hop) sums in another order than
+of K5a's 32-query and 64-key tiles and of K5b's 64-query block and 32-key
+tiles, causal and not. K2f's cases also take each of its instances: 16-byte
+vectors of 4, 8, 12 and 64 float32 or 8 and 16 bf16 channels, one channel
+at a time for 5 (and 12 in bf16), windows of 2, 3 and 4, and NaN and
+exact ties, whose value bits and index must match. K6 (the ring hop) sums in another order than
 its dense plain version: the carried o, m and l within 1e-5 of each one's
 max, at ragged tiles, head dim 128, Lq != Lk, global offsets that cross the
 diagonal, a hop the causal mask hides (which must leave the state as it
@@ -106,6 +110,68 @@ def test_max_pool_matches_plain(device, shape, k, padding, dtype):
   torch.cuda.synchronize()
   assert torch.equal(got, want) and torch.equal(values, want)
   assert torch.equal(idx, want_idx)
+
+
+# K2f's instances: 16-byte vectors (4 float32, 8 bf16 channels) where C
+# allows them, one channel otherwise (C = 5, and 12 in bf16); the 3x3 and
+# 2x2 windows load a whole window before comparing, 4x4 loops.
+@pytest.mark.parametrize('dtype,channels', [
+    (torch.float32, 4), (torch.float32, 8), (torch.float32, 12),
+    (torch.float32, 64), (torch.float32, 5), (torch.bfloat16, 8),
+    (torch.bfloat16, 16), (torch.bfloat16, 12), (torch.bfloat16, 5),
+])
+@pytest.mark.parametrize('spatial,k,padding', [
+    ((2, 25, 25), 3, 'SAME'),     # low padding
+    ((3, 13, 9), 2, 'SAME'),
+    ((2, 22, 21), 4, 'VALID'),
+])
+def test_max_pool_vector_widths_match_plain(device, dtype, channels, spatial,
+                                            k, padding):
+  shape = spatial + (channels,)
+  x = torch.randn(shape, device=device, generator=_generator(device, 7))
+  x = torch.round(x * 2).to(dtype)   # exact ties inside windows
+  before = kernels.LAUNCHES['max_pool']
+  got, idx = pooling.max_pool(x, (k, k), (k, k), padding, True)
+  values = pooling.max_pool(x, (k, k), (k, k), padding)
+  assert kernels.LAUNCHES['max_pool'] == before + 2
+  want, want_idx = pooling.max_pool_plain(x, (k, k), (k, k), padding, True)
+  torch.cuda.synchronize()
+  assert torch.equal(got, want) and torch.equal(values, want)
+  assert torch.equal(idx, want_idx)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('channels', [8, 5])
+def test_max_pool_nan_and_ties_match_plain(device, dtype, channels):
+  """NaN is maximal and the first NaN wins; among equal maxima the first
+  row of a column, then the first column: value bits and index exact."""
+  x = torch.zeros(2, 9, 9, channels, device=device)
+  x[0, 0, 0, 0] = float('nan')          # a NaN in the first cell
+  x[0, 1, 1, 0] = float('nan')          # and a later one in the window
+  x[0, 4, 5, 1] = float('nan')          # a lone NaN past the first cell
+  x[1, 4, 4, :] = 1.0                   # a tie across columns and rows
+  x[1, 3, 5, :] = 1.0
+  x[1, 5, 3, :] = 1.0
+  x[1, 7:, 6:, :] = -1.0                # a window with no zero
+  x = x.to(dtype)
+  got, idx = pooling.max_pool(x, (3, 3), (3, 3), 'SAME', True)
+  want, want_idx = pooling.max_pool_plain(x, (3, 3), (3, 3), 'SAME', True)
+  torch.cuda.synchronize()
+  bits = torch.int32 if dtype == torch.float32 else torch.int16
+  assert torch.equal(got.view(bits), want.view(bits))
+  assert torch.equal(idx, want_idx)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(2, 9, 9, 0), (0, 9, 9, 8)])
+def test_max_pool_of_an_empty_map_is_empty(device, dtype, shape):
+  x = torch.zeros(shape, device=device, dtype=dtype)
+  before = kernels.LAUNCHES['max_pool']
+  got, idx = pooling.max_pool(x, (3, 3), (3, 3), 'SAME', True)
+  assert kernels.LAUNCHES['max_pool'] == before   # nothing to launch
+  want, want_idx = pooling.max_pool_plain(x, (3, 3), (3, 3), 'SAME', True)
+  assert got.shape == want.shape and idx.shape == want_idx.shape
+  assert got.dtype == dtype and idx.dtype == torch.int8
 
 
 def test_kernels_refuse_what_they_do_not_take(device):
@@ -246,6 +312,13 @@ BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     (1, 33, 65, 2, 64),      # one past a 32-query tile and a 64-key tile
     (2, 96, 160, 2, 128),    # D = 128; 3 query tiles, 2.5 key tiles
     (1, 191, 63, 2, 128),    # Lq > Lk, both one short of a tile
+    # One past K5b's 64-query block; around its 32-key tile.
+    (1, 65, 31, 2, 64),
+    (1, 65, 33, 2, 128),
+    (1, 65, 97, 2, 64),
+    (1, 129, 31, 2, 128),
+    (1, 129, 33, 2, 64),
+    (1, 129, 97, 2, 128),
 ])
 def test_flash_attention_backward_matches_plain(device, b, l_q, l_k, h, d,
                                                 causal, dtype):
@@ -287,6 +360,19 @@ def test_flash_attention_bwd_kv_refuses_unaligned_rows(device):
   lse = torch.zeros(1, 2, 64, device=device)
   with pytest.raises(ValueError, match='16-byte aligned'):
     flash_attention.flash_attention_bwd_kv(q, k, k, k, lse, lse, True, 0.125)
+
+
+def test_flash_attention_bwd_q_refuses_unaligned_rows(device):
+  """K5b copies rows 4 elements at a time too: a view whose rows do not
+  start on 16 bytes raises instead of reading them."""
+  base = torch.randn(1 + 64 * 2 * 64, device=device)
+  q = base[1:].view(1, 64, 2, 64)        # 4 bytes past an aligned start
+  k = torch.randn(1, 64, 2, 64, device=device)
+  lse = torch.zeros(1, 2, 64, device=device)
+  with pytest.raises(ValueError, match='16-byte aligned'):
+    flash_attention.flash_attention_bwd_q(q, k, k, k, lse, lse, True, 0.125)
+  with pytest.raises(ValueError, match='16-byte aligned'):
+    flash_attention.flash_attention_bwd_q(k, q, k, k, lse, lse, True, 0.125)
 
 
 def test_flash_attention_autograd_launches_k4_k5a_k5b(device):

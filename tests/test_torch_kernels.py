@@ -176,6 +176,30 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
   assert kernels.LAUNCHES == dict.fromkeys(kernels.KERNELS, 0)
 
 
+@pytest.mark.parametrize('dtype,channels,offset,width', [
+    (torch.float32, 64, 0, 4),     # the critic's pools: 16-byte vectors
+    (torch.float32, 4, 0, 4),
+    (torch.float32, 12, 0, 4),
+    (torch.float32, 5, 0, 1),      # C not a multiple of 4
+    (torch.float32, 64, 1, 1),     # data 4 bytes past a 16-byte start
+    (torch.bfloat16, 16, 0, 8),
+    (torch.bfloat16, 8, 0, 8),
+    (torch.bfloat16, 12, 0, 1),    # C not a multiple of 8
+    (torch.bfloat16, 64, 4, 1),    # data 8 bytes past a 16-byte start
+])
+def test_max_pool_vector_width(dtype, channels, offset, width):
+  """K2f loads 16 bytes of channels at once only where C and the input's
+  address allow it; any other pool takes the kernel's one-element
+  instance."""
+  n = 2 * 6 * 6 * channels
+  storage = torch.zeros(n + 64, dtype=dtype)
+  start = (-storage.data_ptr() // storage.element_size()) % (
+      16 // storage.element_size())   # the first 16-byte aligned element
+  x = storage[start + offset:start + offset + n].view(2, 6, 6, channels)
+  assert x.is_contiguous()
+  assert pooling.vector_width(x) == width
+
+
 def test_other_devices_raise_instead_of_falling_back():
   x = torch.empty(2, 9, 9, 4, device='meta')
   with pytest.raises(ValueError, match='CUDA or CPU'):
@@ -224,8 +248,13 @@ def test_an_included_header_rebuilds_the_kernel(tmp_path, monkeypatch):
   assert kernels.library_path('other') == other   # includes no header
   (tmp_path / 'a.cuh').write_text('#pragma once\n')   # drops b.cuh
   assert kernels.library_path('k') not in (before, after)
-  # The port's own kernels: K3 and K5a share the 3xTF32 header.
+  # The port's own kernels: K3, K5a and K5b share the 3xTF32 header.
   monkeypatch.undo()
-  for name in ('conv5x5_wgrad', 'flash_attention_bwd_kv'):
+  for name in ('conv5x5_wgrad', 'flash_attention_bwd_kv',
+               'flash_attention_bwd_q'):
     assert 'tf32_mma.cuh' in [p.name for p in kernels._sources(
+        kernels.source_path(name))]
+  # K5a and K5b read their tiles through one swizzle.
+  for name in ('flash_attention_bwd_kv', 'flash_attention_bwd_q'):
+    assert 'flash_tile.cuh' in [p.name for p in kernels._sources(
         kernels.source_path(name))]

@@ -13,26 +13,30 @@ repository around it. Phases, each printing one line or more:
      version on the card, at the shapes the serving and training paths
      give it, timed (median of 30 CUDA-event-timed calls) beside its bound
      and, where one PyTorch call computes the same function, that call.
-     K1, K2f and K2b must agree bit for bit (K2f also at 5 channels, its
-     one-channel instance; it is timed behind a device sleep, so that the
-     events time the device and not the host queueing a short call, at the
-     served pools and with its index at the critic's training pools); K3
+     K1, K2f and K2b must agree bit for bit (K2f and K2b also in their
+     one-element instances, at 5 channels, and K2b at a dy one element
+     off 16 bytes; both are timed behind a device sleep, so that the
+     events time the device and not the host queueing a short call: K2f
+     at the served pools and with its index at the critic's training
+     pools, K2b at those training pools); K3
      (the 5x5 weight gradient, float32-grade 3xTF32 products on the tensor
      cores) within 1e-4 of max|plain|, the float32 sums being taken in
-     another order; K4 (the
-     flash attention forward) at the served shape (8 heads
+     another order; K4 (the flash attention forward, 3xTF32 on the tensor
+     cores) at the served shape (8 heads
      x 4096 x 64, causal, read by strides out of the qkv projection, f32
      and bf16) and at odd shapes, O within 1e-5 (f32) or 2e-2 (bf16) and
-     LSE within 1e-5, timed beside scaled_dot_product_attention; K5a and
+     LSE within 1e-5, timed beside scaled_dot_product_attention (whose
+     kernels the profiler names) at the served shape and at the training
+     shape (batch 8); K5a and
      K5b (the flash attention backward: dk and dv, dq) at the training
      shape (batch 8) in f32 and bf16 and at an odd shape, dq, dk and dv
      within 1e-4 (f32) or 2e-2 (bf16) of each one's max|plain| and the
      same bits run to run, timed each alone beside the plain backward
      (median of 10) and the backward of scaled_dot_product_attention. K3,
-     K5a and K5b (3xTF32 on the tensor cores) print two bounds, the CUDA
-     cores' float32 rate's and three TF32 passes at the tensor cores' rate
-     (the one in the JSON line), and the HMMA count of their SASS
-     (cuobjdump), which must not be 0.
+     K4, K5a and K5b (3xTF32 on the tensor cores) print two bounds, the
+     CUDA cores' float32 rate's and three TF32 passes at the tensor cores'
+     rate (the one in the JSON line's bound_ms), and the HMMA count of
+     their SASS (cuobjdump), which must not be 0.
   3. Serving: the full-width Grasping44 CEM policy (num_convs (6, 6, 3),
      512x640 frames cropped to 472, CEM 64 x 3 with 10 elites) behind a
      PolicyServer with max_batch_size 8, answering requests from 4
@@ -104,16 +108,18 @@ repository around it. Phases, each printing one line or more:
      served by the flash SequentialRegressionPolicy gives the trained
      params' logits (1e-4).
   9. A JSON line of the kernels, the card's name and power limit, and
-     the last line ``{"ok": true, "device": {...}}``. K2f's ms, plain_ms
-     and library_ms are device time, each call queued behind a device
-     sleep; its ms_with_host, and every other kernel's ms, is one call
-     between two events as the host queues it.
+     the last line ``{"ok": true, "device": {...}}``. K2f's and K2b's ms,
+     plain_ms and library_ms are device time, each call queued behind a
+     device sleep; their ms_with_host, and every other kernel's ms, is one
+     call between two events as the host queues it.
 
 Any failed check raises, so the script exits non-zero.
 """
 
+import collections
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -203,14 +209,51 @@ def tensor_core_bound_ms(flops):
   return 3 * flops / TF32_OPS_PER_S * 1e3
 
 
-def sass_hmma(name):
-  """The tensor-core (HMMA) instructions in a built kernel's SASS."""
+SASS_OPCODE = re.compile(r'\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)')
+# Integer and address arithmetic, beside the products (HMMA) and the
+# shared-memory loads (LDS) that the flash kernels' loops issue.
+SASS_INTEGER = ('IMAD', 'IADD3', 'LOP3', 'LEA', 'SHF', 'VIADD')
+
+
+def sass_opcodes(name):
+  """Opcode counts over a built kernel's SASS, all its instances."""
   from tensor2robot_tpu_torch import kernels
   tool = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin',
                       'cuobjdump')
   sass = subprocess.run([tool, '--dump-sass', str(kernels.library_path(name))],
                         check=True, capture_output=True, text=True).stdout
-  return sum('HMMA' in line for line in sass.splitlines())
+  counts = collections.Counter()
+  for line in sass.splitlines():
+    match = SASS_OPCODE.match(line)
+    if match:
+      counts[match.group(1)] += 1
+  return counts
+
+
+def sass_hmma(name):
+  """The tensor-core (HMMA) instructions in a built kernel's SASS."""
+  return sass_opcodes(name)['HMMA']
+
+
+def sass_mix(name):
+  """HMMA, LDS and integer-arithmetic counts of a kernel's SASS."""
+  counts = sass_opcodes(name)
+  return {'HMMA': counts['HMMA'], 'LDS': counts['LDS'],
+          'integer': sum(counts[op] for op in SASS_INTEGER)}
+
+
+def device_kernels(fn):
+  """The names of the device kernels one call of ``fn`` runs, from
+  torch.profiler: which of its backends a library call took."""
+  from torch.profiler import ProfilerActivity, profile as torch_profile
+
+  fn()
+  torch.cuda.synchronize()
+  with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  return sorted({e.key[:120] for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA})
 
 
 def max_abs_err(a, b):
@@ -376,21 +419,26 @@ def phase_pool(device, gen):
 def phase_pool_backward(device, gen):
   from tensor2robot_tpu_torch.layers import pooling
 
-  cases = [(name, shape, k, 'SAME') for name, shape, k in TRAIN_POOLS]
-  cases.append(('valid 29x31', (8, 29, 31, 64), 3, 'VALID'))
-  for name, shape, k, padding in cases:
+  cases = [(name, shape, k, 'SAME', 0) for name, shape, k in TRAIN_POOLS]
+  cases.append(('valid 29x31', (8, 29, 31, 64), 3, 'VALID', 0))
+  # The one-element instance: 5 channels, and a dy one element past a
+  # 16-byte boundary; the others move 16 bytes of dy a cell.
+  cases.append(('5 channels', (8, 25, 25, 5), 3, 'SAME', 0))
+  cases.append(('dy off 16 bytes', (8, 79, 79, 64), 3, 'SAME', 1))
+  for name, shape, k, padding, offset in cases:
     for dtype in (torch.float32, torch.bfloat16):
       x = torch.randn(shape, device=device, generator=gen).to(dtype)
       _, idx = pooling.max_pool_forward(x, (k, k), (k, k), padding, True)
-      dy = torch.randn(idx.shape, device=device, generator=gen).to(dtype)
+      dy = torch.randn(idx.numel() + offset, device=device,
+                       generator=gen).to(dtype)[offset:].view(idx.shape)
       got = pooling.max_pool_backward(dy, idx, shape, (k, k), padding)
       want = pooling.max_pool_backward_plain(dy, idx, shape, (k, k), padding)
       torch.cuda.synchronize()
       check(got.dtype == dtype and torch.equal(got, want),
             'max_pool_backward differs from plain ({}, {})'.format(name,
                                                                   dtype))
-  print('max_pool_backward: bit-exact at {} geometries in f32 and bf16'
-        .format(len(cases)))
+  print('max_pool_backward: bit-exact at {} geometries in f32 and bf16, '
+        'in its 16-byte and one-element instances'.format(len(cases)))
 
   def library_for(x, dy, k, pad):
     """The library's backward of the same pool (aten's, on channels_last
@@ -401,7 +449,8 @@ def phase_pool_backward(device, gen):
     return lambda: torch.ops.aten.max_pool2d_with_indices_backward(
         dy_nchw, nchw, [k, k], [k, k], [pad, pad], [1, 1], True, indices)
 
-  totals = {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': 0.0}
+  totals = {'ms': 0.0, 'ms_with_host': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
+            'library_ms': 0.0}
   bound_by = set()
   for name, shape, k in TRAIN_POOLS:
     (ho, wo), (pad, _), _ = pooling.pool_geometry(shape, (k, k), (k, k),
@@ -422,21 +471,34 @@ def phase_pool_backward(device, gen):
     _, idx = pooling.max_pool_forward(x, (k, k), (k, k), 'SAME', True)
     dy = torch.randn(idx.shape, device=device, generator=gen)
     library = library_for(x, dy, k, pad)
-    ms = median_ms(
-        lambda: pooling.max_pool_backward(dy, idx, shape, (k, k), 'SAME'))
+
+    def kernel(dy=dy, idx=idx, shape=shape, k=k):
+      return pooling.max_pool_backward(dy, idx, shape, (k, k), 'SAME')
+
+    # As K2f's: the device's times behind a device sleep, and the kernel's
+    # one call between events, the host's queueing included, beside them.
+    ms = median_ms(kernel, host_ahead=True)
+    ms_with_host = median_ms(kernel)
     plain = median_ms(lambda: pooling.max_pool_backward_plain(
-        dy, idx, shape, (k, k), 'SAME'))
-    lib = median_ms(library)
+        dy, idx, shape, (k, k), 'SAME'), host_ahead=True)
+    lib = median_ms(library, host_ahead=True)
     # dx written, dy and the int8 index read once; one compare per dx.
     bound, by = bound_ms(x.numel() * 4 + dy.numel() * 5, x.numel())
     bound_by.add(by)
-    print('max_pool_backward {} {} f32: {:.4f} ms, plain {:.4f} ms, aten '
-          'max_pool2d_with_indices_backward {:.4f} ms, bound {:.4f} ms ({}); '
-          '1 call per train step'.format(name, list(shape), ms, plain, lib,
-                                         bound, by))
-    for key, value in (('ms', ms), ('plain_ms', plain), ('bound_ms', bound),
+    print('max_pool_backward {} {} f32: {:.4f} ms ({:.4f} ms one call with '
+          'the host), plain {:.4f} ms, aten max_pool2d_with_indices_backward '
+          '{:.4f} ms, bound {:.4f} ms ({}); 1 call per train step'.format(
+              name, list(shape), ms, ms_with_host, plain, lib, bound, by))
+    for key, value in (('ms', ms), ('ms_with_host', ms_with_host),
+                       ('plain_ms', plain), ('bound_ms', bound),
                        ('library_ms', lib)):
       totals[key] += value
+  print('max_pool_backward per critic step {:.4f} ms of device time ({:.1%} '
+        'of its {:.4f} ms bound), {:.4f} ms one call at a time with the host; '
+        'aten {:.4f} ms; {}'.format(
+            totals['ms'], totals['bound_ms'] / totals['ms'],
+            totals['bound_ms'], totals['ms_with_host'],
+            totals['library_ms'], smi_line()))
   return dict(name='max_pool_backward', route='cuda',
               source='tensor2robot_tpu_torch/csrc/max_pool_backward.cu',
               replaces='tensor2robot_tpu/layers/pallas_pooling.py:232',
@@ -1232,23 +1294,54 @@ def phase_flash(device, gen):
                                                          causal=True))
   plain = median_ms(lambda: flash_plain_blhd(q, k, v, True))
   lib = median_ms(library)
+  lib_kernels = device_kernels(library)
   # The products with unmasked pairs (q_pos >= k_pos): two of D
   # multiply-adds each, for s and for p @ v.
   pairs = h * l * (l + 1) // 2
   flops = 4 * d * pairs
-  bound, by = bound_ms(4 * q.numel() * 4 + h * l * 4, flops)
+  fp32_bound, _ = bound_ms(4 * q.numel() * 4 + h * l * 4, flops)
+  bound = tensor_core_bound_ms(flops)
+  mix = sass_mix('flash_attention_fwd')
+  hmma = mix['HMMA']
+  check(hmma > 0, 'the SASS of flash_attention_fwd holds no HMMA')
   print('flash_attention served [1,{},{},{}] causal f32: {:.4f} ms ({:.1f} '
         'TFLOP/s), plain {:.4f} ms, scaled_dot_product_attention {:.4f} ms '
-        '(differs by {:.3g}), bound {:.4f} ms ({}); {} calls per '
-        'predict'.format(l, h, d, ms, flops / ms / 1e9, plain, lib, lib_err,
-                         bound, by, 8))
+        '(differs by {:.3g}; its kernels: {}); bound {:.4f} ms on the CUDA '
+        'cores\' float32 rate, {:.4f} ms for 3xTF32 on the tensor cores; its '
+        'SASS: {} HMMA, {} LDS, {} integer ({}); {} calls per predict'.format(
+            l, h, d, ms, flops / ms / 1e9, plain, lib, lib_err,
+            ', '.join(lib_kernels), fp32_bound, bound, hmma, mix['LDS'],
+            mix['integer'], ' '.join(SASS_INTEGER), 8))
+
+  # The training shape: batch 8, 8 calls a Seq2Act step.
+  b = SEQ2ACT_TRAIN_BATCH
+  qkv = torch.randn((b, l, h, 3, d), device=device, generator=gen)
+  q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+  bhl = [x.transpose(1, 2) for x in (q, k, v)]
+  train_ms = median_ms(lambda: flash_attention.flash_attention(
+      q, k, v, causal=True))
+  train_lib = median_ms(
+      lambda: F.scaled_dot_product_attention(*bhl, is_causal=True))
+  train_bound = tensor_core_bound_ms(b * flops)
+  print('flash_attention training [{},{},{},{}] causal f32: {:.4f} ms ({:.1f} '
+        'TFLOP/s; bound {:.4f} ms for 3xTF32), scaled_dot_product_attention '
+        '{:.4f} ms; {} calls per Seq2Act step; {}'.format(
+            b, l, h, d, train_ms, b * flops / train_ms / 1e9, train_bound,
+            train_lib, 8, smi_line()))
+  del qkv, q, k, v, bhl
   return dict(name='flash_attention_fwd', route='cuda',
               source='tensor2robot_tpu_torch/csrc/flash_attention_fwd.cu',
               replaces='tensor2robot_tpu/parallel/flash_attention.py:202',
               max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
-              bound_by=by, library_ms=lib,
+              bound_by='operations', fp32_bound_ms=fp32_bound,
+              tensor_core_bound_ms=bound, library_ms=lib,
+              library_kernels=lib_kernels, sass_hmma=hmma, sass_mix=mix,
+              train_ms=train_ms, train_library_ms=train_lib,
+              train_bound_ms=train_bound,
               shapes='per launch: [1,{},{},{}] causal f32, q/k/v strided '
-              'views of the qkv projection'.format(l, h, d))
+              'views of the qkv projection'.format(l, h, d),
+              train_shapes='per launch: [{},{},{},{}] causal f32, the same '
+              'views'.format(b, l, h, d))
 
 
 BWD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # of max|plain|
@@ -1354,8 +1447,9 @@ def phase_flash_backward(device, gen):
   kv_bound, kv_by = tensor_core_bound_ms(4 * 2 * d * pairs), 'operations'
   q_fp32_bound, _ = bound_ms(5 * elem + 2 * rows, 3 * 2 * d * pairs)
   q_bound, q_by = tensor_core_bound_ms(3 * 2 * d * pairs), 'operations'
-  kv_hmma = sass_hmma('flash_attention_bwd_kv')
-  q_hmma = sass_hmma('flash_attention_bwd_q')
+  kv_mix = sass_mix('flash_attention_bwd_kv')
+  q_mix = sass_mix('flash_attention_bwd_q')
+  kv_hmma, q_hmma = kv_mix['HMMA'], q_mix['HMMA']
   check(kv_hmma > 0, 'the SASS of flash_attention_bwd_kv holds no HMMA')
   check(q_hmma > 0, 'the SASS of flash_attention_bwd_q holds no HMMA')
   print('flash backward training [{},{},{},{}] causal f32: K5a (dk, dv) '
@@ -1367,11 +1461,12 @@ def phase_flash_backward(device, gen):
         'pass {:.4f} ms; plain backward '
         '{:.4f} ms; scaled_dot_product_attention backward (dq, dk, dv) '
         '{:.4f} ms against K5a + K5b + delta {:.4f} ms (differs by {:.3g} of '
-        'max); {}'.format(
+        'max); their SASS, HMMA/LDS/integer: K5a {kv[HMMA]}/{kv[LDS]}/'
+        '{kv[integer]}, K5b {q[HMMA]}/{q[LDS]}/{q[integer]}; {}'.format(
             b, l, h, d, kv_ms, 8 * d * pairs / kv_ms / 1e9, kv_fp32_bound,
             kv_bound, kv_hmma, q_ms, 6 * d * pairs / q_ms / 1e9, q_fp32_bound,
             q_bound, q_hmma, q_bf16_ms, delta_ms, plain_ms, lib_ms,
-            kv_ms + q_ms + delta_ms, lib_err, smi_line()))
+            kv_ms + q_ms + delta_ms, lib_err, smi_line(), kv=kv_mix, q=q_mix))
   shapes = 'per launch: [{},{},{},{}] causal f32, q/k/v strided views of ' \
            'the qkv projection'.format(b, l, h, d)
   library_note = ('scaled_dot_product_attention backward, dq, dk and dv '
@@ -1382,14 +1477,16 @@ def phase_flash_backward(device, gen):
                max_abs_err=max(err['dk'], err['dv']), ms=kv_ms,
                plain_ms=plain_ms, bound_ms=kv_bound, bound_by=kv_by,
                fp32_bound_ms=kv_fp32_bound, library_ms=lib_ms,
-               library_note=library_note, sass_hmma=kv_hmma, shapes=shapes),
+               library_note=library_note, sass_hmma=kv_hmma,
+               sass_mix=kv_mix, shapes=shapes),
           dict(name='flash_attention_bwd_q', route='cuda',
                source='tensor2robot_tpu_torch/csrc/flash_attention_bwd_q.cu',
                replaces='tensor2robot_tpu/parallel/flash_attention.py:530',
                max_abs_err=err['dq'], ms=q_ms, plain_ms=plain_ms,
                bound_ms=q_bound, bound_by=q_by, fp32_bound_ms=q_fp32_bound,
                library_ms=lib_ms, library_note=library_note,
-               sass_hmma=q_hmma, bf16_ms=q_bf16_ms, delta_ms=delta_ms,
+               sass_hmma=q_hmma, sass_mix=q_mix, bf16_ms=q_bf16_ms,
+               delta_ms=delta_ms,
                shapes=shapes))
 
 

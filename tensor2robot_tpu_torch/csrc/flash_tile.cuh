@@ -1,8 +1,9 @@
-// The split-tile layout that the flash attention backward kernels share:
-// flash_attention_bwd_kv.cu (K5a) and flash_attention_bwd_q.cu (K5b) stage
-// their tiles in shared memory as float2 {big, small} rows of D columns
-// (tf32_mma.cuh) and read their mma.sync fragments through one swizzle, and
-// write their gradients two elements at a time.
+// The split-tile layout that the flash attention kernels share:
+// flash_attention_fwd.cu (K4), flash_attention_bwd_kv.cu (K5a) and
+// flash_attention_bwd_q.cu (K5b) stage their tiles in shared memory as
+// float2 {big, small} rows of D columns (tf32_mma.cuh) and read their
+// mma.sync fragments through one swizzle, and write their results two
+// elements at a time.
 
 #pragma once
 

@@ -1,6 +1,7 @@
 // Float32-grade products on Hopper's tensor cores ("3xTF32"), and the
 // cp.async copies that stage their tiles. Shared by conv5x5_wgrad.cu (K3),
-// flash_attention_bwd_kv.cu (K5a) and flash_attention_bwd_q.cu (K5b).
+// flash_attention_fwd.cu (K4), flash_attention_bwd_kv.cu (K5a) and
+// flash_attention_bwd_q.cu (K5b).
 //
 // A TF32 tensor-core product reads 10 explicit mantissa bits of each operand
 // and accumulates in float32. Splitting each float32 operand x into
@@ -155,6 +156,11 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Waits for all but the most recently committed group of copies.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 }  // namespace t2r

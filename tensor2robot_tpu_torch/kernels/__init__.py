@@ -56,7 +56,7 @@ KERNELS = {
                   _I, _P]),
     'max_pool_backward': ('t2r_max_pool_backward',
                           [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _P]),
+                           _I, _I, _I, _P]),
     'conv5x5_wgrad': ('t2r_conv5x5_wgrad',
                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     'flash_attention_fwd': ('t2r_flash_attention_fwd',

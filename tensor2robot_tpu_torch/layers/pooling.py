@@ -16,7 +16,9 @@ pallas_pooling.py: the first maximal row within each window column, then
 the first maximal column. The index is relative to the padded window.
 
 K2f loads ``vector_width(x)`` channels at once: 16 bytes' worth where the
-channel count and the input's address allow it, else one.
+channel count and the input's address allow it, else one. K2b moves
+``vector_width(dy, idx)`` channels of dy and of its index at once, by the
+same rule.
 
 ``max_pool`` is differentiable: under autograd it runs the forward with the
 index (kernel K2f) and its backward routes dy to the indexed cell (kernel
@@ -27,7 +29,7 @@ K2b, ``csrc/max_pool_backward.cu``, the counterpart of pallas_pooling.py's
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -102,12 +104,16 @@ def max_pool_plain(x: torch.Tensor, window: Sequence[int],
   return out, k.squeeze(3).to(torch.int8)
 
 
-def vector_width(x: torch.Tensor) -> int:
-  """The channels K2f loads at once from NHWC ``x``: 16 bytes' worth (4
-  float32, 8 bfloat16) where C is a multiple of that and ``x`` starts on 16
-  bytes, else 1."""
+def vector_width(x: torch.Tensor,
+                 index: Optional[torch.Tensor] = None) -> int:
+  """The channels K2f loads at once from NHWC ``x``, or K2b from dy ``x``
+  and its int8 ``index``: 16 bytes' worth (4 float32, 8 bfloat16) where C
+  is a multiple of that, ``x`` starts on 16 bytes and ``index`` on a
+  multiple of the width, else 1."""
   width = 16 // x.element_size()
   if x.shape[-1] % width or x.data_ptr() % 16:
+    return 1
+  if index is not None and index.data_ptr() % width:
     return 1
   return width
 
@@ -205,9 +211,12 @@ def max_pool_backward(dy: torch.Tensor, idx: torch.Tensor,
     raise ValueError('max_pool_backward expects contiguous NHWC dy and '
                      'index.')
   dx = torch.empty((b, h, w, c), dtype=dy.dtype, device=dy.device)
+  if dx.numel() == 0:   # an empty map has nothing to route
+    return dx
   kernels.launch('max_pool_backward', dy.device, dy.data_ptr(),
                  idx.data_ptr(), dx.data_ptr(), b, h, w, c, wh, ww, ho, wo,
-                 pad_top, pad_left, dy.element_size())
+                 pad_top, pad_left, dy.element_size(),
+                 vector_width(dy, idx))
   return dx
 
 

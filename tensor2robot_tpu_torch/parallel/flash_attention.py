@@ -228,6 +228,7 @@ def _strides(*tensors):
 def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
   """K4 on [B, L, H, D] strided views: (O [B, Lq, H, D], LSE [B, H, Lq])."""
   _check_cuda('flash_attention_fwd', q, k, v)
+  _check_rows_aligned('flash_attention_fwd', q, k, v)
   b, l_q, h, d = q.shape
   l_k = k.shape[1]
   out = torch.empty((b, l_q, h, d), dtype=q.dtype, device=q.device)
@@ -246,16 +247,22 @@ def _rows_aligned(t: torch.Tensor) -> bool:
       t.stride(i) * t.element_size() % 16 == 0 for i in range(3))
 
 
-def _check_bwd_cuda(name: str, q, k, v, d_out, lse, delta) -> None:
-  """The checks of K5a and K5b, which copy rows 4 elements at a time and
-  so also need every row of q, k, v and dO 16-byte aligned."""
-  _check_cuda('flash_attention_bwd', q, k, v, d_out)
-  for i, t in enumerate((q, k, v, d_out)):
+def _check_rows_aligned(name: str, *tensors) -> None:
+  """K4, K5a and K5b copy rows 4 elements at a time: every row of their
+  [B, L, H, D] operands must start on 16 bytes."""
+  for i, t in enumerate(tensors):
     if not _rows_aligned(t):
       raise ValueError('{} copies rows 4 elements at a time: operand {} '
                        'needs 16-byte aligned rows; got strides {} at '
                        'address {}.'.format(name, i, t.stride(),
                                             t.data_ptr()))
+
+
+def _check_bwd_cuda(name: str, q, k, v, d_out, lse, delta) -> None:
+  """The checks of K5a and K5b, which also need every row of q, k, v and
+  dO 16-byte aligned."""
+  _check_cuda('flash_attention_bwd', q, k, v, d_out)
+  _check_rows_aligned(name, q, k, v, d_out)
   b, l_q, h, _ = q.shape
   for label, t in (('lse', lse), ('delta', delta)):
     if (tuple(t.shape) != (b, h, l_q) or t.dtype != torch.float32 or
@@ -388,8 +395,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   O [B, Lq, H, D] in q's dtype.
 
   ``scale`` defaults to ``1 / sqrt(D)``. q, k and v may be strided views
-  (of one qkv projection, say) as long as D has unit stride (and, for
-  K5a, every row starts on 16 bytes): the CUDA kernels read them where
+  (of one qkv projection, say) as long as D has unit stride and, on the
+  card, every row starts on 16 bytes: the CUDA kernels read them where
   they lie, and K5a and K5b write their gradients contiguous
   [B, L, H, D].
   """

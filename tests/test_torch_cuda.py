@@ -16,11 +16,14 @@ max|plain|. These cases add to chip_smoke.py's shapes the odd ones: rows
 whose length is not a multiple of the crop's vector width, low padding,
 VALID tails, bf16 ties, channel counts of 32, 36 and 128 (not one 64-channel
 tile), rows that are not a multiple of K3's 80-position segment.
-K4 (flash attention) sums its products and softmax in another order than
-its dense plain version: O within 1e-5 in float32 and 2e-2 (one rounding
-of values of order 1) in bfloat16, LSE within 1e-5; its cases add lengths
-that are not a multiple of its 64-row tile, head dim 128 and several
-batches and heads. K5a and K5b (the flash attention backward) sum their
+K4 (flash attention, float32-grade 3xTF32 products on the tensor cores)
+sums its products and softmax in another order than its dense plain
+version: O within 1e-5 in float32 and 2e-2 (one rounding of values of
+order 1) in bfloat16, LSE within 1e-5, and the same bits run to run; its
+cases add lengths that are not a multiple of its 64-row tiles, head dim
+128 and several batches and heads. K2b's cases also take its one-element
+instance (C = 5, a dy one element off 16 bytes) and VALID tails, which no
+window covers and which it must zero. K5a and K5b (the flash attention backward) sum their
 products in another order than the dense plain backward (K5a in 3xTF32 on
 the tensor cores): dq, dk and dv within 1e-4 of each one's max|plain| in
 float32 and 2e-2 of it (one bf16 rounding of the result) in bfloat16, at
@@ -209,6 +212,35 @@ def test_max_pool_backward_matches_plain(device, shape, k, padding, dtype):
   assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape,k,padding,dy_offset,width', [
+    ((3, 13, 9, 5), 2, 'SAME', 0, 1),     # C = 5: the one-element instance
+    ((2, 79, 79, 64), 3, 'SAME', 1, 1),   # dy one element off 16 bytes
+    ((2, 29, 31, 64), 3, 'VALID', 0, 0),  # vectors; a tail row and column
+    ((2, 35, 34, 16), 4, 'VALID', 0, 0),  # a runtime window; 3 + 2 tails
+    ((1, 29, 31, 5), 3, 'VALID', 0, 1),   # a tail, one element at a time
+])
+def test_max_pool_backward_instances_match_plain(device, shape, k, padding,
+                                                 dy_offset, width, dtype):
+  """K2b's vector and one-element instances, and the VALID tail that no
+  window covers, bit for bit (width 0: 16 bytes' worth)."""
+  gen = _generator(device, 7)
+  x = torch.randn(shape, device=device, generator=gen).to(dtype)
+  _, idx = pooling.max_pool_forward(x, (k, k), (k, k), padding, True)
+  storage = torch.randn(idx.numel() + 8, device=device,
+                        generator=gen).to(dtype)
+  dy = storage[dy_offset:dy_offset + idx.numel()].view(idx.shape)
+  assert pooling.vector_width(dy, idx) == (width or 16 // dy.element_size())
+  before = kernels.LAUNCHES['max_pool_backward']
+  got = pooling.max_pool_backward(dy, idx, shape, (k, k), padding)
+  assert kernels.LAUNCHES['max_pool_backward'] == before + 1
+  want = pooling.max_pool_backward_plain(dy, idx, shape, (k, k), padding)
+  torch.cuda.synchronize()
+  bits = torch.int32 if dtype == torch.float32 else torch.int16
+  assert got.dtype == dtype and got.shape == want.shape
+  assert torch.equal(got.view(bits), want.view(bits))
+
+
 def test_max_pool_autograd_launches_both_kernels(device):
   x = torch.randn(2, 25, 25, 8, device=device, requires_grad=True)
   before = dict(kernels.LAUNCHES)
@@ -281,6 +313,32 @@ def test_flash_attention_matches_plain(device, b, l, h, d, causal, dtype):
   assert float((got_o.float() - want_o.float()).abs().max()) <= (
       FLASH_ATOL[dtype])
   assert float((got_lse - want_lse).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_flash_attention_is_the_same_bits_run_to_run(device, dtype):
+  """K4 sums in a fixed order: the same inputs give the same O and LSE."""
+  gen = _generator(device, 8)
+  qkv = torch.randn((1, 1024, 4, 3, 64), device=device, generator=gen).to(
+      dtype)
+  q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+  out, lse = flash_attention.flash_attention_forward(q, k, v, True, 0.125)
+  again = flash_attention.flash_attention_forward(q, k, v, True, 0.125)
+  torch.cuda.synchronize()
+  assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+def test_flash_attention_fwd_refuses_unaligned_rows(device):
+  """K4 copies rows 4 elements at a time: a view whose rows do not start
+  on 16 bytes raises instead of reading them."""
+  base = torch.randn(1 + 64 * 2 * 64, device=device)
+  q = base[1:].view(1, 64, 2, 64)        # 4 bytes past an aligned start
+  k = torch.randn(1, 64, 2, 64, device=device)
+  before = kernels.LAUNCHES['flash_attention_fwd']
+  for args in ((q, k, k), (k, q, k), (k, k, q)):
+    with pytest.raises(ValueError, match='16-byte aligned'):
+      flash_attention.flash_attention_forward(*args, True, 0.125)
+  assert kernels.LAUNCHES['flash_attention_fwd'] == before
 
 
 def test_flash_attention_refuses_what_it_does_not_take(device):

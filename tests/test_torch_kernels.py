@@ -176,7 +176,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
   assert kernels.LAUNCHES == dict.fromkeys(kernels.KERNELS, 0)
 
 
-@pytest.mark.parametrize('dtype,channels,offset,width', [
+VECTOR_WIDTH_CASES = [
     (torch.float32, 64, 0, 4),     # the critic's pools: 16-byte vectors
     (torch.float32, 4, 0, 4),
     (torch.float32, 12, 0, 4),
@@ -186,18 +186,54 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     (torch.bfloat16, 8, 0, 8),
     (torch.bfloat16, 12, 0, 1),    # C not a multiple of 8
     (torch.bfloat16, 64, 4, 1),    # data 8 bytes past a 16-byte start
-])
+]
+
+
+def _aligned_view(dtype, shape, offset):
+  """A contiguous ``shape`` view whose data starts ``offset`` elements past
+  a 16-byte boundary."""
+  n = int(np.prod(shape))
+  storage = torch.zeros(n + 64, dtype=dtype)
+  start = (-storage.data_ptr() // storage.element_size()) % (
+      16 // storage.element_size())   # the first 16-byte aligned element
+  x = storage[start + offset:start + offset + n].view(shape)
+  assert x.is_contiguous()
+  return x
+
+
+@pytest.mark.parametrize('dtype,channels,offset,width', VECTOR_WIDTH_CASES)
 def test_max_pool_vector_width(dtype, channels, offset, width):
   """K2f loads 16 bytes of channels at once only where C and the input's
   address allow it; any other pool takes the kernel's one-element
   instance."""
-  n = 2 * 6 * 6 * channels
-  storage = torch.zeros(n + 64, dtype=dtype)
-  start = (-storage.data_ptr() // storage.element_size()) % (
-      16 // storage.element_size())   # the first 16-byte aligned element
-  x = storage[start + offset:start + offset + n].view(2, 6, 6, channels)
-  assert x.is_contiguous()
+  x = _aligned_view(dtype, (2, 6, 6, channels), offset)
   assert pooling.vector_width(x) == width
+
+
+@pytest.mark.parametrize('dtype,channels,offset,width', VECTOR_WIDTH_CASES)
+def test_max_pool_backward_vector_width(dtype, channels, offset, width):
+  """K2b moves dy and its int8 index by the forward's rule: 16 bytes of dy
+  (and 4 or 8 of the index) where C and dy's address allow it."""
+  dy = _aligned_view(dtype, (2, 6, 6, channels), offset)
+  index = _aligned_view(torch.int8, (2, 6, 6, channels), 0)
+  assert pooling.vector_width(dy, index) == width
+
+
+@pytest.mark.parametrize('dtype,index_offset,width', [
+    (torch.float32, 4, 4),    # 4 index bytes a thread: 4-byte aligned
+    (torch.float32, 2, 1),
+    (torch.bfloat16, 8, 8),   # 8 index bytes a thread: 8-byte aligned
+    (torch.bfloat16, 4, 1),
+    (torch.bfloat16, 1, 1),
+])
+def test_max_pool_backward_vector_width_needs_an_aligned_index(
+    dtype, index_offset, width):
+  """K2b loads a thread's indices in one 4- or 8-byte load: an index that
+  does not start on a multiple of the width takes the one-element
+  instance."""
+  dy = _aligned_view(dtype, (2, 6, 6, 64), 0)
+  index = _aligned_view(torch.int8, (2, 6, 6, 64), index_offset)
+  assert pooling.vector_width(dy, index) == width
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -248,13 +284,14 @@ def test_an_included_header_rebuilds_the_kernel(tmp_path, monkeypatch):
   assert kernels.library_path('other') == other   # includes no header
   (tmp_path / 'a.cuh').write_text('#pragma once\n')   # drops b.cuh
   assert kernels.library_path('k') not in (before, after)
-  # The port's own kernels: K3, K5a and K5b share the 3xTF32 header.
+  # The port's own kernels: K3, K4, K5a and K5b share the 3xTF32 header.
   monkeypatch.undo()
-  for name in ('conv5x5_wgrad', 'flash_attention_bwd_kv',
-               'flash_attention_bwd_q'):
+  for name in ('conv5x5_wgrad', 'flash_attention_fwd',
+               'flash_attention_bwd_kv', 'flash_attention_bwd_q'):
     assert 'tf32_mma.cuh' in [p.name for p in kernels._sources(
         kernels.source_path(name))]
-  # K5a and K5b read their tiles through one swizzle.
-  for name in ('flash_attention_bwd_kv', 'flash_attention_bwd_q'):
+  # K4, K5a and K5b read their tiles through one swizzle.
+  for name in ('flash_attention_fwd', 'flash_attention_bwd_kv',
+               'flash_attention_bwd_q'):
     assert 'flash_tile.cuh' in [p.name for p in kernels._sources(
         kernels.source_path(name))]

@@ -74,6 +74,8 @@ LOW_PAD_CASES = [
     ((2, 25, 25, 8), (3, 3), 'SAME'),
     ((3, 13, 9, 5), (2, 2), 'SAME'),
 ]
+# The critic's stem pool, 236 -> 79: one padded row and column, both high.
+STEM_CASES = [((1, 236, 236, 8), (3, 3), 'SAME')]
 
 
 @pytest.fixture(scope='module')
@@ -174,7 +176,7 @@ def _port_pool_grad(x, dy, window, padding, dtype):
 
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('shape,window,padding',
-                         PALLAS_CASES + LOW_PAD_CASES)
+                         PALLAS_CASES + LOW_PAD_CASES + STEM_CASES)
 def test_max_pool_backward_matches_jax_index_path(shape, window, padding,
                                                   dtype):
   rng = np.random.RandomState(0)

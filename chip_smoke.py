@@ -15,10 +15,10 @@ repository around it. Phases, each printing one line or more:
      and, where one PyTorch call computes the same function, that call.
      K1, K2f and K2b must agree bit for bit (K2f and K2b also in their
      one-element instances, at 5 channels, and K2b at a dy one element
-     off 16 bytes; both are timed behind a device sleep, so that the
-     events time the device and not the host queueing a short call: K2f
-     at the served pools and with its index at the critic's training
-     pools, K2b at those training pools); K3
+     off 16 bytes; all three are timed behind a device sleep, so that the
+     events time the device and not the host queueing a short call: K1 at
+     the served batch, K2f at the served pools and with its index at the
+     critic's training pools, K2b at those training pools); K3
      (the 5x5 weight gradient, float32-grade 3xTF32 products on the tensor
      cores) within 1e-4 of max|plain|, the float32 sums being taken in
      another order; K4 (the flash attention forward, 3xTF32 on the tensor
@@ -87,12 +87,18 @@ repository around it. Phases, each printing one line or more:
   7. Ring attention's kernel: K6 (the carried flash update, the ring's
      hop) against its plain version at the 4-rank hop shape [8, 1024, 8,
      64] (diagonal, full and hidden hops from a carried state, f32 and
-     bf16) and at an odd shape (Lq 100 != Lk 72, head dim 128), o, m and l
+     bf16), at an odd shape (Lq 100 != Lk 72, head dim 128) and at a hop
+     hidden from its first 20 queries only (offsets 128/148: the first
+     warp takes no key tile, and its rows must stay bit-equal), o, m and l
      within 1e-5 of their max, a hidden hop leaving the state as it was;
-     the four-shard hop schedule of a [8, 4096, 8, 64] causal sequence
-     replayed on one card, O and LSE within 1e-5 of max of K4's over the
-     whole sequence; K6 timed at the main path's launch shape beside its
-     plain version and at the 4-rank diagonal and full hops.
+     the same bits run to run; a view whose rows are not 16-byte aligned
+     refused with ValueError; the four-shard hop schedule of a [8, 4096,
+     8, 64] causal sequence replayed on one card, O and LSE within 1e-5 of
+     max of K4's over the whole sequence; K6 (3xTF32 on the tensor cores,
+     K4's tile loop) timed at the main path's launch shape beside its
+     plain version and at the 4-rank diagonal and full hops, each beside
+     both bounds, and its SASS's HMMA (which must not be 0), LDS and
+     integer counts.
   8. Seq2Act ring training: ``min(4, cards)`` NCCL ranks, one process a
      card, each train the full-width 512-frame binding with
      ``attention_mode='ring'`` for RING_STEPS steps through
@@ -108,10 +114,10 @@ repository around it. Phases, each printing one line or more:
      served by the flash SequentialRegressionPolicy gives the trained
      params' logits (1e-4).
   9. A JSON line of the kernels, the card's name and power limit, and
-     the last line ``{"ok": true, "device": {...}}``. K2f's and K2b's ms,
-     plain_ms and library_ms are device time, each call queued behind a
-     device sleep; their ms_with_host, and every other kernel's ms, is one
-     call between two events as the host queues it.
+     the last line ``{"ok": true, "device": {...}}``. K1's, K2f's and
+     K2b's ms, plain_ms and library_ms are device time, each call queued
+     behind a device sleep; their ms_with_host, and every other kernel's
+     ms, is one call between two events as the host queues it.
 
 Any failed check raises, so the script exits non-zero.
 """
@@ -215,12 +221,14 @@ SASS_OPCODE = re.compile(r'\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*
 SASS_INTEGER = ('IMAD', 'IADD3', 'LOP3', 'LEA', 'SHF', 'VIADD')
 
 
-def sass_opcodes(name):
-  """Opcode counts over a built kernel's SASS, all its instances."""
+def sass_opcodes(name, library=None):
+  """Opcode counts over a built kernel's SASS, all its instances (of the
+  library at ``library`` if given)."""
   from tensor2robot_tpu_torch import kernels
   tool = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin',
                       'cuobjdump')
-  sass = subprocess.run([tool, '--dump-sass', str(kernels.library_path(name))],
+  library = library or kernels.library_path(name)
+  sass = subprocess.run([tool, '--dump-sass', str(library)],
                         check=True, capture_output=True, text=True).stdout
   counts = collections.Counter()
   for line in sass.splitlines():
@@ -235,9 +243,9 @@ def sass_hmma(name):
   return sass_opcodes(name)['HMMA']
 
 
-def sass_mix(name):
+def sass_mix(name, library=None):
   """HMMA, LDS and integer-arithmetic counts of a kernel's SASS."""
-  counts = sass_opcodes(name)
+  counts = sass_opcodes(name, library)
   return {'HMMA': counts['HMMA'], 'LDS': counts['LDS'],
           'integer': sum(counts[op] for op in SASS_INTEGER)}
 
@@ -299,20 +307,31 @@ def phase_crop(device, gen):
             'crop_convert differs from its plain version ({}, {})'.format(
                 dtype, offsets.tolist()))
       err = max(err, max_abs_err(got, want))
-  ms = median_ms(lambda: pallas_crop.crop_convert(images, center, (th, tw)))
+  def kernel():
+    return pallas_crop.crop_convert(images, center, (th, tw))
+
+  # One crop takes the device less time than the host takes to queue it:
+  # the device's time, and one call between events with the host beside.
+  ms = median_ms(kernel, host_ahead=True)
+  ms_with_host = median_ms(kernel)
   plain = median_ms(
-      lambda: pallas_crop.crop_convert_plain(images, center, (th, tw)))
+      lambda: pallas_crop.crop_convert_plain(images, center, (th, tw)),
+      host_ahead=True)
   elements = b * th * tw * c
   # The crop window is what the function must read: 1 byte in, 4 out.
   bound, by = bound_ms(elements * 5 + center.numel() * 4, elements)
   print('crop_convert [8,512,640,3] u8 -> [8,472,472,3] f32: bit-exact '
-        '(center and clamped offsets, f32 and bf16); {:.4f} ms, plain '
-        '{:.4f} ms, bound {:.4f} ms ({})'.format(ms, plain, bound, by))
+        '(center and clamped offsets, f32 and bf16); {:.4f} ms of device '
+        'time ({:.1f}% of the bound; {:.4f} ms one call with the host), '
+        'plain {:.4f} ms, bound {:.4f} ms ({}); {}'.format(
+            ms, 100 * bound / ms, ms_with_host, plain, bound, by,
+            smi_line()))
   return {'name': 'crop_convert', 'route': 'cuda',
           'source': 'tensor2robot_tpu_torch/csrc/crop_convert.cu',
           'replaces': 'tensor2robot_tpu/preprocessors/pallas_crop.py:117',
-          'max_abs_err': err, 'ms': ms, 'plain_ms': plain,
-          'bound_ms': bound, 'bound_by': by, 'library_ms': None,
+          'max_abs_err': err, 'ms': ms, 'ms_with_host': ms_with_host,
+          'plain_ms': plain, 'bound_ms': bound, 'bound_by': by,
+          'library_ms': None,
           'shapes': '1 x [8,512,640,3] u8 -> [8,472,472,3] f32 per batch'}
 
 
@@ -1827,7 +1846,8 @@ def carry_state(b, h, l_q, d, device):
 
 def carry_errors(q, k, v, state, q_offset, k_offset, causal):
   """K6 and its plain version from copies of one state: the largest error
-  of o, m and l relative to each one's max, and o's absolute error."""
+  of o, m and l relative to each one's max, o's absolute error, and K6's
+  state."""
   from tensor2robot_tpu_torch.parallel import flash_attention as fa
 
   scale = 1.0 / float(np.sqrt(q.shape[-1]))
@@ -1842,15 +1862,17 @@ def carry_errors(q, k, v, state, q_offset, k_offset, causal):
           'K6 changed the state of a hop the mask hides')
   rel = max(max_abs_err(g, w) / max(float(w.abs().max()), 1e-30)
             for g, w in zip(got, want))
-  return rel, max_abs_err(got[0], want[0])
+  return rel, max_abs_err(got[0], want[0]), got
 
 
 def phase_ring_kernel(device, gen, world):
   """K6 against its plain version at the 4-rank hop shape (diagonal, full
-  and hidden hops from a carried state, f32 and bf16) and at an odd shape;
-  a replay of the four-shard hop schedule on one card against K4's O and
-  LSE over the whole sequence; then timed at the main path's launch shape
-  and at the 4-rank hop."""
+  and hidden hops from a carried state, f32 and bf16), at an odd shape and
+  at a hop hidden from its first queries only; the same bits run to run; a
+  misaligned view refused; a replay of the four-shard hop schedule on one
+  card against K4's O and LSE over the whole sequence; then timed at the
+  main path's launch shape and at the 4-rank hop, beside both bounds and
+  its SASS mix."""
   from tensor2robot_tpu_torch.parallel import flash_attention as fa
 
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -1869,8 +1891,8 @@ def phase_ring_kernel(device, gen, world):
       # The state after rank 1's hop of rank 0's block.
       fa.flash_attention_carry_plain(q, qkv[:, :l, :, 1], qkv[:, :l, :, 2],
                                      *state, l, 0, True, d ** -0.5)
-      rel, _ = carry_errors(q, block[:, :, :, 1], block[:, :, :, 2], state,
-                            l, k_offset, True)
+      rel, _, _ = carry_errors(q, block[:, :, :, 1], block[:, :, :, 2],
+                               state, l, k_offset, True)
       check(rel <= CARRY_RTOL, 'K6 {} hop {}: {:.3g} of max (tolerance '
             '{:g})'.format(name, dtype, rel, CARRY_RTOL))
       print('flash_attention_carry {} hop [{},{},{},{}] causal {}: o, m, l '
@@ -1884,13 +1906,60 @@ def phase_ring_kernel(device, gen, world):
     q = torch.randn((2, 100, 3, 128), device=device, generator=gen).to(dtype)
     kv = torch.randn((2, 72, 3, 2, 128), device=device,
                      generator=gen).to(dtype)
-    rel, _ = carry_errors(q, kv[..., 0, :], kv[..., 1, :],
-                          carry_state(2, 3, 100, 128, device), 40, 30, True)
+    rel, _, _ = carry_errors(q, kv[..., 0, :], kv[..., 1, :],
+                             carry_state(2, 3, 100, 128, device), 40, 30,
+                             True)
     check(rel <= CARRY_RTOL, 'K6 odd shape {}: {:.3g} of max'.format(dtype,
                                                                       rel))
     print('flash_attention_carry odd [2,100/72,3,128] causal at offsets 40/30 '
           '{}: within {:.3g} of max (tolerance {:g})'.format(
               str(dtype).split('.')[-1], rel, CARRY_RTOL))
+    # Queries 128.. against keys 148..: the first 20 see no key, so the
+    # first warp takes no key tile and the second masks its first rows.
+    qkv = torch.randn((2, 2 * 128, h, 3, d), device=device,
+                      generator=gen).to(dtype)
+    q = qkv[:, 128:, :, 0]
+    state = carry_state(2, h, 128, d, device)
+    fa.flash_attention_carry_plain(q, qkv[:, :128, :, 1],
+                                   qkv[:, :128, :, 2], *state, 128, 0, True,
+                                   d ** -0.5)
+    kv = torch.randn((2, 128, h, 2, d), device=device,
+                     generator=gen).to(dtype)
+    rel, _, got = carry_errors(q, kv[..., 0, :], kv[..., 1, :], state, 128,
+                               148, True)
+    check(rel <= CARRY_RTOL, 'K6 partly hidden hop {}: {:.3g} of max'.format(
+        dtype, rel))
+    check(all(torch.equal(g[:, :, :16], x[:, :, :16])
+              for g, x in zip(got, state)),
+          'K6 changed the rows of a warp that takes no key')
+    print('flash_attention_carry partly hidden hop [2,128,{},{}] causal at '
+          'offsets 128/148 {}: within {:.3g} of max (tolerance {:g}); the '
+          'first warp\'s rows, which see no key, bit-equal'.format(
+              h, d, str(dtype).split('.')[-1], rel, CARRY_RTOL))
+
+  # The same bits run to run, at the 4-rank diagonal hop.
+  qkv = torch.randn((b, l, h, 3, d), device=device, generator=gen)
+  runs = []
+  for _ in range(2):
+    state = carry_state(b, h, l, d, device)
+    fa.flash_attention_carry(qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :],
+                             *state, l, l, True, d ** -0.5)
+    runs.append(state)
+  torch.cuda.synchronize()
+  check(all(torch.equal(x, y) for x, y in zip(*runs)),
+        'K6 gives other bits on a second run')
+  # A view whose rows do not start on 16 bytes is refused, not copied.
+  odd = torch.randn((1, 128, 2, d + 1), device=device)[..., 1:]
+  try:
+    fa.flash_attention_carry(odd, odd, odd, *carry_state(1, 2, 128, d, device),
+                             0, 0, True, d ** -0.5)
+  except ValueError:
+    pass
+  else:
+    raise AssertionError('K6 took a view whose rows are not 16-byte aligned')
+  print('flash_attention_carry: the same bits run to run; a misaligned view '
+        'refused with ValueError')
+  del qkv, runs, odd
 
   # The four-shard schedule of a [8, 4096, 8, 64] causal sequence, replayed
   # on one card: shard r takes blocks r, r - 1, ... in ring order.
@@ -1934,15 +2003,21 @@ def phase_ring_kernel(device, gen, world):
     pairs = causal_pairs(tb, th, tl, tl, q_offset, k_offset)
     # q, k, v read once; o, m, l read and written.
     nbytes = 3 * tb * tl * th * td * 4 + 2 * (tb * th * tl * (td + 2) * 4)
-    bound, by = bound_ms(nbytes, 4 * td * pairs)
-    return ms, plain_ms, bound, by, pairs
+    fp32_bound, _ = bound_ms(nbytes, 4 * td * pairs)
+    # 3xTF32 on the tensor cores, or the bytes if they take longer.
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = tensor_core_bound_ms(4 * td * pairs)
+    bound, by = ((t_ops, 'operations') if t_ops >= t_bytes else
+                 (t_bytes, 'bytes'))
+    return ms, plain_ms, bound, by, pairs, fp32_bound
 
   batch = 8 if world == 1 else 32
   main_shape = (batch, 4 * l // world, h, d)
   # The main path's launches: at one rank the diagonal hop over the whole
   # sequence; at four, full hops (and diagonal and hidden ones).
   main_offsets = (0, 0) if world == 1 else (main_shape[1], 0)
-  ms, plain, bound, by, pairs = timed(main_shape, *main_offsets, plain=True)
+  ms, plain, bound, by, pairs, fp32_bound = timed(main_shape, *main_offsets,
+                                                  plain=True)
   err = carry_errors(*(torch.randn(main_shape, device=device, generator=gen)
                        for _ in range(3)),
                      carry_state(batch, h, main_shape[1], d, device),
@@ -1951,24 +2026,32 @@ def phase_ring_kernel(device, gen, world):
         .format(err[0]))
   diag = timed(RING_HOP, l, l)
   full_hop = timed(RING_HOP, 2 * l, 0)
+  mix = sass_mix('flash_attention_carry')
+  check(mix['HMMA'] > 0, 'the SASS of flash_attention_carry holds no HMMA')
   print('flash_attention_carry per launch at the main path\'s shape {} '
         'causal f32 at offsets {}: {:.4f} ms ({:.1f} TFLOP/s), plain {:.4f} ms, '
-        'bound {:.4f} ms ({}); no single PyTorch call takes a carried (o, m, '
-        'l); at the 4-rank hop [{},{},{},{}]: diagonal {:.4f} ms (bound '
-        '{:.4f}), full {:.4f} ms (bound {:.4f}); {}'.format(
+        'bound {:.4f} ms ({}) for 3xTF32 on the tensor cores, {:.4f} ms on '
+        'the CUDA cores\' float32 rate; no single PyTorch call takes a '
+        'carried (o, m, l); at the 4-rank hop [{},{},{},{}]: diagonal {:.4f} '
+        'ms (bounds {:.4f} 3xTF32, {:.4f} float32), full {:.4f} ms (bounds '
+        '{:.4f}, {:.4f}); its SASS: {} HMMA, {} LDS, {} integer; {}'.format(
             list(main_shape), main_offsets, ms, 4 * d * pairs / ms / 1e9,
-            plain, bound, by, b, l, h, d, diag[0], diag[2], full_hop[0],
-            full_hop[2], smi_line()))
+            plain, bound, by, fp32_bound, b, l, h, d, diag[0], diag[2],
+            diag[5], full_hop[0], full_hop[2], full_hop[5], mix['HMMA'],
+            mix['LDS'], mix['integer'], smi_line()))
   return dict(name='flash_attention_carry', route='cuda',
               source='tensor2robot_tpu_torch/csrc/flash_attention_carry.cu',
               replaces='tensor2robot_tpu/parallel/flash_attention.py:342',
               max_abs_err=err[1], ms=ms, plain_ms=plain, bound_ms=bound,
-              bound_by=by, library_ms=None,
+              bound_by=by, fp32_bound_ms=fp32_bound,
+              tensor_core_bound_ms=bound, library_ms=None,
               library_note='no single PyTorch call takes a carried (o, m, l)',
+              sass_hmma=mix['HMMA'], sass_mix=mix,
               shapes='per launch: {} causal f32 at offsets {}'.format(
                   list(main_shape), main_offsets),
               hop_ms={'diagonal': diag[0], 'full': full_hop[0]},
               hop_bound_ms={'diagonal': diag[2], 'full': full_hop[2]},
+              hop_fp32_bound_ms={'diagonal': diag[5], 'full': full_hop[5]},
               max_rel_err=max(worst, err[0]))
 
 

@@ -14,281 +14,65 @@
 //   corr  = m <= NEG_INF/2 ? 0 : exp(m - safe)
 //   l     = l * corr + sum p;   o = o * corr + p @ v;   m = m'
 //
-// folded over k/v tiles of 64 rows, exactly the arithmetic of
-// `_block_update`. The state is read and written IN PLACE: o float32
-// [B, H, Lq, D], m and l float32 [B, H, Lq], all contiguous. Each block owns
-// its query rows, so no two blocks touch one row.
+// folded over k/v tiles, the arithmetic of `_block_update`. The state is
+// read and written IN PLACE: o float32 [B, H, Lq, D], m and l float32
+// [B, H, Lq], all contiguous. Each block owns its query rows, so no two
+// blocks touch one row. q, k and v are [B, L, H, D] views given by their
+// strides (b, h, l; d is unit stride) with 16-byte aligned rows, as K4
+// reads them.
 //
-// q, k and v are [B, L, H, D] views given by their strides (b, h, l; d is
-// unit stride), as K4 reads them.
-//
-// What bounds it on an H100: operations. A full hop of ring attention at
-// 4 ranks ([32, 1024, 8, 64] a shard) does 68.7 GFLOP of float32 products
-// over 134 MB of k and v, some 500 operations a byte. Like K4, from which it
-// is derived, this first version runs them as float32 FMAs on the CUDA cores;
-// wgmma and TMA are later work. Its design is K4's:
-//   * one block of 256 threads per (bh, tile of 64 query rows); k and v
-//     tiles of 64 rows stream through shared memory; each thread owns a 4x4
-//     block of the score tile and a 4 x D/16 block of the accumulator, which
-//     it loads from o at the start and stores back at the end;
-//   * under the causal mask a tile stops at the last k tile that holds a
-//     position at or before its last query's, and a tile whose queries all
-//     precede the block's first key (every tile of a hop above the diagonal)
-//     returns before it reads anything: its state is already the answer.
-// Shared memory as K4's: (2 D + 64) * 68 + 64 D floats.
+// What bounds it on an H100: operations. The one-rank ring's hop ([8, 4096,
+// 8, 64], causal, offsets 0) does 137 GFLOP of products over 340 MB of q,
+// k, v and the state read and written: 2.05 ms at the CUDA cores' float32
+// rate, 0.83 ms for three TF32 passes at the tensor cores' 495 TFLOP/s.
+// The kernel is K4's (flash_attention_fwd.cu, whose header describes the
+// design: 3xTF32 mma.sync, blocks of 8 warps of 16 queries, double-buffered
+// swizzled split tiles by cp.async, the online softmax on the fragments, p
+// made in registers, q's fragments held at D = 64, per-lane fragment offset
+// tables, the mask in a pass of its own, the longest query tiles first):
+// both run flash_fwd.cuh's tile loop, this one as its kCarry instance.
+// What the carry adds:
+//   * the state in and out: a warp loads its rows' o into its output
+//     accumulator fragments, and m and l into each quad's rows, before the
+//     first key tile, so the first tile's correction takes the carried m;
+//     at the end it stores o unnormalized, m and l. Rows past Lq are neither
+//     read nor written;
+//   * base-2 exponentials with a natural-log m in memory: the scores are
+//     scaled by scale * log2(e), as in K4, so m is converted as it is
+//     loaded (m log2 e) and stored (m ln 2), and the NEG_INF sentinel is
+//     kept as it is both ways (NEG_INF log2 e would still pass the
+//     NEG_INF/2 guard, but would come back as another number). The other
+//     choice, natural units throughout, costs a multiply an element in the
+//     loop; the conversion costs two a row a hop, and its rounding (some
+//     1e-7 of m) is far inside the tolerance;
+//   * the causal mask at global offsets: with delta = q_offset - k_offset
+//     (clamped to [-Lq, Lk], which changes no mask), key c is hidden from
+//     query r when r + delta < c. The tile loop's end, the choice of tiles
+//     that take the mask pass and the warp skip all read delta; it need not
+//     be a multiple of a tile and may be negative (Lq > Lk);
+//   * a block whose queries all precede its first key (every block of a hop
+//     that the mask hides) returns before it reads anything, and a warp
+//     whose queries do returns without writing: the state they own stays
+//     bit for bit as it was.
+// Shared memory and registers are K4's: 192 KB at D = 64 in float32, 224 KB
+// at D = 128.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
-namespace {
+#include <algorithm>
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kPad = 4;  // keeps transposed rows 16-byte aligned
-constexpr int kThreads = 256;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-constexpr int smem_floats(int d) {
-  return d * (kBlockQ + kPad) + d * (kBlockK + kPad) + kBlockK * d +
-         kBlockK * (kBlockQ + kPad);
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int offset = 8; offset > 0; offset >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, offset));
-  }
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int offset = 8; offset > 0; offset >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, offset);
-  }
-  return v;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_carry_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, float* __restrict__ o,
-                   float* __restrict__ m_state, float* __restrict__ l_state,
-                   int H, int Lq, int Lk, int64_t q_sb, int64_t q_sh,
-                   int64_t q_sl, int64_t k_sb, int64_t k_sh, int64_t k_sl,
-                   int64_t v_sb, int64_t v_sh, int64_t v_sl, float scale,
-                   int causal, int64_t q_offset, int64_t k_offset) {
-  constexpr int kGroups = D / 64;  // float4 column groups of o per thread
-  constexpr int kQRow = kBlockQ + kPad;
-  constexpr int kKRow = kBlockK + kPad;
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // query rows ty*4 .. ty*4+3
-  const int tx = tid & 15;  // key columns tx*4 .. tx*4+3
-  const int n_q = (Lq + kBlockQ - 1) / kBlockQ;
-  const int q_tile = n_q - 1 - blockIdx.x;  // longest causal tiles first
-  const int q0 = q_tile * kBlockQ;
-  const int bh = blockIdx.y;
-
-  int n_k = (Lk + kBlockK - 1) / kBlockK;
-  if (causal) {
-    // Keys past the tile's last query position are all masked: the tile
-    // needs the k tiles up to the one holding that position.
-    const int64_t last = q_offset + min(q0 + kBlockQ, Lq) - 1 - k_offset;
-    if (last < 0) return;  // the whole tile is masked: the state stands
-    n_k = static_cast<int>(
-        min(static_cast<int64_t>(n_k), last / kBlockK + 1));
-  }
-
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* qt = smem;                    // [D][kQRow]
-  float* kt = qt + D * kQRow;          // [D][kKRow]
-  float* vs = kt + D * kKRow;          // [kBlockK][D]
-  float* pt = vs + kBlockK * D;        // [kBlockK][kQRow]
-
-  const int b = bh / H;
-  const int h = bh % H;
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-  float* ob = o + static_cast<int64_t>(bh) * Lq * D;
-  float* mb = m_state + static_cast<int64_t>(bh) * Lq;
-  float* lb = l_state + static_cast<int64_t>(bh) * Lq;
-
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    qt[d * kQRow + r] =
-        q0 + r < Lq ? to_float(qb[(q0 + r) * q_sl + d]) : 0.0f;
-  }
-
-  // The carried state of this thread's rows; rows past Lq start empty and
-  // are never written back.
-  float m[4], l[4], acc[4][4 * kGroups];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    const bool in = row < Lq;
-    m[i] = in ? mb[row] : kNegInf;
-    l[i] = in ? lb[row] : 0.0f;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-      const float4 a =
-          in ? *reinterpret_cast<const float4*>(
-                   ob + static_cast<int64_t>(row) * D + g * 64 + tx * 4)
-             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      acc[i][g * 4] = a.x;
-      acc[i][g * 4 + 1] = a.y;
-      acc[i][g * 4 + 2] = a.z;
-      acc[i][g * 4 + 3] = a.w;
-    }
-  }
-
-  for (int kt_i = 0; kt_i < n_k; ++kt_i) {
-    const int k0 = kt_i * kBlockK;
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int r = i / D, d = i % D;
-      const bool in = k0 + r < Lk;
-      kt[d * kKRow + r] = in ? to_float(kb[(k0 + r) * k_sl + d]) : 0.0f;
-      vs[r * D + d] = in ? to_float(vb[(k0 + r) * v_sl + d]) : 0.0f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * kQRow +
-                                                        ty * 4);
-      const float4 c = *reinterpret_cast<const float4*>(kt + d * kKRow +
-                                                        tx * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t q_pos = q_offset + q0 + ty * 4 + i;
-      float row_max = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx * 4 + j;
-        float x = s[i][j] * scale;
-        if (c >= Lk || (causal && q_pos < k_offset + c)) x = kNegInf;
-        s[i][j] = x;
-        row_max = fmaxf(row_max, x);
-      }
-      row_max = half_warp_max(row_max);
-      const float m_new = fmaxf(m[i], row_max);
-      const float safe_m = m_new <= kNegInf / 2 ? 0.0f : m_new;
-      float row_sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = s[i][j] <= kNegInf / 2 ? 0.0f : expf(s[i][j] - safe_m);
-        s[i][j] = p;
-        row_sum += p;
-      }
-      row_sum = half_warp_sum(row_sum);
-      const float corr = m[i] <= kNegInf / 2 ? 0.0f : expf(m[i] - safe_m);
-      l[i] = l[i] * corr + row_sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4 * kGroups; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(pt + (tx * 4 + j) * kQRow + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kBlockK; ++c) {
-      const float4 a = *reinterpret_cast<const float4*>(pt + c * kQRow +
-                                                        ty * 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        const float4 w = *reinterpret_cast<const float4*>(vs + c * D +
-                                                          g * 64 + tx * 4);
-        const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[i][g * 4 + j] = fmaf(av[i], wv[j], acc[i][g * 4 + j]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // k, v and p are overwritten by the next tile
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Lq) continue;
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-      *reinterpret_cast<float4*>(ob + static_cast<int64_t>(row) * D +
-                                 g * 64 + tx * 4) =
-          make_float4(acc[i][g * 4], acc[i][g * 4 + 1], acc[i][g * 4 + 2],
-                      acc[i][g * 4 + 3]);
-    }
-    if (tx == 0) {
-      mb[row] = m[i];
-      lb[row] = l[i];
-    }
-  }
-}
-
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* m,
-           void* l, int B, int H, int Lq, int Lk, const int64_t* strides,
-           float scale, int causal, int64_t q_offset, int64_t k_offset,
-           cudaStream_t stream) {
-  const int bytes = smem_floats(D) * static_cast<int>(sizeof(float));
-  cudaError_t status = cudaFuncSetAttribute(
-      flash_carry_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (status != cudaSuccess) return static_cast<int>(status);
-  const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, B * H);
-  flash_carry_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<float*>(o),
-      static_cast<float*>(m), static_cast<float*>(l), H, Lq, Lk, strides[0],
-      strides[1], strides[2], strides[3], strides[4], strides[5], strides[6],
-      strides[7], strides[8], scale, causal, q_offset, k_offset);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "flash_fwd.cuh"
 
 extern "C" {
 
 // q: [B, Lq, H, D], k and v: [B, Lk, H, D], all float32 or all bfloat16,
-// given by element strides (batch, head, row) with unit stride along D;
-// o: contiguous float32 [B, H, Lq, D]; m, l: contiguous float32 [B, H, Lq],
-// all three updated in place. q_offset and k_offset are the global positions
-// of q's and k's first rows. D is 64 or 128. Returns cudaGetLastError()
-// after the launch (0 on success), or 1 (cudaErrorInvalidValue) for a D the
-// kernel was not built for.
+// given by element strides (batch, head, row) with unit stride along D and
+// 16-byte aligned rows; o: contiguous float32 [B, H, Lq, D]; m, l:
+// contiguous float32 [B, H, Lq], all three updated in place. q_offset and
+// k_offset are the global positions of q's and k's first rows. D is 64 or
+// 128. Returns cudaGetLastError() after the launch (0 on success), or 1
+// (cudaErrorInvalidValue) for a D the kernel was not built for.
 int t2r_flash_attention_carry(const void* q, const void* k, const void* v,
                               void* o, void* m, void* l, int B, int H, int Lq,
                               int Lk, int D, long long q_sb, long long q_sh,
@@ -297,24 +81,15 @@ int t2r_flash_attention_carry(const void* q, const void* k, const void* v,
                               long long v_sl, float scale, int causal,
                               long long q_offset, long long k_offset,
                               int bf16, void* stream) {
-  const int64_t strides[9] = {q_sb, q_sh, q_sl, k_sb, k_sh,
-                              k_sl, v_sb, v_sh, v_sl};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) {
-    return bf16 ? launch<__nv_bfloat16, 64>(q, k, v, o, m, l, B, H, Lq, Lk,
-                                            strides, scale, causal, q_offset,
-                                            k_offset, s)
-                : launch<float, 64>(q, k, v, o, m, l, B, H, Lq, Lk, strides,
-                                    scale, causal, q_offset, k_offset, s);
-  }
-  if (D == 128) {
-    return bf16 ? launch<__nv_bfloat16, 128>(q, k, v, o, m, l, B, H, Lq, Lk,
-                                             strides, scale, causal,
-                                             q_offset, k_offset, s)
-                : launch<float, 128>(q, k, v, o, m, l, B, H, Lq, Lk, strides,
-                                     scale, causal, q_offset, k_offset, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const t2r::fwd::Strides st = {q_sb, q_sh, q_sl, k_sb, k_sh,
+                                k_sl, v_sb, v_sh, v_sl};
+  // Below -Lq every query precedes every key; above Lk every key precedes
+  // every query.
+  const long long delta = std::min<long long>(
+      std::max<long long>(q_offset - k_offset, -Lq), Lk);
+  return t2r::fwd::launch_any<true>(q, k, v, o, m, l, B, H, Lq, Lk, D, st,
+                                    scale, causal, static_cast<int>(delta),
+                                    bf16, static_cast<cudaStream_t>(stream));
 }
 
 const char* t2r_error_string(int status) {

@@ -248,8 +248,8 @@ def _rows_aligned(t: torch.Tensor) -> bool:
 
 
 def _check_rows_aligned(name: str, *tensors) -> None:
-  """K4, K5a and K5b copy rows 4 elements at a time: every row of their
-  [B, L, H, D] operands must start on 16 bytes."""
+  """K4, K5a, K5b and K6 copy rows 4 elements at a time: every row of
+  their [B, L, H, D] operands must start on 16 bytes."""
   for i, t in enumerate(tensors):
     if not _rows_aligned(t):
       raise ValueError('{} copies rows 4 elements at a time: operand {} '
@@ -493,6 +493,7 @@ def _flash_carry_cuda(q, k, v, o, m, l, q_offset: int, k_offset: int,
                       causal: bool, scale: float):
   """K6 on [B, L, H, D] strided views of CUDA tensors; (o, m, l) in place."""
   _check_cuda('flash_attention_carry', q, k, v)
+  _check_rows_aligned('flash_attention_carry', q, k, v)
   for name, t in (('o', o), ('m', m), ('l', l)):
     if (t.dtype != torch.float32 or not t.is_contiguous() or
         t.device != q.device or t.data_ptr() % 16):
@@ -516,7 +517,7 @@ def flash_attention_carry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   block: K6 for a CUDA tensor, the plain version for a CPU tensor.
 
   q [B, Lq, H, D] and k, v [B, Lk, H, D] may be strided views with unit
-  stride along D. The state is float32: o [B, H, Lq, D] and m, l [B, H,
+  stride along D and, on the card, 16-byte aligned rows. The state is float32: o [B, H, Lq, D] and m, l [B, H,
   Lq], starting from 0, ``NEG_INF`` and 0. It is updated IN PLACE (each
   block of the kernel owns its query rows) and returned. ``q_offset`` and
   ``k_offset`` are the global positions of q's and k's first rows, for the

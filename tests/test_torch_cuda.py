@@ -36,7 +36,11 @@ exact ties, whose value bits and index must match. K6 (the ring hop) sums in ano
 its dense plain version: the carried o, m and l within 1e-5 of each one's
 max, at ragged tiles, head dim 128, Lq != Lk, global offsets that cross the
 diagonal, a hop the causal mask hides (which must leave the state as it
-was, bit for bit) and a carried state as well as the initial one.
+was, bit for bit), a hop hidden from its first warp's queries only (whose
+rows must stay bit for bit as they were), head dim 128 in bf16 at the
+4-rank hop's offsets, and a carried state as well as the initial one; the
+same bits run to run, and a view whose rows are not 16-byte aligned is
+refused.
 """
 
 import pytest
@@ -463,6 +467,9 @@ CARRY_RTOL = 1e-5   # of max|plain|, for o, m and l
     (1, 64, 128, 2, 64, 64, 0, False, True),      # Lq < Lk
     (2, 256, 128, 2, 64, 128, 64, True, True),    # Lq > Lk, partly masked
     (1, 128, 64, 2, 64, 0, 64, True, True),       # hidden by the mask
+    (2, 128, 128, 2, 64, 128, 148, True, True),   # the first warp hidden
+    (1, 256, 256, 2, 128, 256, 256, True, True),  # 4-rank diagonal hop
+    (1, 256, 256, 2, 128, 512, 0, True, True),    # 4-rank full hop
 ])
 def test_flash_attention_carry_matches_plain(device, b, l_q, l_k, h, d,
                                              q_offset, k_offset, causal,
@@ -495,6 +502,27 @@ def test_flash_attention_carry_matches_plain(device, b, l_q, l_k, h, d,
     assert err <= CARRY_RTOL * float(w.abs().max()), (name, err)
   if causal and k_offset > q_offset + l_q - 1:
     assert all(torch.equal(g, s) for g, s in zip(got, state))
+  # Rows whose queries all precede the first key: a warp of 16 that takes
+  # no key tile leaves them as they were.
+  hidden = 16 * max(0, min(k_offset - q_offset, l_q) // 16) if causal else 0
+  assert all(torch.equal(g[:, :, :hidden], s[:, :, :hidden])
+             for g, s in zip(got, state))
+
+
+def test_flash_attention_carry_same_bits_run_to_run(device):
+  gen = _generator(device, 8)
+  qkv = torch.randn((2, 256, 2, 3, 64), device=device, generator=gen)
+  runs = []
+  for _ in range(2):
+    state = (torch.zeros((2, 2, 256, 64), device=device),
+             torch.full((2, 2, 256), flash_attention.NEG_INF, device=device),
+             torch.zeros((2, 2, 256), device=device))
+    flash_attention.flash_attention_carry(
+        qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :], *state, 256, 200,
+        True, 0.125)
+    runs.append(state)
+  torch.cuda.synchronize()
+  assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_flash_attention_carry_refuses_what_it_does_not_take(device):
@@ -513,3 +541,6 @@ def test_flash_attention_carry_refuses_what_it_does_not_take(device):
     flash_attention.flash_attention_carry(
         x, x, x, torch.zeros(1, 2, 64, 32, device=device), *state[1:], 0, 0,
         True, 0.125)
+  with pytest.raises(ValueError, match='16-byte aligned'):
+    x = torch.randn(1, 64, 2, 65, device=device)[..., 1:]
+    flash_attention.flash_attention_carry(x, q, q, *state, 0, 0, True, 0.125)

@@ -51,6 +51,7 @@ def _port_sources():
       if name.endswith(('.py', '.cu', '.cuh')):
         yield os.path.join(root, name)
   yield os.path.join(REPO, 'chip_smoke.py')
+  yield os.path.join(REPO, 'flash_ab.py')
 
 
 def test_importing_every_module_loads_no_jax():
@@ -138,3 +139,12 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                           capture_output=True, text=True, timeout=120)
   assert result.returncode != 0
   assert '"ok"' not in result.stdout
+
+
+def test_flash_ab_refuses_to_run_without_a_card():
+  if torch.cuda.is_available():
+    pytest.skip('this check needs a machine without a CUDA card')
+  result = subprocess.run([sys.executable, 'flash_ab.py', REPO], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+  assert result.returncode != 0
+  assert 'needs a CUDA card' in result.stderr

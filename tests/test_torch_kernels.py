@@ -295,3 +295,7 @@ def test_an_included_header_rebuilds_the_kernel(tmp_path, monkeypatch):
                'flash_attention_bwd_q'):
     assert 'flash_tile.cuh' in [p.name for p in kernels._sources(
         kernels.source_path(name))]
+  # K4 and K6 run one forward tile loop, and K6 the 3xTF32 products.
+  for name in ('flash_attention_fwd', 'flash_attention_carry'):
+    assert {'flash_fwd.cuh', 'flash_tile.cuh', 'tf32_mma.cuh'} <= {
+        p.name for p in kernels._sources(kernels.source_path(name))}

@@ -166,21 +166,35 @@ def ring_setup(tmp_path_factory, jax_mesh):
 # -- K6's plain version against the Pallas carry kernel --------------------
 
 
-@pytest.mark.parametrize('causal,q_offset,k_offset,carried', [
-    (True, 0, 0, False),      # the diagonal hop, from the initial state
-    (True, 64, 64, True),     # the diagonal hop, carried
-    (True, 64, 0, True),      # a full hop below the diagonal
-    (True, 0, 64, True),      # a hop the mask hides entirely
-    (True, 32, 0, False),     # a hop that crosses the diagonal
-    (False, 0, 64, False),    # no mask: every key counts
-    (False, 64, 0, True),
+def _carry_case(causal, q_offset, k_offset, carried, l_k=64):
+  """A case of the test below; its id names l_k where it is not 64."""
+  name = '-'.join(str(x) for x in (causal, q_offset, k_offset, carried))
+  return pytest.param(causal, q_offset, k_offset, carried, l_k,
+                      id=name if l_k == 64 else '{}-{}'.format(name, l_k))
+
+
+@pytest.mark.parametrize('causal,q_offset,k_offset,carried,l_k', [
+    _carry_case(True, 0, 0, False),   # the diagonal hop, from the initial state
+    _carry_case(True, 64, 64, True),  # the diagonal hop, carried
+    _carry_case(True, 64, 0, True),   # a full hop below the diagonal
+    _carry_case(True, 0, 64, True),   # a hop the mask hides entirely
+    _carry_case(True, 32, 0, False),  # a hop that crosses the diagonal
+    _carry_case(False, 0, 64, False),   # no mask: every key counts
+    _carry_case(False, 64, 0, True),
+    # The diagonal crossed at an offset that is not a multiple of 16.
+    _carry_case(True, 40, 30, True),
+    # A hop hidden from the first 20 queries only.
+    _carry_case(True, 0, 20, True),
+    # Lq != Lk: more keys than queries, then fewer.
+    _carry_case(True, 48, 8, True, l_k=96),
+    _carry_case(True, 64, 0, False, l_k=32),
 ])
 def test_carry_plain_matches_pallas_interpret(causal, q_offset, k_offset,
-                                              carried):
+                                              carried, l_k):
   rng = np.random.RandomState(q_offset + 2 * k_offset + int(carried))
   bh, l, d = 2, 64, 16
-  q, k, v, k0, v0 = (rng.randn(bh, l, d).astype(np.float32)
-                     for _ in range(5))
+  q, k, v, k0, v0 = (rng.randn(bh, length, d).astype(np.float32)
+                     for length in (l, l_k, l_k, l, l))
   o = jnp.zeros((bh, l, d), jnp.float32)
   m = jnp.full((bh, l), flash_attention.NEG_INF, jnp.float32)
   lsum = jnp.zeros((bh, l), jnp.float32)

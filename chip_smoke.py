@@ -61,6 +61,28 @@ repository around it. Phases, each printing one line or more:
      of the non-K3 convs in float64 costs; a profile of train steps, and
      one batch served on the trained variables, whose q must be the
      trained avg_params' forward and not the untrained weights'.
+  4b. Records: the operator's workflow at full width. The JPEG probe
+     (PIL, cv2, jpeglib.h, libjpeg and libnvjpeg in ldconfig, nvjpeg.h)
+     and the loader's decoder: libjpeg where its header is, else nvJPEG.
+     RECORDS critic examples (512x640x3 JPEG frames, encoded by cv2 or
+     PIL) in RECORD_FILES files, written by the port's writer under the
+     critic's on-disk names; the native loader's records/s and MB/s at
+     batch 32 with its thread count; its pixels against libjpeg's (OpenCV)
+     on the same records within JPEG_PIXEL_ATOL for nvJPEG (0 for
+     libjpeg), every other field bit-equal. ``train_eval.main
+     --train_data`` trains the flagship critic TRAIN_STEPS steps at batch
+     32 from them through the native loader, from a step-0 checkpoint of
+     fan-in-scale weights, with the counters zeroed just before and read
+     just after (phase 4's counts); the loop's median step and data wait
+     and a profiled resident step, beside phase 4's. Then ``serve.py
+     --checkpoint_dir`` (``serve.start``, polling every POLL_SECS) answers
+     THREADS closed-loop clients for SERVE_SECONDS while a newer
+     checkpoint (one more step) is committed: no request may fail, the
+     poll must swap it in, and its first answer must come within
+     SWAP_POLLS polls of the commit (the latency printed); the counters,
+     zeroed before the server starts, must show 1 K1 and 6 K2f for every
+     batch (the warm batch included). A batch on the new step must score its actions as the newer
+     checkpoint's avg_params do without the serving code (1e-4 of max).
   5. Seq2Act serving: the long-context RT-1-style policy at full width
      (512-frame episodes, 4,096 tokens, 8 blocks, attention_mode 'flash',
      float32 with TF32 off) restored by CheckpointPredictor from a
@@ -158,6 +180,18 @@ TRAIN_POOLS = (
 BODY_CONV = (TRAIN_BATCH, 79, 79, 64)  # conv2..conv7's map
 BODY_CONVS = NUM_CONVS[0]
 WGRAD_RTOL = 1e-4   # of max|plain|: float32 sums in another order
+# The records phase: critic examples on disk in train_qtopt.gin's layout,
+# the files they are in, the server's checkpoint poll and the serving
+# clients' seconds.
+RECORDS, RECORD_FILES = 256, 4
+POLL_SECS, SWAP_POLLS, SERVE_SECONDS = 1.0, 5, 10.0
+# nvJPEG's pixels against libjpeg's on the same records: the loader
+# upsamples and converts nvJPEG's planes as libjpeg does, so only the IDCT
+# differs, by up to 1 in Y, Cb and Cr, which the colour conversion takes to
+# up to 3 in R, G or B (1 + 1.772 for B); 4 leaves one for rounding.
+JPEG_PIXEL_ATOL = 4
+# The random generator's loop (phase 4), beside the records' (phase 4b).
+RANDOM_LOOP = {}
 # The served pools: (name, input NHWC shape, window, calls per batch).
 SERVED_POOLS = (
     ('stem 236->79', (MAX_BATCH, 236, 236, 64), 3, 1),
@@ -867,6 +901,8 @@ def phase_train(device):
   steps = trainer.windows[1:]
   step_ms = statistics.median(w[1] * 1e3 for w in steps)
   compute_ms = statistics.median((w[1] - w[2]) * 1e3 for w in steps)
+  RANDOM_LOOP.update(step_ms=step_ms, data_wait_ms=statistics.median(
+      w[2] * 1e3 for w in steps))
   print('train: {} steps of batch {} in {:.1f}s, launches {}; loss {:.4f} '
         '(grasp {:.4f}, l2 {:.6f}); median step {:.2f} ms ({:.1f} examples/s)'
         ', of which {:.2f} ms after the batch was ready; checkpoint restores '
@@ -913,8 +949,8 @@ def phase_train(device):
   card_vs_cpu_critic_step(model, state, raw, labels, offsets)
   time_float64_weight_grads(device)
 
-  train_profile('train profile', trainer, model, state, raw, labels, 3,
-                TRAIN_BATCH)
+  RANDOM_LOOP['resident_ms'] = train_profile(
+      'train profile', trainer, model, state, raw, labels, 3, TRAIN_BATCH)
   phase_train_serve(model, initial, state)
   return launches
 
@@ -1238,6 +1274,368 @@ def train_profile(label, trainer, model, state, raw, labels, steps, batch):
   wall_ms = profile(label, step, steps, 'step of {}'.format(batch))
   print('{}: {:.2f} examples/s on a resident batch'.format(
       label, batch * 1e3 / wall_ms))
+  return wall_ms
+
+
+def jpeg_probe():
+  """What this host offers to encode and decode JPEG."""
+  import importlib
+
+  from tensor2robot_tpu_torch.data import native_loader
+
+  found = {}
+  for module in ('PIL', 'cv2'):
+    try:
+      importlib.import_module(module)
+      found[module] = True
+    except ImportError:
+      found[module] = False
+  found['jpeglib.h'] = any(os.path.exists(path)
+                           for path in native_loader.JPEGLIB_HEADERS)
+  libraries = subprocess.run(['ldconfig', '-p'], capture_output=True,
+                             text=True).stdout
+  found['libjpeg in ldconfig'] = 'libjpeg.so' in libraries
+  found['libnvjpeg in ldconfig'] = 'libnvjpeg.so' in libraries
+  found['nvjpeg.h'] = os.path.exists(os.path.join(
+      os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'include',
+      'nvjpeg.h'))
+  return found
+
+
+def encode_jpeg(image, encoder):
+  """An RGB uint8 frame as JPEG bytes (quality 95, 4:2:0), by ``encoder``:
+  'cv2' or 'PIL'."""
+  if encoder == 'cv2':
+    import cv2
+    ok, encoded = cv2.imencode('.jpg', image[..., ::-1],
+                               [cv2.IMWRITE_JPEG_QUALITY, 95])
+    check(ok, 'cv2 could not encode a frame')
+    return encoded.tobytes()
+  import io
+  from PIL import Image
+  out = io.BytesIO()
+  Image.fromarray(image).save(out, format='JPEG', quality=95)
+  return out.getvalue()
+
+
+def camera_frame(rng, index):
+  """A 512x640 RGB frame with a camera's kind of content: smooth ramps,
+  shifted a frame, and sensor noise."""
+  yy, xx = np.mgrid[0:512, 0:640]
+  image = np.stack([xx + 7 * index, yy + 3 * index, (xx + yy) // 2], -1)
+  return np.clip(image % 256 + rng.randint(-6, 7, image.shape), 0,
+                 255).astype(np.uint8)
+
+
+def write_critic_records(directory, feature_spec, label_spec, encoder):
+  """RECORDS critic examples in RECORD_FILES files, by the port's writer,
+  under the critic's on-disk names; returns (files, bytes of frames)."""
+  from tensor2robot_tpu_torch.data.writer import TFRecordReplayWriter
+
+  spec = {**{'features/' + k: v for k, v in feature_spec.items()},
+          **{'labels/' + k: v for k, v in label_spec.items()}}
+  rng = np.random.RandomState(0)
+  files, frame_bytes = [], 0
+  for f in range(RECORD_FILES):
+    files.append(os.path.join(directory, 'train-{:05d}-of-{:05d}.tfrecord'
+                              .format(f, RECORD_FILES)))
+    with TFRecordReplayWriter() as writer:
+      writer.open(files[-1])
+      for i in range(RECORDS // RECORD_FILES):
+        example = {}
+        for key, (shape, dtype) in spec.items():
+          if key == 'features/state/image':
+            example[key] = encode_jpeg(camera_frame(rng, f * 64 + i),
+                                       encoder)
+            frame_bytes += len(example[key])
+          elif key == 'labels/reward':
+            example[key] = np.asarray([rng.rand() < 0.3], np.float32)
+          else:
+            example[key] = rng.uniform(-1, 1, shape).astype(dtype)
+        writer.write_numpy(spec, example)
+  return files, frame_bytes
+
+
+def phase_records(device):
+  """The operator's workflow at full width: critic records on disk, the
+  native loader, train_eval --train_data, the checkpoint served by serve.py
+  --checkpoint_dir, and a newer checkpoint hot-swapped in while requests go
+  on. Returns the launch counts of its train and serve paths."""
+  import contextlib
+  import io
+
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.data import native_loader
+  from tensor2robot_tpu_torch.data import parser
+  from tensor2robot_tpu_torch.data import tfrecord
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+  from tensor2robot_tpu_torch.serving import serve
+  from tensor2robot_tpu_torch.trainer import checkpointing
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  probe = jpeg_probe()
+  encoder = 'cv2' if probe['cv2'] else 'PIL' if probe['PIL'] else None
+  check(encoder is not None, 'no JPEG encoder (cv2 or PIL) on this host')
+  decoder = native_loader.jpeg_decoder()
+  print('records: JPEG probe {}; frames encoded with {}, the loader decodes '
+        'with {}; {}'.format(json.dumps(probe), encoder, decoder,
+                             smi_line()))
+  model = t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+      device=device, network_kwargs={'num_convs': NUM_CONVS})
+  feature_spec = model.preprocessor.get_in_feature_specification(
+      ModeKeys.TRAIN)
+  label_spec = model.preprocessor.get_in_label_specification(ModeKeys.TRAIN)
+  with tempfile.TemporaryDirectory() as tmp:
+    data_dir, model_dir = os.path.join(tmp, 'data'), os.path.join(tmp,
+                                                                  'model')
+    os.makedirs(data_dir)
+    start = time.monotonic()
+    files, frame_bytes = write_critic_records(data_dir, feature_spec,
+                                              label_spec, encoder)
+    record_bytes = sum(os.path.getsize(f) for f in files)
+    print('records: wrote {} critic examples (512x640x3 JPEG frames by {}, '
+          '{:.1f} KB a frame; {:.1f} MB in {} files) in {:.1f} s'.format(
+              RECORDS, encoder, frame_bytes / RECORDS / 1024,
+              record_bytes / 1e6, RECORD_FILES, time.monotonic() - start))
+
+    # The loader alone: three shuffled epochs at the train batch, after
+    # one batch that makes the decoder's process-wide state.
+    plan = native_loader.plan_for_specs(feature_spec, label_spec)
+    check(plan is not None, 'the native loader does not plan the critic')
+
+    def stream_of(epochs):
+      return native_loader.NativeBatchedStream(
+          plan, files, batch_size=TRAIN_BATCH, shuffle=True, seed=0,
+          num_epochs=epochs)
+
+    start = time.monotonic()
+    library = native_loader.build_native()
+    build_s = time.monotonic() - start
+    start = time.monotonic()
+    stream = stream_of(1)
+    next(iter(stream))
+    stream.close()
+    first_ms = (time.monotonic() - start) * 1e3
+    stream = stream_of(3)
+    start = time.monotonic()
+    batches = sum(1 for _ in stream)
+    seconds = time.monotonic() - start
+    stats = stream.stats()
+    stream.close()
+    check(batches == 3 * RECORDS // TRAIN_BATCH, 'the loader gave {} '
+          'batches'.format(batches))
+    print('records: the native loader ({}, {} threads) reads {} batches of '
+          '{} at 512x640 in {:.3f} s: {:.1f} records/s, {:.1f} MB/s of '
+          'records, {:.2f} ms of a worker a record; its workers were busy '
+          '{:.3f} s, idle {:.3f} s; the loader built in {:.1f} s ({}), the '
+          'first batch of the process {:.1f} ms; {}'.format(
+              decoder, stream.num_threads, batches, TRAIN_BATCH, seconds,
+              batches * TRAIN_BATCH / seconds,
+              stats['bytes_read'] / seconds / 1e6,
+              stats['worker_busy_us'] / 1e3 / stats['rows_parsed'],
+              stats['worker_busy_us'] / 1e6, stats['worker_idle_us'] / 1e6,
+              build_s, os.path.basename(library), first_ms, smi_line()))
+
+    # The decoder's pixels against libjpeg's (OpenCV's) on the same records:
+    # the first file's first batch, read in order.
+    stream = native_loader.NativeBatchedStream(plan, files[:1],
+                                               batch_size=TRAIN_BATCH,
+                                               num_epochs=1)
+    got, got_labels = next(iter(stream))
+    stream.close()
+    if probe['cv2']:
+      want, want_labels = parser.ExampleParser(
+          feature_spec, label_spec).parse_batch(
+              tfrecord.read_all_records(files[0])[:TRAIN_BATCH])
+      for key in want:
+        if key != 'state/image':
+          check(np.array_equal(got[key], want[key]), '{} differs from the '
+                'Python parser\'s'.format(key))
+      check(all(np.array_equal(got_labels[k], want_labels[k])
+                for k in want_labels), 'labels differ from the parser\'s')
+      diff = np.abs(got['state/image'].astype(np.int16) -
+                    want['state/image'].astype(np.int16))
+      atol = JPEG_PIXEL_ATOL if decoder == 'nvjpeg' else 0
+      check(int(diff.max()) <= atol, '{} pixels differ from libjpeg\'s by '
+            '{} (tolerance {})'.format(decoder, int(diff.max()), atol))
+      print('records: {} pixels against libjpeg\'s (OpenCV) on {} frames: '
+            'max |diff| {} (tolerance {}), mean {:.4f}, {:.2%} of values '
+            'differ, {:.4%} by more than 2; every other field bit-equal'
+            .format(decoder, TRAIN_BATCH, int(diff.max()), atol,
+                    float(diff.mean()), float((diff > 0).mean()),
+                    float((diff > 2).mean())))
+
+    # Train through the command line from a step-0 checkpoint of weights at
+    # fan-in scale (as phase 4 does, so that served weights tell apart).
+    initial = model.create_train_state(torch.Generator().manual_seed(0))
+    spread = spread_weights({**initial.params, **initial.model_state},
+                            torch.Generator().manual_seed(2))
+    initial.params = {k: spread[k] for k in initial.params}
+    initial.model_state = {k: spread[k] for k in initial.model_state}
+    initial.avg_params = {k: v.clone() for k, v in initial.params.items()}
+    checkpointing.CheckpointManager(model_dir).save(initial)
+    out = io.StringIO()
+    kernels.reset_launches()
+    start = time.monotonic()
+    with contextlib.redirect_stdout(out):
+      rc = train_eval.main([
+          '--device', device.type, '--num_convs',
+          ','.join(str(n) for n in NUM_CONVS),
+          '--model_dir', model_dir, '--train_data',
+          os.path.join(data_dir, 'train-*'),
+          '--batch_size', str(TRAIN_BATCH), '--max_train_steps',
+          str(TRAIN_STEPS), '--log_every_n_steps', '1',
+          '--save_checkpoints_steps', str(TRAIN_STEPS)])
+    elapsed = time.monotonic() - start
+    train_launches = dict(kernels.LAUNCHES)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    want_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    want_launches.update({
+        'crop_convert': TRAIN_STEPS, 'max_pool': 3 * TRAIN_STEPS,
+        'max_pool_backward': 3 * TRAIN_STEPS,
+        'conv5x5_wgrad': BODY_CONVS * TRAIN_STEPS})
+    check(train_launches == want_launches, 'records train launch counts {} '
+          '!= expected {}'.format(train_launches, want_launches))
+    check(rc == 0 and line['data'] == 'native' and
+          line['step'] == TRAIN_STEPS and
+          np.isfinite(line['metrics']['loss']),
+          'train_eval --train_data: {}'.format(line))
+    state = checkpointing.CheckpointManager(model_dir).restore(
+        TRAIN_STEPS, device)
+
+    # The resident step, on one batch of the records.
+    generator = input_generators.DefaultRecordInputGenerator(
+        file_patterns=os.path.join(data_dir, 'train-*'),
+        batch_size=TRAIN_BATCH, use_native=True)
+    generator.set_specification_from_model(model, ModeKeys.TRAIN)
+    trainer = train_eval.Trainer(model, tmp)
+    numpy_features, numpy_labels = next(generator.create_dataset_iterator(
+        ModeKeys.TRAIN, seed=0, prefetch=0))
+    raw, labels = (trainer.put_batch(numpy_features),
+                   trainer.put_batch(numpy_labels))
+    resident_ms = train_profile('records train profile', trainer, model,
+                                state, raw, labels, 3, TRAIN_BATCH)
+    print('records train: train_eval --train_data trained {} steps of batch '
+          '{} from the records through the native loader in {:.1f} s, '
+          'launches {}; loss {:.4f}. The loop\'s median step {:.2f} ms, of '
+          'which {:.2f} ms waiting for data; a resident step {:.2f} ms. The '
+          'random generator\'s loop (phase 4): step {:.2f} ms, data wait '
+          '{:.2f} ms, resident step {:.2f} ms; {}'.format(
+              TRAIN_STEPS, TRAIN_BATCH, elapsed, train_launches,
+              line['metrics']['loss'], line['step_ms'], line['data_wait_ms'],
+              resident_ms, RANDOM_LOOP['step_ms'],
+              RANDOM_LOOP['data_wait_ms'], RANDOM_LOOP['resident_ms'],
+              smi_line()))
+
+    # The newer checkpoint: one more step from the trained state, saved
+    # while the server answers requests.
+    newer, _ = model.train_step(state, *model.preprocessor.preprocess(
+        raw, labels, ModeKeys.TRAIN,
+        generator=trainer.crop_generator(state.step)))
+    torch.cuda.synchronize()
+    check(newer.step == TRAIN_STEPS + 1, 'the newer state is at step {}'
+          .format(newer.step))
+    serve_launches, served = serve_records_checkpoint(device, model_dir,
+                                                      newer)
+
+  # The served q of the newest weights, against the network's forward on
+  # the newer checkpoint's weights without the serving code.
+  states, results = served
+  actions = torch.stack([torch.as_tensor(r.outputs['action'])
+                         for r in results])
+  q = torch.tensor([float(r.outputs['q']) for r in results])
+  want_q, _ = critic_q(model, {**newer.avg_params, **newer.model_state},
+                       states, actions[:, None])
+  torch.cuda.synchronize()
+  q_err = max_abs_err(q, want_q[:, 0].cpu()) / float(want_q.abs().max())
+  check(q_err <= 1e-4, 'served q differs from the newest checkpoint\'s '
+        'forward by {:.3g} of its max'.format(q_err))
+  print('records serve: the {} answers on the newest step equal its '
+        'avg_params\' forward within {:.3g} of max (tolerance 1e-4)'.format(
+            len(results), q_err))
+  return {'records_train': train_launches, 'records_serve': serve_launches}
+
+
+def serve_records_checkpoint(device, model_dir, newer):
+  """serve.py --checkpoint_dir on the trained checkpoint, polling every
+  POLL_SECS, under THREADS closed-loop clients for SERVE_SECONDS; ``newer``
+  is saved as a checkpoint a third of the way in. Returns the launch
+  counts of serving and (states, results) of one batch on the new step."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.serving import serve
+  from tensor2robot_tpu_torch.trainer import checkpointing
+
+  args = serve.make_parser().parse_args([
+      '--device', device.type, '--num_convs',
+      ','.join(str(n) for n in NUM_CONVS),
+      '--checkpoint_dir', model_dir, '--poll_secs', str(POLL_SECS),
+      '--restore_timeout', '60', '--max_batch_size', str(MAX_BATCH),
+      '--cem_samples', str(CEM_SAMPLES), '--cem_iters', str(CEM_ITERS),
+      '--num_elites', str(NUM_ELITES)])
+  kernels.reset_launches()
+  serving = serve.start(args)
+  first = serving.service.params_version
+  # The process's registry counts every server's batches: this one's are
+  # those after its start.
+  batches_before = serving.service.stats()['batches_total']
+  load = {}
+  client = threading.Thread(target=lambda: load.update(
+      serve.run_synthetic_load(serving.service, serving.feature_spec,
+                               THREADS, SERVE_SECONDS)))
+  try:
+    client.start()
+    time.sleep(SERVE_SECONDS / 3)
+    checkpointing.CheckpointManager(model_dir).save(newer)
+    committed = time.monotonic()
+    client.join()
+    # One batch of MAX_BATCH requests on the new step, for the q check.
+    rng = np.random.RandomState(7)
+    states = [serve.synthetic_state(serving.feature_spec, rng)
+              for _ in range(MAX_BATCH)]
+    futures = [serving.service.submit(s) for s in states]
+    results = [f.result(timeout=60) for f in futures]
+    batches = serving.service.stats()['batches_total'] - batches_before
+  finally:
+    serving.stop()
+  launches = dict(kernels.LAUNCHES)
+  new = str(newer.step)
+  check(first == TRAIN_STEPS, 'serve.py started on step {}'.format(first))
+  check(load['failed'] == 0 and load['completed'] > 0,
+        'serving under the swap: {}'.format(load))
+  check(set(load['versions_served']) == {str(first), new},
+        'versions served {}'.format(load['versions_served']))
+  check([v for v, _ in serving.swaps] == [newer.step],
+        'swaps {}'.format(serving.swaps))
+  latency = load['first_answer_monotonic'][new] - committed
+  check(latency <= SWAP_POLLS * POLL_SECS, 'the first answer on step {} '
+        'came {:.2f} s after its commit ({} polls of {} s allowed)'.format(
+            new, latency, SWAP_POLLS, POLL_SECS))
+  check(all(r.version == newer.step for r in results),
+        'the q check\'s batch was not served on the new step')
+  # One warm batch before the server started, then every served batch.
+  want = dict.fromkeys(kernels.LAUNCHES, 0)
+  want.update({'crop_convert': 1 + int(batches),
+               'max_pool': sum(pool[-1] for pool in SERVED_POOLS) *
+                           (1 + int(batches))})
+  check(launches == want, 'serve launch counts {} != expected {}'.format(
+      launches, want))
+  print('records serve: serve.py --checkpoint_dir served step {} to {} '
+        'clients, {} answers ({} on step {}, {} on step {}), {} failed, '
+        'p99 over the run {:.2f} ms; the poll ({} s) swapped in step {} and '
+        'its first answer came {:.3f} s after the checkpoint\'s commit '
+        '(swap at +{:.3f} s); launches {}; {}'.format(
+            first, THREADS, load['completed'],
+            load['versions_served'][str(first)], first,
+            load['versions_served'][new], new, load['failed'],
+            serving.service.stats()['latency_ms'].get('p99', 0.0), POLL_SECS,
+            new, latency, serving.swaps[0][1] - committed, launches,
+            smi_line()))
+  stacked = {k: np.stack([s[k] for s in states]) for k in states[0]}
+  return launches, (stacked, results)
 
 
 # The served attention: episode_length 512 x 8 tokens, 8 heads of 64.
@@ -2284,9 +2682,10 @@ def main():
   wgrad_entry = phase_wgrad(device, gen)
   flash = phase_flash(device, gen)
   flash_kv, flash_q = phase_flash_backward(device, gen)
-  paths = {'serve': phase_slice(device), 'train': phase_train(device),
-           'seq2act': phase_seq2act(device),
-           'seq2act_train': phase_seq2act_train(device)}
+  paths = {'serve': phase_slice(device), 'train': phase_train(device)}
+  paths.update(phase_records(device))
+  paths.update({'seq2act': phase_seq2act(device),
+                'seq2act_train': phase_seq2act_train(device)})
   # K1 and K2f report their serving launches, K2b and K3 their training
   # ones, K4 its seq2act ones, K5a and K5b their seq2act training ones, K6
   # its ring training ones; every path's counts are listed too.

@@ -1,6 +1,5 @@
 """Input generators: batches of numpy arrays that match a model's
-in-specifications (the JAX package's ``data/input_generators.py``, the
-generator-backed part; reading records from disk is a later slice).
+in-specifications (the JAX package's ``data/input_generators.py``).
 
   * ``AbstractInputGenerator`` takes its specifications from the model's
     preprocessor (what the preprocessor consumes, not what the network
@@ -10,7 +9,13 @@ generator-backed part; reading records from disk is a later slice).
   * ``DefaultRandomInputGenerator`` draws spec-conforming random batches,
     batch ``i`` of an iterator seeded ``seed`` from features seed
     ``seed + i`` and labels seed ``seed + i + 977``: array for array the
-    JAX generator's.
+    JAX generator's;
+  * ``DefaultRecordInputGenerator`` reads TFRecord files (the data users
+    train on) through the native loader or the Python parser, and
+    ``FractionalRecordInputGenerator`` and
+    ``MultiEvalRecordInputGenerator`` choose which files. Reader
+    ``shard_index`` of ``num_shards`` reads every ``num_shards``-th file
+    from its own on.
 
 An iterator given ``frames`` (a ``FrameShard``: the keys whose first
 per-example axis is the episode's frames, and a range of those frames)
@@ -24,15 +29,25 @@ batch that one rank would draw alone.
 from __future__ import annotations
 
 import abc
+import json
+import os
 import queue
 import threading
-from typing import Callable, Iterator, NamedTuple, Optional, Tuple
+from typing import (Callable, Dict, Iterator, NamedTuple, Optional, Tuple,
+                    Union)
 
+from tensor2robot_tpu_torch.data import native_loader
+from tensor2robot_tpu_torch.data import parser
+from tensor2robot_tpu_torch.data import pipeline
+from tensor2robot_tpu_torch.data.tfrecord import RecordQuarantine
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.specs import generators
 
 __all__ = ['AbstractInputGenerator', 'DefaultRandomInputGenerator',
-           'FrameShard', 'GeneratorInputGenerator', 'prefetch_iterator']
+           'DefaultRecordInputGenerator', 'FractionalRecordInputGenerator',
+           'FrameShard', 'GeneratorInputGenerator',
+           'MultiEvalRecordInputGenerator', 'get_multi_eval_name',
+           'prefetch_iterator']
 
 
 class FrameShard(NamedTuple):
@@ -140,16 +155,19 @@ class AbstractInputGenerator(abc.ABC):
                               num_epochs: Optional[int] = None,
                               seed: Optional[int] = None,
                               prefetch: Optional[int] = None,
-                              frames: Optional[FrameShard] = None
+                              frames: Optional[FrameShard] = None,
+                              shard_index: int = 0, num_shards: int = 1
                               ) -> Iterator:
     """Yields (features, labels) numpy dicts; ``num_epochs`` None is
     endless, ``prefetch`` None takes the generator's default (0 makes
-    each batch on demand), and ``frames`` keeps only a shard of the
-    episodes' frames."""
+    each batch on demand), ``frames`` keeps only a shard of the episodes'
+    frames, and a record reader reads its ``shard_index`` of
+    ``num_shards`` shares of the files."""
     if self._feature_spec is None:
       raise ValueError('set_specification(_from_model) must be called '
                        'before creating a dataset iterator.')
-    iterator = self._create_iterator(mode, num_epochs, seed, frames)
+    iterator = self._create_iterator(mode, num_epochs, seed, frames,
+                                     shard_index, num_shards)
     depth = self._prefetch if prefetch is None else prefetch
     if depth > 0:
       iterator = prefetch_iterator(iterator, depth)
@@ -157,8 +175,8 @@ class AbstractInputGenerator(abc.ABC):
 
   @abc.abstractmethod
   def _create_iterator(self, mode: str, num_epochs: Optional[int],
-                       seed: Optional[int],
-                       frames: Optional[FrameShard]) -> Iterator:
+                       seed: Optional[int], frames: Optional[FrameShard],
+                       shard_index: int, num_shards: int) -> Iterator:
     ...
 
 
@@ -186,8 +204,9 @@ class GeneratorInputGenerator(AbstractInputGenerator):
                    for part in batch)
     return frames.cut(batch)
 
-  def _create_iterator(self, mode, num_epochs, seed, frames):
-    del mode
+  def _create_iterator(self, mode, num_epochs, seed, frames, shard_index,
+                       num_shards):
+    del mode, shard_index, num_shards  # every reader draws from the seed
     feature_spec, label_spec = self._feature_spec, self._label_spec
     if frames is not None:
       feature_spec, label_spec = frames.spec(feature_spec), frames.spec(
@@ -220,3 +239,190 @@ class DefaultRandomInputGenerator(GeneratorInputGenerator):
         spec, self._batch_size, part_seed, frames.keys, frames.start,
         frames.stop) for spec, part_seed in ((self._feature_spec, seed),
                                              (self._label_spec, label_seed)))
+
+
+def _cut_frames(iterator: Iterator, frames: FrameShard) -> Iterator:
+  for features, labels in iterator:
+    yield frames.cut(features), None if labels is None else frames.cut(
+        labels)
+
+
+class DefaultRecordInputGenerator(AbstractInputGenerator):
+  """TFRecord files, one dataset or several zipped, as batches.
+
+  ``file_patterns``: 'path/a*' or 'tfrecord:path/a*,path/b*'.
+  ``dataset_map``: {dataset_key: file_patterns}, zipped by the specs'
+  ``dataset_key``s.
+
+  ``use_native`` chooses the reader: True, the native loader
+  (``native_loader``: C++ worker threads read, parse and decode); False,
+  the Python parser (``pipeline``); 'auto', the native loader exactly
+  when it can read these specs and files: ``plan_for_specs`` plans them
+  (not PNG images, sequences without ``sequence_max_len``, or unnamed or
+  shared names), every configured dataset is read by a spec and
+  ``skip_corrupt_records`` is off. The rule looks at the specs and the
+  configuration only: a loader that fails to build or load raises, and
+  True raises where the specs are not the loader's.
+
+  ``skip_corrupt_records``: count corrupt or truncated records against
+  ``max_corrupt_records`` in all and ``max_corrupt_records_per_file`` in
+  one file, and read on, until either budget is exceeded; only the
+  Python parser skips. TRAIN shuffles files and records, from ``seed``
+  and its epoch; EVAL and PREDICT read in order.
+  """
+
+  def __init__(self, file_patterns: Optional[str] = None,
+               dataset_map: Optional[Dict[str, str]] = None,
+               batch_size: int = 32, shuffle_buffer_size: int = 500,
+               prefetch: int = 2, use_native: Union[bool, str] = 'auto',
+               num_native_threads: Optional[int] = None,
+               sequence_max_len: Optional[int] = None,
+               skip_corrupt_records: bool = False,
+               max_corrupt_records: int = 100,
+               max_corrupt_records_per_file: int = 10):
+    super().__init__(batch_size=batch_size, prefetch=prefetch)
+    if not file_patterns and not dataset_map:
+      raise ValueError('file_patterns or dataset_map is required.')
+    if file_patterns and dataset_map:
+      raise ValueError('file_patterns and dataset_map are mutually '
+                       'exclusive.')
+    if use_native not in (True, False, 'auto'):
+      raise ValueError("use_native must be True, False or 'auto'; got "
+                       '{!r}.'.format(use_native))
+    if skip_corrupt_records and use_native is True:
+      raise ValueError('use_native=True cannot skip corrupt records: only '
+                       'the Python parser can.')
+    self._file_patterns = file_patterns
+    self._dataset_map = dataset_map
+    self._shuffle_buffer_size = shuffle_buffer_size
+    self._use_native = use_native
+    self._num_native_threads = num_native_threads
+    self._sequence_max_len = sequence_max_len
+    self._skip_corrupt_records = skip_corrupt_records
+    self.quarantine = None
+    if skip_corrupt_records:
+      self.quarantine = RecordQuarantine(max_corrupt_records,
+                                         max_corrupt_records_per_file)
+    # The reader the last iterator took: 'native' or 'python'.
+    self.reader = None
+
+  def _dataset_files(self) -> Dict[str, str]:
+    if self._dataset_map is not None:
+      return dict(self._dataset_map)
+    return {'': self._file_patterns}
+
+  def native_plan(self):
+    """The native loader's plan of the specs when ``use_native`` takes it
+    (see the class's rule), else None."""
+    if self._use_native is False:
+      return None
+    plan = None
+    if not self._skip_corrupt_records:
+      plan = native_loader.plan_for_specs(
+          self._feature_spec, self._label_spec,
+          sequence_max_len=self._sequence_max_len)
+    if plan is not None and set(plan.dataset_keys) != set(
+        self._dataset_files()):
+      plan = None   # the Python zip reads every configured dataset
+    if plan is None and self._use_native is True:
+      raise ValueError(
+          'use_native=True, but the native loader does not read these '
+          'specs and datasets (sequences without sequence_max_len, PNG '
+          'images, unnamed or shared names, or datasets no spec reads).')
+    return plan
+
+  def _create_iterator(self, mode, num_epochs, seed, frames, shard_index,
+                       num_shards):
+    shuffle = mode == ModeKeys.TRAIN
+    plan = self.native_plan()
+    if plan is not None:
+      files = {}
+      for key, patterns in self._dataset_files().items():
+        files[key] = pipeline.parse_file_patterns(patterns)[1][
+            shard_index::num_shards]
+        if not files[key]:
+          raise ValueError('Reader {} of {} has no files of dataset '
+                           '{!r}.'.format(shard_index, num_shards, key))
+      stream = native_loader.NativeBatchedStream(
+          plan, files[''] if plan.dataset_keys == [''] else files,
+          batch_size=self._batch_size, shuffle=shuffle,
+          shuffle_buffer=self._shuffle_buffer_size, num_epochs=num_epochs,
+          seed=seed, num_threads=self._num_native_threads)
+      self.reader = 'native'
+      iterator = self._closing(stream)
+    else:
+      example_parser = parser.ExampleParser(self._feature_spec,
+                                            self._label_spec)
+      datasets = {
+          key: pipeline.RecordDataset(
+              patterns, dataset_key=key, shard_index=shard_index,
+              num_shards=num_shards,
+              skip_corrupt_records=self._skip_corrupt_records,
+              quarantine=self.quarantine)
+          for key, patterns in self._dataset_files().items()}
+      missing = set(example_parser.dataset_keys) - set(datasets)
+      if missing:
+        raise ValueError('Specs read dataset keys {} with no files; have '
+                         '{}.'.format(sorted(missing), sorted(datasets)))
+      self.reader = 'python'
+      iterator = iter(pipeline.BatchedExampleStream(
+          datasets, example_parser, batch_size=self._batch_size,
+          shuffle=shuffle,
+          shuffle_buffer=self._shuffle_buffer_size, num_epochs=num_epochs,
+          seed=seed))
+    return iterator if frames is None else _cut_frames(iterator, frames)
+
+  @staticmethod
+  def _closing(stream) -> Iterator:
+    try:
+      yield from stream
+    finally:
+      stream.close()
+
+
+class FractionalRecordInputGenerator(DefaultRecordInputGenerator):
+  """Reads only the first ``file_fraction`` of the matched files (for
+  data ablations)."""
+
+  def __init__(self, file_fraction: float = 1.0, **kwargs):
+    super().__init__(**kwargs)
+    if not 0.0 < file_fraction <= 1.0:
+      raise ValueError('file_fraction must be in (0, 1].')
+    self._file_fraction = file_fraction
+
+  def _dataset_files(self) -> Dict[str, str]:
+    out = {}
+    for key, patterns in super()._dataset_files().items():
+      if self._file_fraction < 1.0:
+        files = pipeline.parse_file_patterns(patterns)[1]
+        patterns = ','.join(files[:max(1, int(self._file_fraction *
+                                              len(files)))])
+      out[key] = patterns
+    return out
+
+
+def get_multi_eval_name(default: Optional[str] = None) -> Optional[str]:
+  """The eval dataset's name in ``TF_CONFIG``'s ``multi_eval_name``."""
+  tf_config = os.environ.get('TF_CONFIG')
+  if not tf_config:
+    return default
+  try:
+    return json.loads(tf_config).get('multi_eval_name', default)
+  except (ValueError, AttributeError):
+    return default
+
+
+class MultiEvalRecordInputGenerator(DefaultRecordInputGenerator):
+  """Reads the dataset of ``eval_map`` that ``TF_CONFIG``'s
+  ``multi_eval_name`` names."""
+
+  def __init__(self, eval_map: Dict[str, str], **kwargs):
+    multi_eval_name = get_multi_eval_name()
+    if multi_eval_name is None:
+      raise ValueError('TF_CONFIG.multi_eval_name must be set for '
+                       'MultiEvalRecordInputGenerator.')
+    if multi_eval_name not in eval_map:
+      raise ValueError('multi_eval_name {!r} not in eval_map {}.'.format(
+          multi_eval_name, sorted(eval_map)))
+    self.multi_eval_name = multi_eval_name
+    super().__init__(file_patterns=eval_map[multi_eval_name], **kwargs)

@@ -1,0 +1,1714 @@
+// Native TFRecord -> batched-tensor loader of the PyTorch port (a copy of
+// the JAX package's data/native/record_loader.cc, full image decode only).
+//
+// A dependency-light C++ loader that reads TFRecord shards, parses
+// tf.Example and tf.SequenceExample protos straight off the wire format,
+// decodes JPEG frames and assembles batches into a ring of preallocated
+// buffers, on a worker thread pool outside the Python GIL.
+//
+// Architecture:
+//   reader thread:  epoch loop -> framed record read -> bounded shuffle
+//                   buffer -> (slot, row) work items
+//   N worker threads: proto wire walk -> field extract / JPEG decode ->
+//                   write into slot row (no locks on the hot path; each row
+//                   is owned by exactly one worker)
+//   consumer (Python via ctypes): t2r_loader_next() blocks for a READY slot,
+//                   wraps the slot buffers as numpy arrays (zero copy),
+//                   t2r_loader_release() returns the slot to the pool.
+//
+// JPEG decoder, chosen when the library is built (native_loader.py):
+//   T2R_JPEG_LIBJPEG: libjpeg(-turbo), the JAX loader's decoder;
+//   T2R_JPEG_NVJPEG:  NVIDIA's nvJPEG, where the host has no libjpeg but
+//     the CUDA toolkit has nvJPEG: each worker thread decodes on CUDA
+//     device 0 with a state and a stream of its own and copies the pixels
+//     back into its row. Its IDCT and colour conversion are not libjpeg's,
+//     so its pixels may differ from libjpeg's by a few levels.
+// t2r_loader_decoder() names the one built in.
+//
+// Wire-format notes (proto2/proto3 compatible, no protobuf dependency):
+//   Example        = { 1: Features }
+//   Features       = { 1: repeated map entry { 1: key-bytes, 2: Feature } }
+//   Feature        = oneof { 1: BytesList, 2: FloatList, 3: Int64List }
+//   BytesList      = { 1: repeated bytes }
+//   FloatList      = { 1: repeated float (packed or unpacked) }
+//   Int64List      = { 1: repeated varint (packed or unpacked) }
+//
+// TFRecord framing: [u64 len][u32 masked-crc32c(len)][data][u32 masked-crc32c
+// (data)] - see data/tfrecord.py for the Python twin of this reader.
+
+#include <pthread.h>
+#include <setjmp.h>
+#include <stddef.h>
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+
+#if defined(T2R_JPEG_NVJPEG)
+#include <cuda_runtime_api.h>
+#include <nvjpeg.h>
+#elif defined(T2R_JPEG_LIBJPEG)
+#include <jpeglib.h>  // requires <stddef.h>/<stdio.h> first
+#else
+#error "define T2R_JPEG_LIBJPEG or T2R_JPEG_NVJPEG"
+#endif
+
+#include <algorithm>
+#include <atomic>
+#include <chrono>
+#include <condition_variable>
+#include <cstring>
+#include <deque>
+#include <memory>
+#include <mutex>
+#include <random>
+#include <sstream>
+#include <string>
+#include <thread>
+#include <vector>
+
+#if defined(__SSE4_2__)
+#include <nmmintrin.h>
+#endif
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// CRC32C (Castagnoli) for TFRecord frame verification.
+// ---------------------------------------------------------------------------
+
+uint32_t crc32c_table[256];
+std::once_flag crc_table_once;
+
+void init_crc_table() {
+  for (uint32_t i = 0; i < 256; i++) {
+    uint32_t crc = i;
+    for (int k = 0; k < 8; k++)
+      crc = (crc & 1) ? (crc >> 1) ^ 0x82F63B78u : crc >> 1;
+    crc32c_table[i] = crc;
+  }
+}
+
+uint32_t crc32c(const uint8_t* data, size_t n) {
+#if defined(__SSE4_2__)
+  uint64_t crc = 0xFFFFFFFFu;
+  size_t i = 0;
+  for (; i + 8 <= n; i += 8) {
+    uint64_t v;
+    memcpy(&v, data + i, 8);
+    crc = _mm_crc32_u64(crc, v);
+  }
+  for (; i < n; i++) crc = _mm_crc32_u8((uint32_t)crc, data[i]);
+  return (uint32_t)crc ^ 0xFFFFFFFFu;
+#else
+  std::call_once(crc_table_once, init_crc_table);
+  uint32_t crc = 0xFFFFFFFFu;
+  for (size_t i = 0; i < n; i++)
+    crc = crc32c_table[(crc ^ data[i]) & 0xFF] ^ (crc >> 8);
+  return crc ^ 0xFFFFFFFFu;
+#endif
+}
+
+uint32_t masked_crc(const uint8_t* data, size_t n) {
+  uint32_t crc = crc32c(data, n);
+  return ((crc >> 15) | (crc << 17)) + 0xA282EAD8u;
+}
+
+// ---------------------------------------------------------------------------
+// Protobuf wire walking.
+// ---------------------------------------------------------------------------
+
+struct Cursor {
+  const uint8_t* p;
+  const uint8_t* end;
+  bool ok = true;
+
+  uint64_t varint() {
+    uint64_t v = 0;
+    int shift = 0;
+    while (p < end && shift < 64) {
+      uint8_t b = *p++;
+      v |= (uint64_t)(b & 0x7F) << shift;
+      if (!(b & 0x80)) return v;
+      shift += 7;
+    }
+    ok = false;
+    return 0;
+  }
+
+  // Returns field number, sets wire type; 0 on end/error.
+  uint32_t tag(uint32_t* wire_type) {
+    if (p >= end) return 0;
+    uint64_t t = varint();
+    if (!ok) return 0;
+    *wire_type = (uint32_t)(t & 7);
+    return (uint32_t)(t >> 3);
+  }
+
+  // Length-delimited payload; returns view.
+  Cursor bytes() {
+    uint64_t n = varint();
+    if (!ok || p + n > end) {
+      ok = false;
+      return {end, end};
+    }
+    Cursor c{p, p + n};
+    p += n;
+    return c;
+  }
+
+  void skip(uint32_t wire_type) {
+    switch (wire_type) {
+      case 0: varint(); break;
+      case 1: p += 8; break;
+      case 2: bytes(); break;
+      case 5: p += 4; break;
+      default: ok = false;
+    }
+    if (p > end) ok = false;
+  }
+
+  size_t size() const { return end - p; }
+};
+
+// ---------------------------------------------------------------------------
+// Config.
+// ---------------------------------------------------------------------------
+
+enum FieldKind {
+  kFloat = 0,
+  kInt = 1,
+  kImageFull = 2,
+};
+
+struct FieldSpec {
+  std::string name;
+  FieldKind kind;
+  int dtype_size;  // int fields: output width in bytes (1, 4, 8)
+  int h = 0, w = 0, c = 0;  // image fields
+  // float/int fields: elements per row (per STEP for sequence fields).
+  // image_full fields: number of frames (a rank-4 [T, H, W, C] spec
+  // stores T JPEGs as a bytes list; 0/1 means a single [H, W, C] image).
+  long long count = 0;
+  // > 0: a SequenceExample feature_lists field (float/int only) with this
+  // step CAPACITY; rows are [seq_cap, count] with zero padding past the
+  // record's actual step count, which lands in buf_n.
+  long long seq_cap = 0;
+  // Varlen (VarLenFeature semantics): the on-disk value list may hold
+  // any number of elements; the row is CLIPPED to ``count`` (extras
+  // dropped) or PADDED with ``pad_value`` (parser.py pad_or_clip
+  // parity). Float/int rank-1 fields and image_full frame lists only.
+  int varlen = 0;
+  double pad_value = 0.0;
+  // Optional (is_optional specs): a record may omit the feature. The
+  // per-row presence flag lands in buf_p; the Python side drops the key
+  // from any batch where presence is not all-ones (the Python parser's
+  // dense-batch drop semantics).
+  int optional_field = 0;
+  // Dataset index for multi-dataset zip: this field parses from the
+  // row's dsi-th record (one record per file group per row).
+  int dsi = 0;
+  // Buffer indices into Slot::buffers (filled at config time).
+  int buf0 = -1;            // float/int values or uint8 pixels
+  int buf_n = -1;           // per-row sequence step counts
+  int buf_p = -1;           // per-row presence flags (optional fields)
+};
+
+struct Config {
+  int batch_size = 0;
+  int ring = 3;
+  int threads = 2;
+  bool shuffle = false;
+  int shuffle_buffer = 500;
+  long long seed = -1;
+  long long epochs = -1;  // -1: infinite
+  bool verify_crc = false;
+  bool any_seq = false;   // any sequence field: records parse as
+                          // SequenceExample (context + feature_lists)
+  // One file list per dataset; row r of a batch is built from one record
+  // of EACH group (multi-dataset zip, ending with the shortest group).
+  // The single-dataset case is one group.
+  std::vector<std::vector<std::string>> groups;
+  std::vector<FieldSpec> fields;
+  std::vector<long long> buffer_sizes;  // per-slot bytes for each buffer
+};
+
+bool parse_config(const std::string& text, Config* cfg, std::string* err) {
+  std::istringstream in(text);
+  std::string key;
+  while (in >> key) {
+    if (key == "batch_size") in >> cfg->batch_size;
+    else if (key == "ring") in >> cfg->ring;
+    else if (key == "threads") in >> cfg->threads;
+    else if (key == "shuffle") { int v; in >> v; cfg->shuffle = v != 0; }
+    else if (key == "shuffle_buffer") in >> cfg->shuffle_buffer;
+    else if (key == "seed") in >> cfg->seed;
+    else if (key == "epochs") in >> cfg->epochs;
+    else if (key == "verify_crc") { int v; in >> v; cfg->verify_crc = v != 0; }
+    else if (key == "files" || key == "group") {
+      // 'files N' (legacy single dataset) and 'group N' (one zip group
+      // per occurrence) both append one file group.
+      int n; in >> n;
+      in.ignore(1);
+      std::vector<std::string> group;
+      for (int i = 0; i < n; i++) {
+        std::string path;
+        std::getline(in, path);
+        if (path.empty()) { *err = "empty file path"; return false; }
+        group.push_back(path);
+      }
+      cfg->groups.push_back(std::move(group));
+    } else if (key == "fields") {
+      int m; in >> m;
+      for (int i = 0; i < m; i++) {
+        FieldSpec f;
+        int kind, name_len;
+        in >> name_len >> kind >> f.dtype_size >> f.h >> f.w >> f.c
+            >> f.count >> f.seq_cap >> f.varlen >> f.optional_field
+            >> f.dsi >> f.pad_value;
+        f.kind = (FieldKind)kind;
+        in.ignore(1);  // single separating space
+        f.name.resize(name_len);
+        in.read(&f.name[0], name_len);
+        cfg->fields.push_back(f);
+      }
+    } else {
+      *err = "unknown config key: " + key;
+      return false;
+    }
+  }
+  if (cfg->batch_size <= 0 || cfg->groups.empty() || cfg->fields.empty()) {
+    *err = "config requires batch_size, files/groups, fields";
+    return false;
+  }
+  for (const auto& g : cfg->groups) {
+    if (g.empty()) {  // an empty group would spin the zip reader on an
+                      // empty file list; reject at create like 'files 0'
+      *err = "empty file group";
+      return false;
+    }
+  }
+  for (const auto& f : cfg->fields) {
+    if (f.dsi < 0 || f.dsi >= (int)cfg->groups.size()) {
+      *err = "field dataset index out of range: " + f.name;
+      return false;
+    }
+    if (f.kind != kFloat && f.kind != kInt && f.kind != kImageFull) {
+      *err = "unknown field kind for " + f.name;
+      return false;
+    }
+    if (f.varlen && f.seq_cap > 0) {
+      *err = "varlen unsupported for sequence fields: " + f.name;
+      return false;
+    }
+  }
+  if (cfg->ring < 2) cfg->ring = 2;
+  if (cfg->threads < 1) cfg->threads = 1;
+  // shuffle_buffer <= 0 with shuffle on would never admit a record into
+  // the reservoir and end the stream empty; 1 degrades to pass-through.
+  if (cfg->shuffle_buffer < 1) cfg->shuffle_buffer = 1;
+  // Assign buffers. Layout mirrored in native_loader.py (_buffer_layout).
+  long long B = cfg->batch_size;
+  for (auto& f : cfg->fields) {
+    if (f.seq_cap > 0) {
+      if (f.kind != kFloat && f.kind != kInt) {
+        *err = "sequence fields must be float/int: " + f.name;
+        return false;
+      }
+      cfg->any_seq = true;
+      int width = f.kind == kFloat ? 4 : f.dtype_size;
+      f.buf0 = (int)cfg->buffer_sizes.size();
+      cfg->buffer_sizes.push_back(B * f.seq_cap * f.count * width);
+      f.buf_n = (int)cfg->buffer_sizes.size();  // step counts, int32
+      cfg->buffer_sizes.push_back(B * 4);
+      if (f.optional_field) {
+        f.buf_p = (int)cfg->buffer_sizes.size();  // presence, uint8
+        cfg->buffer_sizes.push_back(B);
+      }
+      continue;
+    }
+    switch (f.kind) {
+      case kFloat:
+        f.buf0 = (int)cfg->buffer_sizes.size();
+        cfg->buffer_sizes.push_back(B * f.count * 4);
+        break;
+      case kInt:
+        f.buf0 = (int)cfg->buffer_sizes.size();
+        cfg->buffer_sizes.push_back(B * f.count * f.dtype_size);
+        break;
+      case kImageFull: {
+        // count > 0: a rank-4 [T, H, W, C] spec — strict frame count
+        // (even T=1). count == 0: rank-3 single image, first bytes
+        // element wins (Python parser parity).
+        long long frames = f.count > 0 ? f.count : 1;
+        f.buf0 = (int)cfg->buffer_sizes.size();
+        cfg->buffer_sizes.push_back(B * frames * (long long)f.h * f.w *
+                                    f.c);
+        break;
+      }
+    }
+    if (f.optional_field) {
+      f.buf_p = (int)cfg->buffer_sizes.size();  // presence, uint8
+      cfg->buffer_sizes.push_back(B);
+    }
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// JPEG decode.
+// ---------------------------------------------------------------------------
+
+// libjpeg's upsampling and colour conversion, for decoders that return the
+// image's Y, Cb and Cr planes (the nvJPEG build, and the planes path of
+// the libjpeg build that tests it): the triangle filter of jdsample.c's
+// h2v1/h1v2/h2v2_fancy_upsample, edge rows and columns replicated as
+// jdmainct.c provides them, and jdcolor.c's fixed-point YCbCr -> RGB
+// tables. Given libjpeg's planes, the result is libjpeg's RGB bit for bit.
+struct YccTables {
+  int cr_r[256], cb_b[256];
+  int32_t cr_g[256], cb_g[256];
+  YccTables() {
+    const int32_t one_half = 1 << 15;
+    auto fix = [](double x) { return (int32_t)(x * 65536.0 + 0.5); };
+    for (int i = 0; i < 256; i++) {
+      int32_t x = i - 128;
+      cr_r[i] = (int)((fix(1.40200) * x + one_half) >> 16);
+      cb_b[i] = (int)((fix(1.77200) * x + one_half) >> 16);
+      cr_g[i] = -fix(0.71414) * x;
+      cb_g[i] = -fix(0.34414) * x + one_half;
+    }
+  }
+};
+
+const YccTables& ycc_tables() {
+  static const YccTables tables;  // initialized once, thread-safe
+  return tables;
+}
+
+inline uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// Output row y of a chroma plane (cw x ch, ``pitch`` bytes a row) upsampled
+// by (hr, vr) in {1, 2}: 2 * cw (or cw) samples into ``row``.
+void upsample_row(const uint8_t* plane, size_t pitch, int cw, int ch, int hr,
+                  int vr, int y, uint8_t* row) {
+  int src = vr == 2 ? y / 2 : y;
+  const uint8_t* in0 = plane + (size_t)src * pitch;
+  if (vr == 1 && hr == 1) {
+    memcpy(row, in0, (size_t)cw);
+    return;
+  }
+  if (hr == 2 && cw <= 2) {
+    // libjpeg filters only planes more than 2 samples wide
+    // (jinit_upsampler); narrower ones repeat each sample (h2v1_upsample,
+    // h2v2_upsample).
+    for (int k = 0; k < cw; k++) row[2 * k] = row[2 * k + 1] = in0[k];
+    return;
+  }
+  if (vr == 1) {  // h2v1
+    row[0] = in0[0];
+    row[1] = (uint8_t)((in0[0] * 3 + in0[1] + 2) >> 2);
+    for (int k = 1; k < cw - 1; k++) {
+      int v = in0[k] * 3;
+      row[2 * k] = (uint8_t)((v + in0[k - 1] + 1) >> 2);
+      row[2 * k + 1] = (uint8_t)((v + in0[k + 1] + 2) >> 2);
+    }
+    int k = cw - 1;
+    row[2 * k] = (uint8_t)((in0[k] * 3 + in0[k - 1] + 1) >> 2);
+    row[2 * k + 1] = in0[k];
+    return;
+  }
+  // v2: an even output row leans on the chroma row above, an odd one on the
+  // row below; past the plane's edges the edge row repeats.
+  bool upper = y % 2 == 0;
+  int other = upper ? src - 1 : src + 1;
+  other = other < 0 ? 0 : other >= ch ? ch - 1 : other;
+  const uint8_t* in1 = plane + (size_t)other * pitch;
+  if (hr == 1) {  // h1v2
+    int bias = upper ? 1 : 2;
+    for (int k = 0; k < cw; k++)
+      row[k] = (uint8_t)((in0[k] * 3 + in1[k] + bias) >> 2);
+    return;
+  }
+  // h2v2
+  int last = 0, cur = in0[0] * 3 + in1[0], next = in0[1] * 3 + in1[1];
+  row[0] = (uint8_t)((cur * 4 + 8) >> 4);
+  row[1] = (uint8_t)((cur * 3 + next + 7) >> 4);
+  for (int k = 1; k < cw - 1; k++) {
+    last = cur;
+    cur = next;
+    next = in0[k + 1] * 3 + in1[k + 1];
+    row[2 * k] = (uint8_t)((cur * 3 + last + 8) >> 4);
+    row[2 * k + 1] = (uint8_t)((cur * 3 + next + 7) >> 4);
+  }
+  last = cur;
+  cur = next;
+  int k = cw - 1;
+  row[2 * k] = (uint8_t)((cur * 3 + last + 8) >> 4);
+  row[2 * k + 1] = (uint8_t)((cur * 4 + 7) >> 4);
+}
+
+// Y (and Cb, Cr: ncomp 3, subsampled by hr x vr) planes -> the H x W x c
+// uint8 image in ``out``: c 1 takes Y, as libjpeg's grayscale output does;
+// a one-plane image repeats Y in R, G and B.
+void planes_to_image(const uint8_t* const planes[3], const size_t pitch[3],
+                     int ncomp, int hr, int vr, int h, int w, int c,
+                     uint8_t* out) {
+  if (c == 1 || ncomp == 1) {
+    for (int y = 0; y < h; y++) {
+      const uint8_t* luma = planes[0] + (size_t)y * pitch[0];
+      uint8_t* o = out + (size_t)y * w * c;
+      if (c == 1) {
+        memcpy(o, luma, (size_t)w);
+      } else {
+        for (int x = 0; x < w; x++) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = luma[x];
+      }
+    }
+    return;
+  }
+  const YccTables& t = ycc_tables();
+  int cw = (w + hr - 1) / hr, ch = (h + vr - 1) / vr;
+  std::vector<uint8_t> cb_row((size_t)cw * hr), cr_row((size_t)cw * hr);
+  for (int y = 0; y < h; y++) {
+    upsample_row(planes[1], pitch[1], cw, ch, hr, vr, y, cb_row.data());
+    upsample_row(planes[2], pitch[2], cw, ch, hr, vr, y, cr_row.data());
+    const uint8_t* luma = planes[0] + (size_t)y * pitch[0];
+    uint8_t* o = out + (size_t)y * w * 3;
+    for (int x = 0; x < w; x++) {
+      int yv = luma[x], cb = cb_row[x], cr = cr_row[x];
+      o[3 * x] = clamp255(yv + t.cr_r[cr]);
+      o[3 * x + 1] = clamp255(yv + (int)((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+      o[3 * x + 2] = clamp255(yv + t.cb_b[cb]);
+    }
+  }
+}
+
+std::string dims_error(int h, int w, const FieldSpec& f) {
+  char buf[160];
+  snprintf(buf, sizeof buf, "jpeg dims %dx%dx%d != spec %dx%dx%d for %s", h,
+           w, f.c, f.h, f.w, f.c, f.name.c_str());
+  return buf;
+}
+
+#if defined(T2R_JPEG_LIBJPEG)
+
+const char* const kDecoder = "libjpeg";
+
+struct JerrMgr {
+  jpeg_error_mgr pub;
+  jmp_buf jb;
+  char msg[JMSG_LENGTH_MAX];
+};
+
+void jerr_exit(j_common_ptr cinfo) {
+  JerrMgr* e = (JerrMgr*)cinfo->err;
+  (*cinfo->err->format_message)(cinfo, e->msg);
+  longjmp(e->jb, 1);
+}
+
+// Full decode into row (H*W*C uint8). Returns error string or empty.
+std::string decode_jpeg_full(const uint8_t* data, size_t n,
+                             const FieldSpec& f, uint8_t* out) {
+  if (n == 0) {  // empty payload -> zeros (the Python parser's too)
+    memset(out, 0, (size_t)f.h * f.w * f.c);
+    return "";
+  }
+  jpeg_decompress_struct cinfo;
+  JerrMgr jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = jerr_exit;
+  if (setjmp(jerr.jb)) {
+    jpeg_destroy_decompress(&cinfo);
+    return std::string("jpeg: ") + jerr.msg;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, data, n);
+  jpeg_read_header(&cinfo, TRUE);
+  cinfo.out_color_space = f.c == 1 ? JCS_GRAYSCALE : JCS_RGB;
+  jpeg_start_decompress(&cinfo);
+  if ((int)cinfo.output_width != f.w || (int)cinfo.output_height != f.h ||
+      (int)cinfo.output_components != f.c) {
+    jpeg_destroy_decompress(&cinfo);
+    char buf[160];
+    snprintf(buf, sizeof buf, "jpeg dims %dx%dx%d != spec %dx%dx%d for %s",
+             cinfo.output_height, cinfo.output_width, cinfo.output_components,
+             f.h, f.w, f.c, f.name.c_str());
+    return buf;
+  }
+  size_t stride = (size_t)f.w * f.c;
+  while (cinfo.output_scanline < cinfo.output_height) {
+    JSAMPROW rows[8];
+    int base = cinfo.output_scanline;
+    int navail = (int)(cinfo.output_height - base);
+    int nrows = navail < 8 ? navail : 8;
+    for (int k = 0; k < nrows; k++) rows[k] = out + (base + k) * stride;
+    jpeg_read_scanlines(&cinfo, rows, nrows);
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  return "";
+}
+
+// libjpeg's raw planes (raw_data_out: no upsampling, no colour conversion)
+// through planes_to_image: the nvJPEG build's path, on libjpeg's planes.
+std::string decode_jpeg_planes(const uint8_t* data, size_t n,
+                               const FieldSpec& f, uint8_t* out) {
+  jpeg_decompress_struct cinfo;
+  JerrMgr jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = jerr_exit;
+  std::vector<std::vector<uint8_t>> planes;
+  if (setjmp(jerr.jb)) {
+    jpeg_destroy_decompress(&cinfo);
+    return std::string("jpeg: ") + jerr.msg;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, data, n);
+  jpeg_read_header(&cinfo, TRUE);
+  cinfo.raw_data_out = TRUE;
+  jpeg_start_decompress(&cinfo);
+  int ncomp = cinfo.num_components;
+  if ((int)cinfo.output_width != f.w || (int)cinfo.output_height != f.h ||
+      (ncomp != 1 && ncomp != 3)) {
+    jpeg_destroy_decompress(&cinfo);
+    return dims_error(cinfo.output_height, cinfo.output_width, f);
+  }
+  int hr = 1, vr = 1;
+  if (ncomp == 3) {
+    hr = cinfo.max_h_samp_factor / cinfo.comp_info[1].h_samp_factor;
+    vr = cinfo.max_v_samp_factor / cinfo.comp_info[1].v_samp_factor;
+  }
+  int group = cinfo.max_v_samp_factor * DCTSIZE;  // rows an iMCU row
+  int imcu_rows = (f.h + group - 1) / group;
+  const uint8_t* plane_ptrs[3] = {nullptr, nullptr, nullptr};
+  size_t pitch[3] = {0, 0, 0};
+  planes.resize(ncomp);
+  for (int ci = 0; ci < ncomp; ci++) {
+    const jpeg_component_info& comp = cinfo.comp_info[ci];
+    pitch[ci] = (size_t)comp.width_in_blocks * DCTSIZE;
+    planes[ci].resize(pitch[ci] * imcu_rows * comp.v_samp_factor * DCTSIZE);
+    plane_ptrs[ci] = planes[ci].data();
+  }
+  std::vector<JSAMPROW> rows[3];
+  for (int imcu = 0; imcu < imcu_rows; imcu++) {
+    JSAMPARRAY arrays[3];
+    for (int ci = 0; ci < ncomp; ci++) {
+      int lines = cinfo.comp_info[ci].v_samp_factor * DCTSIZE;
+      rows[ci].resize(lines);
+      for (int k = 0; k < lines; k++)
+        rows[ci][k] = planes[ci].data() +
+                      ((size_t)imcu * lines + k) * pitch[ci];
+      arrays[ci] = rows[ci].data();
+    }
+    jpeg_read_raw_data(&cinfo, arrays, group);
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  planes_to_image(plane_ptrs, pitch, ncomp, hr, vr, f.h, f.w, f.c, out);
+  return "";
+}
+
+#else  // T2R_JPEG_NVJPEG
+
+const char* const kDecoder = "nvjpeg";
+
+// One nvJPEG handle for the process (thread-safe by nvJPEG's contract),
+// made at the first decode.
+struct NvjpegHandle {
+  nvjpegHandle_t handle = nullptr;
+  std::string error;
+  NvjpegHandle() {
+    nvjpegStatus_t status = nvjpegCreateSimple(&handle);
+    if (status != NVJPEG_STATUS_SUCCESS) {
+      handle = nullptr;
+      error = "nvjpeg: nvjpegCreateSimple failed with status " +
+              std::to_string((int)status);
+    }
+  }
+};
+
+NvjpegHandle& nvjpeg_handle() {
+  static NvjpegHandle handle;  // initialized once, thread-safe
+  return handle;
+}
+
+// A worker thread's own decode state, stream, device planes and their
+// host copy.
+struct NvjpegThread {
+  nvjpegJpegState_t state = nullptr;
+  cudaStream_t stream = nullptr;
+  uint8_t* device = nullptr;
+  size_t device_bytes = 0;
+  std::vector<uint8_t> host;
+  ~NvjpegThread() {
+    if (device) cudaFree(device);
+    if (stream) cudaStreamDestroy(stream);
+    if (state) nvjpegJpegStateDestroy(state);
+  }
+};
+
+thread_local NvjpegThread nvjpeg_thread;
+
+std::string cuda_error(const char* what, cudaError_t status) {
+  return std::string("nvjpeg: ") + what + " failed: " +
+         cudaGetErrorString(status);
+}
+
+std::string nvjpeg_error(const char* what, nvjpegStatus_t status,
+                         const FieldSpec& f) {
+  return std::string("jpeg: ") + what + " failed with nvjpeg status " +
+         std::to_string((int)status) + " for " + f.name;
+}
+
+// nvJPEG decodes the Y, Cb and Cr planes on CUDA device 0 (its IDCT, not
+// libjpeg's); they are copied back and planes_to_image upsamples and
+// converts them as libjpeg does. Returns error string or empty.
+std::string decode_jpeg_full(const uint8_t* data, size_t n,
+                             const FieldSpec& f, uint8_t* out) {
+  if (n == 0) {  // empty payload -> zeros (the Python parser's too)
+    memset(out, 0, (size_t)f.h * f.w * f.c);
+    return "";
+  }
+  NvjpegHandle& nv = nvjpeg_handle();
+  if (!nv.handle) return nv.error;
+  int ncomp = 0;
+  nvjpegChromaSubsampling_t subsampling;
+  int widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
+  nvjpegStatus_t status = nvjpegGetImageInfo(
+      nv.handle, data, n, &ncomp, &subsampling, widths, heights);
+  if (status != NVJPEG_STATUS_SUCCESS)
+    return nvjpeg_error("nvjpegGetImageInfo", status, f);
+  if (widths[0] != f.w || heights[0] != f.h || (ncomp != 1 && ncomp != 3))
+    return dims_error(heights[0], widths[0], f);
+  int hr = 1, vr = 1;
+  if (ncomp == 3) {
+    switch (subsampling) {
+      case NVJPEG_CSS_444: break;
+      case NVJPEG_CSS_422: hr = 2; break;
+      case NVJPEG_CSS_420: hr = 2; vr = 2; break;
+      case NVJPEG_CSS_440: vr = 2; break;
+      default:
+        return "jpeg: chroma subsampling " + std::to_string((int)subsampling) +
+               " is not decoded by the nvJPEG build (4:4:4, 4:2:2, 4:2:0 "
+               "and 4:4:0 are) for " + f.name;
+    }
+  }
+  // Y alone where the image or the spec has one channel.
+  int planes = (ncomp == 1 || f.c == 1) ? 1 : 3;
+  size_t pitch[3] = {(size_t)f.w, 0, 0};
+  size_t offset[3] = {0, 0, 0};
+  size_t bytes = (size_t)f.w * f.h;
+  for (int ci = 1; ci < planes; ci++) {
+    pitch[ci] = (size_t)widths[ci];
+    offset[ci] = bytes;
+    bytes += (size_t)widths[ci] * heights[ci];
+  }
+  NvjpegThread& t = nvjpeg_thread;
+  cudaError_t cuda_status;
+  if (!t.state) {
+    if (cudaSetDevice(0) != cudaSuccess) return "nvjpeg: no CUDA device 0";
+    status = nvjpegJpegStateCreate(nv.handle, &t.state);
+    if (status != NVJPEG_STATUS_SUCCESS)
+      return nvjpeg_error("nvjpegJpegStateCreate", status, f);
+    cuda_status = cudaStreamCreateWithFlags(&t.stream, cudaStreamNonBlocking);
+    if (cuda_status != cudaSuccess)
+      return cuda_error("cudaStreamCreate", cuda_status);
+  }
+  if (t.device_bytes < bytes) {
+    if (t.device) cudaFree(t.device);
+    t.device = nullptr;
+    t.device_bytes = 0;
+    cuda_status = cudaMalloc((void**)&t.device, bytes);
+    if (cuda_status != cudaSuccess) return cuda_error("cudaMalloc", cuda_status);
+    t.device_bytes = bytes;
+  }
+  nvjpegImage_t image;
+  memset(&image, 0, sizeof image);
+  for (int ci = 0; ci < planes; ci++) {
+    image.channel[ci] = t.device + offset[ci];
+    image.pitch[ci] = pitch[ci];
+  }
+  status = nvjpegDecode(nv.handle, t.state, data, n,
+                        planes == 1 ? NVJPEG_OUTPUT_Y : NVJPEG_OUTPUT_YUV,
+                        &image, t.stream);
+  if (status != NVJPEG_STATUS_SUCCESS)
+    return nvjpeg_error("nvjpegDecode", status, f);
+  t.host.resize(bytes);
+  cuda_status = cudaMemcpyAsync(t.host.data(), t.device, bytes,
+                                cudaMemcpyDeviceToHost, t.stream);
+  if (cuda_status == cudaSuccess)
+    cuda_status = cudaStreamSynchronize(t.stream);
+  if (cuda_status != cudaSuccess)
+    return cuda_error("copying the planes back", cuda_status);
+  const uint8_t* plane_ptrs[3] = {t.host.data(), t.host.data() + offset[1],
+                                  t.host.data() + offset[2]};
+  planes_to_image(plane_ptrs, pitch, planes, hr, vr, f.h, f.w, f.c, out);
+  return "";
+}
+
+// The nvJPEG build decodes through planes only.
+std::string decode_jpeg_planes(const uint8_t* data, size_t n,
+                               const FieldSpec& f, uint8_t* out) {
+  return decode_jpeg_full(data, n, f, out);
+}
+
+#endif
+
+// ---------------------------------------------------------------------------
+// Loader.
+// ---------------------------------------------------------------------------
+
+// Monotonic microseconds for the pipeline-stats busy/idle accounting:
+// steady_clock, never wall time.
+inline long long now_us() {
+  return std::chrono::duration_cast<std::chrono::microseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+enum SlotState { kFree, kFilling, kReady, kInUse };
+
+struct Slot {
+  std::vector<uint8_t*> buffers;
+  std::atomic<int> remaining{0};
+  SlotState state = kFree;
+  long long seq = -1;  // batch sequence number, for ordered hand-off
+  // First row error in this batch, if any (guarded by Loader::mu). The
+  // fail/discard decision is deferred to batch COMPLETION so that an
+  // error in the EOF-discarded partial batch (drop_remainder semantics)
+  // is swallowed deterministically — at completion time the reader has
+  // either marked the slot seq = -2 or never will.
+  std::string row_error;
+};
+
+struct WorkItem {
+  std::vector<std::string> records;  // one record per dataset group
+  int slot;
+  int row;
+};
+
+struct Loader {
+  Config cfg;
+  std::deque<Slot> slots;
+  std::mutex mu;
+  std::condition_variable cv_ready;    // consumer waits
+  std::condition_variable cv_free;     // reader waits for a free slot
+  std::condition_variable cv_work;     // workers wait
+  std::condition_variable cv_space;    // reader waits for queue space
+  std::deque<WorkItem> work;
+  std::deque<int> ready;               // READY slot indices in seq order
+  bool eof = false;                    // reader finished dispatching
+  std::atomic<bool> stop{false};
+  std::string error;
+  long long dispatched_batches = 0;
+  long long completed_batches = 0;
+  long long next_seq_out = 0;          // strict batch delivery order
+  std::vector<std::thread> threads;
+  std::thread reader;
+  // Worker/reader threads launch lazily on the FIRST next_slot() call,
+  // not at create time: create-time work is config parsing + buffer
+  // allocation only (errors surface synchronously), and every data/parse
+  // error has exactly ONE surfacing point — iteration. This is what
+  // makes error delivery deterministic instead of a race between the
+  // eagerly-parsing workers and the constructor's last_error poll.
+  std::once_flag launch_once;
+
+  // ---- pipeline stats (t2r_loader_stats export) ---------------------------
+  // Cumulative, relaxed atomics written from the reader/worker threads
+  // and read racily by the consumer — the Python X-ray layer windows the
+  // deltas, so torn cross-field reads only cost sub-window skew. Safe to
+  // read BEFORE the lazy thread launch (all zeros) and after EOF.
+  std::atomic<long long> st_records_read{0};   // records framed off disk
+  std::atomic<long long> st_bytes_read{0};     // incl. TFRecord framing
+  std::atomic<long long> st_reader_busy_us{0}; // read + shuffle time
+  std::atomic<long long> st_reader_wait_us{0}; // blocked on slots/space
+  std::atomic<long long> st_rows_parsed{0};    // batch rows completed
+  std::atomic<long long> st_parse_bytes{0};    // record bytes parsed
+  std::atomic<long long> st_worker_busy_us{0}; // parse/decode, pool total
+  std::atomic<long long> st_worker_idle_us{0}; // waiting for work, total
+  std::unique_ptr<std::atomic<long long>[]> st_per_worker_busy_us;
+
+  long long stats_snapshot(long long* out, int n) {
+    long long min_busy = 0, max_busy = 0;
+    if (st_per_worker_busy_us && cfg.threads > 0) {
+      min_busy = max_busy =
+          st_per_worker_busy_us[0].load(std::memory_order_relaxed);
+      for (int i = 1; i < cfg.threads; i++) {
+        long long v =
+            st_per_worker_busy_us[i].load(std::memory_order_relaxed);
+        if (v < min_busy) min_busy = v;
+        if (v > max_busy) max_busy = v;
+      }
+    }
+    long long completed;
+    {
+      std::lock_guard<std::mutex> lk(mu);
+      completed = completed_batches;
+    }
+    const long long vals[12] = {
+        st_records_read.load(std::memory_order_relaxed),
+        st_bytes_read.load(std::memory_order_relaxed),
+        st_reader_busy_us.load(std::memory_order_relaxed),
+        st_reader_wait_us.load(std::memory_order_relaxed),
+        st_rows_parsed.load(std::memory_order_relaxed),
+        st_parse_bytes.load(std::memory_order_relaxed),
+        st_worker_busy_us.load(std::memory_order_relaxed),
+        st_worker_idle_us.load(std::memory_order_relaxed),
+        (long long)cfg.threads,
+        completed,
+        min_busy,
+        max_busy,
+    };
+    int m = n < 12 ? n : 12;
+    for (int i = 0; i < m; i++) out[i] = vals[i];
+    return m;
+  }
+
+  ~Loader() { shutdown(); }
+
+  void shutdown() {
+    {
+      std::lock_guard<std::mutex> lk(mu);
+      stop = true;
+    }
+    cv_work.notify_all();
+    cv_free.notify_all();
+    cv_space.notify_all();
+    cv_ready.notify_all();
+    if (reader.joinable()) reader.join();
+    for (auto& t : threads)
+      if (t.joinable()) t.join();
+    for (auto& s : slots)
+      for (auto* b : s.buffers) free(b);
+    slots.clear();
+  }
+
+  void fail(const std::string& msg) {
+    std::lock_guard<std::mutex> lk(mu);
+    if (error.empty()) error = msg;
+    stop = true;
+    cv_ready.notify_all();
+    cv_work.notify_all();
+    cv_free.notify_all();
+    cv_space.notify_all();
+  }
+
+  // ---- reader ------------------------------------------------------------
+
+  bool dispatch_row(std::vector<std::string>&& recs, int* cur_slot,
+                    int* cur_row, long long* seq) {
+    if (*cur_slot < 0) {  // acquire a free slot
+      long long t0 = now_us();
+      std::unique_lock<std::mutex> lk(mu);
+      cv_free.wait(lk, [&] {
+        if (stop) return true;
+        for (auto& s : slots)
+          if (s.state == kFree) return true;
+        return false;
+      });
+      st_reader_wait_us.fetch_add(now_us() - t0, std::memory_order_relaxed);
+      if (stop) return false;
+      for (size_t i = 0; i < slots.size(); i++) {
+        if (slots[i].state == kFree) {
+          slots[i].state = kFilling;
+          slots[i].remaining.store(cfg.batch_size);
+          slots[i].seq = (*seq)++;
+          slots[i].row_error.clear();
+          *cur_slot = (int)i;
+          *cur_row = 0;
+          break;
+        }
+      }
+    }
+    {
+      long long t0 = now_us();
+      std::unique_lock<std::mutex> lk(mu);
+      cv_space.wait(lk, [&] {
+        return stop || work.size() < (size_t)(4 * cfg.threads + 64);
+      });
+      st_reader_wait_us.fetch_add(now_us() - t0, std::memory_order_relaxed);
+      if (stop) return false;
+      work.push_back(WorkItem{std::move(recs), *cur_slot, *cur_row});
+    }
+    cv_work.notify_one();
+    if (++*cur_row == cfg.batch_size) {
+      *cur_slot = -1;
+      std::lock_guard<std::mutex> lk(mu);
+      dispatched_batches++;
+    }
+    return true;
+  }
+
+  // One dataset group's record source: its file list looped over the
+  // configured epochs, with the group's OWN bounded reservoir shuffle —
+  // the Python pipeline shuffles each zipped dataset independently
+  // before pairing (pipeline.py _record_tuples), so the native zip does
+  // too. reader_main pulls the groups in lockstep to form zip tuples
+  // (one record per group per row); the single-dataset case is one
+  // stream, where the per-stream reservoir is exactly the old
+  // emit-level one.
+  struct RecordStream {
+    Loader* loader = nullptr;
+    const std::vector<std::string>* files = nullptr;
+    std::mt19937_64* rng = nullptr;
+    long long epoch = 0;
+    size_t file_idx = 0;
+    std::vector<std::string> order;
+    FILE* f = nullptr;
+    long file_size = 0;
+    std::vector<std::string> shuffle_buf;
+    bool exhausted = false;
+
+    ~RecordStream() {
+      if (f) fclose(f);
+    }
+
+    // 1 = record read, 0 = clean end of data (or stop), -1 = error.
+    int next(std::string* rec, std::string* err) {
+      const Config& cfg = loader->cfg;
+      if (!cfg.shuffle) return read_raw(rec, err);
+      while (!exhausted &&
+             (int)shuffle_buf.size() < cfg.shuffle_buffer) {
+        std::string r;
+        int status = read_raw(&r, err);
+        if (status < 0) return -1;
+        if (status == 0) {
+          exhausted = true;
+          break;
+        }
+        shuffle_buf.push_back(std::move(r));
+      }
+      if (shuffle_buf.empty()) return 0;
+      size_t idx = (*rng)() % shuffle_buf.size();
+      std::swap(shuffle_buf[idx], shuffle_buf.back());
+      *rec = std::move(shuffle_buf.back());
+      shuffle_buf.pop_back();
+      return 1;
+    }
+
+    int read_raw(std::string* rec, std::string* err) {
+      const Config& cfg = loader->cfg;
+      for (;;) {
+        if (loader->stop.load()) return 0;
+        if (f == nullptr) {
+          if (order.empty() || file_idx >= order.size()) {
+            if (!order.empty()) epoch++;
+            if (cfg.epochs >= 0 && epoch >= cfg.epochs) return 0;
+            if (order.empty()) order = *files;
+            if (cfg.shuffle) std::shuffle(order.begin(), order.end(), *rng);
+            file_idx = 0;
+          }
+          const std::string& path = order[file_idx];
+          f = fopen(path.c_str(), "rb");
+          if (!f) {
+            *err = "cannot open " + path;
+            return -1;
+          }
+          fseek(f, 0, SEEK_END);
+          file_size = ftell(f);
+          fseek(f, 0, SEEK_SET);
+        }
+        const std::string& path = order[file_idx];
+        uint8_t header[12];
+        if (fread(header, 1, 12, f) != 12) {  // end of this file
+          fclose(f);
+          f = nullptr;
+          file_idx++;
+          continue;
+        }
+        uint64_t len;
+        memcpy(&len, header, 8);
+        // Sanity-cap the untrusted length BEFORE resize: a corrupt frame
+        // (or a non-TFRecord file matched by the glob) must surface as a
+        // loader error, not a std::bad_alloc escaping the thread.
+        long pos = ftell(f);
+        if (pos < 0 || len > (uint64_t)(file_size - pos)) {
+          *err = "corrupt or non-TFRecord frame in " + path +
+                 " (record length exceeds file size)";
+          return -1;
+        }
+        if (cfg.verify_crc) {
+          uint32_t expect;
+          memcpy(&expect, header + 8, 4);
+          if (masked_crc(header, 8) != expect) {
+            *err = "corrupt TFRecord length CRC in " + path;
+            return -1;
+          }
+        }
+        rec->resize(len);
+        if (len > 0 && fread(&(*rec)[0], 1, len, f) != len) {
+          *err = "truncated TFRecord in " + path;
+          return -1;
+        }
+        uint8_t footer[4];
+        if (fread(footer, 1, 4, f) != 4) {
+          *err = "truncated TFRecord in " + path;
+          return -1;
+        }
+        if (cfg.verify_crc) {
+          uint32_t expect;
+          memcpy(&expect, footer, 4);
+          if (masked_crc((const uint8_t*)rec->data(), rec->size()) !=
+              expect) {
+            *err = "corrupt TFRecord data CRC in " + path;
+            return -1;
+          }
+        }
+        loader->st_records_read.fetch_add(1, std::memory_order_relaxed);
+        loader->st_bytes_read.fetch_add(16 + (long long)len,
+                                        std::memory_order_relaxed);
+        return 1;
+      }
+    }
+  };
+
+  void reader_main() {
+    std::mt19937_64 rng(cfg.seed >= 0 ? (uint64_t)cfg.seed
+                                      : std::random_device{}());
+    int cur_slot = -1, cur_row = 0;
+    long long seq = 0;
+
+    const size_t n_groups = cfg.groups.size();
+    std::vector<RecordStream> streams(n_groups);
+    for (size_t g = 0; g < n_groups; g++) {
+      streams[g].loader = this;
+      streams[g].files = &cfg.groups[g];
+      streams[g].rng = &rng;
+    }
+    for (;;) {
+      std::vector<std::string> tuple(n_groups);
+      bool end_of_data = false;
+      long long t0 = now_us();
+      for (size_t g = 0; g < n_groups; g++) {
+        std::string err;
+        int status = streams[g].next(&tuple[g], &err);
+        if (status < 0) {
+          fail(err);
+          return;
+        }
+        if (status == 0) {  // zip ends with the shortest dataset
+          end_of_data = true;
+          break;
+        }
+      }
+      st_reader_busy_us.fetch_add(now_us() - t0, std::memory_order_relaxed);
+      if (end_of_data) break;
+      if (!dispatch_row(std::move(tuple), &cur_slot, &cur_row, &seq))
+        return;
+    }
+    if (stop) return;
+    // Partial batch at end of data is dropped (drop_remainder=True, as the
+    // Python pipeline does): mark the half-filled slot free again.
+    {
+      std::lock_guard<std::mutex> lk(mu);
+      if (cur_slot >= 0 && cur_row > 0) {
+        // 'remaining' was initialized to batch_size; subtract the rows that
+        // were never dispatched. Whoever's subtraction transitions the count
+        // to exactly 0 owns recycling the slot: if our fetch_sub consumed the
+        // whole residue (prev == subtracted), every dispatched row already
+        // finished and no worker will touch the slot again; otherwise the
+        // last in-flight worker sees prev==1 and checks seq == -2 (set here,
+        // under the same mutex its check takes).
+        int sub = cfg.batch_size - cur_row;
+        int prev = slots[cur_slot].remaining.fetch_sub(sub);
+        if (prev == sub)
+          slots[cur_slot].state = kFree;
+        else
+          slots[cur_slot].seq = -2;  // sentinel: discard on completion
+      }
+      eof = true;
+    }
+    cv_ready.notify_all();
+  }
+
+  // ---- workers -----------------------------------------------------------
+
+  // Walks one map entry ({1: key-bytes, 2: value-message}) shared by the
+  // Features and FeatureLists sides. Returns the matched field index among
+  // fields of dataset ``dsi`` whose (seq_cap > 0) equals ``sequence``, or
+  // -1; *value_out gets the value message cursor.
+  int match_entry(Cursor entry, bool sequence, int dsi, Cursor* value_out) {
+    const uint8_t* key_p = nullptr;
+    size_t key_n = 0;
+    Cursor value{nullptr, nullptr};
+    uint32_t wt;
+    while (uint32_t f3 = entry.tag(&wt)) {
+      if (f3 == 1 && wt == 2) {
+        Cursor k = entry.bytes();
+        key_p = k.p;
+        key_n = k.size();
+      } else if (f3 == 2 && wt == 2) {
+        value = entry.bytes();
+      } else {
+        entry.skip(wt);
+      }
+    }
+    if (!key_p || !value.p) return -1;
+    // Linear scan: few fields, avoids hashing every record key.
+    for (size_t i = 0; i < cfg.fields.size(); i++) {
+      const FieldSpec& f = cfg.fields[i];
+      if ((f.seq_cap > 0) != sequence || f.dsi != dsi) continue;
+      if (f.name.size() == key_n &&
+          memcmp(f.name.data(), key_p, key_n) == 0) {
+        *value_out = value;
+        return (int)i;
+      }
+    }
+    return -1;
+  }
+
+  // Zeroes one row of an optional field that the record omitted. The
+  // Python side drops the whole key from any batch whose presence flags
+  // are not all-ones (the Python parser's dense-batch semantics), so the
+  // zeros are recycling hygiene, never observable data.
+  void zero_field_row(const FieldSpec& f, Slot& slot, int row) {
+    if (f.seq_cap > 0) {
+      int width = f.kind == kFloat ? 4 : f.dtype_size;
+      long long bytes = f.seq_cap * f.count * width;
+      memset(slot.buffers[f.buf0] + (long long)row * bytes, 0,
+             (size_t)bytes);
+      ((int32_t*)slot.buffers[f.buf_n])[row] = 0;
+      return;
+    }
+    switch (f.kind) {
+      case kFloat:
+        memset(slot.buffers[f.buf0] + (long long)row * f.count * 4, 0,
+               (size_t)(f.count * 4));
+        break;
+      case kInt:
+        memset(slot.buffers[f.buf0] +
+                   (long long)row * f.count * f.dtype_size,
+               0, (size_t)(f.count * f.dtype_size));
+        break;
+      case kImageFull: {
+        long long frames = f.count > 0 ? f.count : 1;
+        long long bytes = frames * (long long)f.h * f.w * f.c;
+        memset(slot.buffers[f.buf0] + (long long)row * bytes, 0,
+               (size_t)bytes);
+        break;
+      }
+      default:
+        break;
+    }
+  }
+
+  std::string parse_record(const std::string& rec, int dsi, Slot& slot,
+                           int row, std::vector<bool>* found) {
+    Cursor ex{(const uint8_t*)rec.data(),
+              (const uint8_t*)rec.data() + rec.size()};
+    uint32_t wt;
+    while (uint32_t fnum = ex.tag(&wt)) {
+      if (fnum == 1 && wt == 2) {
+        // Example.features / SequenceExample.context (wire-identical).
+        Cursor features = ex.bytes();
+        while (uint32_t f2 = features.tag(&wt)) {
+          if (f2 != 1 || wt != 2) {
+            features.skip(wt);
+            continue;
+          }
+          Cursor value{nullptr, nullptr};
+          int fi = match_entry(features.bytes(), /*sequence=*/false, dsi,
+                               &value);
+          if (fi < 0) continue;
+          (*found)[fi] = true;
+          std::string err = extract_field(cfg.fields[fi], value, slot, row);
+          if (!err.empty()) return err;
+        }
+      } else if (fnum == 2 && wt == 2 && cfg.any_seq) {
+        // SequenceExample.feature_lists = {1: entry {1: key, 2: FeatureList}}.
+        Cursor lists = ex.bytes();
+        while (uint32_t f2 = lists.tag(&wt)) {
+          if (f2 != 1 || wt != 2) {
+            lists.skip(wt);
+            continue;
+          }
+          Cursor value{nullptr, nullptr};
+          int fi = match_entry(lists.bytes(), /*sequence=*/true, dsi,
+                               &value);
+          if (fi < 0) continue;
+          (*found)[fi] = true;
+          std::string err =
+              extract_sequence_field(cfg.fields[fi], value, slot, row);
+          if (!err.empty()) return err;
+        }
+      } else {
+        ex.skip(wt);
+      }
+    }
+    if (!ex.ok) return "malformed Example record";
+    return "";
+  }
+
+  std::string parse_into(const std::vector<std::string>& recs, int slot_idx,
+                         int row) {
+    Slot& slot = slots[slot_idx];
+    // Track which fields were found across all zipped records.
+    std::vector<bool> found(cfg.fields.size(), false);
+    for (size_t d = 0; d < recs.size(); d++) {
+      std::string err = parse_record(recs[d], (int)d, slot, row, &found);
+      if (!err.empty()) return err;
+    }
+    for (size_t i = 0; i < cfg.fields.size(); i++) {
+      const FieldSpec& f = cfg.fields[i];
+      if (found[i]) {
+        if (f.buf_p >= 0) slot.buffers[f.buf_p][row] = 1;
+        continue;
+      }
+      if (!f.optional_field)
+        return "feature '" + f.name + "' missing from record";
+      if (f.buf_p >= 0) slot.buffers[f.buf_p][row] = 0;
+      zero_field_row(f, slot, row);
+    }
+    return "";
+  }
+
+  std::string extract_field(const FieldSpec& f, Cursor value, Slot& slot,
+                            int row) {
+    // value is a Feature message: 1=BytesList, 2=FloatList, 3=Int64List.
+    uint32_t wt;
+    while (uint32_t fnum = value.tag(&wt)) {
+      if (wt != 2) {
+        value.skip(wt);
+        continue;
+      }
+      Cursor list = value.bytes();
+      switch (fnum) {
+        case 1: {  // BytesList
+          if (f.kind != kImageFull)
+            return "feature '" + f.name + "' is bytes but spec is numeric";
+          bool frame_list = f.kind == kImageFull && f.count > 0;
+          bool strict_list = frame_list && !f.varlen;
+          long long frames = frame_list ? f.count : 1;
+          long long got = 0;
+          uint32_t wt2;
+          while (uint32_t f2 = list.tag(&wt2)) {
+            if (f2 == 1 && wt2 == 2) {
+              Cursor payload = list.bytes();
+              if (got >= frames) {
+                if (!strict_list) continue;  // rank-3 spec: first element
+                                             // wins; varlen list: clip —
+                                             // extras ignored either way
+                                             // (Python parser parity)
+                char buf[128];
+                snprintf(buf, sizeof buf, "feature '%s': more than %lld "
+                         "encoded frames", f.name.c_str(), frames);
+                return buf;
+              }
+              uint8_t* out = slot.buffers[f.buf0] +
+                             ((size_t)row * frames + got) * f.h * f.w * f.c;
+              std::string err =
+                  decode_jpeg_full(payload.p, payload.size(), f, out);
+              if (!err.empty()) return err;
+              got++;
+              continue;
+            }
+            list.skip(wt2);
+          }
+          if (strict_list && got != frames) {
+            char buf[128];
+            snprintf(buf, sizeof buf, "feature '%s': got %lld encoded "
+                     "frames, want %lld", f.name.c_str(), got, frames);
+            return buf;
+          }
+          if (f.varlen && frame_list && got < frames) {
+            // parser.py varlen-image parity: an EMPTY list decodes one
+            // all-zeros frame first, then pad_or_clip fills the rest
+            // with the varlen default value.
+            long long frame_bytes = (long long)f.h * f.w * f.c;
+            uint8_t* base = slot.buffers[f.buf0] +
+                            (size_t)row * frames * frame_bytes;
+            if (got == 0) {
+              memset(base, 0, (size_t)frame_bytes);
+              got = 1;
+            }
+            memset(base + got * frame_bytes,
+                   (uint8_t)(long long)f.pad_value,
+                   (size_t)((frames - got) * frame_bytes));
+            return "";
+          }
+          if (got == 0) return "empty bytes list for '" + f.name + "'";
+          return "";
+        }
+        case 2: {  // FloatList
+          if (f.kind != kFloat)
+            return "feature '" + f.name + "' is float but spec is not";
+          return parse_float_list(
+              f, list, (float*)slot.buffers[f.buf0] + (long long)row * f.count);
+        }
+        case 3: {  // Int64List
+          if (f.kind != kInt)
+            return "feature '" + f.name + "' is int64 but spec is not";
+          return parse_int_list(
+              f, list,
+              slot.buffers[f.buf0] + (long long)row * f.count * f.dtype_size);
+        }
+        default:
+          value.skip(wt);
+      }
+    }
+    return "feature '" + f.name + "' has no value list";
+  }
+
+  // FloatList message -> exactly f.count floats at ``out``. Varlen
+  // fields instead CLIP extras and PAD a short list with f.pad_value
+  // (parser.py pad_or_clip_tensor_to_spec_shape parity).
+  std::string parse_float_list(const FieldSpec& f, Cursor list, float* out) {
+    long long got = 0;
+    uint32_t wt2;
+    // Packed encoding: field 1 wiretype 2 (bulk) or repeated wiretype 5.
+    while (uint32_t f2 = list.tag(&wt2)) {
+      if (f2 == 1 && wt2 == 2) {
+        Cursor packed = list.bytes();
+        long long n = packed.size() / 4;
+        if (got + n > f.count) {
+          if (!f.varlen)
+            return "too many floats for '" + f.name + "'";
+          n = f.count - got;  // clip
+        }
+        memcpy(out + got, packed.p, n * 4);
+        got += n;
+        if (f.varlen && got >= f.count) break;
+      } else if (f2 == 1 && wt2 == 5) {
+        if (got >= f.count) {
+          if (!f.varlen)
+            return "too many floats for '" + f.name + "'";
+          list.p += 4;  // clip
+          if (list.p > list.end) list.p = list.end;
+          continue;
+        }
+        if (list.end - list.p < 4)
+          return "truncated float in '" + f.name + "'";
+        memcpy(out + got, list.p, 4);
+        list.p += 4;
+        got++;
+      } else {
+        list.skip(wt2);
+      }
+    }
+    if (f.varlen) {
+      for (long long i = got; i < f.count; i++)
+        out[i] = (float)f.pad_value;
+      return "";
+    }
+    if (got != f.count) {
+      char buf[128];
+      snprintf(buf, sizeof buf, "feature '%s': got %lld floats, want %lld",
+               f.name.c_str(), got, f.count);
+      return buf;
+    }
+    return "";
+  }
+
+  // Int64List message -> exactly f.count ints at ``base``; varlen fields
+  // clip/pad like parse_float_list.
+  std::string parse_int_list(const FieldSpec& f, Cursor list, uint8_t* base) {
+    long long got = 0;
+    uint32_t wt2;
+    auto store = [&](uint64_t v) {
+      switch (f.dtype_size) {
+        case 1: base[got] = (uint8_t)v; break;
+        case 4: ((int32_t*)base)[got] = (int32_t)v; break;
+        default: ((int64_t*)base)[got] = (int64_t)v; break;
+      }
+      got++;
+    };
+    while (uint32_t f2 = list.tag(&wt2)) {
+      if (f2 == 1 && wt2 == 2) {
+        Cursor packed = list.bytes();
+        while (packed.p < packed.end && got < f.count)
+          store(packed.varint());
+        if (packed.p < packed.end) {
+          if (!f.varlen)
+            return "too many ints for '" + f.name + "'";
+          while (packed.p < packed.end) packed.varint();  // clip
+        }
+      } else if (f2 == 1 && wt2 == 0) {
+        if (got >= f.count) {
+          if (!f.varlen)
+            return "too many ints for '" + f.name + "'";
+          list.varint();  // clip
+          continue;
+        }
+        store(list.varint());
+      } else {
+        list.skip(wt2);
+      }
+    }
+    if (f.varlen) {
+      // np.full-style C cast of the (float) default into the int dtype.
+      while (got < f.count) store((uint64_t)(int64_t)f.pad_value);
+      return "";
+    }
+    if (got != f.count) {
+      char buf[128];
+      snprintf(buf, sizeof buf, "feature '%s': got %lld ints, want %lld",
+               f.name.c_str(), got, f.count);
+      return buf;
+    }
+    return "";
+  }
+
+  // One step Feature inside a FeatureList -> f.count elements at ``out``.
+  std::string extract_step(const FieldSpec& f, Cursor feature, uint8_t* out) {
+    uint32_t wt;
+    while (uint32_t fnum = feature.tag(&wt)) {
+      if (wt != 2) {
+        feature.skip(wt);
+        continue;
+      }
+      Cursor list = feature.bytes();
+      if (fnum == 2 && f.kind == kFloat)
+        return parse_float_list(f, list, (float*)out);
+      if (fnum == 3 && f.kind == kInt)
+        return parse_int_list(f, list, out);
+      if (fnum == 1)
+        return "sequence feature '" + f.name + "' has bytes steps (not "
+               "supported natively)";
+      return "sequence feature '" + f.name + "' step kind mismatch";
+    }
+    return "sequence feature '" + f.name + "' has an empty step";
+  }
+
+  // FeatureList message ({1: repeated Feature}) -> [seq_cap, count] row
+  // with zero padding past the record's step count (the Python parser's
+  // batch-pad semantics; pad value 0 — varlen defaults fall back).
+  std::string extract_sequence_field(const FieldSpec& f, Cursor fl,
+                                     Slot& slot, int row) {
+    int width = f.kind == kFloat ? 4 : f.dtype_size;
+    long long step_bytes = f.count * width;
+    uint8_t* base = slot.buffers[f.buf0] +
+                    (long long)row * f.seq_cap * step_bytes;
+    long long step = 0;
+    uint32_t wt;
+    while (uint32_t fnum = fl.tag(&wt)) {
+      if (fnum == 1 && wt == 2) {
+        if (step >= f.seq_cap) {
+          char buf[160];
+          snprintf(buf, sizeof buf, "sequence feature '%s': more than %lld "
+                   "steps (raise sequence_max_len)", f.name.c_str(),
+                   f.seq_cap);
+          return buf;
+        }
+        std::string err = extract_step(f, fl.bytes(),
+                                       base + step * step_bytes);
+        if (!err.empty()) return err;
+        step++;
+      } else {
+        fl.skip(wt);
+      }
+    }
+    ((int32_t*)slot.buffers[f.buf_n])[row] = (int32_t)step;
+    if (step < f.seq_cap)
+      memset(base + step * step_bytes, 0, (f.seq_cap - step) * step_bytes);
+    return "";
+  }
+
+  void worker_main(int worker_index) {
+    for (;;) {
+      WorkItem item;
+      {
+        long long t_idle = now_us();
+        std::unique_lock<std::mutex> lk(mu);
+        cv_work.wait(lk, [&] { return stop.load() || !work.empty(); });
+        st_worker_idle_us.fetch_add(now_us() - t_idle,
+                                    std::memory_order_relaxed);
+        if (stop.load()) return;
+        if (work.empty()) continue;
+        item = std::move(work.front());
+        work.pop_front();
+      }
+      cv_space.notify_one();
+      long long t_busy = now_us();
+      std::string err = parse_into(item.records, item.slot, item.row);
+      long long busy = now_us() - t_busy;
+      st_worker_busy_us.fetch_add(busy, std::memory_order_relaxed);
+      st_per_worker_busy_us[worker_index].fetch_add(
+          busy, std::memory_order_relaxed);
+      st_rows_parsed.fetch_add(1, std::memory_order_relaxed);
+      long long record_bytes = 0;
+      for (const auto& rec : item.records)
+        record_bytes += (long long)rec.size();
+      st_parse_bytes.fetch_add(record_bytes, std::memory_order_relaxed);
+      Slot& slot = slots[item.slot];
+      if (!err.empty()) {
+        // Record the error but DEFER the fail/swallow decision to batch
+        // completion: whether this batch is the EOF-discarded partial
+        // batch (drop_remainder semantics — error irrelevant) is only
+        // known for sure once all its rows are in, making the swallow
+        // deterministic rather than a race against the reader reaching
+        // EOF and marking seq = -2.
+        std::lock_guard<std::mutex> lk(mu);
+        if (slot.row_error.empty()) slot.row_error = err;
+      }
+      if (slot.remaining.fetch_sub(1) == 1) {
+        std::lock_guard<std::mutex> lk(mu);
+        if (slot.seq == -2) {  // discarded partial batch at EOF
+          slot.state = kFree;
+          cv_free.notify_one();
+          cv_ready.notify_all();  // consumer may be waiting on the EOF check
+        } else if (!slot.row_error.empty()) {
+          // fail() under mu would deadlock; set the error state inline.
+          if (error.empty()) error = slot.row_error;
+          stop = true;
+          cv_ready.notify_all();
+          cv_work.notify_all();
+          cv_free.notify_all();
+          cv_space.notify_all();
+          return;
+        } else {
+          slot.state = kReady;
+          // Insert in seq order so batches come out deterministically.
+          auto it = ready.begin();
+          while (it != ready.end() && slots[*it].seq < slot.seq) ++it;
+          ready.insert(it, item.slot);
+          completed_batches++;
+          cv_ready.notify_all();
+        }
+      }
+    }
+  }
+
+  // ---- consumer API ------------------------------------------------------
+
+  void ensure_launched() {
+    // Thread launch deferred from create to the first next_slot() call:
+    // all data/parse/decode errors then have ONE surfacing point
+    // (iteration), deterministically — see the launch_once field note.
+    std::call_once(launch_once, [this] {
+      if (stop.load()) return;  // config already failed at create
+      reader = std::thread([this] { reader_main(); });
+      for (int i = 0; i < cfg.threads; i++)
+        threads.emplace_back([this, i] { worker_main(i); });
+    });
+  }
+
+  int next_slot() {
+    ensure_launched();
+    std::unique_lock<std::mutex> lk(mu);
+    cv_ready.wait(lk, [&] {
+      if (!error.empty()) return true;
+      // Deliver strictly in dispatch order: batch assembly is deterministic
+      // (single reader assigns rows in stream order), so ordered delivery
+      // makes the whole pipeline reproducible under a fixed seed even
+      // though decode is parallel.
+      if (!ready.empty() && slots[ready.front()].seq == next_seq_out)
+        return true;
+      if (eof && next_seq_out >= dispatched_batches) return true;
+      return false;
+    });
+    if (!error.empty()) return -2;
+    if (ready.empty() || slots[ready.front()].seq != next_seq_out)
+      return -1;  // end of data
+    int slot = ready.front();
+    ready.pop_front();
+    slots[slot].state = kInUse;
+    next_seq_out++;
+    return slot;
+  }
+
+  void release(int slot) {
+    {
+      std::lock_guard<std::mutex> lk(mu);
+      if (slot < 0 || slot >= (int)slots.size()) return;
+      slots[slot].state = kFree;
+    }
+    cv_free.notify_one();
+  }
+
+  bool start(std::string* err) {
+    // Buffers only — threads launch on the first next_slot() call
+    // (ensure_launched), so create-time errors are config errors ONLY.
+    st_per_worker_busy_us.reset(
+        new std::atomic<long long>[cfg.threads > 0 ? cfg.threads : 1]);
+    for (int i = 0; i < cfg.threads; i++) st_per_worker_busy_us[i] = 0;
+    slots.resize(cfg.ring);
+    for (auto& s : slots) {
+      for (long long sz : cfg.buffer_sizes) {
+        void* p = nullptr;
+        if (posix_memalign(&p, 64, (size_t)sz) != 0) {
+          *err = "allocation failed";
+          return false;
+        }
+        s.buffers.push_back((uint8_t*)p);
+      }
+    }
+    return true;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+void* t2r_loader_create(const char* config, int config_len) {
+  auto* loader = new Loader();
+  std::string err;
+  if (!parse_config(std::string(config, config_len), &loader->cfg, &err) ||
+      !loader->start(&err)) {
+    loader->error = err.empty() ? "config error" : err;
+    loader->stop = true;
+    return loader;  // caller must check last_error
+  }
+  return loader;
+}
+
+const char* t2r_loader_last_error(void* h) {
+  auto* loader = (Loader*)h;
+  std::lock_guard<std::mutex> lk(loader->mu);
+  return loader->error.c_str();
+}
+
+int t2r_loader_num_buffers(void* h) {
+  return (int)((Loader*)h)->cfg.buffer_sizes.size();
+}
+
+long long t2r_loader_buffer_size(void* h, int buf) {
+  auto* loader = (Loader*)h;
+  if (buf < 0 || buf >= (int)loader->cfg.buffer_sizes.size()) return -1;
+  return loader->cfg.buffer_sizes[buf];
+}
+
+void* t2r_loader_buffer_ptr(void* h, int slot, int buf) {
+  auto* loader = (Loader*)h;
+  if (slot < 0 || slot >= (int)loader->slots.size()) return nullptr;
+  if (buf < 0 || buf >= (int)loader->slots[slot].buffers.size())
+    return nullptr;
+  return loader->slots[slot].buffers[buf];
+}
+
+int t2r_loader_ring_size(void* h) { return (int)((Loader*)h)->slots.size(); }
+
+int t2r_loader_next(void* h) { return ((Loader*)h)->next_slot(); }
+
+// Loader stats: fills up to n slots of `out` with the cumulative
+// counters [records_read, bytes_read, reader_busy_us, reader_wait_us,
+// rows_parsed, parse_bytes, worker_busy_us, worker_idle_us, n_workers,
+// completed_batches, min_worker_busy_us, max_worker_busy_us]; returns the
+// count written. Never launches the worker threads (lazy-launch boundary
+// preserved): before the first next() every value is 0.
+long long t2r_loader_stats(void* h, long long* out, int n) {
+  return ((Loader*)h)->stats_snapshot(out, n);
+}
+
+void t2r_loader_release(void* h, int slot) { ((Loader*)h)->release(slot); }
+
+void t2r_loader_destroy(void* h) { delete (Loader*)h; }
+
+// The JPEG decoder this library was built with: "libjpeg" or "nvjpeg".
+const char* t2r_loader_decoder() { return kDecoder; }
+
+// Decodes one JPEG of h x w x c through the planes path (decode_jpeg_planes)
+// into ``out``; returns "" or the error, valid until the thread's next call.
+const char* t2r_decode_jpeg_planes(const uint8_t* data, long long n, int h,
+                                   int w, int c, uint8_t* out) {
+  static thread_local std::string error;
+  FieldSpec f;
+  f.name = "image";
+  f.h = h;
+  f.w = w;
+  f.c = c;
+  error = decode_jpeg_planes(data, (size_t)n, f, out);
+  return error.c_str();
+}
+
+}  // extern "C"

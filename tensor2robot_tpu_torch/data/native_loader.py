@@ -1,0 +1,516 @@
+"""The native record loader (the JAX package's ``data/native_loader.py``,
+full image decode).
+
+The C++ side (``native/record_loader.cc``, the port's own copy) reads
+TFRecords, walks the Example wire format, decodes JPEG frames and
+assembles batches on a pool of worker threads, into a ring of
+preallocated buffers, outside the GIL. This module:
+
+  * builds the library at first use with ``g++`` into ``_build/`` (a
+    directory git ignores; the name carries a hash of the source and the
+    flags), choosing its JPEG decoder by what the host has: libjpeg where
+    ``jpeglib.h`` is found (the JAX loader's decoder), else NVIDIA's
+    nvJPEG from the CUDA toolkit (``$CUDA_HOME/include/nvjpeg.h``),
+    which decodes the Y, Cb and Cr planes on CUDA device 0, upsampled and
+    converted to RGB on the host as libjpeg does (so only nvJPEG's IDCT
+    differs from libjpeg's). A host with neither, or a failed build,
+    raises; ``decoder()`` names the one built;
+  * plans a feature/label spec pair for the loader (``plan_for_specs``):
+    fixed-shape float, int and JPEG image specs, sequences given a step
+    bound, varlen, optional and zipped datasets. It returns None where the
+    Python parser is needed instead (PNG images, sequences without a
+    bound, unnamed or shared names) and raises on the DCT coefficient
+    modes, which are not ported;
+  * ``NativeBatchedStream`` yields ``(features, labels)`` batches, as the
+    Python ``BatchedExampleStream`` does.
+
+Creating a stream checks its configuration only: the reader and worker
+threads start at the first ``next()``, where every data error (a missing
+file, a corrupt record, an image that does not decode) is raised.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from tensor2robot_tpu_torch.specs import algebra
+from tensor2robot_tpu_torch.specs.tensor_spec import TensorSpec
+
+__all__ = ['DECODERS', 'NativeBatchedStream', 'NativeLoaderPlan',
+           'build_native', 'decode_jpeg_planes', 'decoder', 'jpeg_decoder',
+           'plan_for_specs']
+
+_PACKAGE_DIR = Path(__file__).resolve().parent.parent
+SOURCE = Path(__file__).resolve().parent / 'native' / 'record_loader.cc'
+BUILD_DIR = _PACKAGE_DIR / '_build'
+DECODERS = ('libjpeg', 'nvjpeg')
+JPEGLIB_HEADERS = ('/usr/include/jpeglib.h', '/usr/local/include/jpeglib.h',
+                    '/usr/include/x86_64-linux-gnu/jpeglib.h')
+
+_BUILD_LOCK = threading.Lock()
+_LIB = None
+
+# Field kinds, as record_loader.cc's FieldKind.
+_KIND_FLOAT = 0
+_KIND_INT = 1
+_KIND_IMAGE_FULL = 2
+_INT_SIZES = {np.dtype(np.int64): 8, np.dtype(np.int32): 4,
+              np.dtype(np.uint8): 1, np.dtype(np.bool_): 1}
+
+
+def _cuda_home() -> str:
+  return os.environ.get('CUDA_HOME', '/usr/local/cuda')
+
+
+def jpeg_decoder() -> str:
+  """The decoder this host builds with: 'libjpeg' where its header is
+  found, else 'nvjpeg' where the CUDA toolkit has nvJPEG; raises if
+  neither."""
+  if any(os.path.exists(path) for path in JPEGLIB_HEADERS):
+    return 'libjpeg'
+  if os.path.exists(os.path.join(_cuda_home(), 'include', 'nvjpeg.h')):
+    return 'nvjpeg'
+  raise RuntimeError(
+      'native loader: no JPEG decoder to build with: neither libjpeg '
+      '({}) nor nvJPEG ({}/include/nvjpeg.h) is installed.'.format(
+          ', '.join(JPEGLIB_HEADERS), _cuda_home()))
+
+
+def _flags(jpeg: str) -> List[str]:
+  flags = ['-O2', '-fPIC', '-shared', '-std=c++17', '-msse4.2']
+  if jpeg == 'libjpeg':
+    return flags + ['-DT2R_JPEG_LIBJPEG']
+  lib = os.path.join(_cuda_home(), 'lib64')
+  return flags + ['-DT2R_JPEG_NVJPEG', '-I' + os.path.join(_cuda_home(),
+                                                           'include'),
+                  '-L' + lib, '-Wl,-rpath,' + lib]
+
+
+def _libraries(jpeg: str) -> List[str]:
+  return (['-ljpeg'] if jpeg == 'libjpeg' else ['-lnvjpeg', '-lcudart']) + [
+      '-lpthread']
+
+
+def build_native(source: Optional[str] = None, compiler: str = 'g++',
+                 jpeg: Optional[str] = None) -> str:
+  """Compiles the loader (once per source and flags); returns its path.
+
+  ``source``, ``compiler`` and ``jpeg`` (a decoder of ``DECODERS``) are
+  for tests; by default the package's source, ``g++`` and
+  ``jpeg_decoder()``. A failed build raises ``RuntimeError`` with the
+  compiler's output.
+  """
+  source = Path(source) if source is not None else SOURCE
+  jpeg = jpeg or jpeg_decoder()
+  if jpeg not in DECODERS:
+    raise ValueError('jpeg must be one of {}; got {!r}.'.format(DECODERS,
+                                                                 jpeg))
+  if not source.exists():
+    raise RuntimeError('native loader: no source at {}.'.format(source))
+  command_tail = _flags(jpeg) + _libraries(jpeg)
+  digest = hashlib.sha256(source.read_bytes())
+  digest.update(' '.join([compiler] + command_tail).encode())
+  target = BUILD_DIR / 'record_loader-{}-{}.so'.format(
+      jpeg, digest.hexdigest()[:16])
+  with _BUILD_LOCK:
+    if target.exists():
+      return str(target)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix('.so.tmp{}'.format(os.getpid()))
+    command = ([compiler] + _flags(jpeg) + ['-o', str(tmp), str(source)] +
+               _libraries(jpeg))
+    try:
+      result = subprocess.run(command, capture_output=True, text=True)
+    except OSError as e:
+      raise RuntimeError('native loader: cannot run {!r}: {}'.format(
+          compiler, e)) from e
+    if result.returncode != 0:
+      raise RuntimeError('native loader build failed ({}):\n{}'.format(
+          ' '.join(command), result.stderr))
+    os.replace(tmp, target)   # a reader never loads a half-written file
+  return str(target)
+
+
+def _lib():
+  global _LIB
+  if _LIB is None:
+    lib = ctypes.CDLL(build_native())
+    lib.t2r_loader_create.restype = ctypes.c_void_p
+    lib.t2r_loader_create.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.t2r_loader_last_error.restype = ctypes.c_char_p
+    lib.t2r_loader_last_error.argtypes = [ctypes.c_void_p]
+    lib.t2r_loader_num_buffers.restype = ctypes.c_int
+    lib.t2r_loader_num_buffers.argtypes = [ctypes.c_void_p]
+    lib.t2r_loader_buffer_size.restype = ctypes.c_longlong
+    lib.t2r_loader_buffer_size.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.t2r_loader_buffer_ptr.restype = ctypes.c_void_p
+    lib.t2r_loader_buffer_ptr.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_int]
+    lib.t2r_loader_ring_size.restype = ctypes.c_int
+    lib.t2r_loader_ring_size.argtypes = [ctypes.c_void_p]
+    lib.t2r_loader_next.restype = ctypes.c_int
+    lib.t2r_loader_next.argtypes = [ctypes.c_void_p]
+    lib.t2r_loader_release.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.t2r_loader_destroy.argtypes = [ctypes.c_void_p]
+    lib.t2r_loader_stats.restype = ctypes.c_longlong
+    lib.t2r_loader_stats.argtypes = [ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_longlong),
+                                     ctypes.c_int]
+    lib.t2r_loader_decoder.restype = ctypes.c_char_p
+    lib.t2r_loader_decoder.argtypes = []
+    lib.t2r_decode_jpeg_planes.restype = ctypes.c_char_p
+    lib.t2r_decode_jpeg_planes.argtypes = [
+        ctypes.c_char_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    _LIB = lib
+  return _LIB
+
+
+def decoder() -> str:
+  """The JPEG decoder of the loaded library (builds it if need be)."""
+  return _lib().t2r_loader_decoder().decode()
+
+
+def decode_jpeg_planes(data: bytes, shape) -> np.ndarray:
+  """One JPEG as a uint8 ``shape`` (H, W, C) array through the loader's
+  planes path: the Y, Cb and Cr planes (nvJPEG's in the nvJPEG build,
+  libjpeg's raw ones in the libjpeg build) upsampled and converted as
+  libjpeg does. In the libjpeg build it must equal the loader's decode bit
+  for bit; in the nvJPEG build it is the loader's decode."""
+  h, w, c = (int(d) for d in shape)
+  out = np.empty((h, w, c), np.uint8)
+  error = _lib().t2r_decode_jpeg_planes(data, len(data), h, w, c,
+                                        out.ctypes.data)
+  if error:
+    raise RuntimeError('native loader: ' + error.decode('utf-8', 'replace'))
+  return out
+
+
+# t2r_loader_stats slot order (record_loader.cc stats_snapshot).
+STAT_NAMES = ('records_read', 'bytes_read', 'reader_busy_us',
+              'reader_wait_us', 'rows_parsed', 'parse_bytes',
+              'worker_busy_us', 'worker_idle_us', 'n_workers',
+              'completed_batches', 'min_worker_busy_us', 'max_worker_busy_us')
+
+
+class _Field:
+  """One parsed field: its configuration line and numpy view."""
+
+  def __init__(self, key: str, spec: TensorSpec, kind: int, dtype_size: int,
+               shape: Tuple[int, ...], view_dtype, count: int = 0,
+               seq_cap: int = 0, varlen: bool = False,
+               optional: bool = False, dsi: int = 0, pad_value: float = 0.0):
+    self.key = key            # 'features/<spec key>' or 'labels/...'
+    self.spec = spec
+    self.kind = kind
+    self.dtype_size = dtype_size
+    self.shape = shape        # a row's shape (a step's, for sequences)
+    self.view_dtype = view_dtype
+    # Values a row (a step); an image list's frame count (0: one image).
+    self.count = count
+    # > 0: a sequence with this step capacity; rows come back [seq_cap,
+    # *shape], zero past the record's steps, with a length per row.
+    self.seq_cap = seq_cap
+    # The on-disk list is clipped to count or padded with pad_value.
+    self.varlen = varlen
+    # Records may omit it; a presence flag a row rides along.
+    self.optional = optional
+    self.dsi = dsi            # which zipped dataset it is read from
+    self.pad_value = pad_value
+    self.h, self.w, self.c = shape[-3:] if kind == _KIND_IMAGE_FULL else (
+        0, 0, 0)
+
+  def config_line(self) -> str:
+    name = self.spec.name.encode('utf-8')
+    return '{} {} {} {} {} {} {} {} {} {} {} {:.17g} {}'.format(
+        len(name), self.kind, self.dtype_size, self.h, self.w, self.c,
+        self.count, self.seq_cap, int(self.varlen), int(self.optional),
+        self.dsi, float(self.pad_value), self.spec.name)
+
+
+class NativeLoaderPlan:
+  """The fields of a (feature_spec, label_spec) pair, and the order of
+  their datasets: a stream takes one file list per ``dataset_keys`` entry
+  (a plain list when the only key is '')."""
+
+  def __init__(self, fields: List[_Field], feature_spec, label_spec,
+               dataset_keys: List[str]):
+    self.fields = fields
+    self.feature_spec = feature_spec
+    self.label_spec = label_spec
+    self.dataset_keys = list(dataset_keys)
+
+
+def plan_for_specs(feature_spec, label_spec, image_mode: str = 'full',
+                   sequence_max_len: Optional[int] = None
+                   ) -> Optional[NativeLoaderPlan]:
+  """A plan if the loader reads these specs, else None (see the module's
+  note). ``image_mode`` must be 'full'; ``sequence_max_len`` bounds the
+  steps of sequence specs (numeric ones only), without which they are
+  the Python parser's. Derived ``<key>_length`` specs are made by the
+  stream, not read."""
+  if image_mode != 'full':
+    raise NotImplementedError(
+        "image_mode {!r}: the DCT coefficient modes ('coef', 'coef_sparse', "
+        "'coef_packed') of the device-side JPEG decode are not ported yet; "
+        "the port's loader decodes whole images ('full').".format(
+            image_mode))
+  feature_spec = algebra.flat_specs(feature_spec)
+  label_spec = algebra.flat_specs(label_spec)
+  sides = (('features', feature_spec), ('labels', label_spec))
+  dataset_keys = sorted({spec.dataset_key for _, specs in sides
+                         for spec in specs.values() if spec.name is not None})
+  if not dataset_keys:
+    return None
+  key_to_dsi = {k: i for i, k in enumerate(dataset_keys)}
+  fields: List[_Field] = []
+  seen_names = set()
+  for side, specs in sides:
+    for key, spec in specs.items():
+      base = key[:-len('_length')]
+      if (key.endswith('_length') and base in specs and
+          specs[base].is_sequence):
+        continue   # made by the stream from the step counts
+      if spec.name is None or spec.name in seen_names:
+        return None  # the Python parser skips or fans these out
+      shape = tuple(spec.shape)
+      if any(s is None for s in shape):
+        return None
+      varlen = spec.varlen_default_value is not None
+      common = dict(optional=spec.is_optional,
+                    dsi=key_to_dsi[spec.dataset_key])
+      full_key = side + '/' + key
+      count = int(np.prod(shape)) if shape else 1
+      if spec.is_sequence:
+        if not sequence_max_len or spec.is_encoded_image or varlen:
+          return None
+        if spec.dtype == np.float32:
+          fields.append(_Field(full_key, spec, _KIND_FLOAT, 4, shape,
+                               np.float32, count,
+                               seq_cap=int(sequence_max_len), **common))
+        elif spec.dtype in _INT_SIZES:
+          fields.append(_Field(full_key, spec, _KIND_INT,
+                               _INT_SIZES[spec.dtype], shape, spec.dtype,
+                               count, seq_cap=int(sequence_max_len),
+                               **common))
+        else:
+          return None
+      elif spec.is_encoded_image:
+        if (spec.data_format.lower() not in ('jpeg', 'jpg') or
+            len(shape) not in (3, 4) or spec.dtype != np.uint8 or
+            shape[-1] not in (1, 3) or (varlen and len(shape) != 4)):
+          return None
+        # A rank-4 [T, H, W, C] spec is a list of T encoded frames: count
+        # carries T, strict unless varlen (clip or pad).
+        fields.append(_Field(full_key, spec, _KIND_IMAGE_FULL, 1, shape,
+                             np.uint8, count=shape[0] if len(shape) == 4
+                             else 0, varlen=varlen,
+                             pad_value=float(spec.varlen_default_value or 0),
+                             **common))
+      elif spec.dtype == np.float32 or spec.dtype in _INT_SIZES:
+        if varlen and len(shape) != 1:
+          return None
+        is_float = spec.dtype == np.float32
+        fields.append(_Field(
+            full_key, spec, _KIND_FLOAT if is_float else _KIND_INT,
+            4 if is_float else _INT_SIZES[spec.dtype], shape,
+            np.float32 if is_float else spec.dtype, count, varlen=varlen,
+            pad_value=float(spec.varlen_default_value or 0), **common))
+      else:
+        return None
+      seen_names.add(spec.name)
+  if not fields:
+    return None
+  return NativeLoaderPlan(fields,
+                          algebra.add_sequence_length_specs(feature_spec),
+                          algebra.add_sequence_length_specs(label_spec),
+                          dataset_keys)
+
+
+class NativeBatchedStream:
+  """An iterator of ``(features, labels)`` batches from the loader.
+
+  With ``copy=False`` the arrays are views into the loader's ring of
+  buffers, valid until the next batch is drawn; by default they are the
+  caller's own.
+  """
+
+  def __init__(self, plan: NativeLoaderPlan, filenames, batch_size: int,
+               shuffle: bool = False, shuffle_buffer: int = 500,
+               num_epochs: Optional[int] = None, seed: Optional[int] = None,
+               num_threads: Optional[int] = None, ring: int = 3,
+               verify_crc: bool = False, copy: bool = True,
+               validate: bool = True):
+    """``filenames``: a list of record paths, or, for a plan that zips
+    datasets, a dict of one list per ``plan.dataset_keys`` entry; row r of
+    a batch is then made of one record of each (the zip ends with the
+    shortest)."""
+    self._plan = plan
+    self._batch_size = int(batch_size)
+    self._copy = copy
+    self._validate = validate
+    self._lib = _lib()
+    self.num_threads = num_threads or max(1, min(16, os.cpu_count() or 2))
+    if isinstance(filenames, dict):
+      missing = [k for k in plan.dataset_keys if k not in filenames]
+      if missing:
+        raise ValueError('filenames has no files for the dataset keys {} '
+                         '(the plan zips {}).'.format(missing,
+                                                      plan.dataset_keys))
+      groups = [list(filenames[k]) for k in plan.dataset_keys]
+    else:
+      if len(plan.dataset_keys) > 1:
+        raise ValueError('The plan zips datasets {}; pass filenames as a '
+                         'dict keyed by dataset key.'.format(
+                             plan.dataset_keys))
+      groups = [list(filenames)]
+    lines = ['batch_size {}'.format(self._batch_size),
+             'ring {}'.format(ring), 'threads {}'.format(self.num_threads),
+             'shuffle {}'.format(int(bool(shuffle))),
+             'shuffle_buffer {}'.format(shuffle_buffer),
+             'seed {}'.format(-1 if seed is None else seed),
+             'epochs {}'.format(-1 if num_epochs is None else num_epochs),
+             'verify_crc {}'.format(int(bool(verify_crc)))]
+    for group in groups:
+      lines.append('group {}'.format(len(group)))
+      lines.extend(group)
+    lines.append('fields {}'.format(len(plan.fields)))
+    lines.extend(f.config_line() for f in plan.fields)
+    config = '\n'.join(lines).encode('utf-8')
+    self._handle = self._lib.t2r_loader_create(config, len(config))
+    if not self._handle:
+      raise RuntimeError('native loader creation failed')
+    error = self._lib.t2r_loader_last_error(self._handle)
+    if error:
+      self._lib.t2r_loader_destroy(self._handle)
+      self._handle = None
+      raise RuntimeError('native loader: ' + error.decode('utf-8',
+                                                          'replace'))
+    self._layout = self._buffer_layout()
+    self._views = self._build_views()
+    self._held_slot = -1
+
+  def stats(self) -> Dict[str, int]:
+    """The loader's cumulative counts (``STAT_NAMES``); zeros before the
+    first batch and after ``close``."""
+    if not self._handle:
+      return dict.fromkeys(STAT_NAMES, 0)
+    buf = (ctypes.c_longlong * len(STAT_NAMES))()
+    n = int(self._lib.t2r_loader_stats(self._handle, buf, len(STAT_NAMES)))
+    return {name: int(buf[i]) for i, name in enumerate(STAT_NAMES[:n])}
+
+  def _buffer_layout(self):
+    """(field, part) per buffer, in record_loader.cc's order: the values,
+    then a sequence's lengths ('len'), then an optional field's presence
+    flags ('p')."""
+    layout = []
+    for f in self._plan.fields:
+      layout.append((f, ''))
+      if f.seq_cap > 0:
+        layout.append((f, 'len'))
+      if f.optional:
+        layout.append((f, 'p'))
+    return layout
+
+  def _build_views(self):
+    n_buffers = self._lib.t2r_loader_num_buffers(self._handle)
+    if n_buffers != len(self._layout):
+      raise RuntimeError('buffer layout mismatch: {} vs {}'.format(
+          n_buffers, len(self._layout)))
+    batch = self._batch_size
+    views = []
+    for slot in range(self._lib.t2r_loader_ring_size(self._handle)):
+      slot_views = []
+      for index, (f, part) in enumerate(self._layout):
+        if part == 'len':
+          shape, dtype = (batch,), np.int32
+        elif part == 'p':
+          shape, dtype = (batch,), np.uint8
+        elif f.seq_cap > 0:
+          shape, dtype = (batch, f.seq_cap) + f.shape, f.view_dtype
+        else:
+          shape, dtype = (batch,) + f.shape, f.view_dtype
+        size = self._lib.t2r_loader_buffer_size(self._handle, index)
+        if int(np.prod(shape)) * np.dtype(dtype).itemsize != size:
+          raise RuntimeError('buffer {} holds {} bytes, not the {} of '
+                             '{}'.format(index, size, shape, dtype))
+        pointer = self._lib.t2r_loader_buffer_ptr(self._handle, slot, index)
+        slot_views.append(np.ctypeslib.as_array(
+            ctypes.cast(pointer, ctypes.POINTER(ctypes.c_uint8)),
+            shape=(size,)).view(dtype).reshape(shape))
+      views.append(slot_views)
+    return views
+
+  def _pack(self, slot: int):
+    views = self._views[slot]
+    lengths = {f.key: views[i] for i, (f, part) in enumerate(self._layout)
+               if part == 'len'}
+    # An optional field that some record of the batch omits is dropped
+    # from the batch, as the Python parser does.
+    dropped = {f.key for i, (f, part) in enumerate(self._layout)
+               if part == 'p' and not views[i].all()}
+    features, labels = {}, {}
+    for i, (f, part) in enumerate(self._layout):
+      if part or f.key in dropped:
+        continue
+      array = views[i]
+      side, key = f.key.split('/', 1)
+      out = features if side == 'features' else labels
+      if f.seq_cap > 0:
+        # The steps up to the batch's longest, as the Python parser pads.
+        out[key] = array[:, :max(1, int(lengths[f.key].max()))].copy()
+        out[key + '_length'] = lengths[f.key].astype(np.int64)
+      else:
+        out[key] = array.copy() if self._copy else array
+    if self._validate:
+      features = algebra.validate_and_pack(self._plan.feature_spec, features,
+                                           ignore_batch=True)
+      if self._plan.label_spec:
+        labels = algebra.validate_and_pack(self._plan.label_spec, labels,
+                                           ignore_batch=True)
+    return features, labels
+
+  def __iter__(self):
+    while True:
+      slot = self._lib.t2r_loader_next(self._handle)
+      if slot == -1:
+        self._release_held()
+        return
+      if slot < 0:
+        error = self._lib.t2r_loader_last_error(self._handle)
+        raise RuntimeError('native loader: ' + (error or b'?').decode(
+            'utf-8', 'replace'))
+      try:
+        batch = self._pack(slot)
+      finally:
+        if self._copy:
+          self._lib.t2r_loader_release(self._handle, slot)
+        else:
+          # Views: the slot is held until the next batch is drawn.
+          self._release_held()
+          self._held_slot = slot
+      yield batch
+
+  def _release_held(self):
+    if self._held_slot >= 0:
+      self._lib.t2r_loader_release(self._handle, self._held_slot)
+      self._held_slot = -1
+
+  def close(self):
+    if self._handle:
+      self._lib.t2r_loader_destroy(self._handle)
+      self._handle = None
+
+  def __del__(self):
+    try:
+      self.close()
+    except Exception:  # noqa: BLE001 — interpreter teardown
+      pass

@@ -9,9 +9,12 @@ and ``predict_step``) on them.
 
 Every field a serving call needs lives in one immutable snapshot,
 ``_Loaded(variables, step)``, assigned as one reference: a predict that
-started on step N finishes on step N, and ``predict_versioned`` labels its
-outputs with that step. (Restoring the JAX package's Orbax checkpoints is
-not ported yet.)
+started on step N finishes on step N, ``predict_versioned`` labels its
+outputs with that step, and ``versioned_variables`` hands a server the
+``(step, variables)`` pair of one snapshot to hot-swap in
+(``PolicyServer.swap_from_predictor``, which ``serving/serve.py
+--checkpoint_dir`` polls). A JAX (Orbax) checkpoint reaches the port
+through ``convert``, its arrays given as numpy.
 """
 
 from __future__ import annotations
@@ -69,10 +72,11 @@ class CheckpointPredictor(AbstractPredictor):
 
   # -- loading ---------------------------------------------------------------
 
-  def init_randomly(self) -> None:
-    """Random weights from the model's initializer (seed 0); version 0."""
+  def init_randomly(self, seed: int = 0) -> None:
+    """Random weights from the model's initializer (from ``seed``);
+    version 0."""
     self._loaded = _Loaded(variables=self._model.init_variables(
-        torch.Generator().manual_seed(0)), step=0)
+        torch.Generator().manual_seed(seed)), step=0)
 
   def restore(self) -> bool:
     """Waits for a checkpoint newer than the loaded one, then loads it.
@@ -139,6 +143,13 @@ class CheckpointPredictor(AbstractPredictor):
   def variables(self):
     """The loaded serving variables."""
     return self._snapshot().variables
+
+  @property
+  def versioned_variables(self):
+    """``(step, variables)`` of one snapshot, read once: what a server
+    swaps in."""
+    loaded = self._snapshot()
+    return loaded.step, loaded.variables
 
   def predict_versioned(self, features: Dict[str, np.ndarray]):
     loaded = self._snapshot()

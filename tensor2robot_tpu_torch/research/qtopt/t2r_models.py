@@ -13,8 +13,15 @@ The counterpart of the JAX package's ``research/qtopt/t2r_models.py``:
     cross entropy of the Q logit against the grasp success, plus the l2
     weight decay;
   * ``Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom`` is the
-    flagship critic, with its specifications, ``serving_feature_spec`` and
-    the CEM selectors that ``PolicyServer`` serves.
+    flagship critic, with its specifications, ``serving_feature_spec``,
+    the CEM selectors that ``PolicyServer`` serves and ``pack_features``,
+    the feed of ``policies.CEMPolicy``.
+
+The specifications carry the JAX critic's on-disk names (``TensorSpec``):
+the frame is the JPEG ``image_1``, each action and gripper feature is
+stored under its own key, and the label ``reward`` is ``grasp_success``;
+so the records that the JAX package writes for its critic are this
+critic's records too.
 
 The batched selector writes the batch dimension out where the JAX one
 vmaps over requests: the crop and the image tower run over the B frames
@@ -38,13 +45,14 @@ from tensor2robot_tpu_torch.preprocessors import image_transformations
 from tensor2robot_tpu_torch.preprocessors import pallas_crop
 from tensor2robot_tpu_torch.research.qtopt import networks
 from tensor2robot_tpu_torch.research.qtopt import optimizer_builder
+from tensor2robot_tpu_torch.specs.tensor_spec import TensorSpec
 from tensor2robot_tpu_torch.utils import cross_entropy
 
 __all__ = ['ACTION_DIM_LAYOUT', 'CEM_ACTION_SIZE', 'INPUT_SHAPE',
            'TARGET_SHAPE', 'DefaultGrasping44ImagePreprocessor',
            'GraspingQNetwork',
            'Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom',
-           'LegacyGraspingModelWrapper']
+           'LegacyGraspingModelWrapper', 'pack_features_kuka_e2e']
 
 INPUT_SHAPE = (512, 640, 3)
 TARGET_SHAPE = (472, 472)
@@ -63,6 +71,29 @@ _STATE_SCALARS = ('gripper_closed', 'height_to_bottom')
 # Grasping44Network's weight decay (the JAX module's l2_regularization).
 L2_REGULARIZATION = 0.00007
 _NETWORK = 'grasping44'
+
+
+def pack_features_kuka_e2e(t2r_model, state, context, timestep, actions
+                           ) -> Dict[str, np.ndarray]:
+  """One observation and N candidate actions as the PREDICT feed of the
+  flagship critic (the JAX package's ``pack_features_kuka_e2e``).
+
+  ``state`` holds 'image' (the uint8 [512, 640, 3] frame) and the scalars
+  'gripper_closed' and 'height_to_bottom'; ``actions`` are [N, 8] CEM
+  samples laid out by ``ACTION_DIM_LAYOUT``. The frame goes in once (batch
+  1), the N actions as rows, each with the gripper scalars.
+  """
+  del t2r_model, context, timestep
+  actions = np.asarray(actions, np.float32)
+  features = {'state/image': np.expand_dims(np.asarray(state['image']), 0)}
+  offset = 0
+  for key, size in ACTION_DIM_LAYOUT:
+    features['action/' + key] = actions[:, offset:offset + size]
+    offset += size
+  for key in _STATE_SCALARS:
+    features['action/' + key] = np.full((actions.shape[0], 1),
+                                        np.float32(state[key]))
+  return features
 
 
 class GraspingQNetwork(nn.Module):
@@ -130,8 +161,13 @@ class DefaultGrasping44ImagePreprocessor:
     self._label_spec_fn = label_spec_fn
 
   def get_in_feature_specification(self, mode: str) -> Dict[str, tuple]:
+    """The model's specification with the raw frame, JPEG on disk, in
+    place of the crop."""
     spec = dict(self._feature_spec_fn(mode))
-    spec['state/image'] = (INPUT_SHAPE, np.uint8)
+    image = spec['state/image']
+    spec['state/image'] = TensorSpec(INPUT_SHAPE, np.uint8,
+                                     name=getattr(image, 'name', None),
+                                     data_format='jpeg')
     return spec
 
   def get_in_label_specification(self, mode: str) -> Dict[str, tuple]:
@@ -212,7 +248,7 @@ class LegacyGraspingModelWrapper(CriticModel):
   def get_label_specification(self, mode: str) -> Dict[str, tuple]:
     """The grasp success, served as the ``reward`` label."""
     del mode
-    return {'reward': ((1,), np.float32)}
+    return {'reward': TensorSpec((1,), np.float32, name='grasp_success')}
 
   @property
   def l2_regularization_scale(self) -> float:
@@ -243,11 +279,16 @@ class Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
   gripper status and height to bottom in the action vector."""
 
   def get_state_specification(self) -> Dict[str, tuple]:
-    return {'image': (TARGET_SHAPE + (3,), np.float32)}
+    return {'image': TensorSpec(TARGET_SHAPE + (3,), np.float32,
+                                name='image_1')}
 
   def get_action_specification(self) -> Dict[str, tuple]:
-    return {key: ((size,), np.float32) for key, size in
+    return {key: TensorSpec((size,), np.float32, name=key) for key, size in
             ACTION_DIM_LAYOUT + tuple((k, 1) for k in _STATE_SCALARS)}
+
+  def pack_features(self, state, context, timestep, actions):
+    """``pack_features_kuka_e2e``: the feed of ``policies.CEMPolicy``."""
+    return pack_features_kuka_e2e(self, state, context, timestep, actions)
 
   def create_network(self) -> nn.Module:
     network_kwargs = self.legacy_network_kwargs

@@ -5,27 +5,40 @@ over the flagship critic's batched CEM selector and answers requests over
 the stdlib HTTP/JSON front end, or drives it with closed-loop synthetic
 clients and prints one JSON stats line.
 
+Weights come from one of two sources:
+
+  * ``--checkpoint_dir``: the trainer's ``model_dir``. A
+    ``CheckpointPredictor`` waits up to ``--restore_timeout`` seconds for
+    its first checkpoint (and exits if none comes), and a poll thread
+    looks for a newer one every ``--poll_secs`` and hot-swaps it into the
+    running server (``PolicyServer.swap_from_predictor``) with no request
+    dropped; a poll that fails keeps the old weights and says so on
+    stderr. Telemetry goes to ``<checkpoint_dir>/serving`` unless
+    ``--model_dir`` says otherwise;
+  * ``--init_randomly``: weights drawn from ``--seed``.
+
 Examples:
 
-    # Random weights, HTTP on :8080, the 30 Hz SLO:
-    python -m tensor2robot_tpu_torch.serving.serve --init_randomly \\
-        --port 8080 --slo_ms 33
+    # Serve what the trainer writes, HTTP on :8080, the 30 Hz SLO:
+    python -m tensor2robot_tpu_torch.serving.serve \\
+        --checkpoint_dir /tmp/qtopt --port 8080 --slo_ms 33
 
     # Capacity check without HTTP: 16 clients for 20 s, one JSON line:
     python -m tensor2robot_tpu_torch.serving.serve --init_randomly \\
         --synthetic_load 16 --duration 20
 
-Weights: restoring a checkpoint without JAX is not ported yet, so
-``--init_randomly`` is required (weights drawn from ``--seed``). The
-network runs in float32 with TF32 off for convolutions and matrix
+The network runs in float32 with TF32 off for convolutions and matrix
 products, unless ``--compute_dtype bfloat16``. Everything runs on
 ``--device`` (``cuda`` by default; ``cpu`` only when asked for).
+Serving exported models (``--export_dir``), replicas behind a router and
+compiled-artifact stores are not ported.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import threading
 import time
@@ -34,11 +47,14 @@ import numpy as np
 import torch
 
 from tensor2robot_tpu_torch import kernels
+from tensor2robot_tpu_torch.predictors.checkpoint_predictor import (
+    CheckpointPredictor)
 from tensor2robot_tpu_torch.research.qtopt import t2r_models
 from tensor2robot_tpu_torch.serving.frontend import build_http_server
 from tensor2robot_tpu_torch.serving.server import PolicyServer, ServingConfig
 
-__all__ = ['build_policy', 'main', 'make_parser', 'run_synthetic_load',
+__all__ = ['Serving', 'build_model', 'build_policy', 'build_predictor',
+           'main', 'make_parser', 'run_synthetic_load', 'start',
            'synthetic_state']
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
@@ -57,10 +73,16 @@ def synthetic_state(feature_spec, rng: np.random.RandomState):
 
 def run_synthetic_load(server, feature_spec, clients: int,
                        duration_s: float):
-  """Drives ``clients`` closed-loop clients for ``duration_s`` seconds."""
+  """Drives ``clients`` closed-loop clients for ``duration_s`` seconds.
+
+  The stats count the answers of each params version
+  (``versions_served``) and when, on the monotonic clock, each version
+  gave its first answer (``first_answer_monotonic``).
+  """
   stop = threading.Event()
-  completed = []
-  failed = []
+  lock = threading.Lock()
+  completed, failed = [], []
+  versions, first_answer = {}, {}
 
   def client(seed):
     rng = np.random.RandomState(seed)
@@ -68,23 +90,39 @@ def run_synthetic_load(server, feature_spec, clients: int,
     while not stop.is_set():
       try:
         result = server.select_action(state, timeout_s=60.0)
-        completed.append(result.latency_ms)
       except Exception as e:  # noqa: BLE001 — count, keep driving
         failed.append(repr(e))
+        continue
+      answered = time.monotonic()
+      with lock:
+        completed.append(result.latency_ms)
+        key = str(result.version)
+        versions[key] = versions.get(key, 0) + 1
+        first_answer[key] = min(first_answer.get(key, answered), answered)
 
   threads = [threading.Thread(target=client, args=(i,), daemon=True)
              for i in range(clients)]
-  start = time.monotonic()
+  start_time = time.monotonic()
   for t in threads:
     t.start()
   time.sleep(duration_s)
   stop.set()
   for t in threads:
     t.join()
-  elapsed = time.monotonic() - start
+  elapsed = time.monotonic() - start_time
   return {'clients': clients, 'duration_s': round(elapsed, 2),
           'completed': len(completed), 'failed': len(failed),
-          'actions_per_sec': round(len(completed) / elapsed, 2)}
+          'actions_per_sec': round(len(completed) / elapsed, 2),
+          'versions_served': versions,
+          'first_answer_monotonic': first_answer}
+
+
+def build_model(device='cuda', num_convs=(6, 6, 3),
+                compute_dtype=torch.float32):
+  """The flagship critic on ``device``."""
+  return t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+      device=device, compute_dtype=compute_dtype,
+      network_kwargs={'num_convs': tuple(num_convs)})
 
 
 def build_policy(device='cuda', num_convs=(6, 6, 3), cem_samples=64,
@@ -92,22 +130,45 @@ def build_policy(device='cuda', num_convs=(6, 6, 3), cem_samples=64,
                  compute_dtype=torch.float32):
   """The flagship model on ``device``, random weights from ``seed``, and
   its batched CEM selector: ``(model, variables, batch_select)``."""
-  model = t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
-      device=device, compute_dtype=compute_dtype,
-      network_kwargs={'num_convs': tuple(num_convs)})
+  model = build_model(device, num_convs, compute_dtype)
   variables = model.init_variables(torch.Generator().manual_seed(seed))
   batch_select = model.make_batched_select_action(
       cem_samples=cem_samples, cem_iters=cem_iters, num_elites=num_elites)
   return model, variables, batch_select
 
 
+def build_predictor(model, args):
+  """The weights' source: ``(predictor, polls)``. From
+  ``--checkpoint_dir``, the newest checkpoint within ``--restore_timeout``
+  (else the process exits) and ``polls`` True; else random weights from
+  ``--seed``."""
+  predictor = CheckpointPredictor(model, args.checkpoint_dir or None,
+                                  timeout=args.restore_timeout)
+  if args.checkpoint_dir:
+    if not predictor.restore():
+      raise SystemExit('no checkpoint appeared under {} within {}s'.format(
+          args.checkpoint_dir, args.restore_timeout))
+    return predictor, True
+  predictor.init_randomly(seed=args.seed)
+  return predictor, False
+
+
 def make_parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(
       description=__doc__,
       formatter_class=argparse.RawDescriptionHelpFormatter)
-  parser.add_argument('--init_randomly', action='store_true',
-                      help='random weights from --seed (required until '
-                      'checkpoint restore is ported)')
+  source = parser.add_mutually_exclusive_group(required=True)
+  source.add_argument('--checkpoint_dir', default='',
+                      help='the trainer model_dir to serve and poll '
+                      'checkpoints from')
+  source.add_argument('--init_randomly', action='store_true',
+                      help='random weights from --seed (smoke and '
+                      'capacity checks)')
+  parser.add_argument('--poll_secs', type=float, default=30.0,
+                      help='seconds between looks for a newer checkpoint')
+  parser.add_argument('--restore_timeout', type=float, default=600.0,
+                      help='seconds to wait for the first checkpoint (and '
+                      'for a newer one while polling)')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--device', default='cuda',
                       help="'cuda' (default) or 'cpu'")
@@ -116,8 +177,10 @@ def make_parser() -> argparse.ArgumentParser:
   parser.add_argument('--num_convs', default='6,6,3',
                       help='depth of the three conv stacks')
   parser.add_argument('--model_dir', default='',
-                      help='where serving telemetry.jsonl lands (none by '
-                      'default)')
+                      help='where serving telemetry.jsonl lands (default: '
+                      '<checkpoint_dir>/serving, a subdirectory, so that '
+                      'the server never writes into a live trainer\'s '
+                      'files; none for --init_randomly)')
   parser.add_argument('--port', type=int, default=8080)
   parser.add_argument('--host', default='127.0.0.1')
   parser.add_argument('--max_batch_size', type=int, default=8)
@@ -138,24 +201,63 @@ def make_parser() -> argparse.ArgumentParser:
   return parser
 
 
-def main(argv=None) -> int:
-  parser = make_parser()
-  args = parser.parse_args(argv)
-  if not args.init_randomly:
-    parser.error('restoring weights is not ported yet; pass '
-                 '--init_randomly')
+class Serving:
+  """A running server: the model, its predictor, the ``PolicyServer`` and
+  the poll thread that hot-swaps newer checkpoints into it. ``stop``
+  drains the server and ends the thread."""
 
+  def __init__(self, model, predictor, service, feature_spec, polls,
+               poll_secs):
+    self.model = model
+    self.predictor = predictor
+    self.service = service
+    self.feature_spec = feature_spec
+    self.swaps = []   # (version, monotonic time of the swap) a swap
+    self._stop = threading.Event()
+    self._thread = None
+    if polls:
+      self._thread = threading.Thread(target=self._poll_loop,
+                                      args=(poll_secs,), daemon=True,
+                                      name='t2r-torch-checkpoint-poll')
+      self._thread.start()
+
+  def _poll_loop(self, poll_secs: float) -> None:
+    while not self._stop.wait(poll_secs):
+      try:
+        if self.predictor.restore() and self.service.swap_from_predictor(
+            self.predictor):
+          self.swaps.append((self.service.params_version, time.monotonic()))
+          print('hot-swapped to params v{}'.format(
+              self.service.params_version), flush=True)
+      except Exception as e:  # noqa: BLE001 — keep serving the old weights
+        print('hot-swap poll failed, serving params v{} still: {!r}'.format(
+            self.service.params_version, e), file=sys.stderr, flush=True)
+
+  def stop(self) -> None:
+    self._stop.set()
+    if self._thread is not None:
+      self._thread.join()
+    self.service.drain(timeout_s=10.0)
+    self.service.close()
+    self.predictor.close()
+
+
+def start(args) -> Serving:
+  """Builds the kernels (on a card), the model, the weights' source and the
+  selector, answers one warm batch, and starts the server and its poll
+  thread."""
   device = torch.device(args.device)
   if device.type == 'cuda':
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print('built CUDA kernels in {:.1f}s'.format(kernels.build()))
-  model, variables, batch_select = build_policy(
-      device=device,
-      num_convs=[int(n) for n in args.num_convs.split(',')],
+  model = build_model(device, [int(n) for n in args.num_convs.split(',')],
+                      _DTYPES[args.compute_dtype])
+  predictor, polls = build_predictor(model, args)
+  version, variables = predictor.versioned_variables
+  batch_select = model.make_batched_select_action(
       cem_samples=args.cem_samples, cem_iters=args.cem_iters,
-      num_elites=args.num_elites, seed=args.seed,
-      compute_dtype=_DTYPES[args.compute_dtype])
+      num_elites=args.num_elites)
   image_shape = tuple(int(d) for d in args.image_shape.split(','))
   feature_spec = model.serving_feature_spec(image_shape=image_shape)
   batch = args.max_batch_size
@@ -167,30 +269,42 @@ def main(argv=None) -> int:
   batch_select(variables, {name: np.stack([w[name] for w in warm])
                            for name in feature_spec}, 0)
 
+  model_dir = args.model_dir or (
+      os.path.join(args.checkpoint_dir, 'serving') if args.checkpoint_dir
+      else '')
   config = ServingConfig(
       max_batch_size=batch, max_wait_ms=args.max_wait_ms,
       max_queue_depth=args.max_queue_depth, slo_ms=args.slo_ms,
       report_interval_s=args.report_interval_s)
-  service = PolicyServer(batch_select, variables, config,
-                         model_dir=args.model_dir or None,
+  service = PolicyServer(batch_select, variables, config, version=version,
+                         model_dir=model_dir or None,
                          feature_spec=feature_spec,
                          aot_info={'device': str(device)})
   service.start()
+  return Serving(model, predictor, service, feature_spec, polls,
+                 args.poll_secs)
+
+
+def main(argv=None) -> int:
+  args = make_parser().parse_args(argv)
+  serving = start(args)
+  service = serving.service
   try:
     if args.synthetic_load:
-      stats = run_synthetic_load(service, feature_spec, args.synthetic_load,
-                                 args.duration)
+      stats = run_synthetic_load(service, serving.feature_spec,
+                                 args.synthetic_load, args.duration)
       stats.update({k: v for k, v in service.stats().items()
                     if not isinstance(v, (dict, list))})
       stats['p99_ms'] = service.stats()['latency_ms'].get('p99', 0.0)
-      stats['device'] = str(device)
+      stats['device'] = args.device
       print(json.dumps(stats))
       return 0
     httpd, port = build_http_server(service, host=args.host, port=args.port)
-    print('serving {} on http://{}:{} (batch {}, wait {:g} ms, SLO {:g} ms, '
-          'device {}); Ctrl-C to stop'.format(
-              type(model).__name__, args.host, port, batch,
-              args.max_wait_ms, args.slo_ms, device))
+    print('serving {} v{} on http://{}:{} (batch {}, wait {:g} ms, SLO {:g} '
+          'ms, device {}); Ctrl-C to stop'.format(
+              type(serving.model).__name__, service.params_version,
+              args.host, port, args.max_batch_size, args.max_wait_ms,
+              args.slo_ms, args.device))
     try:
       httpd.serve_forever()
     except KeyboardInterrupt:
@@ -199,8 +313,7 @@ def main(argv=None) -> int:
       httpd.shutdown()
     return 0
   finally:
-    service.drain(timeout_s=10.0)
-    service.close()
+    serving.stop()
 
 
 if __name__ == '__main__':

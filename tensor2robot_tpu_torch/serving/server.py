@@ -335,6 +335,16 @@ class PolicyServer:
       self._telemetry.log('serving_swap', version=int(version),
                           previous_version=previous)
 
+  def swap_from_predictor(self, predictor) -> bool:
+    """Swaps in a polling predictor's newest weights: reads its
+    ``versioned_variables`` snapshot once and swaps only when the version
+    moved. Returns whether it swapped."""
+    version, variables = predictor.versioned_variables
+    if version == self._params.version:
+      return False
+    self.swap_params(variables, version)
+    return True
+
   # -- serve loop ------------------------------------------------------------
 
   def _serve_loop(self) -> None:

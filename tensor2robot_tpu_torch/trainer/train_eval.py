@@ -31,7 +31,9 @@ one.
 The train batch of global step k is drawn from ``seed + k`` and every
 eval's batches from ``seed + EVAL_SEED_OFFSET`` on, apart from every train
 batch: a segment after an eval and a resumed run go on with the batches
-and crops that an uninterrupted run would have drawn.
+and crops that an uninterrupted run would have drawn. A record generator
+(``--train_data``) takes the same number as its shuffle seed: TRAIN
+shuffles files and records, EVAL reads them in order.
 
 Ring attention (``--attention_mode ring``) trains one model over the N
 ranks of a ``torch.distributed`` group, one process per card, each holding
@@ -46,12 +48,16 @@ Not ported yet: continuous eval (eval-only), hooks, exporters, fault
 injection, the compiled-artifact store.
 
 Command line, with ``train_qtopt.gin``'s bindings as flags (``--model
-qtopt``, the default) or ``train_seq2act_bc.gin``'s (``--model seq2act``:
-``--episode_length``, ``--attention_mode``, ``--learning_rate``; random
-input batches; reading records from disk is not ported yet)::
+qtopt``, the default: ``--train_data`` and ``--eval_data`` are the record
+file patterns of its ``DefaultRecordInputGenerator``s, read by the native
+loader where it reads the specs; without them, random batches) or
+``train_seq2act_bc.gin``'s (``--model seq2act``: ``--episode_length``,
+``--attention_mode``, ``--learning_rate``; random input batches: its
+episodes from records are not ported yet)::
 
     python -m tensor2robot_tpu_torch.trainer.train_eval \\
-        --model_dir /tmp/qtopt --max_train_steps 100
+        --model_dir /tmp/qtopt --max_train_steps 100 \\
+        --train_data '/data/qtopt/train*'
     python -m tensor2robot_tpu_torch.trainer.train_eval --device cpu \\
         --num_convs 1,1,1 --max_train_steps 2 --batch_size 2 \\
         --model_dir /tmp/qtopt_cpu
@@ -67,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import sys
 import time
 from typing import Any, Dict, List, Optional
@@ -77,7 +84,8 @@ import torch.distributed as dist
 
 from tensor2robot_tpu_torch import kernels
 from tensor2robot_tpu_torch.data.input_generators import (
-    AbstractInputGenerator, DefaultRandomInputGenerator)
+    AbstractInputGenerator, DefaultRandomInputGenerator,
+    DefaultRecordInputGenerator)
 from tensor2robot_tpu_torch.models.abstract_model import TrainState
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.observability import get_registry
@@ -86,7 +94,8 @@ from tensor2robot_tpu_torch.trainer.checkpointing import (
     CheckpointManager, latest_checkpoint_step)
 
 __all__ = ['MODELS', 'NAN_POLICIES', 'NonFiniteLossError', 'Trainer',
-           'main', 'make_model', 'make_parser', 'train_eval_model']
+           'main', 'make_input_generators', 'make_model', 'make_parser',
+           'train_eval_model']
 
 NAN_POLICIES = ('skip', 'raise')
 MODELS = ('qtopt', 'seq2act')
@@ -354,8 +363,14 @@ def make_parser() -> argparse.ArgumentParser:
   parser.add_argument('--save_checkpoints_steps', type=int, default=500)
   parser.add_argument('--keep_checkpoint_max', type=int, default=5)
   parser.add_argument('--log_every_n_steps', type=int, default=100)
+  parser.add_argument('--train_data', default='',
+                      help="qtopt: TFRecord file patterns ('a*,b*') to "
+                      'train from; random batches when not given')
+  parser.add_argument('--eval_data', default='',
+                      help='qtopt: TFRecord file patterns to evaluate on '
+                      '(needs --eval_steps); random batches when not given')
   parser.add_argument('--eval_steps', type=int, default=0,
-                      help='> 0: evaluate this many random batches every '
+                      help='> 0: evaluate this many batches every '
                       '--eval_throttle_steps')
   parser.add_argument('--eval_throttle_steps', type=int, default=500)
   parser.add_argument('--nan_policy', default='skip', choices=NAN_POLICIES)
@@ -381,8 +396,29 @@ def make_model(args, device: torch.device, process_group=None):
           int(n) for n in args.num_convs.split(','))}, **kwargs)
 
 
+def make_input_generators(args):
+  """The train and eval input generators of the command line: records
+  where ``--train_data`` / ``--eval_data`` name them, else random batches;
+  no eval generator unless ``--eval_steps`` > 0."""
+
+  def generator(patterns):
+    if not patterns:
+      return DefaultRandomInputGenerator(batch_size=args.batch_size)
+    return DefaultRecordInputGenerator(file_patterns=patterns,
+                                       batch_size=args.batch_size)
+
+  return (generator(args.train_data),
+          generator(args.eval_data) if args.eval_steps > 0 else None)
+
+
 def main(argv=None) -> int:
-  args = make_parser().parse_args(argv)
+  parser = make_parser()
+  args = parser.parse_args(argv)
+  if args.model == 'seq2act' and (args.train_data or args.eval_data):
+    parser.error("--train_data and --eval_data read the critic's records; "
+                 "Seq2Act's episodes from records are not ported yet.")
+  if args.eval_data and args.eval_steps <= 0:
+    parser.error('--eval_data needs --eval_steps > 0.')
   device, group = torch.device(args.device), None
   if args.attention_mode == 'ring':
     if args.model != 'seq2act':
@@ -397,9 +433,7 @@ def main(argv=None) -> int:
       torch.backends.cuda.matmul.allow_tf32 = False
       print('built CUDA kernels in {:.1f}s'.format(kernels.build()))
     model = make_model(args, device, group)
-    train = DefaultRandomInputGenerator(batch_size=args.batch_size)
-    evaluate = (DefaultRandomInputGenerator(batch_size=args.batch_size)
-                if args.eval_steps > 0 else None)
+    train, evaluate = make_input_generators(args)
     start = time.perf_counter()
     result = train_eval_model(
         model, args.model_dir, train, evaluate,
@@ -417,7 +451,17 @@ def main(argv=None) -> int:
     return 0
   steps = sum(w[0] for w in trainer.windows)
   seconds = sum(w[1] for w in trainer.windows)
+  # A step's wall time and its wait for data, medians over the log windows
+  # after the first (which pays for the first launches).
+  later = trainer.windows[1:] or trainer.windows
   print(json.dumps({
+      'data': getattr(train, 'reader', None) or 'random',
+      # Seconds the loop waited for its batches, over all steps.
+      'data_wait_sec': sum(w[2] for w in trainer.windows),
+      'step_ms': statistics.median(w[1] / w[0] * 1e3 for w in later)
+                 if later else None,
+      'data_wait_ms': statistics.median(w[2] / w[0] * 1e3 for w in later)
+                      if later else None,
       'step': result['state'].step, 'model': args.model,
       'device': str(device),
       'world_size': collectives.world_size(group),

@@ -1,20 +1,56 @@
-"""Cross-entropy method (CEM) with a normal sampling distribution.
+"""Cross-entropy method (CEM).
 
-The counterpart of the JAX package's ``utils/cross_entropy.py``
-``jax_normal_cem``: each iteration draws ``num_samples`` candidates from
-N(mean, std), scores them, keeps the ``num_elites`` best and refits the
-mean and the population std (``jnp.std``) to them. Leading batch dims of
-``mean`` run independent CEMs side by side, which is how the batched
-serving selector runs one CEM per request.
+The counterpart of the JAX package's ``utils/cross_entropy.py``:
+
+  * ``normal_cem`` (its ``jax_normal_cem``), on the device: each iteration
+    draws ``num_samples`` candidates from N(mean, std), scores them, keeps
+    the ``num_elites`` best and refits the mean and the population std
+    (``jnp.std``) to them. Leading batch dims of ``mean`` run independent
+    CEMs side by side, which is how the batched serving selector runs one
+    CEM per request;
+  * ``cross_entropy_method``, the host-side loop of numpy samples that
+    ``policies.CEMPolicy`` drives through a predictor, one call an
+    iteration.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
-__all__ = ['normal_cem']
+__all__ = ['cross_entropy_method', 'normal_cem']
+
+
+def cross_entropy_method(sample_fn: Callable, objective_fn: Callable,
+                         update_fn: Callable, initial_params: dict,
+                         num_elites: int, num_iterations: int = 1,
+                         threshold_to_terminate: Optional[float] = None):
+  """Maximizes ``objective_fn`` by CEM; returns (samples, values, params)
+  of the last iteration.
+
+  ``sample_fn(**params)`` draws a batch of samples (an array, or a dict of
+  arrays), ``objective_fn(samples)`` scores them, and
+  ``update_fn(params, elite_samples)`` refits the parameters to the
+  ``num_elites`` best (``np.argsort``'s last, as the JAX package takes
+  them). It stops early once a value exceeds ``threshold_to_terminate``.
+  """
+  params = initial_params
+  samples = values = None
+  for _ in range(num_iterations):
+    samples = sample_fn(**params)
+    values = np.asarray(objective_fn(samples))
+    elite_idx = np.argsort(values)[-num_elites:]
+    if isinstance(samples, dict):
+      elites = {k: np.asarray(v)[elite_idx] for k, v in samples.items()}
+    else:
+      elites = np.asarray(samples)[elite_idx]
+    params = update_fn(params, elites)
+    if (threshold_to_terminate is not None and
+        np.max(values) > threshold_to_terminate):
+      break
+  return samples, values, params
 
 
 def normal_cem(objective: Callable[[torch.Tensor], torch.Tensor],

@@ -41,6 +41,13 @@ rows must stay bit for bit as they were), head dim 128 in bf16 at the
 4-rank hop's offsets, and a carried state as well as the initial one; the
 same bits run to run, and a view whose rows are not 16-byte aligned is
 refused.
+The record path on the card: the native loader's batch (decoded by nvJPEG
+where the host has no libjpeg) copied to the card equals the batch on the
+host bit for bit, and its pixels are within 4 of libjpeg's (OpenCV's) on
+the same records: only nvJPEG's IDCT differs, by up to 1 in Y, Cb and Cr,
+which the colour conversion takes to up to 3 in R, G or B. And serve.py's
+hot swap at a small critic: a newer checkpoint is served while requests go
+on, with no request failed.
 """
 
 import pytest
@@ -544,3 +551,115 @@ def test_flash_attention_carry_refuses_what_it_does_not_take(device):
   with pytest.raises(ValueError, match='16-byte aligned'):
     x = torch.randn(1, 64, 2, 65, device=device)[..., 1:]
     flash_attention.flash_attention_carry(x, q, q, *state, 0, 0, True, 0.125)
+
+
+def _write_frames(path, rng, count, shape=(48, 64, 3)):
+  """``count`` records of a JPEG frame (OpenCV), a float vector and an int
+  id, by the port's writer; returns their specs."""
+  import cv2
+  import numpy as np
+
+  from tensor2robot_tpu_torch.data.writer import TFRecordReplayWriter
+  from tensor2robot_tpu_torch.specs.tensor_spec import TensorSpec
+
+  spec = {'image': TensorSpec(shape, np.uint8, name='image',
+                              data_format='jpeg'),
+          'vec': TensorSpec((3,), np.float32, name='vec'),
+          'uid': TensorSpec((1,), np.int64, name='uid')}
+  with TFRecordReplayWriter() as writer:
+    writer.open(path)
+    for i in range(count):
+      yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+      image = np.clip(np.stack([xx * 4, yy * 5, xx + yy], -1) % 256 +
+                      rng.randint(-30, 30, shape), 0, 255).astype(np.uint8)
+      ok, encoded = cv2.imencode('.jpg', image[..., ::-1])
+      assert ok
+      writer.write_numpy(spec, {'image': encoded.tobytes(),
+                                'vec': rng.rand(3).astype(np.float32),
+                                'uid': np.asarray([i], np.int64)})
+  return spec
+
+
+def test_loader_batch_on_the_card_equals_the_host_batch(device, tmp_path):
+  import numpy as np
+
+  from tensor2robot_tpu_torch.data import native_loader
+  from tensor2robot_tpu_torch.data import parser
+  from tensor2robot_tpu_torch.data import tfrecord
+  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+  from tensor2robot_tpu_torch.trainer.train_eval import Trainer
+
+  path = str(tmp_path / 'frames.tfrecord')
+  spec = _write_frames(path, np.random.RandomState(0), 8)
+  plan = native_loader.plan_for_specs(spec, {})
+  stream = native_loader.NativeBatchedStream(plan, [path], batch_size=4,
+                                             num_epochs=1, num_threads=3)
+  try:
+    batches = [features for features, _ in stream]
+  finally:
+    stream.close()
+  assert len(batches) == 2
+
+  trainer = Trainer(
+      t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+          device=device), str(tmp_path / 'model'))
+  want = parser.ExampleParser(spec).parse_batch(
+      tfrecord.read_all_records(path))[0]
+  tolerance = 4 if native_loader.decoder() == 'nvjpeg' else 0
+  for i, batch in enumerate(batches):
+    on_card = trainer.put_batch(batch)
+    for key, value in batch.items():
+      assert on_card[key].device.type == 'cuda'
+      assert torch.equal(on_card[key].cpu(), torch.from_numpy(value)), key
+    diff = np.abs(batch['image'].astype(int) -
+                  want['image'][4 * i:4 * i + 4].astype(int))
+    assert diff.max() <= tolerance
+    np.testing.assert_array_equal(batch['uid'], want['uid'][4 * i:4 * i + 4])
+    np.testing.assert_array_equal(batch['vec'], want['vec'][4 * i:4 * i + 4])
+
+
+def test_serve_hot_swaps_a_newer_checkpoint_at_a_small_size(device,
+                                                            tmp_path):
+  import threading
+
+  import numpy as np
+
+  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+  from tensor2robot_tpu_torch.serving import serve
+  from tensor2robot_tpu_torch.trainer import checkpointing
+
+  model = t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+      device=device, network_kwargs={'num_convs': (1, 1, 1)})
+  state = model.create_train_state(torch.Generator().manual_seed(0))
+  state.step = 1
+  manager = checkpointing.CheckpointManager(str(tmp_path))
+  manager.save(state)
+  kernels.reset_launches()
+  serving = serve.start(serve.make_parser().parse_args([
+      '--device', 'cuda', '--checkpoint_dir', str(tmp_path), '--num_convs',
+      '1,1,1', '--poll_secs', '0.1', '--max_batch_size', '2',
+      '--cem_samples', '8', '--cem_iters', '2', '--num_elites', '3']))
+  load = {}
+  client = threading.Thread(target=lambda: load.update(
+      serve.run_synthetic_load(serving.service, serving.feature_spec, 2,
+                               3.0)))
+  request = serve.synthetic_state(serving.feature_spec,
+                                  np.random.RandomState(0))
+  try:
+    assert serving.service.select_action(request, timeout_s=60).version == 1
+    client.start()
+    state.step = 2
+    state.avg_params = {k: v * 1.5 for k, v in state.avg_params.items()}
+    manager.save(state)
+    client.join(timeout=120)
+    assert serving.service.select_action(request, timeout_s=60).version == 2
+  finally:
+    serving.stop()
+  assert load['failed'] == 0
+  assert '2' in load['versions_served']
+  assert set(load['versions_served']) <= {'1', '2'}
+  assert [version for version, _ in serving.swaps] == [2]
+  # A batch crops once and pools 5 times: the stem, pool2, and pool3 at
+  # each of the 2 CEM iterations and at the chosen actions' q.
+  assert kernels.LAUNCHES['crop_convert'] > 0
+  assert kernels.LAUNCHES['max_pool'] == 5 * kernels.LAUNCHES['crop_convert']

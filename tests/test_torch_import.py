@@ -45,10 +45,17 @@ RING_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
     'parallel.collectives', 'parallel.mesh', 'parallel.ring_attention'))
 
 
+# The records-to-serving slice's modules.
+RECORDS_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
+    'data.native_loader', 'data.parser', 'data.pipeline', 'data.tfrecord',
+    'data.wire', 'data.writer', 'specs.algebra', 'specs.tensor_spec',
+    'serving.serve'))
+
+
 def _port_sources():
   for root, _, files in os.walk(PORT):
     for name in sorted(files):
-      if name.endswith(('.py', '.cu', '.cuh')):
+      if name.endswith(('.py', '.cu', '.cuh', '.cc')):
         yield os.path.join(root, name)
   yield os.path.join(REPO, 'chip_smoke.py')
   yield os.path.join(REPO, 'flash_ab.py')
@@ -79,6 +86,7 @@ def test_importing_every_module_loads_no_jax():
   assert set(SEQ2ACT_TRAINING_MODULES) <= names, (
       set(SEQ2ACT_TRAINING_MODULES) - names)
   assert set(RING_MODULES) <= names, set(RING_MODULES) - names
+  assert set(RECORDS_MODULES) <= names, set(RECORDS_MODULES) - names
 
 
 def test_static_scan_finds_no_jax_import():
@@ -89,6 +97,13 @@ def test_static_scan_finds_no_jax_import():
         hits.append('{}: {!r}'.format(os.path.relpath(path, REPO),
                                       match.group(0)))
   assert not hits, hits
+
+
+def test_the_port_builds_its_own_record_loader():
+  from tensor2robot_tpu_torch.data import native_loader
+
+  assert os.path.commonpath([str(native_loader.SOURCE), PORT]) == PORT
+  assert native_loader.SOURCE.name == 'record_loader.cc'
 
 
 def test_scan_pattern_tells_the_packages_apart():

@@ -106,6 +106,22 @@ repository around it. Phases, each printing one line or more:
      CheckpointPredictor restored from the trained checkpoint, whose
      logits must be the trained params' predict_step (1e-4) and not the
      untrained weights'.
+  6b. Seq2Act records: SEQ2ACT_EPISODES episodes of the same binding (512
+     frames of 136x168x3 JPEG by cv2 or PIL, under the JAX model's names:
+     ``image0``, ``action``; an action's dims 0 and 1 name its episode and
+     frame) in SEQ2ACT_EPISODE_FILES files, written by the port's writer;
+     the native loader alone (records/s, frames/s, MB/s, its threads and
+     worker ms a frame, the CUDA device it decoded on, which must be the
+     caller's under nvJPEG); its frames against libjpeg's (OpenCV) within
+     JPEG_PIXEL_ATOL for nvJPEG (0 for libjpeg), every other field
+     bit-equal. ``train_eval.main --model seq2act --train_data`` trains
+     SEQ2ACT_RECORDS_STEPS steps at batch 8 with flash attention from
+     them, with the counters zeroed just before and read just after: 1 K1
+     and 8 each of K4, K5a and K5b a step; finite losses, a checkpoint that
+     restores the final state. Then one step on a batch of the records
+     through the kernels and through the plain versions (as in phase 6),
+     a profiled resident step, and the loop's median step and data wait
+     and its loader's numbers beside phase 6's.
   7. Ring attention's kernel: K6 (the carried flash update, the ring's
      hop) against its plain version at the 4-rank hop shape [8, 1024, 8,
      64] (diagonal, full and hidden hops from a carried state, f32 and
@@ -124,11 +140,16 @@ repository around it. Phases, each printing one line or more:
   8. Seq2Act ring training: ``min(4, cards)`` NCCL ranks, one process a
      card, each train the full-width 512-frame binding with
      ``attention_mode='ring'`` for RING_STEPS steps through
-     ``train_eval_model`` (batch 8 at one rank, the gin's 32 at four), with
-     the counters zeroed just before and read just after: 1 K1 and 8 x N
-     K6 launches a step a rank, no K4 or K5. Every loss finite, the weights
-     equal on every rank (per-tensor checksums, their minimum and maximum
-     over the ranks), rank 0's checkpoint restores equal; two resident
+     ``train_eval_model`` (batch 8 at one rank, the gin's 32 at four) from
+     phase 6b's episodes, each rank's loader decoding only its 512/N
+     frames, with the counters zeroed just before and read just after: 1
+     K1 and 8 x N K6 launches a step a rank, no K4 or K5. Every loss
+     finite, the weights equal on every rank (per-tensor checksums, their
+     minimum and maximum over the ranks), rank 0's checkpoint restores
+     equal; each rank's loader given its card's index (and decoding there
+     under nvJPEG), its batches holding frames [r 512/N, (r + 1) 512/N) and
+     the same episodes as every other rank's at every step (an all-gather
+     of the episodes their actions name); two resident
      steps timed on every rank from a barrier, and two profiled on the
      last rank (the one with the most unmasked hops); one ring step against one flash step from the same
      state on the same 8 episodes and crops (loss within 1e-5 relative,
@@ -190,8 +211,10 @@ POLL_SECS, SWAP_POLLS, SERVE_SECONDS = 1.0, 5, 10.0
 # differs, by up to 1 in Y, Cb and Cr, which the colour conversion takes to
 # up to 3 in R, G or B (1 + 1.772 for B); 4 leaves one for rounding.
 JPEG_PIXEL_ATOL = 4
-# The random generator's loop (phase 4), beside the records' (phase 4b).
+# The random generator's loops (phases 4 and 6), beside the records' (phases
+# 4b and 6b).
 RANDOM_LOOP = {}
+RANDOM_SEQ2ACT_LOOP = {}
 # The served pools: (name, input NHWC shape, window, calls per batch).
 SERVED_POOLS = (
     ('stem 236->79', (MAX_BATCH, 236, 236, 64), 3, 1),
@@ -2092,8 +2115,10 @@ def phase_seq2act_train(device):
     raw, labels = trainer.put_batch(numpy_features), trainer.put_batch(
         numpy_labels)
     phase_seq2act_train_vs_plain(model, state, raw, labels)
-    train_profile('seq2act train profile', trainer, model, state, raw,
-                  labels, 2, batch)
+    RANDOM_SEQ2ACT_LOOP.update(
+        step_ms=step_ms, data_wait_ms=data_ms,
+        resident_ms=train_profile('seq2act train profile', trainer, model,
+                                  state, raw, labels, 2, batch))
     del raw, labels
     phase_seq2act_train_serve(model, model_dir, state)
   return launches
@@ -2218,6 +2243,296 @@ def phase_seq2act_train_serve(model, model_dir, state):
         'trained params\' predict_step within {:.3g} of max {:.3g} '
         '(tolerance 1e-4) and differ from the untrained weights\' by up to '
         '{:.3g}'.format(state.step, len(actions), err / scale, scale, moved))
+
+
+# Seq2Act's episodes on disk: train_seq2act_bc.gin's long-context binding
+# (512 frames of 136x168x3 an episode, JPEG, under the JAX model's names),
+# cut to SEQ2ACT_EPISODES episodes in SEQ2ACT_EPISODE_FILES files; the
+# flash loop trains SEQ2ACT_RECORDS_STEPS steps from them.
+SEQ2ACT_EPISODES, SEQ2ACT_EPISODE_FILES = 64, 4
+SEQ2ACT_RECORDS_STEPS = 8
+
+
+def write_episodes(directory, model, encoder):
+  """SEQ2ACT_EPISODES episodes of ``model``'s in-specs by the port's writer:
+  JPEG frames of smooth ramps that move a frame, with sensor noise; actions
+  whose dims 0 and 1 name the episode and the frame (``episode_names``);
+  ``state`` and ``task_id`` only where the specs ask for them. Returns
+  (files, bytes of frames)."""
+  from concurrent.futures import ThreadPoolExecutor
+
+  from tensor2robot_tpu_torch.data.writer import TFRecordReplayWriter
+  from tensor2robot_tpu_torch.modes import ModeKeys
+
+  spec = {**model.preprocessor.get_in_feature_specification(ModeKeys.TRAIN),
+          **model.preprocessor.get_in_label_specification(ModeKeys.TRAIN)}
+  t, h, w, _ = spec['image'].shape
+  rng = np.random.RandomState(0)
+  noise = rng.randint(-6, 7, (16, h, w, 3)).astype(np.int16)
+  yy, xx = np.mgrid[0:h, 0:w].astype(np.int16)
+  steps = np.arange(t, dtype=np.int16)[:, None, None]
+
+  def frames_of(episode):
+    """The episode's t frames, uint8 [t, h, w, 3]."""
+    image = np.stack([xx + 7 * steps + 11 * episode, yy + 3 * steps +
+                      0 * xx, (xx + yy) // 2 + 5 * episode + 0 * steps],
+                     -1) % 256
+    image += noise[(episode + np.arange(t)) % 16]
+    return np.clip(image, 0, 255).astype(np.uint8)
+
+  per_file = SEQ2ACT_EPISODES // SEQ2ACT_EPISODE_FILES
+  files, frame_bytes = [], 0
+  with ThreadPoolExecutor(8) as pool:
+    for f in range(SEQ2ACT_EPISODE_FILES):
+      files.append(os.path.join(directory, 'episodes-{:05d}-of-{:05d}'
+                                '.tfrecord'.format(f, SEQ2ACT_EPISODE_FILES)))
+      with TFRecordReplayWriter() as writer:
+        writer.open(files[-1])
+        for e in range(f * per_file, (f + 1) * per_file):
+          frames = list(pool.map(lambda image: encode_jpeg(image, encoder),
+                                 frames_of(e)))
+          frame_bytes += sum(len(x) for x in frames)
+          action = rng.uniform(-1, 1, spec['action'].shape).astype(
+              np.float32)
+          action[:, 0] = -1 + 2 * e / (SEQ2ACT_EPISODES - 1)
+          action[:, 1] = -1 + 2 * np.arange(t) / (t - 1)
+          values = {'image': frames, 'action': action}
+          if 'state' in spec:
+            values['state'] = rng.uniform(-1, 1, spec['state'].shape).astype(
+                np.float32)
+          if 'task_id' in spec:
+            values['task_id'] = np.asarray([e % 8], np.int32)
+          writer.write_numpy(spec, values)
+  return files, frame_bytes
+
+
+def episode_names(action):
+  """The (episode, frame) that each row of a batch of ``write_episodes``'
+  actions names: int [B, T, 2]."""
+  action = np.asarray(action)
+  return np.stack([
+      np.rint((action[..., 0] + 1) / 2 * (SEQ2ACT_EPISODES - 1)),
+      np.rint((action[..., 1] + 1) / 2 * (SEQ2ACT_EPISODE - 1))],
+                  -1).astype(np.int64)
+
+
+def loader_line(stats, seconds, frames_a_record):
+  """The loader's rates over ``seconds`` from its stats (the records its
+  workers parsed, the frames of them it decoded), as text."""
+  records = stats['rows_parsed']
+  return ('{:.1f} records/s, {:.0f} frames/s, {:.1f} MB/s of records, {} '
+          'threads, {:.4f} ms of a worker a frame, decoding on CUDA device '
+          '{}'.format(records / seconds, records * frames_a_record / seconds,
+                      stats['parse_bytes'] / seconds / 1e6,
+                      stats['n_workers'],
+                      stats['worker_busy_us'] / 1e3 / max(
+                          records * frames_a_record, 1),
+                      stats['decode_device']))
+
+
+def phase_seq2act_records(device, data_dir):
+  """The researcher's workflow at full width: 512-frame episodes on disk,
+  the native loader (nvJPEG on the card where the host has no libjpeg),
+  ``train_eval --model seq2act --train_data`` with flash attention.
+  Returns the launch counts of its training run and the episodes' file
+  pattern (for the ring, phase 8)."""
+  import contextlib
+  import io
+
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.data import native_loader
+  from tensor2robot_tpu_torch.data import parser
+  from tensor2robot_tpu_torch.data import tfrecord
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
+  from tensor2robot_tpu_torch.trainer import checkpointing
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  probe = jpeg_probe()
+  encoder = 'cv2' if probe['cv2'] else 'PIL' if probe['PIL'] else None
+  check(encoder is not None, 'no JPEG encoder (cv2 or PIL) on this host')
+  decoder = native_loader.jpeg_decoder()
+  index = torch.cuda.current_device()
+  model = Seq2ActBCModel(episode_length=SEQ2ACT_EPISODE,
+                         attention_mode='flash', learning_rate=1e-4,
+                         device=device)
+  start = time.monotonic()
+  files, frame_bytes = write_episodes(data_dir, model, encoder)
+  frames = SEQ2ACT_EPISODES * SEQ2ACT_EPISODE
+  print('seq2act records: wrote {} episodes of {} frames (136x168x3 JPEG by '
+        '{}, {:.1f} KB a frame; {:.1f} MB in {} files) in {:.1f} s; the '
+        'loader decodes with {}'.format(
+            SEQ2ACT_EPISODES, SEQ2ACT_EPISODE, encoder,
+            frame_bytes / frames / 1024,
+            sum(os.path.getsize(f) for f in files) / 1e6, len(files),
+            time.monotonic() - start, decoder))
+  pattern = os.path.join(data_dir, 'episodes-*')
+  feature_spec = model.preprocessor.get_in_feature_specification(
+      ModeKeys.TRAIN)
+  label_spec = model.preprocessor.get_in_label_specification(ModeKeys.TRAIN)
+  check(feature_spec['image'].name == 'image0' and
+        feature_spec['image'].data_format == 'jpeg',
+        'the image spec is not the JAX model\'s on-disk image0 list')
+  plan = native_loader.plan_for_specs(feature_spec, label_spec)
+  check(plan is not None, 'the native loader does not plan the episodes')
+  batch = SEQ2ACT_TRAIN_BATCH
+
+  # The loader alone: two shuffled epochs at the train batch, after one
+  # batch that makes the decoder's state.
+  def stream_of(epochs):
+    return native_loader.NativeBatchedStream(
+        plan, files, batch_size=batch, shuffle=True, seed=0,
+        num_epochs=epochs, device=index)
+
+  stream = stream_of(1)
+  next(iter(stream))
+  stream.close()
+  stream = stream_of(2)
+  start = time.monotonic()
+  batches = sum(1 for _ in stream)
+  seconds = time.monotonic() - start
+  stream.close()
+  stats = stream.stats()
+  check(batches == 2 * SEQ2ACT_EPISODES // batch, 'the loader gave {} '
+        'batches'.format(batches))
+  check(stats['decode_device'] == (index if decoder == 'nvjpeg' else -1),
+        'the loader decoded on device {}, not {}'.format(
+            stats['decode_device'], index))
+  print('seq2act records: the native loader alone reads {} batches of {} '
+        'episodes in {:.3f} s: {}; {}'.format(
+            batches, batch, seconds, loader_line(stats, seconds,
+                                                 SEQ2ACT_EPISODE),
+            smi_line()))
+
+  # The decoder's frames against libjpeg's (OpenCV's): the first file's
+  # first batch, read in order; every other field bit-equal.
+  stream = native_loader.NativeBatchedStream(plan, files[:1],
+                                             batch_size=batch, num_epochs=1,
+                                             device=index)
+  got, got_labels = next(iter(stream))
+  stream.close()
+  if probe['cv2']:
+    want, want_labels = parser.ExampleParser(
+        feature_spec, label_spec).parse_batch(
+            tfrecord.read_all_records(files[0])[:batch])
+    diff = np.abs(got['image'].astype(np.int16) -
+                  want['image'].astype(np.int16))
+    atol = JPEG_PIXEL_ATOL if decoder == 'nvjpeg' else 0
+    check(int(diff.max()) <= atol, '{} frames differ from libjpeg\'s by {} '
+          '(tolerance {})'.format(decoder, int(diff.max()), atol))
+    check(all(np.array_equal(got[k], want[k]) for k in want if k != 'image')
+          and all(np.array_equal(got_labels[k], want_labels[k])
+                  for k in want_labels), 'a field differs from the parser\'s')
+    print('seq2act records: {} frames against libjpeg\'s (OpenCV) on {} '
+          'frames: max |diff| {} (tolerance {}), mean {:.4f}; every other '
+          'field bit-equal'.format(decoder, batch * SEQ2ACT_EPISODE,
+                                   int(diff.max()), atol, float(diff.mean())))
+  names = episode_names(got_labels['action'])
+  check(np.array_equal(names[..., 1], np.broadcast_to(
+      np.arange(SEQ2ACT_EPISODE), names.shape[:2])) and
+        np.array_equal(names[:, :, 0], np.broadcast_to(
+            np.arange(batch)[:, None], names.shape[:2])),
+        'the first file\'s first batch does not name episodes 0..7')
+
+  # Train through the command line, capturing what train_eval_model
+  # returns (the final state, to hold the checkpoint against).
+  captured = {}
+  real_train_eval_model = train_eval.train_eval_model
+
+  def capture(*args, **kwargs):
+    captured.update(real_train_eval_model(*args, **kwargs),
+                    generator=args[2])
+    return captured
+
+  steps = SEQ2ACT_RECORDS_STEPS
+  with tempfile.TemporaryDirectory() as model_dir:
+    out = io.StringIO()
+    kernels.reset_launches()
+    start = time.monotonic()
+    with contextlib.redirect_stdout(out), mock.patch.object(
+        train_eval, 'train_eval_model', capture):
+      rc = train_eval.main([
+          '--model', 'seq2act', '--device', device.type,
+          '--episode_length', str(SEQ2ACT_EPISODE), '--attention_mode',
+          'flash', '--learning_rate', '1e-4', '--batch_size', str(batch),
+          '--max_train_steps', str(steps), '--log_every_n_steps', '1',
+          '--save_checkpoints_steps', str(steps), '--nan_policy', 'raise',
+          '--model_dir', model_dir, '--train_data', pattern])
+    elapsed = time.monotonic() - start
+    launches = dict(kernels.LAUNCHES)
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    want_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    want_launches.update({'crop_convert': steps,
+                          'flash_attention_fwd': 8 * steps,
+                          'flash_attention_bwd_kv': 8 * steps,
+                          'flash_attention_bwd_q': 8 * steps})
+    check(launches == want_launches, 'seq2act records train launch counts '
+          '{} != expected {}'.format(launches, want_launches))
+    check(rc == 0 and line['data'] == 'native' and line['step'] == steps and
+          np.isfinite(line['metrics']['loss']),
+          'train_eval --model seq2act --train_data: {}'.format(line))
+    state, trainer = captured['state'], captured['trainer']
+    model = trainer.model
+    restored = checkpointing.CheckpointManager(model_dir).restore(
+        device=device)
+    check(_states_equal(restored, state),
+          'the seq2act records checkpoint does not restore the final state')
+    del restored
+    loop_s = sum(w[1] for w in trainer.windows)
+    loop_stats = captured['generator'].stream.stats()
+    check(loop_stats['decode_device'] == (index if decoder == 'nvjpeg'
+                                          else -1),
+          'the training loop\'s loader decoded on device {}'.format(
+              loop_stats['decode_device']))
+
+    # One step on a batch of the records against the plain versions, and
+    # the resident step on that batch.
+    data = input_generators.DefaultRecordInputGenerator(
+        file_patterns=pattern, batch_size=batch, use_native=True)
+    data.set_specification_from_model(model, ModeKeys.TRAIN)
+    iterator = trainer.dataset_iterator(data, ModeKeys.TRAIN, 0)
+    numpy_features, numpy_labels = next(iterator)
+    iterator.close()
+    raw, labels = (trainer.put_batch(numpy_features),
+                   trainer.put_batch(numpy_labels))
+    phase_seq2act_train_vs_plain(model, state, raw, labels)
+    resident_ms = train_profile('seq2act records train profile', trainer,
+                                model, state, raw, labels, 2, batch)
+    del raw, labels
+    # The loop itself under the profiler: each step takes its batch from
+    # the live loader (whose decodes run beside it, on the host and, under
+    # nvJPEG, on this card), as Trainer.train does.
+    iterator = trainer.dataset_iterator(data, ModeKeys.TRAIN, state.step)
+    current = [state]
+
+    def loop_step(_):
+      current[0], metrics = trainer._step(current[0], next(iterator))
+      float(metrics['loss'])
+
+    loop_step(0)   # warm: the loader's first batch
+    profile('seq2act records loop profile', loop_step, 3,
+            'step of {} from the loader'.format(batch))
+    iterator.close()
+    del current
+  print('seq2act records train: train_eval --model seq2act --train_data '
+        'trained {} steps of batch {} x {} frames from the episodes through '
+        'the native loader in {:.1f} s, launches {}; loss {:.4f}; checkpoint '
+        'restores equal. The loop\'s median step {:.2f} ms, of which {:.2f} '
+        'ms waiting for data; a resident step {:.2f} ms. Its loader over the '
+        'loop\'s {:.3f} s: {}. The random generator\'s loop (phase 6): step '
+        '{:.2f} ms, data wait {:.2f} ms, resident step {:.2f} ms; {}'.format(
+            steps, batch, SEQ2ACT_EPISODE, elapsed, launches,
+            line['metrics']['loss'], line['step_ms'], line['data_wait_ms'],
+            resident_ms, loop_s, loader_line(loop_stats, loop_s,
+                                             SEQ2ACT_EPISODE),
+            RANDOM_SEQ2ACT_LOOP['step_ms'],
+            RANDOM_SEQ2ACT_LOOP['data_wait_ms'],
+            RANDOM_SEQ2ACT_LOOP['resident_ms'], smi_line()))
+  torch.cuda.empty_cache()
+  return launches, pattern
 
 
 # Ring attention: the hop of 4 ranks over batch 8 of the 512-frame binding
@@ -2453,18 +2768,19 @@ def phase_ring_kernel(device, gen, world):
               max_rel_err=max(worst, err[0]))
 
 
-def phase_ring_train(world):
+def phase_ring_train(world, pattern):
   """Spawns ``world`` NCCL ranks (``ring_rank``), one a card; each trains
-  the full-width 512-frame binding with ring attention. Returns rank 0's
-  report."""
+  the full-width 512-frame binding with ring attention from the episodes
+  at ``pattern``, its loader on the trainer's share of the host's cores
+  for one of ``world`` ranks. Returns rank 0's report."""
   import torch.multiprocessing as torch_mp
 
   torch.cuda.synchronize()
   torch.cuda.empty_cache()
   with tempfile.TemporaryDirectory() as out_dir:
     context = torch_mp.start_processes(
-        ring_rank, args=(world, out_dir), nprocs=world, join=False,
-        start_method='spawn')
+        ring_rank, args=(world, out_dir, pattern), nprocs=world,
+        join=False, start_method='spawn')
     deadline = time.monotonic() + RING_TIMEOUT_S
     done = False
     try:
@@ -2480,20 +2796,91 @@ def phase_ring_train(world):
         out_dir, 'rank{}.json'.format(r))).read()) for r in range(world)]
   batch = reports[0]['batch']
   print('seq2act ring train: world {}; by rank: peak memory {} GB, the '
-        'loop\'s median step {} ms, a resident step {} ms ({:.2f} episodes/s '
-        'on rank 0)'.format(
+        'loop\'s median step {} ms, of which waiting for data {} ms, a '
+        'resident step {} ms ({:.2f} episodes/s on rank 0); their loaders: '
+        '{}; {}'.format(
             world, [round(r['peak_gb'], 2) for r in reports],
-            [round(r['step_ms'], 1) for r in reports],
+            [round(r['step_ms'], 2) for r in reports],
+            [round(r['data_ms'], 2) for r in reports],
             [round(r['resident_ms'], 2) for r in reports],
-            batch * 1e3 / reports[0]['resident_ms']))
+            batch * 1e3 / reports[0]['resident_ms'],
+            ' | '.join('rank {}: {}'.format(r['rank'], r['loader'])
+                       for r in reports), smi_line()))
   return reports[0]
 
 
-def ring_rank(rank, world, out_dir):
+def recording_episodes(pattern, batch, threads):
+  """A record generator of the episodes at ``pattern`` that keeps, for
+  each batch it yields, the (episode, frame) its actions name
+  (``names``), and the device index each iterator was given
+  (``devices``)."""
+  from tensor2robot_tpu_torch.data import input_generators
+
+  class RecordingEpisodes(input_generators.DefaultRecordInputGenerator):
+
+    def __init__(self):
+      super().__init__(file_patterns=pattern, batch_size=batch,
+                       use_native=True, num_native_threads=threads)
+      self.names, self.devices = [], []
+
+    def _create_iterator(self, mode, num_epochs, seed, frames, shard_index,
+                         num_shards, device):
+      self.devices.append(device)
+      inner = super()._create_iterator(mode, num_epochs, seed, frames,
+                                       shard_index, num_shards, device)
+      try:
+        for features, labels in inner:
+          self.names.append(episode_names(labels['action']))
+          yield features, labels
+      finally:
+        inner.close()
+
+  return RecordingEpisodes()
+
+
+def check_rank_episodes(data, rank, world, device, group):
+  """A ring rank's batches from records: its loader was given its card's
+  index (and decoded there, under nvJPEG); every batch holds frames
+  [r T/N, (r + 1) T/N) of whole episodes; and every rank had the same
+  episodes at every step (an all-gather of the episodes its actions
+  name)."""
+  import torch.distributed as dist
+  from tensor2robot_tpu_torch.data import native_loader
+
+  check(data.devices and all(d == device.index for d in data.devices),
+        'rank {}: the loader was given devices {}, not {}'.format(
+            rank, data.devices, device.index))
+  decode_device = data.stream.stats()['decode_device']
+  check(decode_device == (device.index if native_loader.decoder() ==
+                          'nvjpeg' else -1),
+        'rank {}: the loader decoded on device {}'.format(rank,
+                                                         decode_device))
+  per_rank = SEQ2ACT_EPISODE // world
+  frames = np.arange(rank * per_rank, (rank + 1) * per_rank)
+  names = np.stack(data.names[:RING_STEPS])          # [steps, B, T/N, 2]
+  check(np.array_equal(names[..., 1], np.broadcast_to(frames,
+                                                      names.shape[:-1])),
+        'rank {}: its batches hold other frames than {}..{}'.format(
+            rank, frames[0], frames[-1]))
+  episodes = names[..., 0]
+  check(np.array_equal(episodes, np.broadcast_to(episodes[..., :1],
+                                                 episodes.shape)),
+        'rank {}: a row mixes episodes'.format(rank))
+  mine = torch.from_numpy(np.ascontiguousarray(episodes[..., 0])).to(device)
+  everyone = [torch.empty_like(mine) for _ in range(world)]
+  dist.all_gather(everyone, mine, group=group)
+  check(all(torch.equal(theirs, mine) for theirs in everyone),
+        'rank {}: the ranks read other episodes at some step'.format(rank))
+  return episodes[..., 0]
+
+
+def ring_rank(rank, world, out_dir, pattern):
   """One rank of ``phase_ring_train``: trains RING_STEPS steps through
-  ``train_eval_model`` and checks the launches, the losses, the weights on
-  every rank and the checkpoint; one ring step against one flash step;
-  a profile; the trained checkpoint served by the flash policy."""
+  ``train_eval_model`` from the episodes at ``pattern`` and checks the
+  launches, the losses, the weights on every rank, the checkpoint and the
+  rank's episodes and frames (``check_rank_episodes``); one ring step
+  against one flash step; a profile; the trained checkpoint served by the
+  flash policy."""
   import torch.distributed as dist
   from tensor2robot_tpu_torch import kernels
   from tensor2robot_tpu_torch.data import input_generators
@@ -2513,7 +2900,8 @@ def ring_rank(rank, world, out_dir):
   model = Seq2ActBCModel(episode_length=SEQ2ACT_EPISODE,
                          attention_mode='ring', process_group=group,
                          learning_rate=1e-4, device=device)
-  data = input_generators.DefaultRandomInputGenerator(batch_size=batch)
+  data = recording_episodes(pattern, batch,
+                            train_eval.loader_threads(world))
   model_dir = os.path.join(out_dir, 'model')
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
@@ -2549,12 +2937,16 @@ def ring_rank(rank, world, out_dir):
     check(_states_equal(restored, state),
           'the ring checkpoint does not restore the final state')
     del restored
+  episodes = check_rank_episodes(data, rank, world, device, group)
   windows = trainer.windows[1:]
   step_ms = statistics.median(w[1] * 1e3 for w in windows)
   data_ms = statistics.median(w[2] * 1e3 for w in windows)
+  loop_s = sum(w[1] for w in trainer.windows)
   report = dict(rank=rank, world=world, batch=batch, launches=launches,
                 peak_gb=peak_gb, step_ms=step_ms, data_ms=data_ms, loss=loss,
-                metrics=trainer.last_metrics, seconds=elapsed)
+                metrics=trainer.last_metrics, seconds=elapsed,
+                loader=loader_line(data.stream.stats(), loop_s,
+                                   SEQ2ACT_EPISODE // world))
   if rank == 0:
     print('seq2act ring train: world {}, {} steps of batch {} x {} frames '
           '({} tokens, {} a rank) in {:.1f}s, launches a rank {}; loss {:.4f}, '
@@ -2567,13 +2959,26 @@ def ring_rank(rank, world, out_dir):
               trainer.last_metrics['action_accuracy'],
               trainer.last_metrics['action_mae'], step_ms,
               batch * 1e3 / step_ms, data_ms, peak_gb, smi_line()))
+    print('seq2act ring train: every rank read frames [r {0}/{1}, (r + 1) '
+          '{0}/{1}) of the same episodes at every step (first steps\' '
+          'episodes {2}); rank 0\'s loader over the loop\'s {3:.3f} s: '
+          '{4}'.format(SEQ2ACT_EPISODE, world, episodes[:2, :8].tolist(),
+                       loop_s, report['loader']))
 
-  # The whole batch, for the comparison with a flash step below; this
-  # rank's frames of it for the resident-batch step.
-  numpy_features, numpy_labels = next(data.create_dataset_iterator(
-      ModeKeys.TRAIN, seed=1, prefetch=0))
-  raw = trainer.put_batch(model.shard_batch(numpy_features))
-  labels = trainer.put_batch(model.shard_batch(numpy_labels))
+  # This rank's frames of a train batch for the resident-batch step; a
+  # batch of whole episodes for the comparison with a flash step below.
+  iterator = trainer.dataset_iterator(data, ModeKeys.TRAIN, 1)
+  numpy_features, numpy_labels = next(iterator)
+  iterator.close()
+  raw = trainer.put_batch(numpy_features)
+  labels = trainer.put_batch(numpy_labels)
+  whole = input_generators.DefaultRecordInputGenerator(
+      file_patterns=pattern, batch_size=RING_VS_FLASH_BATCH, use_native=True)
+  whole.set_specification_from_model(model, ModeKeys.TRAIN)
+  iterator = whole.create_dataset_iterator(ModeKeys.TRAIN, seed=1,
+                                           prefetch=0, device=device.index)
+  numpy_features, numpy_labels = next(iterator)
+  iterator.close()
 
   # The resident-batch step: timed on every rank from a barrier, then
   # profiled on the last rank while the others step with it.
@@ -2692,8 +3097,14 @@ def main():
   entries = [(crop, 'serve'), (pool, 'serve'), (pool_backward, 'train'),
              (wgrad_entry, 'train'), (flash, 'seq2act'),
              (flash_kv, 'seq2act_train'), (flash_q, 'seq2act_train')]
-  carry = phase_ring_kernel(device, gen, world)
-  ring = phase_ring_train(world)
+  episodes_dir = tempfile.TemporaryDirectory()
+  try:
+    paths['seq2act_records_train'], pattern = phase_seq2act_records(
+        device, episodes_dir.name)
+    carry = phase_ring_kernel(device, gen, world)
+    ring = phase_ring_train(world, pattern)
+  finally:
+    episodes_dir.cleanup()
   # The ring path's counts are rank 0's (every rank checked its own).
   paths['seq2act_ring_train'] = ring['launches']
   carry['world_size'] = world

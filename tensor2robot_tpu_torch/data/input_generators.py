@@ -20,10 +20,8 @@ in-specifications (the JAX package's ``data/input_generators.py``).
 An iterator given ``frames`` (a ``FrameShard``: the keys whose first
 per-example axis is the episode's frames, and a range of those frames)
 yields only those frames of the frame keys, the other keys whole: the
-share of one rank of a sequence-parallel group. The random generator draws
-episodes frame by frame (``generators.make_random_frames``), so a rank
-draws only its own frames, and the shares of the ranks concatenate to the
-batch that one rank would draw alone.
+share of one rank of a sequence-parallel group. The shares of the ranks
+concatenate to the batch that one rank would read or draw alone.
 """
 
 from __future__ import annotations
@@ -42,6 +40,8 @@ from tensor2robot_tpu_torch.data import pipeline
 from tensor2robot_tpu_torch.data.tfrecord import RecordQuarantine
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.specs import generators
+from tensor2robot_tpu_torch.specs.tensor_spec import TensorSpec
+from tensor2robot_tpu_torch.specs.tensor_spec import as_tensor_spec
 
 __all__ = ['AbstractInputGenerator', 'DefaultRandomInputGenerator',
            'DefaultRecordInputGenerator', 'FractionalRecordInputGenerator',
@@ -52,16 +52,29 @@ __all__ = ['AbstractInputGenerator', 'DefaultRandomInputGenerator',
 
 class FrameShard(NamedTuple):
   """Frames ``[start, stop)`` of the arrays keyed in ``keys``, whose first
-  per-example axis (axis 1 of a batch) is the episode's frames."""
+  per-example axis (axis 1 of a batch) is the episode's frames.
+
+  Where the cut happens: the random generator draws only these frames
+  (``generators.make_random_frames``); the record generator's native
+  loader decodes and copies only these frames of each record (the cut is
+  in its plan, ``native_loader.plan_for_specs``), and its Python parser
+  path parses whole episodes and cuts them after (``cut``).
+  """
   keys: Tuple[str, ...]
   start: int
   stop: int
 
   def spec(self, spec):
-    """``spec`` with the frame keys cut to this shard's frames."""
-    return {key: ((self.stop - self.start,) + tuple(shape[1:]), dtype)
-            if key in self.keys else (shape, dtype)
-            for key, (shape, dtype) in spec.items()}
+    """``spec`` with the frame keys cut to this shard's frames; a
+    ``TensorSpec`` keeps its on-disk fields."""
+    out = {}
+    for key, value in spec.items():
+      if key in self.keys:
+        value = as_tensor_spec(value)
+        value = TensorSpec((self.stop - self.start,) + tuple(value.shape[1:]),
+                           value.dtype, **value.fields())
+      out[key] = value
+    return out
 
   def cut(self, arrays):
     """This shard's frames of a batch of whole episodes."""
@@ -156,18 +169,20 @@ class AbstractInputGenerator(abc.ABC):
                               seed: Optional[int] = None,
                               prefetch: Optional[int] = None,
                               frames: Optional[FrameShard] = None,
-                              shard_index: int = 0, num_shards: int = 1
-                              ) -> Iterator:
+                              shard_index: int = 0, num_shards: int = 1,
+                              device: Optional[int] = None) -> Iterator:
     """Yields (features, labels) numpy dicts; ``num_epochs`` None is
     endless, ``prefetch`` None takes the generator's default (0 makes
     each batch on demand), ``frames`` keeps only a shard of the episodes'
-    frames, and a record reader reads its ``shard_index`` of
-    ``num_shards`` shares of the files."""
+    frames, a record reader reads its ``shard_index`` of ``num_shards``
+    shares of the files, and ``device`` is the index of the caller's CUDA
+    device, where a reader that decodes on a card decodes (None: the
+    caller's current device; readers on the host ignore it)."""
     if self._feature_spec is None:
       raise ValueError('set_specification(_from_model) must be called '
                        'before creating a dataset iterator.')
     iterator = self._create_iterator(mode, num_epochs, seed, frames,
-                                     shard_index, num_shards)
+                                     shard_index, num_shards, device)
     depth = self._prefetch if prefetch is None else prefetch
     if depth > 0:
       iterator = prefetch_iterator(iterator, depth)
@@ -176,7 +191,8 @@ class AbstractInputGenerator(abc.ABC):
   @abc.abstractmethod
   def _create_iterator(self, mode: str, num_epochs: Optional[int],
                        seed: Optional[int], frames: Optional[FrameShard],
-                       shard_index: int, num_shards: int) -> Iterator:
+                       shard_index: int, num_shards: int,
+                       device: Optional[int]) -> Iterator:
     ...
 
 
@@ -205,8 +221,9 @@ class GeneratorInputGenerator(AbstractInputGenerator):
     return frames.cut(batch)
 
   def _create_iterator(self, mode, num_epochs, seed, frames, shard_index,
-                       num_shards):
-    del mode, shard_index, num_shards  # every reader draws from the seed
+                       num_shards, device):
+    # Every reader draws from the seed, on the host.
+    del mode, shard_index, num_shards, device
     feature_spec, label_spec = self._feature_spec, self._label_spec
     if frames is not None:
       feature_spec, label_spec = frames.spec(feature_spec), frames.spec(
@@ -268,7 +285,11 @@ class DefaultRecordInputGenerator(AbstractInputGenerator):
   ``max_corrupt_records`` in all and ``max_corrupt_records_per_file`` in
   one file, and read on, until either budget is exceeded; only the
   Python parser skips. TRAIN shuffles files and records, from ``seed``
-  and its epoch; EVAL and PREDICT read in order.
+  and its epoch; EVAL and PREDICT read in order. The native loader's
+  order is a function of the seed alone, so the ranks of a sequence group
+  (one seed, each its ``frames``) read the same episodes; it decodes only
+  the shard's frames, with nvJPEG on the CUDA ``device`` that the
+  iterator is given.
   """
 
   def __init__(self, file_patterns: Optional[str] = None,
@@ -303,24 +324,27 @@ class DefaultRecordInputGenerator(AbstractInputGenerator):
     if skip_corrupt_records:
       self.quarantine = RecordQuarantine(max_corrupt_records,
                                          max_corrupt_records_per_file)
-    # The reader the last iterator took: 'native' or 'python'.
+    # The reader the last iterator took: 'native' or 'python'; the native
+    # loader's stream of the last iterator (its stats), or None.
     self.reader = None
+    self.stream = None
 
   def _dataset_files(self) -> Dict[str, str]:
     if self._dataset_map is not None:
       return dict(self._dataset_map)
     return {'': self._file_patterns}
 
-  def native_plan(self):
-    """The native loader's plan of the specs when ``use_native`` takes it
-    (see the class's rule), else None."""
+  def native_plan(self, frames: Optional[FrameShard] = None):
+    """The native loader's plan of the specs (of ``frames`` only, where
+    given) when ``use_native`` takes it (see the class's rule), else
+    None."""
     if self._use_native is False:
       return None
     plan = None
     if not self._skip_corrupt_records:
       plan = native_loader.plan_for_specs(
           self._feature_spec, self._label_spec,
-          sequence_max_len=self._sequence_max_len)
+          sequence_max_len=self._sequence_max_len, frames=frames)
     if plan is not None and set(plan.dataset_keys) != set(
         self._dataset_files()):
       plan = None   # the Python zip reads every configured dataset
@@ -332,9 +356,9 @@ class DefaultRecordInputGenerator(AbstractInputGenerator):
     return plan
 
   def _create_iterator(self, mode, num_epochs, seed, frames, shard_index,
-                       num_shards):
+                       num_shards, device):
     shuffle = mode == ModeKeys.TRAIN
-    plan = self.native_plan()
+    plan = self.native_plan(frames)
     if plan is not None:
       files = {}
       for key, patterns in self._dataset_files().items():
@@ -347,29 +371,32 @@ class DefaultRecordInputGenerator(AbstractInputGenerator):
           plan, files[''] if plan.dataset_keys == [''] else files,
           batch_size=self._batch_size, shuffle=shuffle,
           shuffle_buffer=self._shuffle_buffer_size, num_epochs=num_epochs,
-          seed=seed, num_threads=self._num_native_threads)
+          seed=seed, num_threads=self._num_native_threads,
+          device=device)
       self.reader = 'native'
-      iterator = self._closing(stream)
-    else:
-      example_parser = parser.ExampleParser(self._feature_spec,
-                                            self._label_spec)
-      datasets = {
-          key: pipeline.RecordDataset(
-              patterns, dataset_key=key, shard_index=shard_index,
-              num_shards=num_shards,
-              skip_corrupt_records=self._skip_corrupt_records,
-              quarantine=self.quarantine)
-          for key, patterns in self._dataset_files().items()}
-      missing = set(example_parser.dataset_keys) - set(datasets)
-      if missing:
-        raise ValueError('Specs read dataset keys {} with no files; have '
-                         '{}.'.format(sorted(missing), sorted(datasets)))
-      self.reader = 'python'
-      iterator = iter(pipeline.BatchedExampleStream(
-          datasets, example_parser, batch_size=self._batch_size,
-          shuffle=shuffle,
-          shuffle_buffer=self._shuffle_buffer_size, num_epochs=num_epochs,
-          seed=seed))
+      self.stream = stream
+      # The loader's plan keeps only the shard's frames.
+      return self._closing(stream)
+    example_parser = parser.ExampleParser(self._feature_spec,
+                                          self._label_spec)
+    datasets = {
+        key: pipeline.RecordDataset(
+            patterns, dataset_key=key, shard_index=shard_index,
+            num_shards=num_shards,
+            skip_corrupt_records=self._skip_corrupt_records,
+            quarantine=self.quarantine)
+        for key, patterns in self._dataset_files().items()}
+    missing = set(example_parser.dataset_keys) - set(datasets)
+    if missing:
+      raise ValueError('Specs read dataset keys {} with no files; have '
+                       '{}.'.format(sorted(missing), sorted(datasets)))
+    self.reader, self.stream = 'python', None
+    # The Python parser parses whole episodes; the shard is cut after.
+    iterator = iter(pipeline.BatchedExampleStream(
+        datasets, example_parser, batch_size=self._batch_size,
+        shuffle=shuffle,
+        shuffle_buffer=self._shuffle_buffer_size, num_epochs=num_epochs,
+        seed=seed))
     return iterator if frames is None else _cut_frames(iterator, frames)
 
   @staticmethod

@@ -19,11 +19,20 @@
 // JPEG decoder, chosen when the library is built (native_loader.py):
 //   T2R_JPEG_LIBJPEG: libjpeg(-turbo), the JAX loader's decoder;
 //   T2R_JPEG_NVJPEG:  NVIDIA's nvJPEG, where the host has no libjpeg but
-//     the CUDA toolkit has nvJPEG: each worker thread decodes on CUDA
-//     device 0 with a state and a stream of its own and copies the pixels
-//     back into its row. Its IDCT and colour conversion are not libjpeg's,
+//     the CUDA toolkit has nvJPEG: each worker thread decodes on the CUDA
+//     device the configuration's 'device' line names (an index the host
+//     lacks fails the first batch), with a state and a stream of its own,
+//     and copies the planes back into its row. Its IDCT is not libjpeg's,
 //     so its pixels may differ from libjpeg's by a few levels.
-// t2r_loader_decoder() names the one built in.
+// t2r_loader_decoder() names the one built in; the libjpeg build takes the
+// 'device' line and uses no card.
+//
+// A field may keep only items [lo, hi) of its list (a frame range of a
+// [T, ...] field: frames of an encoded image list, or the elements of those
+// frames' rows of a fixed float or int list). The record's whole list is
+// still checked for its count, but the items outside the range are
+// neither decoded nor copied, and the field's buffer holds hi - lo items a
+// row: a rank of a sequence-parallel group decodes only its own frames.
 //
 // Wire-format notes (proto2/proto3 compatible, no protobuf dependency):
 //   Example        = { 1: Features }
@@ -208,6 +217,14 @@ struct FieldSpec {
   // Dataset index for multi-dataset zip: this field parses from the
   // row's dsi-th record (one record per file group per row).
   int dsi = 0;
+  // The items of the list kept, [lo, hi): frames of an image field (its
+  // one image where count is 0), elements of a float or int field. The
+  // configuration's -1 for hi keeps them all (set to items() then).
+  long long lo = 0, hi = -1;
+  long long items() const {
+    return kind == kImageFull ? (count > 0 ? count : 1) : count;
+  }
+  long long kept() const { return hi - lo; }
   // Buffer indices into Slot::buffers (filled at config time).
   int buf0 = -1;            // float/int values or uint8 pixels
   int buf_n = -1;           // per-row sequence step counts
@@ -218,6 +235,7 @@ struct Config {
   int batch_size = 0;
   int ring = 3;
   int threads = 2;
+  int device = 0;         // the CUDA device the nvJPEG build decodes on
   bool shuffle = false;
   int shuffle_buffer = 500;
   long long seed = -1;
@@ -240,6 +258,7 @@ bool parse_config(const std::string& text, Config* cfg, std::string* err) {
     if (key == "batch_size") in >> cfg->batch_size;
     else if (key == "ring") in >> cfg->ring;
     else if (key == "threads") in >> cfg->threads;
+    else if (key == "device") in >> cfg->device;
     else if (key == "shuffle") { int v; in >> v; cfg->shuffle = v != 0; }
     else if (key == "shuffle_buffer") in >> cfg->shuffle_buffer;
     else if (key == "seed") in >> cfg->seed;
@@ -265,7 +284,7 @@ bool parse_config(const std::string& text, Config* cfg, std::string* err) {
         int kind, name_len;
         in >> name_len >> kind >> f.dtype_size >> f.h >> f.w >> f.c
             >> f.count >> f.seq_cap >> f.varlen >> f.optional_field
-            >> f.dsi >> f.pad_value;
+            >> f.dsi >> f.pad_value >> f.lo >> f.hi;
         f.kind = (FieldKind)kind;
         in.ignore(1);  // single separating space
         f.name.resize(name_len);
@@ -302,6 +321,21 @@ bool parse_config(const std::string& text, Config* cfg, std::string* err) {
       return false;
     }
   }
+  for (auto& f : cfg->fields) {
+    if (f.hi < 0) {
+      f.lo = 0;
+      f.hi = f.items();
+      continue;
+    }
+    if (f.lo < 0 || f.lo >= f.hi || f.hi > f.items()) {
+      *err = "item range out of the list for " + f.name;
+      return false;
+    }
+    if (f.kept() != f.items() && (f.varlen || f.seq_cap > 0)) {
+      *err = "an item range needs a fixed, non-sequence list: " + f.name;
+      return false;
+    }
+  }
   if (cfg->ring < 2) cfg->ring = 2;
   if (cfg->threads < 1) cfg->threads = 1;
   // shuffle_buffer <= 0 with shuffle on would never admit a record into
@@ -327,25 +361,24 @@ bool parse_config(const std::string& text, Config* cfg, std::string* err) {
       }
       continue;
     }
+    // hi - lo items a row (all of them but under a frame range).
     switch (f.kind) {
       case kFloat:
         f.buf0 = (int)cfg->buffer_sizes.size();
-        cfg->buffer_sizes.push_back(B * f.count * 4);
+        cfg->buffer_sizes.push_back(B * f.kept() * 4);
         break;
       case kInt:
         f.buf0 = (int)cfg->buffer_sizes.size();
-        cfg->buffer_sizes.push_back(B * f.count * f.dtype_size);
+        cfg->buffer_sizes.push_back(B * f.kept() * f.dtype_size);
         break;
-      case kImageFull: {
+      case kImageFull:
         // count > 0: a rank-4 [T, H, W, C] spec — strict frame count
         // (even T=1). count == 0: rank-3 single image, first bytes
         // element wins (Python parser parity).
-        long long frames = f.count > 0 ? f.count : 1;
         f.buf0 = (int)cfg->buffer_sizes.size();
-        cfg->buffer_sizes.push_back(B * frames * (long long)f.h * f.w *
+        cfg->buffer_sizes.push_back(B * f.kept() * (long long)f.h * f.w *
                                     f.c);
         break;
-      }
     }
     if (f.optional_field) {
       f.buf_p = (int)cfg->buffer_sizes.size();  // presence, uint8
@@ -494,6 +527,18 @@ std::string dims_error(int h, int w, const FieldSpec& f) {
 
 const char* const kDecoder = "libjpeg";
 
+// The libjpeg build decodes on the host: it takes the device and uses no
+// card. Returns -1, the device bound.
+int bind_decode_device(int device, std::string* err) {
+  (void)device;
+  (void)err;
+  return -1;
+}
+
+// The calling thread's current CUDA device, kept and put back: nothing to
+// keep where no card is used.
+struct CallerDevice {};
+
 struct JerrMgr {
   jpeg_error_mgr pub;
   jmp_buf jb;
@@ -612,8 +657,8 @@ std::string decode_jpeg_planes(const uint8_t* data, size_t n,
 
 const char* const kDecoder = "nvjpeg";
 
-// One nvJPEG handle for the process (thread-safe by nvJPEG's contract),
-// made at the first decode.
+// One nvJPEG handle a CUDA device (thread-safe by nvJPEG's contract), made
+// at the first decode on it, with that device current.
 struct NvjpegHandle {
   nvjpegHandle_t handle = nullptr;
   std::string error;
@@ -627,23 +672,33 @@ struct NvjpegHandle {
   }
 };
 
-NvjpegHandle& nvjpeg_handle() {
-  static NvjpegHandle handle;  // initialized once, thread-safe
-  return handle;
+NvjpegHandle& nvjpeg_handle(int device) {
+  static std::mutex mu;
+  static std::vector<std::unique_ptr<NvjpegHandle>> handles;
+  std::lock_guard<std::mutex> lk(mu);
+  if ((int)handles.size() <= device) handles.resize(device + 1);
+  if (!handles[device]) handles[device].reset(new NvjpegHandle());
+  return *handles[device];
 }
 
-// A worker thread's own decode state, stream, device planes and their
-// host copy.
+// A worker thread's own decode device, state, stream, device planes and
+// their host copy.
 struct NvjpegThread {
+  int device = -1;  // bound by bind_decode_device; -1 before
   nvjpegJpegState_t state = nullptr;
   cudaStream_t stream = nullptr;
-  uint8_t* device = nullptr;
-  size_t device_bytes = 0;
+  uint8_t* planes = nullptr;
+  size_t planes_bytes = 0;
   std::vector<uint8_t> host;
-  ~NvjpegThread() {
-    if (device) cudaFree(device);
+  ~NvjpegThread() { release(); }
+  void release() {
+    if (planes) cudaFree(planes);
     if (stream) cudaStreamDestroy(stream);
     if (state) nvjpegJpegStateDestroy(state);
+    planes = nullptr;
+    planes_bytes = 0;
+    stream = nullptr;
+    state = nullptr;
   }
 };
 
@@ -660,16 +715,69 @@ std::string nvjpeg_error(const char* what, nvjpegStatus_t status,
          std::to_string((int)status) + " for " + f.name;
 }
 
-// nvJPEG decodes the Y, Cb and Cr planes on CUDA device 0 (its IDCT, not
-// libjpeg's); they are copied back and planes_to_image upsamples and
-// converts them as libjpeg does. Returns error string or empty.
+// Makes CUDA ``device`` this thread's decode device and its current one
+// (set on every call: a caller may have made another current since): a
+// thread bound to another device first frees what it made there. Returns
+// the device bound, or -1 with *err set where the host has no such device
+// (never another device in its place).
+int bind_decode_device(int device, std::string* err) {
+  NvjpegThread& t = nvjpeg_thread;
+  cudaError_t status;
+  if (t.device == device) {
+    status = cudaSetDevice(device);
+    if (status != cudaSuccess) {
+      *err = cuda_error("cudaSetDevice", status);
+      return -1;
+    }
+    return device;
+  }
+  int count = 0;
+  status = cudaGetDeviceCount(&count);
+  if (status != cudaSuccess) {
+    *err = cuda_error("cudaGetDeviceCount", status);
+    return -1;
+  }
+  if (device < 0 || device >= count) {
+    *err = "nvjpeg: CUDA device " + std::to_string(device) +
+           " is not on this host, which has " + std::to_string(count) +
+           " CUDA device(s)";
+    return -1;
+  }
+  t.release();
+  status = cudaSetDevice(device);
+  if (status != cudaSuccess) {
+    *err = cuda_error("cudaSetDevice", status);
+    return -1;
+  }
+  t.device = device;
+  return device;
+}
+
+// The calling thread's current CUDA device, kept and put back: a caller's
+// thread that decodes on another card goes on with its own current.
+struct CallerDevice {
+  int device = -1;
+  CallerDevice() {
+    if (cudaGetDevice(&device) != cudaSuccess) device = -1;
+  }
+  ~CallerDevice() {
+    if (device >= 0) cudaSetDevice(device);
+  }
+};
+
+// nvJPEG decodes the Y, Cb and Cr planes on the thread's decode device
+// (bind_decode_device; its IDCT, not libjpeg's); they are copied back and
+// planes_to_image upsamples and converts them as libjpeg does. Returns
+// error string or empty.
 std::string decode_jpeg_full(const uint8_t* data, size_t n,
                              const FieldSpec& f, uint8_t* out) {
   if (n == 0) {  // empty payload -> zeros (the Python parser's too)
     memset(out, 0, (size_t)f.h * f.w * f.c);
     return "";
   }
-  NvjpegHandle& nv = nvjpeg_handle();
+  NvjpegThread& t = nvjpeg_thread;
+  if (t.device < 0) return "nvjpeg: no decode device bound to this thread";
+  NvjpegHandle& nv = nvjpeg_handle(t.device);
   if (!nv.handle) return nv.error;
   int ncomp = 0;
   nvjpegChromaSubsampling_t subsampling;
@@ -703,10 +811,8 @@ std::string decode_jpeg_full(const uint8_t* data, size_t n,
     offset[ci] = bytes;
     bytes += (size_t)widths[ci] * heights[ci];
   }
-  NvjpegThread& t = nvjpeg_thread;
   cudaError_t cuda_status;
   if (!t.state) {
-    if (cudaSetDevice(0) != cudaSuccess) return "nvjpeg: no CUDA device 0";
     status = nvjpegJpegStateCreate(nv.handle, &t.state);
     if (status != NVJPEG_STATUS_SUCCESS)
       return nvjpeg_error("nvjpegJpegStateCreate", status, f);
@@ -714,18 +820,18 @@ std::string decode_jpeg_full(const uint8_t* data, size_t n,
     if (cuda_status != cudaSuccess)
       return cuda_error("cudaStreamCreate", cuda_status);
   }
-  if (t.device_bytes < bytes) {
-    if (t.device) cudaFree(t.device);
-    t.device = nullptr;
-    t.device_bytes = 0;
-    cuda_status = cudaMalloc((void**)&t.device, bytes);
+  if (t.planes_bytes < bytes) {
+    if (t.planes) cudaFree(t.planes);
+    t.planes = nullptr;
+    t.planes_bytes = 0;
+    cuda_status = cudaMalloc((void**)&t.planes, bytes);
     if (cuda_status != cudaSuccess) return cuda_error("cudaMalloc", cuda_status);
-    t.device_bytes = bytes;
+    t.planes_bytes = bytes;
   }
   nvjpegImage_t image;
   memset(&image, 0, sizeof image);
   for (int ci = 0; ci < planes; ci++) {
-    image.channel[ci] = t.device + offset[ci];
+    image.channel[ci] = t.planes + offset[ci];
     image.pitch[ci] = pitch[ci];
   }
   status = nvjpegDecode(nv.handle, t.state, data, n,
@@ -734,7 +840,7 @@ std::string decode_jpeg_full(const uint8_t* data, size_t n,
   if (status != NVJPEG_STATUS_SUCCESS)
     return nvjpeg_error("nvjpegDecode", status, f);
   t.host.resize(bytes);
-  cuda_status = cudaMemcpyAsync(t.host.data(), t.device, bytes,
+  cuda_status = cudaMemcpyAsync(t.host.data(), t.planes, bytes,
                                 cudaMemcpyDeviceToHost, t.stream);
   if (cuda_status == cudaSuccess)
     cuda_status = cudaStreamSynchronize(t.stream);
@@ -826,6 +932,9 @@ struct Loader {
   std::atomic<long long> st_parse_bytes{0};    // record bytes parsed
   std::atomic<long long> st_worker_busy_us{0}; // parse/decode, pool total
   std::atomic<long long> st_worker_idle_us{0}; // waiting for work, total
+  // The CUDA device the workers bound for nvJPEG (-1: none yet, or the
+  // libjpeg build, which uses no card).
+  std::atomic<long long> st_decode_device{-1};
   std::unique_ptr<std::atomic<long long>[]> st_per_worker_busy_us;
 
   long long stats_snapshot(long long* out, int n) {
@@ -845,7 +954,7 @@ struct Loader {
       std::lock_guard<std::mutex> lk(mu);
       completed = completed_batches;
     }
-    const long long vals[12] = {
+    const long long vals[13] = {
         st_records_read.load(std::memory_order_relaxed),
         st_bytes_read.load(std::memory_order_relaxed),
         st_reader_busy_us.load(std::memory_order_relaxed),
@@ -858,8 +967,9 @@ struct Loader {
         completed,
         min_busy,
         max_busy,
+        st_decode_device.load(std::memory_order_relaxed),
     };
-    int m = n < 12 ? n : 12;
+    int m = n < 13 ? n : 13;
     for (int i = 0; i < m; i++) out[i] = vals[i];
     return m;
   }
@@ -1170,26 +1280,11 @@ struct Loader {
       ((int32_t*)slot.buffers[f.buf_n])[row] = 0;
       return;
     }
-    switch (f.kind) {
-      case kFloat:
-        memset(slot.buffers[f.buf0] + (long long)row * f.count * 4, 0,
-               (size_t)(f.count * 4));
-        break;
-      case kInt:
-        memset(slot.buffers[f.buf0] +
-                   (long long)row * f.count * f.dtype_size,
-               0, (size_t)(f.count * f.dtype_size));
-        break;
-      case kImageFull: {
-        long long frames = f.count > 0 ? f.count : 1;
-        long long bytes = frames * (long long)f.h * f.w * f.c;
-        memset(slot.buffers[f.buf0] + (long long)row * bytes, 0,
-               (size_t)bytes);
-        break;
-      }
-      default:
-        break;
-    }
+    long long width = f.kind == kFloat ? 4
+                      : f.kind == kInt ? f.dtype_size
+                                       : (long long)f.h * f.w * f.c;
+    long long bytes = f.kept() * width;
+    memset(slot.buffers[f.buf0] + (long long)row * bytes, 0, (size_t)bytes);
   }
 
   std::string parse_record(const std::string& rec, int dsi, Slot& slot,
@@ -1278,7 +1373,11 @@ struct Loader {
             return "feature '" + f.name + "' is bytes but spec is numeric";
           bool frame_list = f.kind == kImageFull && f.count > 0;
           bool strict_list = frame_list && !f.varlen;
-          long long frames = frame_list ? f.count : 1;
+          long long frames = f.items();
+          long long frame_bytes = (long long)f.h * f.w * f.c;
+          // Frames [lo, hi) are decoded; the others only counted.
+          uint8_t* base = slot.buffers[f.buf0] +
+                          (size_t)row * f.kept() * frame_bytes;
           long long got = 0;
           uint32_t wt2;
           while (uint32_t f2 = list.tag(&wt2)) {
@@ -1294,11 +1393,12 @@ struct Loader {
                          "encoded frames", f.name.c_str(), frames);
                 return buf;
               }
-              uint8_t* out = slot.buffers[f.buf0] +
-                             ((size_t)row * frames + got) * f.h * f.w * f.c;
-              std::string err =
-                  decode_jpeg_full(payload.p, payload.size(), f, out);
-              if (!err.empty()) return err;
+              if (got >= f.lo && got < f.hi) {
+                std::string err = decode_jpeg_full(
+                    payload.p, payload.size(), f,
+                    base + (got - f.lo) * frame_bytes);
+                if (!err.empty()) return err;
+              }
               got++;
               continue;
             }
@@ -1313,10 +1413,8 @@ struct Loader {
           if (f.varlen && frame_list && got < frames) {
             // parser.py varlen-image parity: an EMPTY list decodes one
             // all-zeros frame first, then pad_or_clip fills the rest
-            // with the varlen default value.
-            long long frame_bytes = (long long)f.h * f.w * f.c;
-            uint8_t* base = slot.buffers[f.buf0] +
-                            (size_t)row * frames * frame_bytes;
+            // with the varlen default value (a varlen field keeps every
+            // frame: lo is 0 and hi is frames).
             if (got == 0) {
               memset(base, 0, (size_t)frame_bytes);
               got = 1;
@@ -1333,14 +1431,15 @@ struct Loader {
           if (f.kind != kFloat)
             return "feature '" + f.name + "' is float but spec is not";
           return parse_float_list(
-              f, list, (float*)slot.buffers[f.buf0] + (long long)row * f.count);
+              f, list,
+              (float*)slot.buffers[f.buf0] + (long long)row * f.kept());
         }
         case 3: {  // Int64List
           if (f.kind != kInt)
             return "feature '" + f.name + "' is int64 but spec is not";
           return parse_int_list(
               f, list,
-              slot.buffers[f.buf0] + (long long)row * f.count * f.dtype_size);
+              slot.buffers[f.buf0] + (long long)row * f.kept() * f.dtype_size);
         }
         default:
           value.skip(wt);
@@ -1349,12 +1448,19 @@ struct Loader {
     return "feature '" + f.name + "' has no value list";
   }
 
-  // FloatList message -> exactly f.count floats at ``out``. Varlen
-  // fields instead CLIP extras and PAD a short list with f.pad_value
-  // (parser.py pad_or_clip_tensor_to_spec_shape parity).
+  // FloatList message -> exactly f.count floats, of which elements
+  // [f.lo, f.hi) land at ``out``. Varlen fields (which keep all) instead
+  // CLIP extras and PAD a short list with f.pad_value (parser.py
+  // pad_or_clip_tensor_to_spec_shape parity).
   std::string parse_float_list(const FieldSpec& f, Cursor list, float* out) {
     long long got = 0;
     uint32_t wt2;
+    // Copies the kept elements of ``n`` floats that are elements got.. of
+    // the list.
+    auto keep = [&](const uint8_t* p, long long n) {
+      long long a = std::max(got, f.lo), b = std::min(got + n, f.hi);
+      if (a < b) memcpy(out + (a - f.lo), p + (a - got) * 4, (b - a) * 4);
+    };
     // Packed encoding: field 1 wiretype 2 (bulk) or repeated wiretype 5.
     while (uint32_t f2 = list.tag(&wt2)) {
       if (f2 == 1 && wt2 == 2) {
@@ -1365,7 +1471,7 @@ struct Loader {
             return "too many floats for '" + f.name + "'";
           n = f.count - got;  // clip
         }
-        memcpy(out + got, packed.p, n * 4);
+        keep(packed.p, n);
         got += n;
         if (f.varlen && got >= f.count) break;
       } else if (f2 == 1 && wt2 == 5) {
@@ -1378,7 +1484,7 @@ struct Loader {
         }
         if (list.end - list.p < 4)
           return "truncated float in '" + f.name + "'";
-        memcpy(out + got, list.p, 4);
+        keep(list.p, 1);
         list.p += 4;
         got++;
       } else {
@@ -1387,7 +1493,7 @@ struct Loader {
     }
     if (f.varlen) {
       for (long long i = got; i < f.count; i++)
-        out[i] = (float)f.pad_value;
+        out[i - f.lo] = (float)f.pad_value;
       return "";
     }
     if (got != f.count) {
@@ -1399,16 +1505,20 @@ struct Loader {
     return "";
   }
 
-  // Int64List message -> exactly f.count ints at ``base``; varlen fields
-  // clip/pad like parse_float_list.
+  // Int64List message -> exactly f.count ints, of which elements
+  // [f.lo, f.hi) land at ``base``; varlen fields clip/pad like
+  // parse_float_list.
   std::string parse_int_list(const FieldSpec& f, Cursor list, uint8_t* base) {
     long long got = 0;
     uint32_t wt2;
     auto store = [&](uint64_t v) {
-      switch (f.dtype_size) {
-        case 1: base[got] = (uint8_t)v; break;
-        case 4: ((int32_t*)base)[got] = (int32_t)v; break;
-        default: ((int64_t*)base)[got] = (int64_t)v; break;
+      if (got >= f.lo && got < f.hi) {
+        long long i = got - f.lo;
+        switch (f.dtype_size) {
+          case 1: base[i] = (uint8_t)v; break;
+          case 4: ((int32_t*)base)[i] = (int32_t)v; break;
+          default: ((int64_t*)base)[i] = (int64_t)v; break;
+        }
       }
       got++;
     };
@@ -1504,6 +1614,13 @@ struct Loader {
   }
 
   void worker_main(int worker_index) {
+    std::string bind_error;
+    long long bound = bind_decode_device(cfg.device, &bind_error);
+    if (!bind_error.empty()) {
+      fail(bind_error);
+      return;
+    }
+    st_decode_device.store(bound, std::memory_order_relaxed);
     for (;;) {
       WorkItem item;
       {
@@ -1683,9 +1800,10 @@ int t2r_loader_next(void* h) { return ((Loader*)h)->next_slot(); }
 // Loader stats: fills up to n slots of `out` with the cumulative
 // counters [records_read, bytes_read, reader_busy_us, reader_wait_us,
 // rows_parsed, parse_bytes, worker_busy_us, worker_idle_us, n_workers,
-// completed_batches, min_worker_busy_us, max_worker_busy_us]; returns the
-// count written. Never launches the worker threads (lazy-launch boundary
-// preserved): before the first next() every value is 0.
+// completed_batches, min_worker_busy_us, max_worker_busy_us] and the
+// decode device the workers bound (-1: none); returns the count written.
+// Never launches the worker threads (lazy-launch boundary
+// preserved): before the first next() every count is 0, the device -1.
 long long t2r_loader_stats(void* h, long long* out, int n) {
   return ((Loader*)h)->stats_snapshot(out, n);
 }
@@ -1698,10 +1816,17 @@ void t2r_loader_destroy(void* h) { delete (Loader*)h; }
 const char* t2r_loader_decoder() { return kDecoder; }
 
 // Decodes one JPEG of h x w x c through the planes path (decode_jpeg_planes)
-// into ``out``; returns "" or the error, valid until the thread's next call.
+// into ``out``, on CUDA ``device`` in the nvJPEG build (the calling
+// thread's current device is put back after); returns "" or the error,
+// valid until the thread's next call.
 const char* t2r_decode_jpeg_planes(const uint8_t* data, long long n, int h,
-                                   int w, int c, uint8_t* out) {
+                                   int w, int c, int device, uint8_t* out) {
   static thread_local std::string error;
+  error.clear();
+  CallerDevice caller;
+  (void)caller;
+  bind_decode_device(device, &error);
+  if (!error.empty()) return error.c_str();
   FieldSpec f;
   f.name = "image";
   f.h = h;

@@ -11,16 +11,19 @@ preallocated buffers, outside the GIL. This module:
     flags), choosing its JPEG decoder by what the host has: libjpeg where
     ``jpeglib.h`` is found (the JAX loader's decoder), else NVIDIA's
     nvJPEG from the CUDA toolkit (``$CUDA_HOME/include/nvjpeg.h``),
-    which decodes the Y, Cb and Cr planes on CUDA device 0, upsampled and
-    converted to RGB on the host as libjpeg does (so only nvJPEG's IDCT
-    differs from libjpeg's). A host with neither, or a failed build,
-    raises; ``decoder()`` names the one built;
+    which decodes the Y, Cb and Cr planes on the CUDA device that the
+    stream is given (``device``; an index the host lacks raises at the
+    first batch), upsampled and converted to RGB on the host as libjpeg
+    does (so only nvJPEG's IDCT differs from libjpeg's). A host with
+    neither, or a failed build, raises; ``decoder()`` names the one built;
   * plans a feature/label spec pair for the loader (``plan_for_specs``):
     fixed-shape float, int and JPEG image specs, sequences given a step
-    bound, varlen, optional and zipped datasets. It returns None where the
-    Python parser is needed instead (PNG images, sequences without a
-    bound, unnamed or shared names) and raises on the DCT coefficient
-    modes, which are not ported;
+    bound, varlen, optional and zipped datasets, and a frame range of
+    [T, ...] specs (a rank's frames of each episode: the loader decodes
+    and copies no frame outside it). It returns None where the Python
+    parser is needed instead (PNG images, sequences without a bound,
+    unnamed or shared names, a frame range of a varlen or sequence spec)
+    and raises on the DCT coefficient modes, which are not ported;
   * ``NativeBatchedStream`` yields ``(features, labels)`` batches, as the
     Python ``BatchedExampleStream`` does.
 
@@ -169,7 +172,7 @@ def _lib():
     lib.t2r_decode_jpeg_planes.restype = ctypes.c_char_p
     lib.t2r_decode_jpeg_planes.argtypes = [
         ctypes.c_char_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     _LIB = lib
   return _LIB
 
@@ -179,26 +182,46 @@ def decoder() -> str:
   return _lib().t2r_loader_decoder().decode()
 
 
-def decode_jpeg_planes(data: bytes, shape) -> np.ndarray:
+def decode_jpeg_planes(data: bytes, shape,
+                       device: Optional[int] = None) -> np.ndarray:
   """One JPEG as a uint8 ``shape`` (H, W, C) array through the loader's
-  planes path: the Y, Cb and Cr planes (nvJPEG's in the nvJPEG build,
-  libjpeg's raw ones in the libjpeg build) upsampled and converted as
-  libjpeg does. In the libjpeg build it must equal the loader's decode bit
-  for bit; in the nvJPEG build it is the loader's decode."""
+  planes path: the Y, Cb and Cr planes (nvJPEG's on CUDA ``device`` in the
+  nvJPEG build, None being the caller's current device, which stays
+  current; libjpeg's raw ones in the libjpeg build, which uses no card)
+  upsampled and converted as libjpeg does. In the libjpeg build it must
+  equal the loader's decode bit for bit; in the nvJPEG build it is the
+  loader's decode."""
   h, w, c = (int(d) for d in shape)
   out = np.empty((h, w, c), np.uint8)
   error = _lib().t2r_decode_jpeg_planes(data, len(data), h, w, c,
+                                        _decode_device(device),
                                         out.ctypes.data)
   if error:
     raise RuntimeError('native loader: ' + error.decode('utf-8', 'replace'))
   return out
 
 
-# t2r_loader_stats slot order (record_loader.cc stats_snapshot).
+def _decode_device(device: Optional[int]) -> int:
+  """The CUDA device index that nvJPEG decodes on: ``device``, or for None
+  the caller's current device; -1 in the libjpeg build, which uses no
+  card."""
+  if decoder() != 'nvjpeg':
+    return -1
+  if device is None:
+    import torch  # the nvJPEG build runs beside a CUDA PyTorch
+
+    device = torch.cuda.current_device()
+  return int(device)
+
+
+# t2r_loader_stats slot order (record_loader.cc stats_snapshot);
+# 'decode_device' is the CUDA device the workers bound for nvJPEG (-1
+# before the first batch, and always in the libjpeg build).
 STAT_NAMES = ('records_read', 'bytes_read', 'reader_busy_us',
               'reader_wait_us', 'rows_parsed', 'parse_bytes',
               'worker_busy_us', 'worker_idle_us', 'n_workers',
-              'completed_batches', 'min_worker_busy_us', 'max_worker_busy_us')
+              'completed_batches', 'min_worker_busy_us', 'max_worker_busy_us',
+              'decode_device')
 
 
 class _Field:
@@ -207,15 +230,22 @@ class _Field:
   def __init__(self, key: str, spec: TensorSpec, kind: int, dtype_size: int,
                shape: Tuple[int, ...], view_dtype, count: int = 0,
                seq_cap: int = 0, varlen: bool = False,
-               optional: bool = False, dsi: int = 0, pad_value: float = 0.0):
+               optional: bool = False, dsi: int = 0, pad_value: float = 0.0,
+               items: Optional[Tuple[int, int]] = None):
     self.key = key            # 'features/<spec key>' or 'labels/...'
     self.spec = spec
     self.kind = kind
     self.dtype_size = dtype_size
-    self.shape = shape        # a row's shape (a step's, for sequences)
+    # A row's shape as the batch holds it (a step's, for sequences; the
+    # kept frames', under a frame range).
+    self.shape = shape
     self.view_dtype = view_dtype
-    # Values a row (a step); an image list's frame count (0: one image).
+    # Values a row (a step) on disk; an image list's frame count on disk
+    # (0: one image).
     self.count = count
+    # The items of the on-disk list kept, [lo, hi): frames of an image
+    # list, elements of a float or int list. None keeps them all.
+    self.items = items
     # > 0: a sequence with this step capacity; rows come back [seq_cap,
     # *shape], zero past the record's steps, with a length per row.
     self.seq_cap = seq_cap
@@ -230,10 +260,11 @@ class _Field:
 
   def config_line(self) -> str:
     name = self.spec.name.encode('utf-8')
-    return '{} {} {} {} {} {} {} {} {} {} {} {:.17g} {}'.format(
+    lo, hi = self.items or (0, -1)
+    return '{} {} {} {} {} {} {} {} {} {} {} {:.17g} {} {} {}'.format(
         len(name), self.kind, self.dtype_size, self.h, self.w, self.c,
         self.count, self.seq_cap, int(self.varlen), int(self.optional),
-        self.dsi, float(self.pad_value), self.spec.name)
+        self.dsi, float(self.pad_value), lo, hi, self.spec.name)
 
 
 class NativeLoaderPlan:
@@ -250,13 +281,19 @@ class NativeLoaderPlan:
 
 
 def plan_for_specs(feature_spec, label_spec, image_mode: str = 'full',
-                   sequence_max_len: Optional[int] = None
-                   ) -> Optional[NativeLoaderPlan]:
+                   sequence_max_len: Optional[int] = None,
+                   frames=None) -> Optional[NativeLoaderPlan]:
   """A plan if the loader reads these specs, else None (see the module's
   note). ``image_mode`` must be 'full'; ``sequence_max_len`` bounds the
   steps of sequence specs (numeric ones only), without which they are
   the Python parser's. Derived ``<key>_length`` specs are made by the
-  stream, not read."""
+  stream, not read.
+
+  ``frames`` (an ``input_generators.FrameShard``) keeps frames
+  ``[start, stop)`` of the specs it keys, whose first axis is the
+  episode's frames: the loader checks each record's whole frame count but
+  decodes (or copies) only those frames, and the batches hold
+  ``stop - start`` of them. The plan's specs are the cut ones."""
   if image_mode != 'full':
     raise NotImplementedError(
         "image_mode {!r}: the DCT coefficient modes ('coef', 'coef_sparse', "
@@ -265,6 +302,7 @@ def plan_for_specs(feature_spec, label_spec, image_mode: str = 'full',
             image_mode))
   feature_spec = algebra.flat_specs(feature_spec)
   label_spec = algebra.flat_specs(label_spec)
+  frame_keys = () if frames is None else tuple(frames.keys)
   sides = (('features', feature_spec), ('labels', label_spec))
   dataset_keys = sorted({spec.dataset_key for _, specs in sides
                          for spec in specs.values() if spec.name is not None})
@@ -289,6 +327,16 @@ def plan_for_specs(feature_spec, label_spec, image_mode: str = 'full',
                     dsi=key_to_dsi[spec.dataset_key])
       full_key = side + '/' + key
       count = int(np.prod(shape)) if shape else 1
+      if key in frame_keys:
+        if (spec.is_sequence or varlen or not shape or
+            frames.stop > shape[0] or
+            (spec.is_encoded_image and len(shape) != 4)):
+          return None   # the Python parser reads it whole; it is cut after
+        per_frame = 1 if spec.is_encoded_image else count // shape[0]
+        common['items'] = (frames.start * per_frame, frames.stop * per_frame)
+        row_shape = (frames.stop - frames.start,) + shape[1:]
+      else:
+        row_shape = shape
       if spec.is_sequence:
         if not sequence_max_len or spec.is_encoded_image or varlen:
           return None
@@ -310,7 +358,7 @@ def plan_for_specs(feature_spec, label_spec, image_mode: str = 'full',
           return None
         # A rank-4 [T, H, W, C] spec is a list of T encoded frames: count
         # carries T, strict unless varlen (clip or pad).
-        fields.append(_Field(full_key, spec, _KIND_IMAGE_FULL, 1, shape,
+        fields.append(_Field(full_key, spec, _KIND_IMAGE_FULL, 1, row_shape,
                              np.uint8, count=shape[0] if len(shape) == 4
                              else 0, varlen=varlen,
                              pad_value=float(spec.varlen_default_value or 0),
@@ -321,7 +369,7 @@ def plan_for_specs(feature_spec, label_spec, image_mode: str = 'full',
         is_float = spec.dtype == np.float32
         fields.append(_Field(
             full_key, spec, _KIND_FLOAT if is_float else _KIND_INT,
-            4 if is_float else _INT_SIZES[spec.dtype], shape,
+            4 if is_float else _INT_SIZES[spec.dtype], row_shape,
             np.float32 if is_float else spec.dtype, count, varlen=varlen,
             pad_value=float(spec.varlen_default_value or 0), **common))
       else:
@@ -329,6 +377,9 @@ def plan_for_specs(feature_spec, label_spec, image_mode: str = 'full',
       seen_names.add(spec.name)
   if not fields:
     return None
+  if frames is not None:
+    feature_spec, label_spec = frames.spec(feature_spec), frames.spec(
+        label_spec)
   return NativeLoaderPlan(fields,
                           algebra.add_sequence_length_specs(feature_spec),
                           algebra.add_sequence_length_specs(label_spec),
@@ -348,11 +399,15 @@ class NativeBatchedStream:
                num_epochs: Optional[int] = None, seed: Optional[int] = None,
                num_threads: Optional[int] = None, ring: int = 3,
                verify_crc: bool = False, copy: bool = True,
-               validate: bool = True):
+               validate: bool = True, device: Optional[int] = None):
     """``filenames``: a list of record paths, or, for a plan that zips
     datasets, a dict of one list per ``plan.dataset_keys`` entry; row r of
     a batch is then made of one record of each (the zip ends with the
-    shortest)."""
+    shortest). ``device``: the index of the CUDA device that the nvJPEG
+    build decodes on (None: the caller's current device); the libjpeg
+    build uses no card. The order of the records is a function of
+    ``seed`` alone, whatever the thread count and the frames kept.
+    ``num_threads`` None takes the host's cores, up to 16."""
     self._plan = plan
     self._batch_size = int(batch_size)
     self._copy = copy
@@ -374,6 +429,7 @@ class NativeBatchedStream:
       groups = [list(filenames)]
     lines = ['batch_size {}'.format(self._batch_size),
              'ring {}'.format(ring), 'threads {}'.format(self.num_threads),
+             'device {}'.format(_decode_device(device)),
              'shuffle {}'.format(int(bool(shuffle))),
              'shuffle_buffer {}'.format(shuffle_buffer),
              'seed {}'.format(-1 if seed is None else seed),
@@ -397,12 +453,14 @@ class NativeBatchedStream:
     self._layout = self._buffer_layout()
     self._views = self._build_views()
     self._held_slot = -1
+    self._closed_stats = None
 
   def stats(self) -> Dict[str, int]:
-    """The loader's cumulative counts (``STAT_NAMES``); zeros before the
-    first batch and after ``close``."""
+    """The loader's cumulative counts (``STAT_NAMES``): zeros (and
+    ``decode_device`` -1) before the first batch, those at ``close``
+    after it."""
     if not self._handle:
-      return dict.fromkeys(STAT_NAMES, 0)
+      return dict(self._closed_stats or dict.fromkeys(STAT_NAMES, 0))
     buf = (ctypes.c_longlong * len(STAT_NAMES))()
     n = int(self._lib.t2r_loader_stats(self._handle, buf, len(STAT_NAMES)))
     return {name: int(buf[i]) for i, name in enumerate(STAT_NAMES[:n])}
@@ -506,6 +564,7 @@ class NativeBatchedStream:
 
   def close(self):
     if self._handle:
+      self._closed_stats = self.stats()
       self._lib.t2r_loader_destroy(self._handle)
       self._handle = None
 

@@ -52,6 +52,8 @@ from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.preprocessors import image_transformations
 from tensor2robot_tpu_torch.research.vrgripper import decoders
+from tensor2robot_tpu_torch.specs.tensor_spec import TensorSpec
+from tensor2robot_tpu_torch.specs.tensor_spec import as_tensor_spec
 
 __all__ = ['RT1StyleNet', 'Seq2ActBCModel', 'Seq2ActPreprocessor']
 
@@ -79,13 +81,18 @@ class Seq2ActPreprocessor:
     self._label_spec_fn = label_spec_fn
     self._src_img_res = tuple(src_img_res)
 
-  def get_in_feature_specification(self, mode: str) -> Dict[str, tuple]:
+  def get_in_feature_specification(self, mode: str
+                                   ) -> Dict[str, TensorSpec]:
+    """The model's specs with every ``*image`` at source resolution in
+    uint8; each keeps its on-disk fields (name, format)."""
     spec = {}
-    for key, (shape, dtype) in self._feature_spec_fn(mode).items():
+    for key, value in self._feature_spec_fn(mode).items():
+      value = as_tensor_spec(value)
       if _is_image_key(key):
-        shape = tuple(shape[:-3]) + self._src_img_res + tuple(shape[-1:])
-        dtype = np.uint8
-      spec[key] = (tuple(shape), dtype)
+        shape = (tuple(value.shape[:-3]) + self._src_img_res +
+                 tuple(value.shape[-1:]))
+        value = TensorSpec(shape, np.uint8, **value.fields())
+      spec[key] = value
     return spec
 
   def get_in_label_specification(self, mode: str) -> Dict[str, tuple]:
@@ -330,20 +337,25 @@ class Seq2ActBCModel(AbstractT2RModel):
   def episode_length(self) -> int:
     return self._episode_length
 
-  def get_feature_specification(self, mode: str) -> Dict[str, tuple]:
+  def get_feature_specification(self, mode: str) -> Dict[str, TensorSpec]:
+    """The network's inputs, under the JAX model's on-disk names: the
+    episode's frames as the JPEG list ``image0``, ``state`` and
+    ``task_id`` where configured."""
     del mode
     h, w = self._img_res
-    spec = {'image': ((self._episode_length, h, w, 3), np.float32)}
+    spec = {'image': TensorSpec((self._episode_length, h, w, 3), np.float32,
+                                name='image0', data_format='jpeg')}
     if self._use_state_input:
-      spec['state'] = ((self._episode_length, self._state_size), np.float32)
+      spec['state'] = TensorSpec((self._episode_length, self._state_size),
+                                 np.float32, name='state')
     if self._num_task_embeddings:
-      spec['task_id'] = ((1,), np.int32)
+      spec['task_id'] = TensorSpec((1,), np.int32, name='task_id')
     return spec
 
-  def get_label_specification(self, mode: str) -> Dict[str, tuple]:
+  def get_label_specification(self, mode: str) -> Dict[str, TensorSpec]:
     del mode
-    return {'action': ((self._episode_length, self._action_size),
-                       np.float32)}
+    return {'action': TensorSpec((self._episode_length, self._action_size),
+                                 np.float32, name='action')}
 
   def create_network(self) -> nn.Module:
     return RT1StyleNet(

@@ -33,27 +33,31 @@ eval's batches from ``seed + EVAL_SEED_OFFSET`` on, apart from every train
 batch: a segment after an eval and a resumed run go on with the batches
 and crops that an uninterrupted run would have drawn. A record generator
 (``--train_data``) takes the same number as its shuffle seed: TRAIN
-shuffles files and records, EVAL reads them in order.
+shuffles files and records, EVAL reads them in order. Its native loader
+decodes JPEG frames on the model's card where it decodes with nvJPEG.
 
 Ring attention (``--attention_mode ring``) trains one model over the N
 ranks of a ``torch.distributed`` group, one process per card, each holding
 its T/N frames of every episode (``model.frame_shard``). Each rank draws
-only those frames of the batch, frame by frame from seeds of their own, and
-the per-episode keys (``task_id``) and the crop offsets alike on every rank:
-the ranks' shares concatenate to the batch that one rank draws alone. Rank
-0 writes the checkpoints (and the command line's JSON line); every rank
-restores them.
+or reads only those frames of the batch (random episodes frame by frame
+from seeds of their own; records with the loader decoding only those
+frames, in an order that the seed alone decides), and the per-episode keys
+(``task_id``) and the crop offsets alike on every rank: the ranks' shares
+concatenate to the batch that one rank draws or reads alone. Rank 0 writes
+the checkpoints (and the command line's JSON line); every rank restores
+them.
 
 Not ported yet: continuous eval (eval-only), hooks, exporters, fault
 injection, the compiled-artifact store.
 
 Command line, with ``train_qtopt.gin``'s bindings as flags (``--model
-qtopt``, the default: ``--train_data`` and ``--eval_data`` are the record
-file patterns of its ``DefaultRecordInputGenerator``s, read by the native
-loader where it reads the specs; without them, random batches) or
-``train_seq2act_bc.gin``'s (``--model seq2act``: ``--episode_length``,
-``--attention_mode``, ``--learning_rate``; random input batches: its
-episodes from records are not ported yet)::
+qtopt``, the default) or ``train_seq2act_bc.gin``'s (``--model seq2act``:
+``--episode_length``, ``--attention_mode``, ``--learning_rate``). For
+either model ``--train_data`` and ``--eval_data`` are the record file
+patterns of its ``DefaultRecordInputGenerator``s (the critic's grasp
+examples, or Seq2Act's episodes: the JPEG frame list ``image0`` and
+``action``), read by the native loader where it reads the specs; without
+them, random batches::
 
     python -m tensor2robot_tpu_torch.trainer.train_eval \\
         --model_dir /tmp/qtopt --max_train_steps 100 \\
@@ -63,16 +67,19 @@ episodes from records are not ported yet)::
         --model_dir /tmp/qtopt_cpu
     python -m tensor2robot_tpu_torch.trainer.train_eval --model seq2act \\
         --episode_length 512 --attention_mode flash --batch_size 8 \\
-        --model_dir /tmp/seq2act --max_train_steps 100
+        --model_dir /tmp/seq2act --max_train_steps 100 \\
+        --train_data '/data/episodes/train*'
     torchrun --nproc_per_node 4 -m tensor2robot_tpu_torch.trainer.train_eval \\
         --model seq2act --episode_length 512 --attention_mode ring \\
-        --batch_size 32 --model_dir /tmp/seq2act_ring --max_train_steps 100
+        --batch_size 32 --model_dir /tmp/seq2act_ring --max_train_steps 100 \\
+        --train_data '/data/episodes/train*'
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import sys
 import time
@@ -186,10 +193,16 @@ class Trainer:
   def dataset_iterator(self, input_generator: AbstractInputGenerator,
                        mode: str, step: int = 0):
     """This rank's share (``model.frame_shard``) of the batches of
-    ``mode``, TRAIN's from global step ``step`` on."""
+    ``mode``, TRAIN's from global step ``step`` on, decoded on the model's
+    card where the reader decodes on one."""
     seed = self.seed + (EVAL_SEED_OFFSET if mode == ModeKeys.EVAL else step)
+    device = self.model.device
+    index = None
+    if device.type == 'cuda':
+      index = (torch.cuda.current_device() if device.index is None
+               else device.index)
     return input_generator.create_dataset_iterator(
-        mode, seed=seed, frames=self.model.frame_shard())
+        mode, seed=seed, frames=self.model.frame_shard(), device=index)
 
   def _step(self, state: TrainState, batch):
     features, labels = batch
@@ -364,11 +377,13 @@ def make_parser() -> argparse.ArgumentParser:
   parser.add_argument('--keep_checkpoint_max', type=int, default=5)
   parser.add_argument('--log_every_n_steps', type=int, default=100)
   parser.add_argument('--train_data', default='',
-                      help="qtopt: TFRecord file patterns ('a*,b*') to "
-                      'train from; random batches when not given')
+                      help="TFRecord file patterns ('a*,b*') to train "
+                      "from: the critic's grasp examples (qtopt) or "
+                      "Seq2Act's episodes (seq2act); random batches when "
+                      'not given')
   parser.add_argument('--eval_data', default='',
-                      help='qtopt: TFRecord file patterns to evaluate on '
-                      '(needs --eval_steps); random batches when not given')
+                      help='TFRecord file patterns to evaluate on (needs '
+                      '--eval_steps); random batches when not given')
   parser.add_argument('--eval_steps', type=int, default=0,
                       help='> 0: evaluate this many batches every '
                       '--eval_throttle_steps')
@@ -396,16 +411,25 @@ def make_model(args, device: torch.device, process_group=None):
           int(n) for n in args.num_convs.split(','))}, **kwargs)
 
 
-def make_input_generators(args):
+def loader_threads(ranks: int) -> int:
+  """The native loader's worker threads for one of ``ranks`` training
+  processes on a host: its share of the host's cores, up to 16, so that
+  the ranks' loaders do not each take every core."""
+  return max(1, min(16, (os.cpu_count() or 2) // max(1, ranks)))
+
+
+def make_input_generators(args, ranks: int = 1):
   """The train and eval input generators of the command line: records
-  where ``--train_data`` / ``--eval_data`` name them, else random batches;
-  no eval generator unless ``--eval_steps`` > 0."""
+  where ``--train_data`` / ``--eval_data`` name them, their loaders on one
+  of ``ranks`` shares of the host's cores (``loader_threads``), else
+  random batches; no eval generator unless ``--eval_steps`` > 0."""
 
   def generator(patterns):
     if not patterns:
       return DefaultRandomInputGenerator(batch_size=args.batch_size)
-    return DefaultRecordInputGenerator(file_patterns=patterns,
-                                       batch_size=args.batch_size)
+    return DefaultRecordInputGenerator(
+        file_patterns=patterns, batch_size=args.batch_size,
+        num_native_threads=loader_threads(ranks))
 
   return (generator(args.train_data),
           generator(args.eval_data) if args.eval_steps > 0 else None)
@@ -414,9 +438,6 @@ def make_input_generators(args):
 def main(argv=None) -> int:
   parser = make_parser()
   args = parser.parse_args(argv)
-  if args.model == 'seq2act' and (args.train_data or args.eval_data):
-    parser.error("--train_data and --eval_data read the critic's records; "
-                 "Seq2Act's episodes from records are not ported yet.")
   if args.eval_data and args.eval_steps <= 0:
     parser.error('--eval_data needs --eval_steps > 0.')
   device, group = torch.device(args.device), None
@@ -433,7 +454,9 @@ def main(argv=None) -> int:
       torch.backends.cuda.matmul.allow_tf32 = False
       print('built CUDA kernels in {:.1f}s'.format(kernels.build()))
     model = make_model(args, device, group)
-    train, evaluate = make_input_generators(args)
+    # The ranks of a ring are torchrun's processes on this host.
+    train, evaluate = make_input_generators(
+        args, collectives.world_size(group))
     start = time.perf_counter()
     result = train_eval_model(
         model, args.model_dir, train, evaluate,

@@ -15,20 +15,31 @@ of every case and writes what it found to ``rank<r>.pt``:
     parameters after adam, and after a second step on the same batch;
   * the messages of the ValueErrors that a bad configuration raises;
   * the kernels' launch counts (none: every tensor is on the CPU).
+
+``run_records`` is a rank of ``tests/test_torch_seq2act_records.py``'s
+ring from records (``records_plan.pt``): its share of the first train
+batch that the trainer's record iterator reads, the ring's loss and
+gradients on it from the given state and crop offsets, and then
+``train_eval.main`` with ring attention over the group, as torchrun starts
+it, with rank 0's printed lines (``records_rank<r>.pt``).
 """
 
+import contextlib
+import io
 import os
 
 import torch
 import torch.distributed as dist
 
 from tensor2robot_tpu_torch import kernels
+from tensor2robot_tpu_torch.data import input_generators
 from tensor2robot_tpu_torch.models.abstract_model import TrainState
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.parallel import mesh
 from tensor2robot_tpu_torch.parallel import ring_attention
 from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
+from tensor2robot_tpu_torch.trainer import train_eval
 
 
 def _errors(group, config):
@@ -105,3 +116,40 @@ def run(rank, world, init_file, out_dir):
   torch.save(found, os.path.join(out_dir, 'rank{}.pt'.format(rank)))
   dist.barrier()
   dist.destroy_process_group()
+
+
+def run_records(rank, world, init_file, out_dir):
+  torch.set_num_threads(1)
+  plan = torch.load(os.path.join(out_dir, 'records_plan.pt'),
+                    weights_only=False)
+  sequence = mesh.init_sequence_group(
+      'cpu', init_method='file://' + init_file, rank=rank, world_size=world)
+  model = Seq2ActBCModel(device='cpu', process_group=sequence.group,
+                         **plan['config'])
+  data = input_generators.DefaultRecordInputGenerator(
+      file_patterns=plan['pattern'], batch_size=plan['batch_size'],
+      use_native=True, prefetch=0)
+  data.set_specification_from_model(model, ModeKeys.TRAIN)
+  trainer = train_eval.Trainer(model, os.path.join(out_dir, 'unused'),
+                               seed=plan['seed'])
+  iterator = trainer.dataset_iterator(data, ModeKeys.TRAIN, 0)
+  features, labels = next(iterator)
+  iterator.close()
+  found = {'features': features, 'labels': labels, 'reader': data.reader}
+  raw, labels = trainer.put_batch(features), trainer.put_batch(labels)
+  features, _ = model.preprocessor.preprocess(raw, None, ModeKeys.TRAIN,
+                                              offsets=plan['offsets'])
+  _, metrics, _, grads = model.gradients(TrainState(**plan['state']),
+                                         features, labels)
+  found['metrics'] = {k: float(v) for k, v in metrics.items()}
+  found['grads'] = grads
+  dist.barrier()
+  dist.destroy_process_group()
+  os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                    LOCAL_RANK=str(rank), MASTER_ADDR='127.0.0.1',
+                    MASTER_PORT=str(plan['port']))
+  out = io.StringIO()
+  with contextlib.redirect_stdout(out):
+    found['main_rc'] = train_eval.main(plan['main_argv'])
+  found['main_out'] = out.getvalue()
+  torch.save(found, os.path.join(out_dir, 'records_rank{}.pt'.format(rank)))

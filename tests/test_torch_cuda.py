@@ -45,7 +45,10 @@ The record path on the card: the native loader's batch (decoded by nvJPEG
 where the host has no libjpeg) copied to the card equals the batch on the
 host bit for bit, and its pixels are within 4 of libjpeg's (OpenCV's) on
 the same records: only nvJPEG's IDCT differs, by up to 1 in Y, Cb and Cr,
-which the colour conversion takes to up to 3 in R, G or B. And serve.py's
+which the colour conversion takes to up to 3 in R, G or B; the same for
+one Seq2Act batch of episodes. The loader decodes on the card it is given:
+on card 1 where given card 1 (with two cards), and a card the host lacks
+fails the first batch, with no card bound in its place. And serve.py's
 hot swap at a small critic: a newer checkpoint is served while requests go
 on, with no request failed.
 """
@@ -663,3 +666,129 @@ def test_serve_hot_swaps_a_newer_checkpoint_at_a_small_size(device,
   # each of the 2 CEM iterations and at the chosen actions' q.
   assert kernels.LAUNCHES['crop_convert'] > 0
   assert kernels.LAUNCHES['max_pool'] == 5 * kernels.LAUNCHES['crop_convert']
+
+
+def _nvjpeg_stream(tmp_path, device_index, count=4):
+  """A stream of frames written as in the loader test, decoding on
+  ``device_index``; skips where the loader decodes with libjpeg (which
+  uses no card)."""
+  import numpy as np
+
+  from tensor2robot_tpu_torch.data import native_loader
+
+  if native_loader.decoder() != 'nvjpeg':
+    pytest.skip('the loader decodes with libjpeg on this host: no card')
+  path = str(tmp_path / 'frames.tfrecord')
+  spec = _write_frames(path, np.random.RandomState(0), count)
+  return native_loader.NativeBatchedStream(
+      native_loader.plan_for_specs(spec, {}), [path], batch_size=2,
+      num_epochs=1, num_threads=2, device=device_index)
+
+
+def test_loader_refuses_a_card_the_host_lacks(device, tmp_path):
+  missing = torch.cuda.device_count()
+  stream = _nvjpeg_stream(tmp_path, missing)
+  try:
+    with pytest.raises(RuntimeError, match='CUDA device {} is not on this '
+                       'host, which has {} '.format(missing, missing)):
+      next(iter(stream))
+    # No worker bound a card: none decoded on card 0 in its place.
+    assert stream.stats()['decode_device'] == -1
+  finally:
+    stream.close()
+
+
+def test_loader_decodes_on_the_card_it_is_given(device, tmp_path):
+  """Given card 1, the stream's nvJPEG state lies on card 1: its free
+  memory falls, and by more than card 0's. The planes path given card 1
+  decodes there and leaves the caller's current device as it was."""
+  import cv2
+  import numpy as np
+
+  from tensor2robot_tpu_torch.data import native_loader
+
+  if torch.cuda.device_count() < 2:
+    pytest.skip('needs two CUDA cards')
+  free_before = [torch.cuda.mem_get_info(i)[0] for i in (0, 1)]
+  stream = _nvjpeg_stream(tmp_path, 1)
+  try:
+    batches = [features for features, _ in stream]
+    assert len(batches) == 2
+    assert stream.stats()['decode_device'] == 1
+    free_after = [torch.cuda.mem_get_info(i)[0] for i in (0, 1)]
+  finally:
+    stream.close()
+  fell = [before - after for before, after in zip(free_before, free_after)]
+  assert fell[1] > 0 and fell[1] > fell[0], fell
+  current = torch.cuda.current_device()
+  image = batches[0]['image'][0]
+  ok, encoded = cv2.imencode('.jpg', image)
+  assert ok
+  on_card_1 = native_loader.decode_jpeg_planes(encoded.tobytes(),
+                                               image.shape, device=1)
+  assert torch.cuda.current_device() == current
+  np.testing.assert_array_equal(
+      on_card_1, native_loader.decode_jpeg_planes(encoded.tobytes(),
+                                                  image.shape))
+
+
+def test_seq2act_batch_from_records_on_the_card(device, tmp_path):
+  """One Seq2Act batch of episodes from records (the native loader, nvJPEG
+  where the host has no libjpeg) copied to the card: equal to the host
+  batch bit for bit, and its frames within 4 levels of the Python
+  parser's (OpenCV's), every other field equal."""
+  import cv2
+  import numpy as np
+
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.data import native_loader
+  from tensor2robot_tpu_torch.data import parser
+  from tensor2robot_tpu_torch.data import tfrecord
+  from tensor2robot_tpu_torch.data.writer import TFRecordReplayWriter
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
+  from tensor2robot_tpu_torch.trainer.train_eval import Trainer
+
+  model = Seq2ActBCModel(device=device, episode_length=4)
+  feature_spec = model.preprocessor.get_in_feature_specification(
+      ModeKeys.TRAIN)
+  label_spec = model.preprocessor.get_in_label_specification(ModeKeys.TRAIN)
+  spec = {**feature_spec, **label_spec}
+  rng = np.random.RandomState(0)
+  path = str(tmp_path / 'episodes.tfrecord')
+  yy, xx = np.mgrid[0:136, 0:168]
+  with TFRecordReplayWriter() as writer:
+    writer.open(path)
+    for e in range(2):
+      frames = []
+      for t in range(4):
+        image = np.clip(np.stack([xx * 2 + 9 * e, yy * 3 + 5 * t, xx + yy],
+                                 -1) % 256 + rng.randint(-9, 10, (136, 168,
+                                                                  3)),
+                        0, 255).astype(np.uint8)
+        ok, encoded = cv2.imencode('.jpg', image[..., ::-1],
+                                   [cv2.IMWRITE_JPEG_QUALITY, 95])
+        assert ok
+        frames.append(encoded.tobytes())
+      writer.write_numpy(spec, {'image': frames, 'action': rng.uniform(
+          -1, 1, (4, 7)).astype(np.float32)})
+  data = input_generators.DefaultRecordInputGenerator(
+      file_patterns=path, batch_size=2, use_native=True, prefetch=0)
+  trainer = Trainer(model, str(tmp_path / 'model'))
+  data.set_specification_from_model(model, ModeKeys.TRAIN)
+  iterator = trainer.dataset_iterator(data, ModeKeys.EVAL)
+  features, labels = next(iterator)
+  iterator.close()
+  assert data.stream.stats()['decode_device'] == (
+      torch.cuda.current_device() if native_loader.decoder() == 'nvjpeg'
+      else -1)
+  want, want_labels = parser.ExampleParser(feature_spec, label_spec) \
+      .parse_batch(tfrecord.read_all_records(path))
+  for arrays in (features, labels):
+    on_card = trainer.put_batch(arrays)
+    for key, value in arrays.items():
+      assert on_card[key].device.type == 'cuda'
+      assert torch.equal(on_card[key].cpu(), torch.from_numpy(value)), key
+  diff = np.abs(features['image'].astype(int) - want['image'].astype(int))
+  assert diff.max() <= 4
+  np.testing.assert_array_equal(labels['action'], want_labels['action'])

@@ -83,6 +83,28 @@ repository around it. Phases, each printing one line or more:
      zeroed before the server starts, must show 1 K1 and 6 K2f for every
      batch (the warm batch included). A batch on the new step must score its actions as the newer
      checkpoint's avg_params do without the serving code (1e-4 of max).
+  4c. The split decode (train_qtopt_sparse.gin's wire) on phase 4b's
+     records, nothing new encoded: the loader stops after the entropy stage
+     (the port's own baseline Huffman decoder, on the host: no card bound)
+     and ships the quantized DCT coefficients. A 'coef' batch finished on
+     the card against OpenCV's (PIL's where it is absent) decode of the
+     same bytes within JPEG_PIXEL_ATOL (max, mean and the share within 1
+     printed); 'coef_sparse' and 'coef_packed' batches unpacked on the card
+     by the feed bit-equal to the 'coef' batch; the card's finish within 1
+     level of the CPU's (the share equal printed); the bytes a batch ships
+     in each wire against its pixels'. The loader alone in 'coef_sparse'
+     at 4b's threads (records/s, worker ms a record, bytes a batch) beside
+     4b's. ``train_eval.main --device_decode sparse`` trains TRAIN_STEPS
+     steps at batch 32 from 4b's step-0 weights at each of
+     COEF_FEED_DEPTHS, with the counters zeroed just before and read just
+     after (phase 4's counts), every loss finite (``--nan_policy raise``),
+     the checkpoint restoring the final state and one batch shape after the
+     unpack. The loader alone under the profiler: coef_sparse makes no
+     copy and runs no kernel on the card (the pixel loader's, nvJPEG's on
+     the card's host, printed beside). Then a profiled resident step on a
+     coefficient batch (unpack and finish included), the unpack's and the
+     finish's device time, and the loop profiled with the live loader
+     through the feed, its copies a step beside the resident step's.
   5. Seq2Act serving: the long-context RT-1-style policy at full width
      (512-frame episodes, 4,096 tokens, 8 blocks, attention_mode 'flash',
      float32 with TF32 off) restored by CheckpointPredictor from a
@@ -215,6 +237,8 @@ JPEG_PIXEL_ATOL = 4
 # 4b and 6b).
 RANDOM_LOOP = {}
 RANDOM_SEQ2ACT_LOOP = {}
+# Phase 4b's loader and loop, beside phase 4c's.
+RECORDS_LOOP = {}
 # The served pools: (name, input NHWC shape, window, calls per batch).
 SERVED_POOLS = (
     ('stem 236->79', (MAX_BATCH, 236, 236, 64), 3, 1),
@@ -805,11 +829,12 @@ def phase_slice(device):
   return launches
 
 
-def profile(label, run, calls, unit, top=16):
+def profile(label, run, calls, unit, top=16, out=None):
   """Where the time of ``calls`` runs of ``run(i)`` goes: device time by
   kernel from torch.profiler, the wall time per run (ending in a
   synchronize) and the device's busy share of it. Returns the wall ms per
-  run."""
+  run; ``out``, a dict, also gets the busy ms per run and the copies per
+  run by kind ('HtoD', 'DtoH', 'DtoD')."""
   from torch.profiler import ProfilerActivity, profile as torch_profile
 
   torch.cuda.synchronize()
@@ -827,6 +852,10 @@ def profile(label, run, calls, unit, top=16):
           for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA and
           e.self_device_time_total > 0 and not e.key.startswith('nccl:')]
+  if out is not None:
+    out['copies'] = {kind: sum(e.count for e in prof.key_averages()
+                               if e.key.startswith('Memcpy ' + kind)) / calls
+                     for kind in ('HtoD', 'DtoH', 'DtoD')}
   if not rows:
     print('{}: the profiler saw no device time; not measured'.format(label))
     return wall_ms
@@ -835,6 +864,8 @@ def profile(label, run, calls, unit, top=16):
   # there for the peer ranks: counted apart.
   comm_ms = sum(ms for ms, _, name in rows if name.startswith('nccl'))
   busy_ms = sum(ms for ms, _, _ in rows) - comm_ms
+  if out is not None:
+    out['busy_ms'] = busy_ms
   print('{}: {:.2f} ms wall per {}, kernels busy {:.2f} ms ({:.1%}){}'.format(
       label, wall_ms, unit, busy_ms, busy_ms / wall_ms,
       ', NCCL kernels (waits for the peers included) {:.2f} ms'.format(
@@ -1379,9 +1410,10 @@ def write_critic_records(directory, feature_spec, label_spec, encoder):
   return files, frame_bytes
 
 
-def phase_records(device):
-  """The operator's workflow at full width: critic records on disk, the
-  native loader, train_eval --train_data, the checkpoint served by serve.py
+def phase_records(device, data_dir):
+  """The operator's workflow at full width: critic records on disk (in
+  ``data_dir``, which phase 4c reads again), the native loader,
+  train_eval --train_data, the checkpoint served by serve.py
   --checkpoint_dir, and a newer checkpoint hot-swapped in while requests go
   on. Returns the launch counts of its train and serve paths."""
   import contextlib
@@ -1413,9 +1445,7 @@ def phase_records(device):
       ModeKeys.TRAIN)
   label_spec = model.preprocessor.get_in_label_specification(ModeKeys.TRAIN)
   with tempfile.TemporaryDirectory() as tmp:
-    data_dir, model_dir = os.path.join(tmp, 'data'), os.path.join(tmp,
-                                                                  'model')
-    os.makedirs(data_dir)
+    model_dir = os.path.join(tmp, 'model')
     start = time.monotonic()
     files, frame_bytes = write_critic_records(data_dir, feature_spec,
                                               label_spec, encoder)
@@ -1445,10 +1475,19 @@ def phase_records(device):
     first_ms = (time.monotonic() - start) * 1e3
     stream = stream_of(3)
     start = time.monotonic()
-    batches = sum(1 for _ in stream)
+    batch_bytes = []
+    for features, labels in stream:
+      batch_bytes.append(sum(v.nbytes for part in (features, labels)
+                             for v in part.values()))
+    batches = len(batch_bytes)
     seconds = time.monotonic() - start
     stats = stream.stats()
     stream.close()
+    RECORDS_LOOP.update(
+        decoder=decoder, threads=stream.num_threads,
+        records_per_s=batches * TRAIN_BATCH / seconds,
+        worker_ms=stats['worker_busy_us'] / 1e3 / stats['rows_parsed'],
+        batch_bytes=statistics.mean(batch_bytes))
     check(batches == 3 * RECORDS // TRAIN_BATCH, 'the loader gave {} '
           'batches'.format(batches))
     print('records: the native loader ({}, {} threads) reads {} batches of '
@@ -1542,6 +1581,9 @@ def phase_records(device):
                    trainer.put_batch(numpy_labels))
     resident_ms = train_profile('records train profile', trainer, model,
                                 state, raw, labels, 3, TRAIN_BATCH)
+    RECORDS_LOOP.update(step_ms=line['step_ms'],
+                        data_wait_ms=line['data_wait_ms'],
+                        resident_ms=resident_ms)
     print('records train: train_eval --train_data trained {} steps of batch '
           '{} from the records through the native loader in {:.1f} s, '
           'launches {}; loss {:.4f}. The loop\'s median step {:.2f} ms, of '
@@ -1659,6 +1701,355 @@ def serve_records_checkpoint(device, model_dir, newer):
             smi_line()))
   stacked = {k: np.stack([s[k] for s in states]) for k in states[0]}
   return launches, (stacked, results)
+
+
+# The split decode (phase 4c): train_qtopt_sparse.gin's wire, on phase 4b's
+# records; its loops' feed depths.
+COEF_FEED_DEPTHS = (1, 2)
+
+
+def phase_records_coef(device, data_dir):
+  """The split decode at full width on phase 4b's records (no new ones):
+  the loader's entropy stage on the host (the port's Huffman decoder), the
+  coefficients shipped sparse, the decode finished on the card. Returns
+  the launch counts of its last training loop."""
+  import contextlib
+  import glob
+  import io
+
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.data import device_feed
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.data import jpeg_device
+  from tensor2robot_tpu_torch.data import native_loader
+  from tensor2robot_tpu_torch.data import tfrecord
+  from tensor2robot_tpu_torch.data import wire
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.observability import get_registry
+  from tensor2robot_tpu_torch.preprocessors import device_decode
+  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+  from tensor2robot_tpu_torch.trainer import checkpointing
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  model = device_decode.wrap_model_with_device_decode(
+      t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+          device=device, network_kwargs={'num_convs': NUM_CONVS}),
+      wire_format='sparse')
+  wrapper = model.preprocessor
+  raw_spec = wrapper.raw_in_feature_specification(ModeKeys.TRAIN)
+  label_spec = wrapper.get_in_label_specification(ModeKeys.TRAIN)
+  image = raw_spec['state/image']
+  height, width = image.shape[:2]
+  files = sorted(glob.glob(os.path.join(data_dir, 'train-*')))
+  pattern = os.path.join(data_dir, 'train-*')
+  pixel_bytes = TRAIN_BATCH * height * width * 3
+  print('coef: the split decode on phase 4b\'s {} records; {}'.format(
+      RECORDS, smi_line()))
+
+  # Each wire's batch of the first file's first records, read in order.
+  batches, stats = {}, {}
+  for mode in native_loader.COEF_MODES:
+    stream = native_loader.NativeBatchedStream(
+        native_loader.plan_for_specs(raw_spec, label_spec, image_mode=mode),
+        files[:1], batch_size=TRAIN_BATCH, num_epochs=1)
+    batches[mode] = next(iter(stream))[0]
+    stats[mode] = stream.stats()
+    stream.close()
+    check(stats[mode]['decode_device'] == -1, 'the {} loader bound card '
+          '{}'.format(mode, stats[mode]['decode_device']))
+  dense = batches['coef']
+  planes = ('y', 'cb', 'cr', 'qt')
+
+  # Pixels: the finish on the card against a host decode of the same bytes.
+  frames = jpeg_device.decode_jpeg_coefficients(
+      *(torch.from_numpy(dense['state/image/' + k]).to(device)
+        for k in planes)).cpu()
+  jpegs = [wire.parse_example(record)[image.name][1][0] for record in
+           tfrecord.read_all_records(files[0])[:TRAIN_BATCH]]
+  try:
+    import cv2
+    host = np.stack([cv2.imdecode(np.frombuffer(j, np.uint8),
+                                  cv2.IMREAD_COLOR)[..., ::-1] for j in jpegs])
+    host_decoder = 'OpenCV'
+  except ImportError:
+    from PIL import Image
+    host = np.stack([np.asarray(Image.open(io.BytesIO(j)).convert('RGB'))
+                     for j in jpegs])
+    host_decoder = 'PIL'
+  diff = np.abs(frames.numpy().astype(np.int16) - host.astype(np.int16))
+  check(int(diff.max()) <= JPEG_PIXEL_ATOL, 'the card\'s finish differs '
+        'from {}\'s decode by {} (tolerance {})'.format(
+            host_decoder, int(diff.max()), JPEG_PIXEL_ATOL))
+  print('coef pixels: the card\'s finish of {} frames against {}\'s decode '
+        'of the same bytes: max |diff| {} (tolerance {}), mean {:.4f}, '
+        '{:.4%} within 1'.format(TRAIN_BATCH, host_decoder, int(diff.max()),
+                                 JPEG_PIXEL_ATOL, float(diff.mean()),
+                                 float((diff <= 1).mean())))
+
+  # The wires: unpacked on the card, the dense batch bit for bit; the
+  # card's finish against the CPU's.
+  feed = device_feed.SparseCoefFeed(wrapper.image_shapes(ModeKeys.TRAIN),
+                                    device)
+  for mode in ('coef_sparse', 'coef_packed'):
+    features, _ = feed.put_batch((batches[mode], None))
+    for k in planes:
+      got = features['state/image/' + k]
+      check(got.device.type == 'cuda' and torch.equal(
+          got.cpu(), torch.from_numpy(dense['state/image/' + k])),
+            '{} unpacked on the card differs from coef in {}'.format(mode, k))
+  cpu_frames = jpeg_device.decode_jpeg_coefficients(
+      *(torch.from_numpy(dense['state/image/' + k]) for k in planes))
+  card_cpu = (frames.int() - cpu_frames.int()).abs()
+  check(int(card_cpu.max()) <= 1, 'the card\'s finish differs from the '
+        'CPU\'s by {}'.format(int(card_cpu.max())))
+  wire_bytes = {mode: sum(v.nbytes for k, v in batch.items()
+                          if k.startswith('state/image/'))
+                for mode, batch in batches.items()}
+  print('coef wires: coef_sparse and coef_packed unpacked on the card equal '
+        'the coef batch bit for bit; the card\'s finish against the CPU\'s: '
+        'max |diff| {} (tolerance 1), {:.4%} equal. A batch of {} frames '
+        'ships {} bytes of pixels, {} of coef, {} of coef_sparse ({:.2f}x '
+        'fewer), {} of coef_packed ({:.2f}x fewer)'.format(
+            int(card_cpu.max()), float((card_cpu == 0).float().mean()),
+            TRAIN_BATCH, pixel_bytes, wire_bytes['coef'],
+            wire_bytes['coef_sparse'],
+            pixel_bytes / wire_bytes['coef_sparse'],
+            wire_bytes['coef_packed'],
+            pixel_bytes / wire_bytes['coef_packed']))
+
+  # What each loader does on the card while it reads two batches alone:
+  # nvJPEG's copies and kernels (4b's pixels), and none for coef_sparse.
+  plan = native_loader.plan_for_specs(raw_spec, label_spec,
+                                      image_mode='coef_sparse')
+  activity = {}
+  for name, each in (('pixels', native_loader.plan_for_specs(
+      raw_spec, label_spec)), ('coef_sparse', plan)):
+    stream = native_loader.NativeBatchedStream(
+        each, files[:1], batch_size=TRAIN_BATCH, num_epochs=1,
+        num_threads=RECORDS_LOOP['threads'])
+    activity[name] = device_activity(lambda: list(stream))
+    stream.close()
+  check(activity['coef_sparse'] == ({'HtoD': 0, 'DtoH': 0, 'DtoD': 0}, 0),
+        'the coef_sparse loader worked on the card: {}'.format(
+            activity['coef_sparse']))
+  print('coef loader on the card, two batches alone: the pixel loader ({}) '
+        'copies {} and runs {} kernels; coef_sparse copies {} and runs {} '
+        'kernels'.format(RECORDS_LOOP['decoder'], *activity['pixels'],
+                         *activity['coef_sparse']))
+
+  # The loader alone in coef_sparse: three shuffled epochs at 4b's threads,
+  # after a first batch.
+  stream = native_loader.NativeBatchedStream(
+      plan, files, batch_size=TRAIN_BATCH, shuffle=True, seed=0,
+      num_epochs=1, num_threads=RECORDS_LOOP['threads'])
+  next(iter(stream))
+  stream.close()
+  stream = native_loader.NativeBatchedStream(
+      plan, files, batch_size=TRAIN_BATCH, shuffle=True, seed=0,
+      num_epochs=3, num_threads=RECORDS_LOOP['threads'])
+  start = time.monotonic()
+  image_bytes, batch_bytes = [], []
+  for features, labels in stream:
+    image_bytes.append(sum(v.nbytes for k, v in features.items()
+                           if k.startswith('state/image/')))
+    batch_bytes.append(sum(v.nbytes for part in (features, labels)
+                           for v in part.values()))
+  seconds = time.monotonic() - start
+  loader = stream.stats()
+  stream.close()
+  check(len(batch_bytes) == 3 * RECORDS // TRAIN_BATCH and
+        loader['decode_device'] == -1, 'the coef_sparse loader gave {} '
+        'batches on device {}'.format(len(batch_bytes),
+                                      loader['decode_device']))
+  records_per_s = len(batch_bytes) * TRAIN_BATCH / seconds
+  worker_ms = loader['worker_busy_us'] / 1e3 / loader['rows_parsed']
+  print('coef loader: coef_sparse ({} threads, no card) reads {} batches of '
+        '{} in {:.3f} s: {:.1f} records/s, {:.3f} ms of a worker a record; '
+        'a batch ships {:.0f} bytes of frames ({:.2f}x fewer than the {} of '
+        'pixels), {:.0f} in all. Phase 4b ({}, {} threads): {:.1f} '
+        'records/s, {:.3f} ms of a worker a record, {:.0f} bytes a batch; '
+        '{}'.format(
+            RECORDS_LOOP['threads'], len(batch_bytes), TRAIN_BATCH, seconds,
+            records_per_s, worker_ms, statistics.mean(image_bytes),
+            pixel_bytes / statistics.mean(image_bytes), pixel_bytes,
+            statistics.mean(batch_bytes), RECORDS_LOOP['decoder'],
+            RECORDS_LOOP['threads'], RECORDS_LOOP['records_per_s'],
+            RECORDS_LOOP['worker_ms'], RECORDS_LOOP['batch_bytes'],
+            smi_line()))
+
+  # The loop: train_eval.main --device_decode sparse at each feed depth,
+  # from phase 4b's step-0 weights, capturing the final state.
+  initial = model.create_train_state(torch.Generator().manual_seed(0))
+  spread = spread_weights({**initial.params, **initial.model_state},
+                          torch.Generator().manual_seed(2))
+  initial.params = {k: spread[k] for k in initial.params}
+  initial.model_state = {k: spread[k] for k in initial.model_state}
+  initial.avg_params = {k: v.clone() for k, v in initial.params.items()}
+  real_train_eval_model = train_eval.train_eval_model
+  want_launches = dict.fromkeys(kernels.LAUNCHES, 0)
+  want_launches.update({
+      'crop_convert': TRAIN_STEPS, 'max_pool': 3 * TRAIN_STEPS,
+      'max_pool_backward': 3 * TRAIN_STEPS,
+      'conv5x5_wgrad': BODY_CONVS * TRAIN_STEPS})
+  loops = {}
+  for depth in COEF_FEED_DEPTHS:
+    captured = {}
+
+    def capture(*args, **kwargs):
+      captured.update(real_train_eval_model(*args, **kwargs))
+      return captured
+
+    with tempfile.TemporaryDirectory() as model_dir:
+      checkpointing.CheckpointManager(model_dir).save(initial)
+      out = io.StringIO()
+      kernels.reset_launches()
+      start = time.monotonic()
+      with contextlib.redirect_stdout(out), mock.patch.object(
+          train_eval, 'train_eval_model', capture):
+        rc = train_eval.main([
+            '--device', device.type, '--num_convs',
+            ','.join(str(n) for n in NUM_CONVS), '--model_dir', model_dir,
+            '--train_data', pattern, '--device_decode', 'sparse',
+            '--feed_depth', str(depth), '--batch_size', str(TRAIN_BATCH),
+            '--max_train_steps', str(TRAIN_STEPS), '--log_every_n_steps',
+            '1', '--save_checkpoints_steps', str(TRAIN_STEPS),
+            '--nan_policy', 'raise'])
+      elapsed = time.monotonic() - start
+      launches = dict(kernels.LAUNCHES)
+      line = json.loads(out.getvalue().strip().splitlines()[-1])
+      check(launches == want_launches, 'coef train launch counts {} != '
+            'expected {}'.format(launches, want_launches))
+      check(rc == 0 and line['data'] == 'native' and
+            line['step'] == TRAIN_STEPS and line['device_decode'] == 'sparse'
+            and np.isfinite(line['metrics']['loss']),
+            'train_eval --device_decode sparse: {}'.format(line))
+      state, trainer = captured['state'], captured['trainer']
+      restored = checkpointing.CheckpointManager(model_dir).restore(
+          device=device)
+      check(_states_equal(restored, state), 'the coef checkpoint does not '
+            'restore the final state')
+      del restored
+      gauge = get_registry().gauge(device_feed.FEED_SHAPES_GAUGE).value
+      check(gauge == 1, 'the train batches took {} shapes after the '
+            'unpack'.format(gauge))
+    loops[depth] = dict(line=line, elapsed=elapsed, launches=launches)
+    print('coef train: train_eval --device_decode sparse --feed_depth {} '
+          'trained {} steps of batch {} in {:.1f} s, launches {}; every '
+          'loss finite, the last {:.4f}; checkpoint restores equal; one '
+          'batch shape after the unpack. The loop\'s median step {:.2f} '
+          'ms, of which {:.2f} ms waiting for data; a batch\'s copies '
+          '{:.2f} ms on the card; {}'.format(
+              depth, TRAIN_STEPS, TRAIN_BATCH, elapsed, launches,
+              line['metrics']['loss'], line['step_ms'],
+              line['data_wait_ms'], line['transfer_ms'], smi_line()))
+
+  # The resident step on a coefficient batch: the unpack, the finish, the
+  # crop and the train step, the streams already on the card.
+  trainer = train_eval.Trainer(model, os.path.join(data_dir, 'unused'))
+  generator = input_generators.DefaultRecordInputGenerator(
+      file_patterns=pattern, batch_size=TRAIN_BATCH)
+  generator.set_specification_from_model(model, ModeKeys.TRAIN)
+  iterator = trainer.dataset_iterator(generator, ModeKeys.TRAIN, 0)
+  numpy_features, numpy_labels = next(iterator)
+  iterator.close()
+  streams = {k: torch.from_numpy(v).to(device)
+             for k, v in numpy_features.items()}
+  labels = {k: torch.from_numpy(v).to(device) for k, v in numpy_labels.items()}
+  shapes = wrapper.image_shapes(ModeKeys.TRAIN)
+  current = [state]
+
+  def resident_step(_):
+    features = jpeg_device.unpack_sparse_features(dict(streams), shapes)
+    features, step_labels = model.preprocessor.preprocess(
+        features, labels, ModeKeys.TRAIN,
+        generator=trainer.crop_generator(current[0].step))
+    current[0], metrics = model.train_step(current[0], features, step_labels)
+    float(metrics['loss'])
+
+  resident_step(0)   # warm
+  resident = {}
+  resident_ms = profile('coef resident profile', resident_step, 3,
+                        'step of {} (unpack and finish included)'.format(
+                            TRAIN_BATCH), out=resident)
+  sd, sv = streams['state/image/sd'], streams['state/image/sv']
+  unpack, finish = {}, {}
+  profile('coef unpack profile', lambda _: jpeg_device.unpack_sparse_features(
+      dict(streams), shapes), 3, 'unpack of {}'.format(TRAIN_BATCH), top=4,
+          out=unpack)
+  card_dense = jpeg_device.unpack_sparse_coefficients(sd, sv, height, width)
+  qt = streams['state/image/qt']
+  profile('coef finish profile', lambda _: jpeg_device.decode_jpeg_coefficients(
+      *card_dense, qt), 3, 'finish of {}'.format(TRAIN_BATCH), top=4,
+          out=finish)
+
+  # The loop under the profiler: each step takes its batch from the live
+  # loader through the feed (depth 1, so that a step's copies are its own).
+  iterator = trainer.device_batches(trainer.dataset_iterator(
+      generator, ModeKeys.TRAIN, current[0].step))
+  arrays = len(numpy_features) + len(numpy_labels)
+
+  def loop_step(_):
+    current[0], metrics = trainer._step(current[0], next(iterator))
+    float(metrics['loss'])
+
+  loop_step(0)   # warm: the loader's first batch
+  looped = {}
+  loop_ms = profile('coef loop profile', loop_step, 3,
+                    'step of {} from the loader'.format(TRAIN_BATCH),
+                    out=looped)
+  iterator.close()
+  copies = ('copies a step: the loop {}, the resident step {} (the feed '
+            'copies the batch\'s {} arrays)'.format(
+                looped.get('copies'), resident.get('copies'), arrays))
+  print('coef: a resident step on a coefficient batch {:.2f} ms (busy {}), '
+        'the unpack {} ms and the finish {} ms of device time a batch; the '
+        'loop profiled {:.2f} ms a step (busy {}); {}. Loops (step, data '
+        'wait): feed_depth 1 {:.2f} ms, {:.2f} ms; feed_depth 2 {:.2f} ms, '
+        '{:.2f} ms. Phase 4b (nvJPEG pixels): step {:.2f} ms, data wait '
+        '{:.2f} ms, resident {:.2f} ms; {}'.format(
+            resident_ms, _share(resident, resident_ms),
+            _ms(unpack), _ms(finish), loop_ms, _share(looped, loop_ms),
+            copies, loops[1]['line']['step_ms'],
+            loops[1]['line']['data_wait_ms'], loops[2]['line']['step_ms'],
+            loops[2]['line']['data_wait_ms'], RECORDS_LOOP['step_ms'],
+            RECORDS_LOOP['data_wait_ms'], RECORDS_LOOP['resident_ms'],
+            smi_line()))
+  del current, streams, labels, card_dense
+  torch.cuda.empty_cache()
+  return loops[COEF_FEED_DEPTHS[-1]]['launches']
+
+
+def device_activity(run):
+  """(copies by kind, kernels) on the card while ``run()`` runs, from
+  torch.profiler: CUPTI records the whole process's device work, the
+  threads of C++ libraries included."""
+  from torch.profiler import ProfilerActivity, profile as torch_profile
+
+  torch.cuda.synchronize()
+  with torch_profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+    run()
+    torch.cuda.synchronize()
+  events = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+  copies = {kind: sum(e.count for e in events
+                      if e.key.startswith('Memcpy ' + kind))
+            for kind in ('HtoD', 'DtoH', 'DtoD')}
+  kernels = sum(e.count for e in events
+                if not e.key.startswith(('Memcpy', 'Memset')))
+  return copies, kernels
+
+
+def _ms(out):
+  return '{:.3f}'.format(out['busy_ms']) if 'busy_ms' in out else \
+      'not measured'
+
+
+def _share(out, wall_ms):
+  return '{:.3f} ms, {:.1%}'.format(out['busy_ms'], out['busy_ms'] / wall_ms) \
+      if 'busy_ms' in out else 'not measured'
 
 
 # The served attention: episode_length 512 x 8 tokens, 8 heads of 64.
@@ -2509,7 +2900,9 @@ def phase_seq2act_records(device, data_dir):
     current = [state]
 
     def loop_step(_):
-      current[0], metrics = trainer._step(current[0], next(iterator))
+      current[0], metrics = trainer._step(current[0],
+                                          trainer.feed.put_batch(
+                                              next(iterator)))
       float(metrics['loss'])
 
     loop_step(0)   # warm: the loader's first batch
@@ -3088,7 +3481,13 @@ def main():
   flash = phase_flash(device, gen)
   flash_kv, flash_q = phase_flash_backward(device, gen)
   paths = {'serve': phase_slice(device), 'train': phase_train(device)}
-  paths.update(phase_records(device))
+  critic_dir = tempfile.TemporaryDirectory()
+  try:
+    paths.update(phase_records(device, critic_dir.name))
+    paths['records_coef_train'] = phase_records_coef(device,
+                                                     critic_dir.name)
+  finally:
+    critic_dir.cleanup()
   paths.update({'seq2act': phase_seq2act(device),
                 'seq2act_train': phase_seq2act_train(device)})
   # K1 and K2f report their serving launches, K2b and K3 their training

@@ -138,6 +138,10 @@ class AbstractInputGenerator(abc.ABC):
     self._prefetch = int(prefetch)
     self._feature_spec = None
     self._label_spec = None
+    # The split decode's preprocessor (a ``DeviceDecodePreprocessor``) and
+    # its on-disk JPEG specs, when the model has one.
+    self._device_decode = None
+    self._raw_feature_spec = None
 
   @property
   def batch_size(self) -> int:
@@ -152,17 +156,25 @@ class AbstractInputGenerator(abc.ABC):
     return self._label_spec
 
   def set_specification_from_model(self, model, mode: str) -> None:
-    """Takes the specifications the model's preprocessor consumes."""
+    """Takes the specifications the model's preprocessor consumes. A
+    ``DeviceDecodePreprocessor`` is recognized: a record generator then
+    plans its loader in the wrapper's coefficient mode against the
+    on-disk JPEG specs."""
     if mode not in ModeKeys.ALL:
       raise ValueError('mode must be one of {}, not {!r}.'.format(
           ModeKeys.ALL, mode))
     preprocessor = model.preprocessor
     self.set_specification(preprocessor.get_in_feature_specification(mode),
                            preprocessor.get_in_label_specification(mode))
+    if hasattr(preprocessor, 'raw_in_feature_specification'):
+      self._device_decode = preprocessor
+      self._raw_feature_spec = dict(
+          preprocessor.raw_in_feature_specification(mode))
 
   def set_specification(self, feature_spec, label_spec) -> None:
     self._feature_spec = dict(feature_spec)
     self._label_spec = dict(label_spec)
+    self._device_decode = self._raw_feature_spec = None
 
   def create_dataset_iterator(self, mode: str,
                               num_epochs: Optional[int] = None,
@@ -290,6 +302,12 @@ class DefaultRecordInputGenerator(AbstractInputGenerator):
   (one seed, each its ``frames``) read the same episodes; it decodes only
   the shard's frames, with nvJPEG on the CUDA ``device`` that the
   iterator is given.
+
+  A model whose preprocessor is a ``DeviceDecodePreprocessor`` (the split
+  decode) is planned against its on-disk JPEG specs in the wrapper's
+  coefficient mode; only the native loader ships coefficients, so
+  ``skip_corrupt_records``, ``use_native=False``, a ``dataset_map`` or
+  specs it cannot plan raise.
   """
 
   def __init__(self, file_patterns: Optional[str] = None,
@@ -337,7 +355,10 @@ class DefaultRecordInputGenerator(AbstractInputGenerator):
   def native_plan(self, frames: Optional[FrameShard] = None):
     """The native loader's plan of the specs (of ``frames`` only, where
     given) when ``use_native`` takes it (see the class's rule), else
-    None."""
+    None; for the split decode, the plan in the wrapper's coefficient mode
+    or an error (no other reader ships coefficients)."""
+    if self._device_decode is not None:
+      return self._coefficient_plan(frames)
     if self._use_native is False:
       return None
     plan = None
@@ -353,6 +374,31 @@ class DefaultRecordInputGenerator(AbstractInputGenerator):
           'use_native=True, but the native loader does not read these '
           'specs and datasets (sequences without sequence_max_len, PNG '
           'images, unnamed or shared names, or datasets no spec reads).')
+    return plan
+
+  def _coefficient_plan(self, frames: Optional[FrameShard]):
+    """The loader's plan of the split decode, which only the native loader
+    reads: every way round it raises."""
+    if self._skip_corrupt_records:
+      raise ValueError(
+          'skip_corrupt_records is not supported with a '
+          'DeviceDecodePreprocessor (native-only stream).')
+    if self._use_native is False:
+      raise ValueError(
+          'DeviceDecodePreprocessor requires the native loader '
+          '(use_native must not be False).')
+    if self._dataset_map is not None:
+      raise ValueError(
+          'DeviceDecodePreprocessor does not support multi-dataset zip.')
+    plan = native_loader.plan_for_specs(
+        self._raw_feature_spec, self._label_spec,
+        image_mode=self._device_decode.image_mode,
+        sparse_density=self._device_decode.sparse_density,
+        sequence_max_len=self._sequence_max_len, frames=frames)
+    if plan is None:
+      raise ValueError(
+          'DeviceDecodePreprocessor requires the native loader fast path '
+          '(plain Example, fixed shapes, 4:2:0-eligible JPEG specs).')
     return plan
 
   def _create_iterator(self, mode, num_epochs, seed, frames, shard_index,

@@ -1,5 +1,7 @@
 // Native TFRecord -> batched-tensor loader of the PyTorch port (a copy of
-// the JAX package's data/native/record_loader.cc, full image decode only).
+// the JAX package's data/native/record_loader.cc: full image decode, and
+// the split decode's coefficient modes, whose entropy stage is this file's
+// own baseline Huffman decoder where JAX calls libjpeg).
 //
 // A dependency-light C++ loader that reads TFRecord shards, parses
 // tf.Example and tf.SequenceExample protos straight off the wire format,
@@ -25,7 +27,9 @@
 //     and copies the planes back into its row. Its IDCT is not libjpeg's,
 //     so its pixels may differ from libjpeg's by a few levels.
 // t2r_loader_decoder() names the one built in; the libjpeg build takes the
-// 'device' line and uses no card.
+// 'device' line and uses no card. The coefficient modes (image_coef,
+// image_coef_sparse, image_coef_packed) use neither: a plan without pixel
+// images binds no card in either build.
 //
 // A field may keep only items [lo, hi) of its list (a frame range of a
 // [T, ...] field: frames of an encoded image list, or the elements of those
@@ -78,6 +82,9 @@
 
 #if defined(__SSE4_2__)
 #include <nmmintrin.h>
+#endif
+#if defined(__SSE2__)
+#include <emmintrin.h>
 #endif
 
 namespace {
@@ -188,7 +195,19 @@ enum FieldKind {
   kFloat = 0,
   kInt = 1,
   kImageFull = 2,
+  // The split decode: the entropy (Huffman) stage only, by the baseline
+  // decoder below, shipped as the quantized DCT coefficients and their
+  // quantization tables: dense planes, the sparse (delta, value) stream, or
+  // the packed wire (the JAX loader's three coefficient modes, bit for bit).
+  kImageCoef = 3,
+  kImageCoefSparse = 4,
+  kImageCoefPacked = 5,
 };
+
+inline bool is_coef(int kind) {
+  return kind == kImageCoef || kind == kImageCoefSparse ||
+         kind == kImageCoefPacked;
+}
 
 struct FieldSpec {
   std::string name;
@@ -198,6 +217,9 @@ struct FieldSpec {
   // float/int fields: elements per row (per STEP for sequence fields).
   // image_full fields: number of frames (a rank-4 [T, H, W, C] spec
   // stores T JPEGs as a bytes list; 0/1 means a single [H, W, C] image).
+  // image_coef_sparse fields: the per-row entry capacity of the sparse
+  // (delta, value) streams; image_coef_packed: the per-row byte capacity
+  // of the packed nibble stream.
   long long count = 0;
   // > 0: a SequenceExample feature_lists field (float/int only) with this
   // step CAPACITY; rows are [seq_cap, count] with zero padding past the
@@ -222,13 +244,27 @@ struct FieldSpec {
   // configuration's -1 for hi keeps them all (set to items() then).
   long long lo = 0, hi = -1;
   long long items() const {
-    return kind == kImageFull ? (count > 0 ? count : 1) : count;
+    if (kind == kFloat || kind == kInt) return count;
+    return kind == kImageFull && count > 0 ? count : 1;
   }
   long long kept() const { return hi - lo; }
   // Buffer indices into Slot::buffers (filled at config time).
-  int buf0 = -1;            // float/int values or uint8 pixels
-  int buf_n = -1;           // per-row sequence step counts
+  int buf0 = -1;            // float/int values, uint8 pixels, coef Y,
+                            // sparse deltas or the packed nibble stream
+  int buf_cb = -1, buf_cr = -1, buf_qt = -1;  // coef extras; the sparse
+                            // stream keeps its values in buf_cb, the
+                            // packed wire its int16 escapes in buf_cb and
+                            // its DC-delta nibbles in buf_cr
+  int buf_n = -1;           // per-row counts: sequence steps, sparse
+                            // entries or packed stream bytes
+  int buf_n2 = -1;          // packed wire: per-row escape counts
   int buf_p = -1;           // per-row presence flags (optional fields)
+
+  // The packed wire's derived sizes.
+  long long packed_escape_cap() const { return count / 4; }
+  long long packed_dc_count() const {
+    return (long long)(h / 8) * (w / 8) + 2LL * (h / 16) * (w / 16);
+  }
 };
 
 struct Config {
@@ -243,6 +279,8 @@ struct Config {
   bool verify_crc = false;
   bool any_seq = false;   // any sequence field: records parse as
                           // SequenceExample (context + feature_lists)
+  bool any_full_image = false;  // any field decoded to pixels: only then
+                                // do the workers bind a decode device
   // One file list per dataset; row r of a batch is built from one record
   // of EACH group (multi-dataset zip, ending with the shortest group).
   // The single-dataset case is one group.
@@ -312,12 +350,17 @@ bool parse_config(const std::string& text, Config* cfg, std::string* err) {
       *err = "field dataset index out of range: " + f.name;
       return false;
     }
-    if (f.kind != kFloat && f.kind != kInt && f.kind != kImageFull) {
+    if (f.kind != kFloat && f.kind != kInt && f.kind != kImageFull &&
+        !is_coef(f.kind)) {
       *err = "unknown field kind for " + f.name;
       return false;
     }
-    if (f.varlen && f.seq_cap > 0) {
-      *err = "varlen unsupported for sequence fields: " + f.name;
+    if (f.varlen && (f.seq_cap > 0 || is_coef(f.kind))) {
+      *err = "varlen unsupported for sequence/coef fields: " + f.name;
+      return false;
+    }
+    if (f.optional_field && is_coef(f.kind)) {
+      *err = "optional unsupported for coef fields: " + f.name;
       return false;
     }
   }
@@ -375,10 +418,78 @@ bool parse_config(const std::string& text, Config* cfg, std::string* err) {
         // count > 0: a rank-4 [T, H, W, C] spec — strict frame count
         // (even T=1). count == 0: rank-3 single image, first bytes
         // element wins (Python parser parity).
+        cfg->any_full_image = true;
         f.buf0 = (int)cfg->buffer_sizes.size();
         cfg->buffer_sizes.push_back(B * f.kept() * (long long)f.h * f.w *
                                     f.c);
         break;
+      case kImageCoef: {
+        if (f.h % 16 || f.w % 16 || f.c != 3) {
+          *err = "image_coef requires HxW multiple of 16 and c=3: " + f.name;
+          return false;
+        }
+        long long yblocks = (long long)(f.h / 8) * (f.w / 8);
+        long long cblocks = (long long)(f.h / 16) * (f.w / 16);
+        f.buf0 = (int)cfg->buffer_sizes.size();
+        cfg->buffer_sizes.push_back(B * yblocks * 64 * 2);
+        f.buf_cb = (int)cfg->buffer_sizes.size();
+        cfg->buffer_sizes.push_back(B * cblocks * 64 * 2);
+        f.buf_cr = (int)cfg->buffer_sizes.size();
+        cfg->buffer_sizes.push_back(B * cblocks * 64 * 2);
+        f.buf_qt = (int)cfg->buffer_sizes.size();
+        cfg->buffer_sizes.push_back(B * 3 * 64 * 2);
+        break;
+      }
+      case kImageCoefSparse: {
+        if (f.h % 16 || f.w % 16 || f.c != 3) {
+          *err = "image_coef_sparse requires HxW multiple of 16 and c=3: " +
+                 f.name;
+          return false;
+        }
+        if (f.count <= 0) {
+          *err = "image_coef_sparse requires a positive entry capacity: " +
+                 f.name;
+          return false;
+        }
+        f.buf0 = (int)cfg->buffer_sizes.size();        // deltas, uint8
+        cfg->buffer_sizes.push_back(B * f.count);
+        f.buf_cb = (int)cfg->buffer_sizes.size();      // values, int8
+        cfg->buffer_sizes.push_back(B * f.count);
+        f.buf_qt = (int)cfg->buffer_sizes.size();      // quant tables
+        cfg->buffer_sizes.push_back(B * 3 * 64 * 2);
+        f.buf_n = (int)cfg->buffer_sizes.size();       // entry counts, int32
+        cfg->buffer_sizes.push_back(B * 4);
+        break;
+      }
+      case kImageCoefPacked: {
+        if (f.h % 16 || f.w % 16 || f.c != 3) {
+          *err = "image_coef_packed requires HxW multiple of 16 and c=3: " +
+                 f.name;
+          return false;
+        }
+        // count is the per-row BYTE capacity of the packed nibble stream;
+        // the escape stream rides at count/4 int16 entries and the DC
+        // plane is one nibble per block. Multiple-of-8 keeps the derived
+        // escape capacity exact.
+        if (f.count <= 0 || f.count % 8) {
+          *err = "image_coef_packed requires a positive byte capacity "
+                 "divisible by 8: " + f.name;
+          return false;
+        }
+        f.buf0 = (int)cfg->buffer_sizes.size();        // nibble stream, u8
+        cfg->buffer_sizes.push_back(B * f.count);
+        f.buf_cb = (int)cfg->buffer_sizes.size();      // escapes, int16
+        cfg->buffer_sizes.push_back(B * f.packed_escape_cap() * 2);
+        f.buf_cr = (int)cfg->buffer_sizes.size();      // DC nibbles, u8
+        cfg->buffer_sizes.push_back(B * (f.packed_dc_count() / 2));
+        f.buf_qt = (int)cfg->buffer_sizes.size();      // quant tables
+        cfg->buffer_sizes.push_back(B * 3 * 64 * 2);
+        f.buf_n = (int)cfg->buffer_sizes.size();       // stream bytes, i32
+        cfg->buffer_sizes.push_back(B * 4);
+        f.buf_n2 = (int)cfg->buffer_sizes.size();      // escape counts, i32
+        cfg->buffer_sizes.push_back(B * 4);
+        break;
+      }
     }
     if (f.optional_field) {
       f.buf_p = (int)cfg->buffer_sizes.size();  // presence, uint8
@@ -859,6 +970,723 @@ std::string decode_jpeg_planes(const uint8_t* data, size_t n,
 }
 
 #endif
+
+// ---------------------------------------------------------------------------
+// The split decode's entropy stage: a baseline JPEG Huffman decoder.
+// ---------------------------------------------------------------------------
+
+// The port's own baseline sequential decoder, compiled into both builds: it
+// stops after the entropy stage and gives what libjpeg's
+// jpeg_read_coefficients gives for a baseline 4:2:0 JPEG: the quantized DCT
+// coefficients (int16, natural order, DC absolute, blocks in raster order a
+// component) and the quantization tables (natural order). The card's host
+// has no libjpeg, and nvJPEG gives no coefficients.
+//
+// It reads SOI; APPn and COM (skipped); DQT (8- and 16-bit entries, several
+// tables a segment); SOF0 and SOF1 (8-bit); DHT (several tables a segment);
+// DRI; one SOS that interleaves the frame's three components (Ss 0, Se 63,
+// Ah = Al = 0); RSTn. It refuses progressive (SOF2), lossless,
+// hierarchical and arithmetic-coded JPEGs, non-interleaved scans, other
+// component counts, dims and subsamplings, naming the field.
+//
+// Where the scan ends early (a truncated file, or a marker inside the
+// data), it does what libjpeg does: the MCU that runs out reads zeros past
+// the data, and every later MCU of the restart interval stays zero (a
+// restart marker found in its place resumes the decode). Corrupt data that
+// libjpeg only warns about otherwise (a code no table has, restart markers
+// out of order) raises here.
+
+// The natural (row-major) index of the k-th zigzag coefficient, and 16
+// entries of 63 past the end, as libjpeg's jpeg_natural_order: a run that
+// overshoots the block lands in its last coefficient.
+const int kNaturalOrder[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+const int kLookBits = 9;  // codes this short decode with one table look
+
+// A canonical Huffman table (jdhuff.c's derived table).
+struct HuffTable {
+  bool defined = false;
+  int maxcode[18];      // the largest code of each length; -1 for none
+  int valoffset[17];    // a code's symbol index less the code, by length
+  uint8_t symbols[256];
+  // The next kLookBits bits -> (length << 8) | symbol; 0 for longer codes.
+  uint16_t look[1 << kLookBits];
+
+  // From DHT's 16 counts and their symbols; false on a table libjpeg
+  // refuses (over 256 symbols, a code that overflows its length, a DC
+  // symbol above 15).
+  bool build(const uint8_t counts[16], const uint8_t* values, int n,
+             bool dc) {
+    int sizes[257], codes[256], p = 0;
+    for (int l = 1; l <= 16; l++)
+      for (int i = 0; i < counts[l - 1]; i++) {
+        if (p >= 256) return false;
+        sizes[p++] = l;
+      }
+    if (p != n) return false;
+    sizes[p] = 0;
+    int code = 0, si = sizes[0];
+    p = 0;
+    while (sizes[p]) {
+      while (sizes[p] == si) codes[p++] = code++;
+      if (code >= (1 << si)) return false;
+      code <<= 1;
+      si++;
+    }
+    p = 0;
+    for (int l = 1; l <= 16; l++) {
+      if (counts[l - 1]) {
+        valoffset[l] = p - codes[p];
+        p += counts[l - 1];
+        maxcode[l] = codes[p - 1];
+      } else {
+        maxcode[l] = -1;
+      }
+    }
+    maxcode[17] = 0x7FFFFFFF;
+    for (int i = 0; i < n; i++) {
+      if (dc && values[i] > 15) return false;
+      symbols[i] = values[i];
+    }
+    memset(look, 0, sizeof look);
+    p = 0;
+    for (int l = 1; l <= kLookBits; l++)
+      for (int i = 0; i < counts[l - 1]; i++, p++) {
+        int first = codes[p] << (kLookBits - l);
+        for (int j = 0; j < (1 << (kLookBits - l)); j++)
+          look[first + j] = (uint16_t)((l << 8) | symbols[p]);
+      }
+    defined = true;
+    return true;
+  }
+};
+
+// The scan's bits, MSB first, with the stuffed zero of each 0xFF data byte
+// taken out. The first marker ends the data (the end of the buffer reads as
+// EOI, as libjpeg's memory source makes it); past the data every bit is 0,
+// and a read past it marks the decoder out of data (libjpeg's
+// insufficient_data).
+struct ScanBits {
+  const uint8_t* p;
+  const uint8_t* end;
+  uint64_t buf = 0;  // the next ``bits`` bits at the top, zeros below
+  int bits = 0;
+  int marker = 0;    // the marker that ended the data; 0 before it
+  bool out_of_data = false;
+
+  void fill() {
+    if (bits <= 56 && !marker && end - p >= 8) {
+      // Eight bytes at once where none is 0xFF (no stuffing, no marker).
+      uint64_t w;
+      memcpy(&w, p, 8);
+      w = __builtin_bswap64(w);
+      uint64_t x = ~w;  // a 0xFF byte becomes 0x00
+      if (!((x - 0x0101010101010101ULL) & ~x & 0x8080808080808080ULL)) {
+        int nbytes = (64 - bits) >> 3;
+        buf |= (w & (~0ULL << (64 - 8 * nbytes))) >> bits;
+        bits += 8 * nbytes;
+        p += nbytes;
+        return;
+      }
+    }
+    while (bits <= 56 && !marker) {
+      if (p >= end) {
+        marker = 0xD9;
+        return;
+      }
+      int c = *p++;
+      if (c == 0xFF) {
+        int d;
+        do {  // fill bytes: 0xFF 0xFF ... 0x00 is one 0xFF data byte
+          if (p >= end) {
+            marker = 0xD9;
+            return;
+          }
+          d = *p++;
+        } while (d == 0xFF);
+        if (d != 0) {
+          marker = d;
+          return;
+        }
+      }
+      buf |= (uint64_t)c << (56 - bits);
+      bits += 8;
+    }
+  }
+
+  inline void consume(int n) {
+    if (bits < n) {
+      fill();
+      if (bits < n) {
+        out_of_data = true;
+        bits = 64;  // the zeros past the data
+      }
+    }
+    buf <<= n;
+    bits -= n;
+  }
+
+  // n in 1..16 bits as an unsigned number.
+  inline int get(int n) {
+    if (bits < n) fill();
+    int v = (int)(buf >> (64 - n));
+    consume(n);
+    return v;
+  }
+
+  // One Huffman symbol; -1 for a code the table does not have.
+  inline int decode(const HuffTable& t) {
+    if (bits < 16) fill();
+    int entry = t.look[buf >> (64 - kLookBits)];
+    if (entry) {
+      consume(entry >> 8);
+      return entry & 0xFF;
+    }
+    int code = (int)(buf >> 48);  // the next 16 bits
+    int l = kLookBits + 1;
+    while (l <= 16 && (code >> (16 - l)) > t.maxcode[l]) l++;
+    if (l > 16) return -1;
+    consume(l);
+    return t.symbols[t.valoffset[l] + (code >> (16 - l))];
+  }
+
+  // libjpeg's process_restart: the bits left are dropped and the marker
+  // next in the data is read. The expected RSTn resumes the data; another
+  // marker (EOI where the file ends) stays unread, so the interval reads
+  // as empty. Returns false for restart markers out of order.
+  bool restart(int expected) {
+    buf = 0;
+    bits = 0;
+    int m = marker;
+    while (!m) {  // libjpeg's next_marker: bytes before the marker skipped
+      if (p >= end) {
+        m = 0xD9;
+        break;
+      }
+      if (*p++ != 0xFF) continue;
+      while (p < end && *p == 0xFF) p++;
+      if (p >= end) {
+        m = 0xD9;
+        break;
+      }
+      int d = *p++;
+      if (d != 0) m = d;
+    }
+    if (m == 0xD0 + expected) {
+      marker = 0;
+      out_of_data = false;
+      return true;
+    }
+    marker = m;
+    return m >= 0xC0 && !(m >= 0xD0 && m <= 0xD7);
+  }
+};
+
+inline int huff_extend(int v, int s) {
+  return v < (1 << (s - 1)) ? v + (int)((unsigned)-1 << s) + 1 : v;
+}
+
+// One symbol and its value bits (at most 16 + 15): a table look where the
+// buffer holds 31 bits, else the careful path that reads zeros past the
+// data. Returns the symbol, its value in *value; -1 for a bad code.
+inline int decode_symbol(ScanBits& in, const HuffTable& t, int* value) {
+  if (in.bits < 31) in.fill();
+  if (in.bits >= 31) {
+    int entry = t.look[in.buf >> (64 - kLookBits)];
+    int sym;
+    if (entry) {
+      int len = entry >> 8;
+      in.buf <<= len;
+      in.bits -= len;
+      sym = entry & 0xFF;
+    } else {
+      sym = in.decode(t);
+      if (sym < 0) return -1;
+    }
+    int s = sym & 15;
+    if (s) {
+      int v = (int)(in.buf >> (64 - s));
+      in.buf <<= s;
+      in.bits -= s;
+      *value = huff_extend(v, s);
+    }
+    return sym;
+  }
+  int sym = in.decode(t);
+  if (sym > 0 && (sym & 15)) *value = huff_extend(in.get(sym & 15), sym & 15);
+  return sym;
+}
+
+// One 8x8 block: the DC difference onto ``*pred``, then the AC run-lengths
+// in zigzag order (libjpeg's decode_mcu). False on a bad code.
+inline bool decode_block(ScanBits& in, const HuffTable& dc,
+                         const HuffTable& ac, int* pred, int16_t* block) {
+  int value = 0;
+  int s = decode_symbol(in, dc, &value);
+  if (s < 0) return false;
+  *pred = (int)((unsigned)*pred + (unsigned)(s ? value : 0));
+  block[0] = (int16_t)*pred;
+  for (int k = 1; k < 64; k++) {
+    s = decode_symbol(in, ac, &value);
+    if (s < 0) return false;
+    int r = s >> 4;
+    if (s & 15) {
+      k += r;
+      block[kNaturalOrder[k]] = (int16_t)value;
+    } else {
+      if (r != 15) break;
+      k += 15;
+    }
+  }
+  return true;
+}
+
+std::string coef_error(const char* mode, const char* what,
+                       const FieldSpec& f) {
+  return std::string(mode) + ": " + what + ": " + f.name;
+}
+
+// Decodes one JPEG's scan into ``y`` ([H/8, W/8, 64]), ``cb`` and ``cr``
+// ([H/16, W/16, 64]) and its tables into ``qt`` ([3, 64], luma, cb, cr:
+// the frame's component order); ``mode`` prefixes the errors as the JAX
+// loader's ('image_coef', 'image_coef_sparse', 'image_coef_packed').
+std::string decode_jpeg_coefficients(const uint8_t* data, size_t n,
+                                     const FieldSpec& f, const char* mode,
+                                     int16_t* y, int16_t* cb, int16_t* cr,
+                                     uint16_t* qt) {
+  const uint8_t* p = data;
+  const uint8_t* end = data + n;
+  if (n < 2 || p[0] != 0xFF || p[1] != 0xD8)
+    return coef_error(mode, "jpeg: not a JPEG file (no SOI marker)", f);
+  p += 2;
+  uint16_t quant[4][64];
+  bool quant_defined[4] = {false, false, false, false};
+  HuffTable dc_tables[4], ac_tables[4];
+  int restart_interval = 0;
+  bool have_frame = false;
+  int comp_id[3], comp_quant[3];
+  for (;;) {
+    // The next marker; fill bytes (0xFF) may precede it.
+    if (p >= end || *p != 0xFF)
+      return coef_error(mode, "jpeg: no marker where one must be", f);
+    while (p < end && *p == 0xFF) p++;
+    if (p >= end) return coef_error(mode, "jpeg: the file ends early", f);
+    int marker = *p++;
+    if (marker == 0xD9)
+      return coef_error(mode, "jpeg: no scan before EOI", f);
+    if (marker == 0x01 || (marker >= 0xD0 && marker <= 0xD7)) continue;
+    if (end - p < 2) return coef_error(mode, "jpeg: the file ends early", f);
+    int length = (p[0] << 8) | p[1];
+    if (length < 2 || end - p < length)
+      return coef_error(mode, "jpeg: a marker segment overruns the file", f);
+    const uint8_t* seg = p + 2;
+    const uint8_t* seg_end = p + length;
+    p = seg_end;
+    if (marker == 0xC2)
+      return coef_error(mode, "progressive JPEG (SOF2) is not decoded by "
+                        "the port's baseline decoder", f);
+    if ((marker >= 0xC3 && marker <= 0xCF && marker != 0xC4 &&
+         marker != 0xC8) || marker == 0xCC)
+      return coef_error(mode, "not a baseline JPEG (lossless, hierarchical "
+                        "or arithmetic-coded frames are not decoded by the "
+                        "port's baseline decoder)", f);
+    if (marker == 0xC0 || marker == 0xC1) {
+      if (seg_end - seg < 6) return coef_error(mode, "jpeg: bad SOF", f);
+      if (seg[0] != 8)
+        return coef_error(mode, "jpeg: not an 8-bit JPEG", f);
+      int height = (seg[1] << 8) | seg[2], width = (seg[3] << 8) | seg[4];
+      int ncomp = seg[5];
+      if (seg_end - seg < 6 + 3 * ncomp)
+        return coef_error(mode, "jpeg: bad SOF", f);
+      if (ncomp != 3) return coef_error(mode, "not a 3-component JPEG", f);
+      if (width != f.w || height != f.h)
+        return std::string(mode) + ": dims mismatch for " + f.name;
+      const uint8_t* c = seg + 6;
+      static const int kSampling[3] = {0x22, 0x11, 0x11};
+      for (int i = 0; i < 3; i++) {
+        comp_id[i] = c[3 * i];
+        if (c[3 * i + 1] != kSampling[i])
+          return coef_error(mode, "requires 4:2:0 chroma subsampling", f);
+        comp_quant[i] = c[3 * i + 2];
+      }
+      if (comp_id[0] == comp_id[1] || comp_id[0] == comp_id[2] ||
+          comp_id[1] == comp_id[2])
+        return coef_error(mode, "jpeg: duplicate component ids", f);
+      have_frame = true;
+    } else if (marker == 0xDB) {
+      while (seg < seg_end) {
+        int precision = seg[0] >> 4, index = seg[0] & 15;
+        int entry = precision ? 2 : 1;
+        if (index > 3 || precision > 1 || seg_end - seg < 1 + 64 * entry)
+          return coef_error(mode, "jpeg: bad DQT", f);
+        seg++;
+        for (int i = 0; i < 64; i++, seg += entry)
+          quant[index][kNaturalOrder[i]] =
+              precision ? (uint16_t)((seg[0] << 8) | seg[1]) : seg[0];
+        quant_defined[index] = true;
+      }
+    } else if (marker == 0xC4) {
+      while (seg < seg_end) {
+        if (seg_end - seg < 17) return coef_error(mode, "jpeg: bad DHT", f);
+        int cls = seg[0] >> 4, index = seg[0] & 15;
+        int total = 0;
+        for (int i = 0; i < 16; i++) total += seg[1 + i];
+        if (cls > 1 || index > 3 || seg_end - seg < 17 + total)
+          return coef_error(mode, "jpeg: bad DHT", f);
+        HuffTable& t = cls ? ac_tables[index] : dc_tables[index];
+        if (!t.build(seg + 1, seg + 17, total, cls == 0))
+          return coef_error(mode, "jpeg: bogus Huffman table definition", f);
+        seg += 17 + total;
+      }
+    } else if (marker == 0xDD) {
+      if (seg_end - seg < 2) return coef_error(mode, "jpeg: bad DRI", f);
+      restart_interval = (seg[0] << 8) | seg[1];
+    } else if (marker == 0xDA) {
+      if (!have_frame) return coef_error(mode, "jpeg: SOS before SOF", f);
+      int ns = seg < seg_end ? seg[0] : 0;
+      if (ns != 3 || seg_end - seg < 1 + 2 * ns + 3)
+        return coef_error(mode, "the scan does not interleave the three "
+                          "components (a non-interleaved scan is not "
+                          "decoded by the port's baseline decoder)", f);
+      const uint8_t* sp = seg + 1 + 2 * ns;
+      if (sp[0] != 0 || sp[1] != 63 || sp[2] != 0)
+        return coef_error(mode, "jpeg: not a sequential scan", f);
+      for (int i = 0; i < 3; i++)
+        if (comp_quant[i] > 3 || !quant_defined[comp_quant[i]])
+          return coef_error(mode, "missing quant table", f);
+      // Each scan component: its frame index and tables, in scan order,
+      // which need not be the frame's.
+      struct ScanComp {
+        int16_t* plane;
+        int blocks_wide, h, v;
+        const HuffTable* dc;
+        const HuffTable* ac;
+        int pred;
+      } comps[3];
+      int16_t* planes[3] = {y, cb, cr};
+      bool used[3] = {false, false, false};
+      for (int s = 0; s < 3; s++) {
+        int id = seg[1 + 2 * s], tables = seg[2 + 2 * s];
+        int c = 0;
+        while (c < 3 && comp_id[c] != id) c++;
+        if (c == 3 || used[c])
+          return coef_error(mode, "jpeg: a scan component the frame does "
+                            "not have", f);
+        used[c] = true;
+        int td = tables >> 4, ta = tables & 15;
+        if (td > 3 || ta > 3 || !dc_tables[td].defined ||
+            !ac_tables[ta].defined)
+          return coef_error(mode, "jpeg: a Huffman table was not defined",
+                            f);
+        comps[s] = {planes[c], c == 0 ? f.w / 8 : f.w / 16, c == 0 ? 2 : 1,
+                    c == 0 ? 2 : 1, &dc_tables[td], &ac_tables[ta], 0};
+      }
+      for (int c = 0; c < 3; c++)
+        for (int i = 0; i < 64; i++) qt[c * 64 + i] = quant[comp_quant[c]][i];
+      memset(y, 0, (size_t)(f.h / 8) * (f.w / 8) * 64 * 2);
+      memset(cb, 0, (size_t)(f.h / 16) * (f.w / 16) * 64 * 2);
+      memset(cr, 0, (size_t)(f.h / 16) * (f.w / 16) * 64 * 2);
+      ScanBits bits{seg_end, end};
+      int mcus_wide = f.w / 16, mcus_high = f.h / 16;
+      long long mcu = 0;
+      int next_restart = 0;
+      for (int my = 0; my < mcus_high; my++) {
+        for (int mx = 0; mx < mcus_wide; mx++, mcu++) {
+          if (restart_interval && mcu && mcu % restart_interval == 0) {
+            if (!bits.restart(next_restart))
+              return coef_error(mode, "jpeg: restart markers out of order",
+                                f);
+            next_restart = (next_restart + 1) & 7;
+            for (auto& sc : comps) sc.pred = 0;
+          }
+          if (bits.out_of_data) continue;  // the interval's rest stays 0
+          for (auto& sc : comps) {
+            for (int v = 0; v < sc.v; v++) {
+              for (int h = 0; h < sc.h; h++) {
+                int16_t* block =
+                    sc.plane + ((long long)(my * sc.v + v) * sc.blocks_wide +
+                                mx * sc.h + h) * 64;
+                if (!decode_block(bits, *sc.dc, *sc.ac, &sc.pred, block))
+                  return coef_error(mode, "jpeg: corrupt Huffman code", f);
+              }
+            }
+          }
+        }
+      }
+      return "";
+    } else if ((marker >= 0xE0 && marker <= 0xEF) || marker == 0xFE) {
+      // APPn, COM: skipped.
+    } else {
+      char buf[96];
+      snprintf(buf, sizeof buf, "jpeg: unsupported marker 0x%02X", marker);
+      return coef_error(mode, buf, f);
+    }
+  }
+}
+
+// A worker's planes [y | cb | cr] of one frame, for the sparse and packed
+// wires (the dense mode decodes into its row).
+thread_local std::vector<int16_t> coef_scratch;
+
+// image_coef: the planes and tables straight into the row; an empty
+// payload is an all-zero image with all-ones tables (a well-defined
+// dequantize), as in the JAX loader.
+std::string decode_jpeg_coef(const uint8_t* data, size_t n,
+                             const FieldSpec& f, int16_t* y, int16_t* cb,
+                             int16_t* cr, uint16_t* qt) {
+  if (n == 0) {
+    memset(y, 0, (size_t)(f.h / 8) * (f.w / 8) * 64 * 2);
+    memset(cb, 0, (size_t)(f.h / 16) * (f.w / 16) * 64 * 2);
+    memset(cr, 0, (size_t)(f.h / 16) * (f.w / 16) * 64 * 2);
+    for (int i = 0; i < 3 * 64; i++) qt[i] = 1;
+    return "";
+  }
+  return decode_jpeg_coefficients(data, n, f, "image_coef", y, cb, cr, qt);
+}
+
+// image_coef_sparse: the quantized coefficients of a camera JPEG are mostly
+// zero, so this mode emits a (delta, value) entry stream a frame over the
+// flat coefficient space [y blocks | cb blocks | cr blocks] in block-row-
+// major natural order:
+//
+//   entry (d, v): advance the cursor by d positions, then ADD v at the
+//   cursor. d is uint8, v is int8. Long zero gaps become (255, 0) skip
+//   entries; values outside int8 become (0, piece) continuation entries
+//   that add onto the same position; buffer tail padding is (0, 0), a
+//   no-op. The device undoes it with one cumsum and one scatter-add
+//   (data/jpeg_device.py unpack_sparse_coefficients).
+std::string decode_jpeg_coef_sparse(const uint8_t* data, size_t n,
+                                    const FieldSpec& f, uint8_t* sd,
+                                    int8_t* sv, uint16_t* qt,
+                                    int32_t* count_out) {
+  const long long cap = f.count;
+  const long long yn = (long long)(f.h / 8) * (f.w / 8) * 64;
+  const long long cn = (long long)(f.h / 16) * (f.w / 16) * 64;
+  const long long total = yn + 2 * cn;
+  if (n == 0) {  // empty payload -> all-zero image
+    memset(sd, 0, cap);
+    memset(sv, 0, cap);
+    for (int i = 0; i < 3 * 64; i++) qt[i] = 1;
+    *count_out = 0;
+    return "";
+  }
+  std::vector<int16_t>& coef = coef_scratch;
+  coef.resize(total);
+  std::string err = decode_jpeg_coefficients(
+      data, n, f, "image_coef_sparse", coef.data(), coef.data() + yn,
+      coef.data() + yn + cn, qt);
+  if (!err.empty()) return err;
+  long long cur = -1, cnt = 0;
+  bool overflow = false;
+  // Slow path: long gaps (>255) and wide values (|v|>127) via skip /
+  // continuation entries.
+  auto emit_slow = [&](long long pos, int v) {
+    long long diff = pos - cur;
+    while (diff > 255) {
+      if (cnt >= cap) { overflow = true; return; }
+      sd[cnt] = 255;
+      sv[cnt] = 0;
+      cnt++;
+      diff -= 255;
+    }
+    int piece = v < -128 ? -128 : (v > 127 ? 127 : v);
+    if (cnt >= cap) { overflow = true; return; }
+    sd[cnt] = (uint8_t)diff;
+    sv[cnt] = (int8_t)piece;
+    cnt++;
+    v -= piece;
+    while (v != 0) {  // |coef| > 127: add onto the same position
+      piece = v < -128 ? -128 : (v > 127 ? 127 : v);
+      if (cnt >= cap) { overflow = true; return; }
+      sd[cnt] = 0;
+      sv[cnt] = (int8_t)piece;
+      cnt++;
+      v -= piece;
+    }
+    cur = pos;
+  };
+  auto emit = [&](long long pos, int v) {
+    long long diff = pos - cur;
+    if (diff <= 255 && v >= -128 && v <= 127 && cnt < cap) {
+      sd[cnt] = (uint8_t)diff;
+      sv[cnt] = (int8_t)v;
+      cnt++;
+      cur = pos;
+      return;
+    }
+    emit_slow(pos, v);
+  };
+  const int16_t* c = coef.data();
+  for (long long g = 0; g < total && !overflow; g += 16) {
+    // Zero coefficients dominate: find the nonzeros of 16 at a time.
+#if defined(__SSE2__)
+    __m128i a = _mm_loadu_si128((const __m128i*)(c + g));
+    __m128i b = _mm_loadu_si128((const __m128i*)(c + g + 8));
+    __m128i zero = _mm_setzero_si128();
+    uint32_t z = (uint32_t)_mm_movemask_epi8(_mm_packs_epi16(
+        _mm_cmpeq_epi16(a, zero), _mm_cmpeq_epi16(b, zero)));
+    uint32_t nz = ~z & 0xFFFFu;  // bit i set <=> c[g + i] != 0
+    while (nz && !overflow) {
+      int k = __builtin_ctz(nz);
+      nz &= nz - 1;
+      emit(g + k, c[g + k]);
+    }
+#else
+    for (int k = 0; k < 16 && !overflow; k++)
+      if (c[g + k]) emit(g + k, c[g + k]);
+#endif
+  }
+  if (overflow) {
+    char buf[192];
+    snprintf(buf, sizeof buf,
+             "image_coef_sparse: entry capacity %lld exceeded for '%s' "
+             "(unusually dense JPEG); raise sparse_density or use "
+             "image_mode='coef'",
+             cap, f.name.c_str());
+    return buf;
+  }
+  // Tail padding MUST be zeroed: buffers are recycled across batches and a
+  // stale nonzero delta would silently corrupt positions on the device.
+  memset(sd + cnt, 0, cap - cnt);
+  memset(sv + cnt, 0, cap - cnt);
+  *count_out = (int32_t)cnt;
+  return "";
+}
+
+// image_coef_packed: the coef_sparse stream tightened.
+//
+//   * AC nibble stream (buf0, uint8): one byte per AC nonzero in the flat
+//     space [y | cb | cr] (natural order, DC slots skipped). High nibble d
+//     = position gap (0..15), low nibble v = value code:
+//       v in 1..7            -> value +v
+//       v in 9..15           -> value v-16 (i.e. -7..-1)
+//       v == 8               -> ESCAPE: value is the next int16 of the
+//                               escape stream (AC region)
+//       v == 0, d > 0        -> skip byte: advance d*16, no value
+//       0x00                 -> no-op (tail padding)
+//   * DC nibble plane (buf_cr, uint8): one 4-bit code a block, two a byte
+//     low nibble first, carrying the cross-block DC delta chain (the
+//     previous DC starts at 0 and runs across component boundaries):
+//       code in 0..7   -> delta +code     code in 9..15 -> delta code-16
+//       code == 8      -> ESCAPE: delta is the next int16 of the escape
+//                         stream (DC region)
+//   * Escape stream (buf_cb, int16): the DC escapes first (frame order),
+//     then the AC escapes (stream order).
+//   * Quant tables (buf_qt): a row's here; the Python side ships one a
+//     batch. An empty payload writes zero tables, the "no table" sentinel
+//     that the batch's uniformity check skips.
+std::string decode_jpeg_coef_packed(const uint8_t* data, size_t n,
+                                    const FieldSpec& f, uint8_t* pw,
+                                    int16_t* se, uint8_t* dcn, uint16_t* qt,
+                                    int32_t* n_out, int32_t* ne_out) {
+  const long long cap = f.count;
+  const long long esc_cap = f.packed_escape_cap();
+  const long long n_dc = f.packed_dc_count();
+  if (n == 0) {  // empty payload -> all-zero image
+    memset(pw, 0, cap);
+    memset(se, 0, esc_cap * 2);
+    memset(dcn, 0, n_dc / 2);
+    memset(qt, 0, 3 * 64 * 2);
+    *n_out = 0;
+    *ne_out = 0;
+    return "";
+  }
+  const long long yn = (long long)(f.h / 8) * (f.w / 8) * 64;
+  const long long cn = (long long)(f.h / 16) * (f.w / 16) * 64;
+  std::vector<int16_t>& coef = coef_scratch;
+  coef.resize(yn + 2 * cn);
+  std::string err = decode_jpeg_coefficients(
+      data, n, f, "image_coef_packed", coef.data(), coef.data() + yn,
+      coef.data() + yn + cn, qt);
+  if (!err.empty()) return err;
+  long long cur = -1, na = 0;
+  bool overflow = false;
+  // Escape regions buffered apart: the wire holds [DC escapes | AC
+  // escapes], but the scan meets them interleaved.
+  std::vector<int16_t> dc_esc, ac_esc;
+  auto emit_ac = [&](long long pos, int v) {
+    long long gap = pos - cur;
+    cur = pos;
+    while (gap > 15) {
+      long long s = gap >> 4;
+      if (s > 15) s = 15;
+      if (na >= cap) { overflow = true; return; }
+      pw[na++] = (uint8_t)(s << 4);
+      gap -= s * 16;
+    }
+    if (na >= cap) { overflow = true; return; }
+    if (v >= -7 && v <= 7)
+      pw[na++] = (uint8_t)((gap << 4) | (v & 0xF));
+    else {
+      pw[na++] = (uint8_t)((gap << 4) | 8);
+      ac_esc.push_back((int16_t)v);
+    }
+  };
+  int prev_dc = 0;
+  memset(dcn, 0, n_dc / 2);
+  const int16_t* c = coef.data();
+  for (long long block = 0; block < n_dc && !overflow; block++) {
+    const int16_t* b = c + block * 64;
+    long long block_base = block * 64;
+    // DC: the cross-block delta chain into the nibble plane.
+    int dc_delta = b[0] - prev_dc;
+    prev_dc = b[0];
+    uint8_t code;
+    if (dc_delta >= -7 && dc_delta <= 7) {
+      code = (uint8_t)(dc_delta & 0xF);
+    } else {
+      code = 8;
+      dc_esc.push_back((int16_t)dc_delta);
+    }
+    dcn[block >> 1] |= (block & 1) ? (uint8_t)(code << 4) : code;
+    // AC: the nonzeros of k = 1..63, 16 at a time.
+    for (int g = 0; g < 4 && !overflow; g++) {
+#if defined(__SSE2__)
+      __m128i x0 = _mm_loadu_si128((const __m128i*)(b + g * 16));
+      __m128i x1 = _mm_loadu_si128((const __m128i*)(b + g * 16 + 8));
+      __m128i zero = _mm_setzero_si128();
+      uint32_t z = (uint32_t)_mm_movemask_epi8(_mm_packs_epi16(
+          _mm_cmpeq_epi16(x0, zero), _mm_cmpeq_epi16(x1, zero)));
+      uint32_t nz = ~z & 0xFFFFu;
+      if (g == 0) nz &= ~1u;  // k == 0 is the DC slot
+      while (nz && !overflow) {
+        int k = g * 16 + __builtin_ctz(nz);
+        nz &= nz - 1;
+        emit_ac(block_base + k, b[k]);
+      }
+#else
+      for (int k = g == 0 ? 1 : g * 16; k < g * 16 + 16 && !overflow; k++)
+        if (b[k]) emit_ac(block_base + k, b[k]);
+#endif
+    }
+  }
+  long long ne = (long long)(dc_esc.size() + ac_esc.size());
+  if (overflow || ne > esc_cap) {
+    char buf[192];
+    snprintf(buf, sizeof buf,
+             "image_coef_packed: %s capacity %lld exceeded for '%s' "
+             "(unusually dense JPEG); raise sparse_density or use "
+             "image_mode='coef'",
+             overflow ? "stream byte" : "escape", overflow ? cap : esc_cap,
+             f.name.c_str());
+    return buf;
+  }
+  if (!dc_esc.empty()) memcpy(se, dc_esc.data(), dc_esc.size() * 2);
+  if (!ac_esc.empty())
+    memcpy(se + dc_esc.size(), ac_esc.data(), ac_esc.size() * 2);
+  // Tails MUST be zeroed: buffers recycle across batches, and a stale
+  // nonzero nibble would silently corrupt positions on the device.
+  memset(pw + na, 0, cap - na);
+  memset(se + ne, 0, (esc_cap - ne) * 2);
+  *n_out = (int32_t)na;
+  *ne_out = (int32_t)ne;
+  return "";
+}
 
 // ---------------------------------------------------------------------------
 // Loader.
@@ -1369,8 +2197,20 @@ struct Loader {
       Cursor list = value.bytes();
       switch (fnum) {
         case 1: {  // BytesList
-          if (f.kind != kImageFull)
+          if (f.kind != kImageFull && !is_coef(f.kind))
             return "feature '" + f.name + "' is bytes but spec is numeric";
+          if (is_coef(f.kind)) {
+            // The first element is the frame (as for a rank-3 pixel spec).
+            uint32_t wt2;
+            while (uint32_t f2 = list.tag(&wt2)) {
+              if (f2 == 1 && wt2 == 2) {
+                Cursor payload = list.bytes();
+                return extract_coef(f, payload.p, payload.size(), slot, row);
+              }
+              list.skip(wt2);
+            }
+            return "empty bytes list for '" + f.name + "'";
+          }
           bool frame_list = f.kind == kImageFull && f.count > 0;
           bool strict_list = frame_list && !f.varlen;
           long long frames = f.items();
@@ -1446,6 +2286,31 @@ struct Loader {
       }
     }
     return "feature '" + f.name + "' has no value list";
+  }
+
+  // One coefficient frame into row ``row`` of its field's buffers.
+  std::string extract_coef(const FieldSpec& f, const uint8_t* data, size_t n,
+                           Slot& slot, int row) {
+    uint16_t* qt = (uint16_t*)slot.buffers[f.buf_qt] + (long long)row * 3 * 64;
+    if (f.kind == kImageCoefSparse)
+      return decode_jpeg_coef_sparse(
+          data, n, f, slot.buffers[f.buf0] + (long long)row * f.count,
+          (int8_t*)slot.buffers[f.buf_cb] + (long long)row * f.count, qt,
+          (int32_t*)slot.buffers[f.buf_n] + row);
+    if (f.kind == kImageCoefPacked)
+      return decode_jpeg_coef_packed(
+          data, n, f, slot.buffers[f.buf0] + (long long)row * f.count,
+          (int16_t*)slot.buffers[f.buf_cb] + (long long)row *
+              f.packed_escape_cap(),
+          slot.buffers[f.buf_cr] + (long long)row * (f.packed_dc_count() / 2),
+          qt, (int32_t*)slot.buffers[f.buf_n] + row,
+          (int32_t*)slot.buffers[f.buf_n2] + row);
+    long long yn = (long long)(f.h / 8) * (f.w / 8) * 64;
+    long long cn = (long long)(f.h / 16) * (f.w / 16) * 64;
+    return decode_jpeg_coef(
+        data, n, f, (int16_t*)slot.buffers[f.buf0] + (long long)row * yn,
+        (int16_t*)slot.buffers[f.buf_cb] + (long long)row * cn,
+        (int16_t*)slot.buffers[f.buf_cr] + (long long)row * cn, qt);
   }
 
   // FloatList message -> exactly f.count floats, of which elements
@@ -1614,13 +2479,17 @@ struct Loader {
   }
 
   void worker_main(int worker_index) {
-    std::string bind_error;
-    long long bound = bind_decode_device(cfg.device, &bind_error);
-    if (!bind_error.empty()) {
-      fail(bind_error);
-      return;
+    // Only a plan that decodes pixels binds a decode device: the split
+    // decode's entropy stage runs on the host and touches no card.
+    if (cfg.any_full_image) {
+      std::string bind_error;
+      long long bound = bind_decode_device(cfg.device, &bind_error);
+      if (!bind_error.empty()) {
+        fail(bind_error);
+        return;
+      }
+      st_decode_device.store(bound, std::memory_order_relaxed);
     }
-    st_decode_device.store(bound, std::memory_order_relaxed);
     for (;;) {
       WorkItem item;
       {

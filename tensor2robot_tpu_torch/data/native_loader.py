@@ -23,9 +23,21 @@ preallocated buffers, outside the GIL. This module:
     and copies no frame outside it). It returns None where the Python
     parser is needed instead (PNG images, sequences without a bound,
     unnamed or shared names, a frame range of a varlen or sequence spec)
-    and raises on the DCT coefficient modes, which are not ported;
+    and in the DCT coefficient modes where an image is not
+    coefficient-eligible (``coef_eligible``);
   * ``NativeBatchedStream`` yields ``(features, labels)`` batches, as the
     Python ``BatchedExampleStream`` does.
+
+The coefficient modes are the split decode of the device-side JPEG
+decode (``data/jpeg_device.py``): the loader stops after the entropy
+(Huffman) stage, with the port's own baseline decoder in both builds (no
+card: a plan of coefficient images binds none), and ships each frame's
+quantized DCT coefficients as dense planes (``'coef'``: ``key/{y, cb, cr,
+qt}``), as the sparse (delta, value) stream (``'coef_sparse'``:
+``key/{sd, sv, qt, n}``, bucketed a batch) or as the packed wire
+(``'coef_packed'``: ``key/{pw, se, dcn}`` and one ``[1, 3, 64]`` quant
+table a batch), each bit for bit the JAX loader's. A progressive JPEG is
+refused, naming the field.
 
 Creating a stream checks its configuration only: the reader and worker
 threads start at the first ``next()``, where every data error (a missing
@@ -47,9 +59,11 @@ import numpy as np
 from tensor2robot_tpu_torch.specs import algebra
 from tensor2robot_tpu_torch.specs.tensor_spec import TensorSpec
 
-__all__ = ['DECODERS', 'NativeBatchedStream', 'NativeLoaderPlan',
-           'build_native', 'decode_jpeg_planes', 'decoder', 'jpeg_decoder',
-           'plan_for_specs']
+__all__ = ['COEF_MODES', 'DECODERS', 'NativeBatchedStream',
+           'NativeLoaderPlan', 'build_native', 'coef_eligible',
+           'decode_jpeg_planes', 'decoder', 'jpeg_decoder', 'packed_capacity',
+           'packed_dc_count', 'plan_for_specs', 'sparse_capacity',
+           'total_coefficients']
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE = Path(__file__).resolve().parent / 'native' / 'record_loader.cc'
@@ -65,6 +79,21 @@ _LIB = None
 _KIND_FLOAT = 0
 _KIND_INT = 1
 _KIND_IMAGE_FULL = 2
+_KIND_IMAGE_COEF = 3
+_KIND_IMAGE_COEF_SPARSE = 4
+_KIND_IMAGE_COEF_PACKED = 5
+_IMAGE_KINDS = (_KIND_IMAGE_FULL, _KIND_IMAGE_COEF, _KIND_IMAGE_COEF_SPARSE,
+                _KIND_IMAGE_COEF_PACKED)
+# The image modes of a plan and their field kinds.
+COEF_MODES = {'coef': _KIND_IMAGE_COEF, 'coef_sparse': _KIND_IMAGE_COEF_SPARSE,
+              'coef_packed': _KIND_IMAGE_COEF_PACKED}
+# A batch's sparse streams are cut to its largest entry count rounded up to
+# this (few distinct shapes for the device's unpack, little padding).
+SPARSE_BUCKET = 4096
+# The packed wire's buckets: its nibble stream spends about one byte an AC
+# nonzero, its escape stream far fewer.
+PACKED_BUCKET = 2048
+ESCAPE_BUCKET = 256
 _INT_SIZES = {np.dtype(np.int64): 8, np.dtype(np.int32): 4,
               np.dtype(np.uint8): 1, np.dtype(np.bool_): 1}
 
@@ -255,7 +284,7 @@ class _Field:
     self.optional = optional
     self.dsi = dsi            # which zipped dataset it is read from
     self.pad_value = pad_value
-    self.h, self.w, self.c = shape[-3:] if kind == _KIND_IMAGE_FULL else (
+    self.h, self.w, self.c = shape[-3:] if kind in _IMAGE_KINDS else (
         0, 0, 0)
 
   def config_line(self) -> str:
@@ -280,26 +309,67 @@ class NativeLoaderPlan:
     self.dataset_keys = list(dataset_keys)
 
 
+def coef_eligible(spec) -> bool:
+  """Whether an image spec can ship as DCT coefficients (the split
+  decode): a rank-3 uint8 3-channel JPEG with both dims divisible by 16
+  (baseline 4:2:0)."""
+  shape = tuple(getattr(spec, 'shape', None) or ())
+  return (getattr(spec, 'is_encoded_image', False) and
+          spec.data_format.lower() in ('jpeg', 'jpg') and len(shape) == 3 and
+          shape[-1] == 3 and spec.dtype == np.uint8 and
+          shape[0] % 16 == 0 and shape[1] % 16 == 0)
+
+
+def total_coefficients(spec) -> int:
+  """The DCT coefficients of one 4:2:0 frame (y, cb and cr blocks)."""
+  return packed_dc_count(spec) * 64
+
+
+def sparse_capacity(spec, density: float) -> int:
+  """A frame's entry capacity of the sparse stream at ``density`` (a
+  fraction of its coefficients), in whole buckets."""
+  cap = int(np.ceil(total_coefficients(spec) * density / SPARSE_BUCKET)
+            ) * SPARSE_BUCKET
+  return max(cap, SPARSE_BUCKET)
+
+
+def packed_capacity(spec, density: float) -> int:
+  """A frame's byte capacity of the packed nibble stream: the sparse
+  stream's entry capacity taken as bytes (the packed wire spends fewer; a
+  multiple of 8, so that its escape capacity, a quarter of it in int16
+  entries, is exact)."""
+  return sparse_capacity(spec, density)
+
+
+def packed_dc_count(spec) -> int:
+  """The blocks (DC coefficients) of one 4:2:0 frame; always even."""
+  h, w = spec.shape[0], spec.shape[1]
+  return (h // 8) * (w // 8) + 2 * (h // 16) * (w // 16)
+
+
 def plan_for_specs(feature_spec, label_spec, image_mode: str = 'full',
+                   sparse_density: float = 0.5,
                    sequence_max_len: Optional[int] = None,
                    frames=None) -> Optional[NativeLoaderPlan]:
   """A plan if the loader reads these specs, else None (see the module's
-  note). ``image_mode`` must be 'full'; ``sequence_max_len`` bounds the
-  steps of sequence specs (numeric ones only), without which they are
-  the Python parser's. Derived ``<key>_length`` specs are made by the
-  stream, not read.
+  note). ``image_mode``: 'full' decodes JPEGs to pixels; 'coef',
+  'coef_sparse' and 'coef_packed' ship their DCT coefficients, and plan
+  only specs whose every JPEG is ``coef_eligible``, none optional or
+  varlen. ``sparse_density``: the sparse and packed streams' capacity a
+  frame, as a fraction of its coefficients (a denser frame raises at the
+  batch, naming the remedy). ``sequence_max_len`` bounds the steps of
+  sequence specs (numeric ones only), without which they are the Python
+  parser's. Derived ``<key>_length`` specs are made by the stream, not
+  read.
 
   ``frames`` (an ``input_generators.FrameShard``) keeps frames
   ``[start, stop)`` of the specs it keys, whose first axis is the
   episode's frames: the loader checks each record's whole frame count but
   decodes (or copies) only those frames, and the batches hold
   ``stop - start`` of them. The plan's specs are the cut ones."""
-  if image_mode != 'full':
-    raise NotImplementedError(
-        "image_mode {!r}: the DCT coefficient modes ('coef', 'coef_sparse', "
-        "'coef_packed') of the device-side JPEG decode are not ported yet; "
-        "the port's loader decodes whole images ('full').".format(
-            image_mode))
+  if image_mode != 'full' and image_mode not in COEF_MODES:
+    raise ValueError("image_mode must be 'full' or one of {}; got {!r}."
+                     .format(sorted(COEF_MODES), image_mode))
   feature_spec = algebra.flat_specs(feature_spec)
   label_spec = algebra.flat_specs(label_spec)
   frame_keys = () if frames is None else tuple(frames.keys)
@@ -356,6 +426,18 @@ def plan_for_specs(feature_spec, label_spec, image_mode: str = 'full',
             len(shape) not in (3, 4) or spec.dtype != np.uint8 or
             shape[-1] not in (1, 3) or (varlen and len(shape) != 4)):
           return None
+        if image_mode != 'full':
+          # One frame a record, its coefficients: no frame lists, and no
+          # presence or padding on the coefficient buffers.
+          if not coef_eligible(spec) or spec.is_optional or varlen:
+            return None
+          kind = COEF_MODES[image_mode]
+          count = (0 if kind == _KIND_IMAGE_COEF else
+                   sparse_capacity(spec, sparse_density))
+          fields.append(_Field(full_key, spec, kind, 1, shape, np.uint8,
+                               count=count, **common))
+          seen_names.add(spec.name)
+          continue
         # A rank-4 [T, H, W, C] spec is a list of T encoded frames: count
         # carries T, strict unless varlen (clip or pad).
         fields.append(_Field(full_key, spec, _KIND_IMAGE_FULL, 1, row_shape,
@@ -404,14 +486,16 @@ class NativeBatchedStream:
     datasets, a dict of one list per ``plan.dataset_keys`` entry; row r of
     a batch is then made of one record of each (the zip ends with the
     shortest). ``device``: the index of the CUDA device that the nvJPEG
-    build decodes on (None: the caller's current device); the libjpeg
-    build uses no card. The order of the records is a function of
-    ``seed`` alone, whatever the thread count and the frames kept.
-    ``num_threads`` None takes the host's cores, up to 16."""
+    build decodes pixels on (None: the caller's current device); the
+    libjpeg build, and a plan without pixel images, use no card. The
+    order of the records is a function of ``seed`` alone, whatever the
+    thread count and the frames kept. ``num_threads`` None takes the
+    host's cores, up to 16."""
     self._plan = plan
     self._batch_size = int(batch_size)
     self._copy = copy
     self._validate = validate
+    self._coef = any(f.kind in COEF_MODES.values() for f in plan.fields)
     self._lib = _lib()
     self.num_threads = num_threads or max(1, min(16, os.cpu_count() or 2))
     if isinstance(filenames, dict):
@@ -429,7 +513,8 @@ class NativeBatchedStream:
       groups = [list(filenames)]
     lines = ['batch_size {}'.format(self._batch_size),
              'ring {}'.format(ring), 'threads {}'.format(self.num_threads),
-             'device {}'.format(_decode_device(device)),
+             'device {}'.format(_decode_device(device) if any(
+                 f.kind == _KIND_IMAGE_FULL for f in plan.fields) else -1),
              'shuffle {}'.format(int(bool(shuffle))),
              'shuffle_buffer {}'.format(shuffle_buffer),
              'seed {}'.format(-1 if seed is None else seed),
@@ -466,17 +551,37 @@ class NativeBatchedStream:
     return {name: int(buf[i]) for i, name in enumerate(STAT_NAMES[:n])}
 
   def _buffer_layout(self):
-    """(field, part) per buffer, in record_loader.cc's order: the values,
-    then a sequence's lengths ('len'), then an optional field's presence
-    flags ('p')."""
+    """(field, part) per buffer, in record_loader.cc's order: the values
+    (a coefficient field's parts), then a sequence's lengths ('len'), then
+    an optional field's presence flags ('p')."""
     layout = []
     for f in self._plan.fields:
-      layout.append((f, ''))
+      if f.kind == _KIND_IMAGE_COEF:
+        layout.extend((f, part) for part in ('y', 'cb', 'cr', 'qt'))
+      elif f.kind == _KIND_IMAGE_COEF_SPARSE:
+        layout.extend((f, part) for part in ('sd', 'sv', 'qt', 'n'))
+      elif f.kind == _KIND_IMAGE_COEF_PACKED:
+        layout.extend((f, part) for part in ('pw', 'se', 'dcn', 'qt', 'n',
+                                             'ne'))
+      else:
+        layout.append((f, ''))
       if f.seq_cap > 0:
         layout.append((f, 'len'))
       if f.optional:
         layout.append((f, 'p'))
     return layout
+
+  @staticmethod
+  def _part_shape(f: _Field, part: str):
+    """(row shape, dtype) of a coefficient field's part."""
+    return {'y': ((f.h // 8, f.w // 8, 64), np.int16),
+            'cb': ((f.h // 16, f.w // 16, 64), np.int16),
+            'cr': ((f.h // 16, f.w // 16, 64), np.int16),
+            'qt': ((3, 64), np.uint16),
+            'sd': ((f.count,), np.uint8), 'sv': ((f.count,), np.int8),
+            'pw': ((f.count,), np.uint8), 'se': ((f.count // 4,), np.int16),
+            'dcn': ((packed_dc_count(f.spec) // 2,), np.uint8),
+            'n': ((), np.int32), 'ne': ((), np.int32)}[part]
 
   def _build_views(self):
     n_buffers = self._lib.t2r_loader_num_buffers(self._handle)
@@ -492,6 +597,9 @@ class NativeBatchedStream:
           shape, dtype = (batch,), np.int32
         elif part == 'p':
           shape, dtype = (batch,), np.uint8
+        elif part:
+          row, dtype = self._part_shape(f, part)
+          shape = (batch,) + row
         elif f.seq_cap > 0:
           shape, dtype = (batch, f.seq_cap) + f.shape, f.view_dtype
         else:
@@ -507,34 +615,84 @@ class NativeBatchedStream:
       views.append(slot_views)
     return views
 
+  @staticmethod
+  def _bucket(counts: np.ndarray, bucket: int, capacity: int) -> int:
+    """The width a batch's stream is cut to: its largest row in whole
+    buckets, at most ``capacity``."""
+    return min(max(bucket, -(-int(counts.max()) // bucket) * bucket),
+               capacity)
+
   def _pack(self, slot: int):
     views = self._views[slot]
     lengths = {f.key: views[i] for i, (f, part) in enumerate(self._layout)
                if part == 'len'}
+    # The sparse and packed streams leave cut to the batch's bucket: the
+    # host-to-device copy pays for the entries, not the capacity.
+    widths = {}
+    for i, (f, part) in enumerate(self._layout):
+      if part == 'n':
+        bucket = (SPARSE_BUCKET if f.kind == _KIND_IMAGE_COEF_SPARSE else
+                  PACKED_BUCKET)
+        widths[(f.key, 'sd' if f.kind == _KIND_IMAGE_COEF_SPARSE
+                else 'pw')] = self._bucket(views[i], bucket, f.count)
+        if f.kind == _KIND_IMAGE_COEF_SPARSE:
+          widths[(f.key, 'sv')] = widths[(f.key, 'sd')]
+      elif part == 'ne':
+        widths[(f.key, 'se')] = self._bucket(views[i], ESCAPE_BUCKET,
+                                             f.count // 4)
     # An optional field that some record of the batch omits is dropped
     # from the batch, as the Python parser does.
     dropped = {f.key for i, (f, part) in enumerate(self._layout)
                if part == 'p' and not views[i].all()}
     features, labels = {}, {}
     for i, (f, part) in enumerate(self._layout):
-      if part or f.key in dropped:
+      if part in ('len', 'p') or f.key in dropped:
         continue
+      if f.kind == _KIND_IMAGE_COEF_PACKED and part in ('n', 'ne'):
+        continue   # the bucketing's alone: padding bytes are no-ops
       array = views[i]
       side, key = f.key.split('/', 1)
       out = features if side == 'features' else labels
-      if f.seq_cap > 0:
+      if (f.key, part) in widths:
+        # .copy(): a cut as wide as the buffer would still be a view.
+        out[key + '/' + part] = array[:, :widths[(f.key, part)]].copy()
+      elif part == 'qt' and f.kind == _KIND_IMAGE_COEF_PACKED:
+        out[key + '/qt'] = self._hoisted_quant_table(f, array)
+      elif part:
+        out[key + '/' + part] = array.copy() if self._copy else array
+      elif f.seq_cap > 0:
         # The steps up to the batch's longest, as the Python parser pads.
         out[key] = array[:, :max(1, int(lengths[f.key].max()))].copy()
         out[key + '_length'] = lengths[f.key].astype(np.int64)
       else:
         out[key] = array.copy() if self._copy else array
-    if self._validate:
+    if self._validate and not self._coef:
+      # (Coefficient parts are not the image specs that they stand for.)
       features = algebra.validate_and_pack(self._plan.feature_spec, features,
                                            ignore_batch=True)
       if self._plan.label_spec:
         labels = algebra.validate_and_pack(self._plan.label_spec, labels,
                                            ignore_batch=True)
     return features, labels
+
+  @staticmethod
+  def _hoisted_quant_table(f: _Field, qt: np.ndarray) -> np.ndarray:
+    """The packed wire's one ``[1, 3, 64]`` quant table a batch. Rows of
+    empty payloads (zero tables) are skipped; an all-empty batch ships
+    ones. Tables that differ within the batch raise: the packed wire needs
+    one quality a batch, and 'coef_sparse' ships a table a frame."""
+    flat = qt.reshape(qt.shape[0], -1)
+    present = flat.any(axis=1)
+    if not present.any():
+      return np.ones((1,) + qt.shape[1:], np.uint16)
+    first = int(np.argmax(present))
+    if not (flat[present] == flat[first]).all():
+      raise RuntimeError(
+          "native loader: image_coef_packed requires batch-uniform JPEG "
+          "quantization tables for '{}' (the packed wire ships ONE table "
+          "per batch); this dataset mixes qualities — use "
+          "image_mode='coef_sparse' instead.".format(f.key))
+    return qt[first:first + 1].copy()
 
   def __iter__(self):
     while True:

@@ -155,6 +155,11 @@ class AbstractT2RModel:
           self.get_feature_specification, self.get_label_specification)
     return self._preprocessor
 
+  def set_preprocessor(self, preprocessor) -> None:
+    """Installs a (wrapped) preprocessor, e.g. the split decode's
+    ``DeviceDecodePreprocessor``."""
+    self._preprocessor = preprocessor
+
   def get_feature_specification(self, mode: str) -> Dict[str, tuple]:
     """The network's features, ``{key: (shape, dtype)}`` without the batch
     dim, as the preprocessor hands them on."""

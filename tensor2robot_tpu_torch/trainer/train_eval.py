@@ -5,8 +5,13 @@ train-only and train+eval.
 Each train step, on the model's device:
 
   1. the next batch of numpy arrays (made ahead by the input generator)
-     is copied to the device from pinned memory;
-  2. the model's preprocessor runs in TRAIN mode (the random crop and
+     goes through the model's feed (``data/device_feed.py``): pinned
+     staging buffers and a copy stream to a CUDA device, the split
+     decode's coefficient streams unpacked there (with ``feed_depth`` > 1,
+     that many batches ahead in a thread);
+  2. the model's preprocessor runs in TRAIN mode (under the split decode
+     it first finishes the JPEG decode on the device; then the random
+     crop and
      ``/ 255`` through kernel K1: one offset per frame for the Grasping44
      critic, one per episode for Seq2Act), the random offsets of global
      step k drawn from a device generator seeded from ``(seed + 1, k)``, as
@@ -47,6 +52,12 @@ concatenate to the batch that one rank draws or reads alone. Rank 0 writes
 the checkpoints (and the command line's JSON line); every rank restores
 them.
 
+The split decode (``--device_decode``, ``train_qtopt_sparse.gin``'s
+wrapper): the loader ships each frame's quantized DCT coefficients, dense
+('dense'), as the sparse stream ('sparse', the gin's) or as the packed
+wire ('packed'), decoded on the host by the port's own Huffman decoder;
+the feed unpacks them on the card and the step finishes the decode there.
+
 Not ported yet: continuous eval (eval-only), hooks, exporters, fault
 injection, the compiled-artifact store.
 
@@ -65,6 +76,9 @@ them, random batches::
     python -m tensor2robot_tpu_torch.trainer.train_eval --device cpu \\
         --num_convs 1,1,1 --max_train_steps 2 --batch_size 2 \\
         --model_dir /tmp/qtopt_cpu
+    python -m tensor2robot_tpu_torch.trainer.train_eval \\
+        --model_dir /tmp/qtopt_sparse --max_train_steps 100 \\
+        --train_data '/data/qtopt/train*' --device_decode sparse
     python -m tensor2robot_tpu_torch.trainer.train_eval --model seq2act \\
         --episode_length 512 --attention_mode flash --batch_size 8 \\
         --model_dir /tmp/seq2act --max_train_steps 100 \\
@@ -85,11 +99,11 @@ import sys
 import time
 from typing import Any, Dict, List, Optional
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from tensor2robot_tpu_torch import kernels
+from tensor2robot_tpu_torch.data import device_feed
 from tensor2robot_tpu_torch.data.input_generators import (
     AbstractInputGenerator, DefaultRandomInputGenerator,
     DefaultRecordInputGenerator)
@@ -100,12 +114,14 @@ from tensor2robot_tpu_torch.parallel import collectives
 from tensor2robot_tpu_torch.trainer.checkpointing import (
     CheckpointManager, latest_checkpoint_step)
 
-__all__ = ['MODELS', 'NAN_POLICIES', 'NonFiniteLossError', 'Trainer',
-           'main', 'make_input_generators', 'make_model', 'make_parser',
-           'train_eval_model']
+__all__ = ['DEVICE_DECODE', 'MODELS', 'NAN_POLICIES', 'NonFiniteLossError',
+           'Trainer', 'main', 'make_input_generators', 'make_model',
+           'make_parser', 'train_eval_model']
 
 NAN_POLICIES = ('skip', 'raise')
 MODELS = ('qtopt', 'seq2act')
+# --device_decode: off (pixels), or the split decode's wire.
+DEVICE_DECODE = ('off', 'dense', 'sparse', 'packed')
 # Eval batches are drawn from seeds this far above the train batches' (batch
 # i of an iterator seeded s draws seeds s + i and s + i + 977).
 EVAL_SEED_OFFSET = 1 << 30
@@ -135,7 +151,8 @@ class Trainer:
   def __init__(self, model, model_dir: str, seed: int = 0,
                keep_checkpoint_max: int = 5,
                save_checkpoints_steps: int = 500,
-               log_every_n_steps: int = 100, nan_policy: str = 'skip'):
+               log_every_n_steps: int = 100, nan_policy: str = 'skip',
+               feed_depth: int = 1):
     if nan_policy not in NAN_POLICIES:
       raise ValueError('nan_policy must be one of {}; got {!r}.'.format(
           NAN_POLICIES, nan_policy))
@@ -145,6 +162,9 @@ class Trainer:
     self.save_checkpoints_steps = save_checkpoints_steps
     self.log_every_n_steps = max(1, int(log_every_n_steps))
     self.nan_policy = nan_policy
+    # > 1: the train batches are transferred this many ahead, in a thread.
+    self.feed_depth = max(1, int(feed_depth))
+    self._feed = None
     self.checkpoint_manager = CheckpointManager(model_dir,
                                                 keep_checkpoint_max)
     # Rank 0 of the model's group writes the checkpoints.
@@ -174,21 +194,37 @@ class Trainer:
     return self.model.create_train_state(
         torch.Generator().manual_seed(self.seed))
 
-  def put_batch(self, arrays) -> Optional[Dict[str, torch.Tensor]]:
-    """numpy arrays -> tensors on the model's device (through pinned memory
-    to a CUDA device)."""
+  @property
+  def feed(self) -> device_feed.HostDeviceFeed:
+    """The model's feed (``device_feed.feed_for_model``), made at first
+    use: every batch goes through it."""
+    if self._feed is None:
+      self._feed = device_feed.feed_for_model(self.model)
+    return self._feed
+
+  def put_batch(self, arrays, channel: str = 'train'
+                ) -> Optional[Dict[str, torch.Tensor]]:
+    """One dict of numpy arrays -> tensors on the model's device, through
+    the feed (coefficient streams unpacked)."""
     if arrays is None:
       return None
-    device = self.model.device
-    out = {}
-    for key, value in arrays.items():
-      tensor = torch.from_numpy(np.ascontiguousarray(value))
-      if device.type == 'cuda':
-        tensor = tensor.pin_memory().to(device, non_blocking=True)
-      else:
-        tensor = tensor.to(device)
-      out[key] = tensor
-    return out
+    return self.feed.put_batch((arrays, None), channel)[0]
+
+  def device_batches(self, iterator, channel: str = 'train'):
+    """The batches of ``iterator`` on the device, through the feed: the
+    train channel ``feed_depth`` ahead in a thread where that is > 1.
+    Closing the result closes ``iterator``."""
+    if channel == 'train' and self.feed_depth > 1:
+      return device_feed.PipelinedFeed(iterator, self.feed,
+                                       self.feed_depth, channel)
+    return self._fed(iterator, channel)
+
+  def _fed(self, iterator, channel: str):
+    try:
+      for batch in iterator:
+        yield self.feed.put_batch(batch, channel)
+    finally:
+      iterator.close()
 
   def dataset_iterator(self, input_generator: AbstractInputGenerator,
                        mode: str, step: int = 0):
@@ -205,9 +241,9 @@ class Trainer:
         mode, seed=seed, frames=self.model.frame_shard(), device=index)
 
   def _step(self, state: TrainState, batch):
-    features, labels = batch
+    features, labels = batch   # on the device
     features, labels = self.model.preprocessor.preprocess(
-        self.put_batch(features), self.put_batch(labels), ModeKeys.TRAIN,
+        features, labels, ModeKeys.TRAIN,
         generator=self.crop_generator(state.step))
     new_state, metrics = self.model.train_step(state, features, labels)
     if self.nan_policy == 'raise':
@@ -244,8 +280,8 @@ class Trainer:
     if state.step >= max_train_steps:
       return state
     skipped = self.registry.counter('train/nonfinite_loss_skipped')
-    iterator = self.dataset_iterator(input_generator, ModeKeys.TRAIN,
-                                     state.step)
+    iterator = self.device_batches(self.dataset_iterator(
+        input_generator, ModeKeys.TRAIN, state.step))
     try:
       window_start, window_steps, data_s = time.perf_counter(), 0, 0.0
       window_skipped = 0
@@ -282,7 +318,8 @@ class Trainer:
                eval_steps: int, state: TrainState) -> Dict[str, float]:
     """Eval metrics averaged over ``eval_steps`` batches."""
     input_generator.set_specification_from_model(self.model, ModeKeys.EVAL)
-    iterator = self.dataset_iterator(input_generator, ModeKeys.EVAL)
+    iterator = self.device_batches(
+        self.dataset_iterator(input_generator, ModeKeys.EVAL), 'eval')
     totals: Dict[str, float] = {}
     count = 0
     try:
@@ -290,7 +327,7 @@ class Trainer:
         if count == eval_steps:
           break
         features, labels = self.model.preprocessor.preprocess(
-            self.put_batch(features), self.put_batch(labels), ModeKeys.EVAL)
+            features, labels, ModeKeys.EVAL)
         for key, value in self.model.eval_step(state, features,
                                                labels).items():
           totals[key] = totals.get(key, 0.0) + float(value)
@@ -312,10 +349,11 @@ def train_eval_model(t2r_model, model_dir: str,
                      save_checkpoints_steps: int = 500,
                      log_every_n_steps: int = 100,
                      nan_policy: str = 'skip',
-                     seed: int = 0) -> Dict[str, Any]:
+                     seed: int = 0, feed_depth: int = 1) -> Dict[str, Any]:
   """The main entry point: train-only (no eval generator), or train with
   an eval of ``eval_steps`` batches every ``eval_throttle_steps`` and at
-  the end. Returns ``{'state', 'eval_metrics', 'trainer'}``."""
+  the end; ``feed_depth`` > 1 transfers that many train batches ahead.
+  Returns ``{'state', 'eval_metrics', 'trainer'}``."""
   if input_generator_train is None:
     raise NotImplementedError('Eval-only (continuous eval) is not ported '
                               'yet; pass input_generator_train.')
@@ -323,7 +361,7 @@ def train_eval_model(t2r_model, model_dir: str,
                     keep_checkpoint_max=keep_checkpoint_max,
                     save_checkpoints_steps=save_checkpoints_steps,
                     log_every_n_steps=log_every_n_steps,
-                    nan_policy=nan_policy)
+                    nan_policy=nan_policy, feed_depth=feed_depth)
   eval_metrics: Dict[str, float] = {}
   if input_generator_eval is None:
     state = trainer.train(input_generator_train, max_train_steps)
@@ -389,26 +427,49 @@ def make_parser() -> argparse.ArgumentParser:
                       '--eval_throttle_steps')
   parser.add_argument('--eval_throttle_steps', type=int, default=500)
   parser.add_argument('--nan_policy', default='skip', choices=NAN_POLICIES)
+  parser.add_argument('--device_decode', default='off',
+                      choices=DEVICE_DECODE,
+                      help="the split decode of the records' JPEG frames: "
+                      "'off' (pixels, train_qtopt.gin), or the wire the "
+                      "loader ships their DCT coefficients in, decoded on "
+                      "the device: 'dense', 'sparse' "
+                      "(train_qtopt_sparse.gin) or 'packed'")
+  parser.add_argument('--sparse_density', type=float, default=0.5,
+                      help="the sparse and packed wires' capacity a frame, "
+                      'as a fraction of its DCT coefficients')
+  parser.add_argument('--feed_depth', type=int, default=1,
+                      help='> 1: transfer this many train batches ahead, '
+                      'in a thread')
   return parser
 
 
 def make_model(args, device: torch.device, process_group=None):
   """The ``--model`` of the command line, on ``device`` (a rank of
-  ``process_group`` under ring attention)."""
+  ``process_group`` under ring attention), wrapped for the split decode
+  where ``--device_decode`` asks for it."""
   kwargs = {'device': device, 'learning_rate': args.learning_rate}
   if args.use_avg_model_params is not None:
     kwargs['use_avg_model_params'] = bool(args.use_avg_model_params)
   if args.model == 'seq2act':
     from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
 
-    return Seq2ActBCModel(episode_length=args.episode_length,
-                          attention_mode=args.attention_mode,
-                          process_group=process_group, **kwargs)
-  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+    model = Seq2ActBCModel(episode_length=args.episode_length,
+                           attention_mode=args.attention_mode,
+                           process_group=process_group, **kwargs)
+  else:
+    from tensor2robot_tpu_torch.research.qtopt import t2r_models
 
-  return t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
-      network_kwargs={'num_convs': tuple(
-          int(n) for n in args.num_convs.split(','))}, **kwargs)
+    model = (t2r_models.
+             Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+                 network_kwargs={'num_convs': tuple(
+                     int(n) for n in args.num_convs.split(','))}, **kwargs))
+  if args.device_decode != 'off':
+    from tensor2robot_tpu_torch.preprocessors.device_decode import (
+        wrap_model_with_device_decode)
+
+    wrap_model_with_device_decode(model, wire_format=args.device_decode,
+                                  sparse_density=args.sparse_density)
+  return model
 
 
 def loader_threads(ranks: int) -> int:
@@ -440,6 +501,10 @@ def main(argv=None) -> int:
   args = parser.parse_args(argv)
   if args.eval_data and args.eval_steps <= 0:
     parser.error('--eval_data needs --eval_steps > 0.')
+  if args.device_decode != 'off' and (
+      not args.train_data or (args.eval_steps > 0 and not args.eval_data)):
+    parser.error('--device_decode decodes records: it needs --train_data '
+                 '(and --eval_data with --eval_steps).')
   device, group = torch.device(args.device), None
   if args.attention_mode == 'ring':
     if args.model != 'seq2act':
@@ -465,7 +530,7 @@ def main(argv=None) -> int:
         keep_checkpoint_max=args.keep_checkpoint_max,
         save_checkpoints_steps=args.save_checkpoints_steps,
         log_every_n_steps=args.log_every_n_steps, nan_policy=args.nan_policy,
-        seed=args.seed)
+        seed=args.seed, feed_depth=args.feed_depth)
   finally:
     if group is not None:
       dist.destroy_process_group()
@@ -486,6 +551,9 @@ def main(argv=None) -> int:
       'data_wait_ms': statistics.median(w[2] / w[0] * 1e3 for w in later)
                       if later else None,
       'step': result['state'].step, 'model': args.model,
+      'device_decode': args.device_decode, 'feed_depth': args.feed_depth,
+      # A batch's copies to the device, median ms (on the card, events).
+      'transfer_ms': trainer.feed.transfer_ms(),
       'device': str(device),
       'world_size': collectives.world_size(group),
       'metrics': trainer.last_metrics, 'eval_metrics': result['eval_metrics'],

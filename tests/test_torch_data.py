@@ -430,8 +430,18 @@ def test_native_plan_leaves_the_python_parsers_specs_and_refuses_coef():
     assert native_loader.plan_for_specs(specs, {}) is None
   assert native_loader.plan_for_specs(sequence, {},
                                       sequence_max_len=4) is not None
-  with pytest.raises(NotImplementedError, match='coef'):
-    native_loader.plan_for_specs(png, {}, image_mode='coef_sparse')
+  # An image that the coefficient modes cannot ship (a PNG, a JPEG whose
+  # dims are not multiples of 16) is not planned in them, as in JAX.
+  odd, ref_odd = _both([('im', (24, 32, 3), np.uint8,
+                         {'name': 'im', 'data_format': 'jpeg'})])
+  _, ref_png = _both([('im', (8, 8, 3), np.uint8, {'name': 'im',
+                                                   'data_format': 'png'})])
+  for specs, ref in ((png, ref_png), (odd, ref_odd)):
+    for mode in ('coef', 'coef_sparse', 'coef_packed'):
+      assert jax_native.plan_for_specs(ref, SpecStruct(),
+                                       image_mode=mode) is None
+      assert native_loader.plan_for_specs(specs, {}, image_mode=mode) is None
+  assert native_loader.plan_for_specs(odd, {}) is not None
 
 
 @pytest.mark.parametrize('argument', ['source', 'compiler'])

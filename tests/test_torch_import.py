@@ -52,6 +52,11 @@ RECORDS_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
     'serving.serve'))
 
 
+# The split decode slice's modules.
+DEVICE_DECODE_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
+    'data.device_feed', 'data.jpeg_device', 'preprocessors.device_decode'))
+
+
 def _port_sources():
   for root, _, files in os.walk(PORT):
     for name in sorted(files):
@@ -87,6 +92,8 @@ def test_importing_every_module_loads_no_jax():
       set(SEQ2ACT_TRAINING_MODULES) - names)
   assert set(RING_MODULES) <= names, set(RING_MODULES) - names
   assert set(RECORDS_MODULES) <= names, set(RECORDS_MODULES) - names
+  assert set(DEVICE_DECODE_MODULES) <= names, (
+      set(DEVICE_DECODE_MODULES) - names)
 
 
 def test_static_scan_finds_no_jax_import():

@@ -105,6 +105,33 @@ repository around it. Phases, each printing one line or more:
      coefficient batch (unpack and finish included), the unpack's and the
      finish's device time, and the loop profiled with the live loader
      through the feed, its copies a step beside the resident step's.
+  4d. The gins, on phase 4b's records (nothing new written): ``train_eval
+     --gin_configs`` on the port's ``train_qtopt.gin`` with bindings for
+     the records, GIN_STEPS steps (cut: the steps), a checkpoint and an
+     eval of GIN_EVAL_STEPS batches every GIN_SAVE_STEPS, every
+     photometric distortion on, ``nan_policy`` raise (every loss finite),
+     the counters zeroed just before and read just after (phase 4's
+     counts a step, and 1 K1 and 3 K2f an eval batch); the default
+     exporters leave ``best_exporter`` and ``latest_exporter`` versions;
+     the loop's median step and data wait beside 4b's. A distorted step
+     through the kernels against its plain rerun (the image bit-equal);
+     the card's distortions against the CPU's on the same parameters
+     (within DISTORTION_ATOL); the distortions' device time and kernels a
+     batch, and the resident step with and without them. Without
+     distortions, the gin's state after 2 steps against ``train_eval
+     --model qtopt``'s with the same flags and seed, bit for bit (cuDNN
+     deterministic in both). rmsprop with an exponential decay for
+     GIN_SHORT_STEPS steps (every loss finite), while a second process
+     runs ``train_eval`` with no train generator over its checkpoints:
+     its metrics must equal the trainer's own eval at each step it
+     evaluated (the last included), and the lag from each checkpoint's
+     commit to its result is printed. A NaN label under ``nan_policy``
+     rollback: one rollback to the last checkpoint, counted. Then
+     ``serve.py --export_dir`` on ``latest_exporter`` under THREADS
+     clients for SERVE_SECONDS while a newer export lands (0 failed, the
+     swap within SWAP_POLLS polls, phase 4b's serving counts; the export's
+     write time printed), and ExportedModelPredictor's actions against
+     CheckpointPredictor's on the same step and CEM seed (1e-4).
   5. Seq2Act serving: the long-context RT-1-style policy at full width
      (512-frame episodes, 4,096 tokens, 8 blocks, attention_mode 'flash',
      float32 with TF32 off) restored by CheckpointPredictor from a
@@ -187,7 +214,11 @@ repository around it. Phases, each printing one line or more:
 Any failed check raises, so the script exits non-zero.
 """
 
+import argparse
 import collections
+import contextlib
+import functools
+import io
 import json
 import os
 import re
@@ -237,8 +268,10 @@ JPEG_PIXEL_ATOL = 4
 # 4b and 6b).
 RANDOM_LOOP = {}
 RANDOM_SEQ2ACT_LOOP = {}
-# Phase 4b's loader and loop, beside phase 4c's.
+# Phase 4b's loader and loop, beside phase 4c's and 4d's.
 RECORDS_LOOP = {}
+# Phase 4d's gin loop.
+GIN_LOOP = {}
 # The served pools: (name, input NHWC shape, window, calls per batch).
 SERVED_POOLS = (
     ('stem 236->79', (MAX_BATCH, 236, 236, 64), 3, 1),
@@ -903,10 +936,7 @@ def _gradients(model, state, features, labels):
 def phase_train(device):
   from tensor2robot_tpu_torch import kernels
   from tensor2robot_tpu_torch.data import input_generators
-  from tensor2robot_tpu_torch.layers import pooling
-  from tensor2robot_tpu_torch.layers import wgrad
   from tensor2robot_tpu_torch.modes import ModeKeys
-  from tensor2robot_tpu_torch.preprocessors import pallas_crop
   from tensor2robot_tpu_torch.research.qtopt import t2r_models
   from tensor2robot_tpu_torch.trainer import checkpointing
   from tensor2robot_tpu_torch.trainer import train_eval
@@ -985,16 +1015,8 @@ def phase_train(device):
                                                labels)
 
   image, (got_loss, got) = one_step()
-  with mock.patch.object(pooling, 'max_pool_forward',
-                         pooling.max_pool_plain), \
-      mock.patch.object(pooling, 'max_pool_backward',
-                        pooling.max_pool_backward_plain), \
-      mock.patch.object(wgrad, 'conv5x5_wgrad', wgrad.conv5x5_wgrad_plain), \
-      mock.patch.object(pallas_crop, 'crop_convert',
-                        pallas_crop.crop_convert_plain):
-    before = dict(kernels.LAUNCHES)
+  with plain_kernels():
     plain_image, (want_loss, want) = one_step()
-    check(kernels.LAUNCHES == before, 'the plain step launched a kernel')
   torch.cuda.synchronize()
   check(torch.equal(image, plain_image), 'the TRAIN crop differs from plain')
   print('train step, kernels vs plain versions: {}; crop bit-exact'.format(
@@ -1426,7 +1448,6 @@ def phase_records(device, data_dir):
   from tensor2robot_tpu_torch.data import tfrecord
   from tensor2robot_tpu_torch.modes import ModeKeys
   from tensor2robot_tpu_torch.research.qtopt import t2r_models
-  from tensor2robot_tpu_torch.serving import serve
   from tensor2robot_tpu_torch.trainer import checkpointing
   from tensor2robot_tpu_torch.trainer import train_eval
 
@@ -1604,8 +1625,13 @@ def phase_records(device, data_dir):
     torch.cuda.synchronize()
     check(newer.step == TRAIN_STEPS + 1, 'the newer state is at step {}'
           .format(newer.step))
-    serve_launches, served = serve_records_checkpoint(device, model_dir,
-                                                      newer)
+    def commit():
+      checkpointing.CheckpointManager(model_dir).save(newer)
+      return newer.step
+
+    serve_launches, served, _ = serve_swap(
+        device, 'records serve', ['--checkpoint_dir', model_dir],
+        TRAIN_STEPS, commit)
 
   # The served q of the newest weights, against the network's forward on
   # the newer checkpoint's weights without the serving code.
@@ -1625,19 +1651,19 @@ def phase_records(device, data_dir):
   return {'records_train': train_launches, 'records_serve': serve_launches}
 
 
-def serve_records_checkpoint(device, model_dir, newer):
-  """serve.py --checkpoint_dir on the trained checkpoint, polling every
-  POLL_SECS, under THREADS closed-loop clients for SERVE_SECONDS; ``newer``
-  is saved as a checkpoint a third of the way in. Returns the launch
-  counts of serving and (states, results) of one batch on the new step."""
+def serve_swap(device, label, source, first_version, commit):
+  """serve.py on ``source`` (``--checkpoint_dir <dir>`` or ``--export_dir
+  <dir>``), polling every POLL_SECS, under THREADS closed-loop clients for
+  SERVE_SECONDS; ``commit()`` lands a newer version a third of the way in
+  and returns it. Returns the launch counts of serving, (states, results)
+  of one batch on the new version, and the new version."""
   from tensor2robot_tpu_torch import kernels
   from tensor2robot_tpu_torch.serving import serve
-  from tensor2robot_tpu_torch.trainer import checkpointing
 
   args = serve.make_parser().parse_args([
       '--device', device.type, '--num_convs',
-      ','.join(str(n) for n in NUM_CONVS),
-      '--checkpoint_dir', model_dir, '--poll_secs', str(POLL_SECS),
+      ','.join(str(n) for n in NUM_CONVS)] + list(source) + [
+      '--poll_secs', str(POLL_SECS),
       '--restore_timeout', '60', '--max_batch_size', str(MAX_BATCH),
       '--cem_samples', str(CEM_SAMPLES), '--cem_iters', str(CEM_ITERS),
       '--num_elites', str(NUM_ELITES)])
@@ -1654,10 +1680,10 @@ def serve_records_checkpoint(device, model_dir, newer):
   try:
     client.start()
     time.sleep(SERVE_SECONDS / 3)
-    checkpointing.CheckpointManager(model_dir).save(newer)
+    version = commit()
     committed = time.monotonic()
     client.join()
-    # One batch of MAX_BATCH requests on the new step, for the q check.
+    # One batch of MAX_BATCH requests on the new version, for the checks.
     rng = np.random.RandomState(7)
     states = [serve.synthetic_state(serving.feature_spec, rng)
               for _ in range(MAX_BATCH)]
@@ -1667,40 +1693,41 @@ def serve_records_checkpoint(device, model_dir, newer):
   finally:
     serving.stop()
   launches = dict(kernels.LAUNCHES)
-  new = str(newer.step)
-  check(first == TRAIN_STEPS, 'serve.py started on step {}'.format(first))
+  new = str(version)
+  check(first == first_version, '{}: serve.py started on version {}, not '
+        '{}'.format(label, first, first_version))
   check(load['failed'] == 0 and load['completed'] > 0,
-        'serving under the swap: {}'.format(load))
+        '{}: serving under the swap: {}'.format(label, load))
   check(set(load['versions_served']) == {str(first), new},
-        'versions served {}'.format(load['versions_served']))
-  check([v for v, _ in serving.swaps] == [newer.step],
-        'swaps {}'.format(serving.swaps))
+        '{}: versions served {}'.format(label, load['versions_served']))
+  check([v for v, _ in serving.swaps] == [version],
+        '{}: swaps {}'.format(label, serving.swaps))
   latency = load['first_answer_monotonic'][new] - committed
-  check(latency <= SWAP_POLLS * POLL_SECS, 'the first answer on step {} '
-        'came {:.2f} s after its commit ({} polls of {} s allowed)'.format(
-            new, latency, SWAP_POLLS, POLL_SECS))
-  check(all(r.version == newer.step for r in results),
-        'the q check\'s batch was not served on the new step')
+  check(latency <= SWAP_POLLS * POLL_SECS, '{}: the first answer on version '
+        '{} came {:.2f} s after its commit ({} polls of {} s allowed)'.format(
+            label, new, latency, SWAP_POLLS, POLL_SECS))
+  check(all(r.version == version for r in results),
+        '{}: the check\'s batch was not served on the new version'.format(
+            label))
   # One warm batch before the server started, then every served batch.
   want = dict.fromkeys(kernels.LAUNCHES, 0)
   want.update({'crop_convert': 1 + int(batches),
                'max_pool': sum(pool[-1] for pool in SERVED_POOLS) *
                            (1 + int(batches))})
-  check(launches == want, 'serve launch counts {} != expected {}'.format(
-      launches, want))
-  print('records serve: serve.py --checkpoint_dir served step {} to {} '
-        'clients, {} answers ({} on step {}, {} on step {}), {} failed, '
-        'p99 over the run {:.2f} ms; the poll ({} s) swapped in step {} and '
-        'its first answer came {:.3f} s after the checkpoint\'s commit '
-        '(swap at +{:.3f} s); launches {}; {}'.format(
-            first, THREADS, load['completed'],
+  check(launches == want, '{}: serve launch counts {} != expected {}'.format(
+      label, launches, want))
+  print('{}: serve.py {} served version {} to {} clients, {} answers ({} on '
+        '{}, {} on {}), {} failed, p99 over the run {:.2f} ms; the poll ({} '
+        's) swapped in version {} and its first answer came {:.3f} s after '
+        'its commit (swap at +{:.3f} s); launches {}; {}'.format(
+            label, source[0], first, THREADS, load['completed'],
             load['versions_served'][str(first)], first,
             load['versions_served'][new], new, load['failed'],
             serving.service.stats()['latency_ms'].get('p99', 0.0), POLL_SECS,
             new, latency, serving.swaps[0][1] - committed, launches,
             smi_line()))
   stacked = {k: np.stack([s[k] for s in states]) for k in states[0]}
-  return launches, (stacked, results)
+  return launches, (stacked, results), version
 
 
 # The split decode (phase 4c): train_qtopt_sparse.gin's wire, on phase 4b's
@@ -2019,6 +2046,476 @@ def phase_records_coef(device, data_dir):
   del current, streams, labels, card_dense
   torch.cuda.empty_cache()
   return loops[COEF_FEED_DEPTHS[-1]]['launches']
+
+
+# The gins (phase 4d): the port's train_qtopt.gin through train_eval's gin
+# entry on phase 4b's records (no new ones). GIN_STEPS train steps (cut:
+# the steps), a checkpoint every GIN_SAVE_STEPS, an eval of GIN_EVAL_STEPS
+# batches every GIN_SAVE_STEPS; every photometric distortion on; the
+# rmsprop rerun's and the rollback run's steps; the continuous eval's
+# seconds without a new checkpoint before it ends.
+GIN_FILE = os.path.join('tensor2robot_tpu_torch', 'research', 'qtopt',
+                        'configs', 'train_qtopt.gin')
+GIN_STEPS, GIN_SAVE_STEPS, GIN_EVAL_STEPS = 8, 4, 2
+GIN_DISTORTIONS = {'random_brightness': True, 'random_saturation': True,
+                   'random_hue': True, 'random_contrast': True,
+                   'random_noise_level': 0.05, 'random_channel_swap': True}
+GIN_SHORT_STEPS, GIN_EVAL_TIMEOUT_S = 4, 10
+# The card's distortions against the CPU's on the same parameters: all
+# elementwise float32 but the contrast's per-image mean, whose sum runs in
+# another order on the card (a few ulps of values in [0, 1]).
+DISTORTION_ATOL = 1e-5
+_CRITIC = 'Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom'
+
+
+def gin_bindings(data_dir, steps, save_steps, eval_every=0, distort=False,
+                 *extra):
+  """The phase's bindings on top of train_qtopt.gin."""
+  bindings = [
+      "TRAIN_DATA = '{}'".format(os.path.join(data_dir, 'train-*')),
+      'TRAIN_BATCH_SIZE = {}'.format(TRAIN_BATCH),
+      '{}.network_kwargs = {{"num_convs": {}}}'.format(_CRITIC,
+                                                      tuple(NUM_CONVS)),
+      'train_eval_model.max_train_steps = {}'.format(steps),
+      'train_eval_model.save_checkpoints_steps = {}'.format(save_steps),
+      'train_eval_model.log_every_n_steps = 1']
+  if eval_every:
+    bindings += [
+        'train_eval_model.input_generator_eval = '
+        '@eval_input_generator/DefaultRecordInputGenerator()',
+        'eval_input_generator/DefaultRecordInputGenerator.file_patterns = '
+        '%TRAIN_DATA',
+        'eval_input_generator/DefaultRecordInputGenerator.batch_size = '
+        '%TRAIN_BATCH_SIZE',
+        'train_eval_model.eval_throttle_steps = {}'.format(eval_every),
+        'train_eval_model.eval_steps = {}'.format(GIN_EVAL_STEPS)]
+  if distort:
+    bindings += [
+        '{}.preprocessor_cls = @DefaultGrasping44ImagePreprocessor'.format(
+            _CRITIC),
+        'DefaultGrasping44ImagePreprocessor.distortion_kwargs = {!r}'.format(
+            GIN_DISTORTIONS)]
+  return bindings + list(extra)
+
+
+def gin_argv(model_dir, bindings):
+  argv = ['--device', 'cuda', '--model_dir', model_dir, '--gin_configs',
+          GIN_FILE]
+  for binding in bindings:
+    argv += ['--gin_bindings', binding]
+  return argv
+
+
+def run_gin(label, model_dir, bindings):
+  """``train_eval.main`` on the gin and ``bindings``, the counters zeroed
+  just before and read just after: (its JSON line, the launches, seconds)."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  out = io.StringIO()
+  kernels.reset_launches()
+  start = time.monotonic()
+  with contextlib.redirect_stdout(out):
+    rc = train_eval.main(gin_argv(model_dir, bindings))
+  elapsed = time.monotonic() - start
+  launches = dict(kernels.LAUNCHES)
+  line = json.loads(out.getvalue().strip().splitlines()[-1])
+  check(rc == 0, '{}: train_eval --gin_configs returned {}'.format(label, rc))
+  return line, launches, elapsed
+
+
+def gin_launches(steps, eval_batches):
+  """Phase 4's counts a train step, and an eval batch's forward (1 K1 and
+  3 K2f)."""
+  from tensor2robot_tpu_torch import kernels
+
+  want = dict.fromkeys(kernels.LAUNCHES, 0)
+  want.update({'crop_convert': steps + eval_batches,
+               'max_pool': 3 * (steps + eval_batches),
+               'max_pool_backward': 3 * steps,
+               'conv5x5_wgrad': BODY_CONVS * steps})
+  return want
+
+
+def phase_gins(device, data_dir):
+  """train_qtopt.gin drives the port end to end at full width on phase
+  4b's records: distortions, rmsprop, a rollback, the exporters,
+  serve.py --export_dir with a hot swap, and a continuous eval in a
+  second process. Returns the launch counts of its gin_train and
+  export_serve paths."""
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.export import export_generators
+  from tensor2robot_tpu_torch.export import exporters
+  from tensor2robot_tpu_torch.hooks import TrainHook
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.observability import get_registry
+  from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+  from tensor2robot_tpu_torch.predictors import ExportedModelPredictor
+  from tensor2robot_tpu_torch.preprocessors import image_transformations
+  from tensor2robot_tpu_torch.preprocessors import pallas_crop
+  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+  from tensor2robot_tpu_torch.trainer import checkpointing
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  phase_start = time.monotonic()
+  print('gins: {} on phase 4b\'s records; {}'.format(GIN_FILE, smi_line()))
+  with tempfile.TemporaryDirectory() as tmp:
+    # 1. The gin with every distortion, evals and the exporters.
+    gin_dir = os.path.join(tmp, 'gin')
+    line, launches, elapsed = run_gin('gin', gin_dir, gin_bindings(
+        data_dir, GIN_STEPS, GIN_SAVE_STEPS, GIN_SAVE_STEPS, True,
+        "train_eval_model.nan_policy = 'raise'"))
+    evals = GIN_STEPS // GIN_SAVE_STEPS
+    want = gin_launches(GIN_STEPS, evals * GIN_EVAL_STEPS)
+    check(launches == want, 'gin launch counts {} != expected {} ({} steps, '
+          '{} eval batches)'.format(launches, want, GIN_STEPS,
+                                    evals * GIN_EVAL_STEPS))
+    check(line['step'] == GIN_STEPS and line['data'] == 'native' and
+          np.isfinite(line['metrics']['loss']) and
+          len(line['eval_history']) == evals and
+          all(np.isfinite(e['metrics']['loss'])
+              for e in line['eval_history']), 'gin run: {}'.format(line))
+    latest_root = os.path.join(gin_dir, 'export', 'latest_exporter')
+    best_root = os.path.join(gin_dir, 'export', 'best_exporter')
+    latest = export_generators.list_exported_versions(latest_root)
+    best = export_generators.list_exported_versions(best_root)
+    check(len(latest) == evals and best, 'exports: latest {}, best {}'.format(
+        latest, best))
+    GIN_LOOP.update(step_ms=line['step_ms'], data_wait_ms=line['data_wait_ms'])
+    print('gins: train_eval --gin_configs trained {} steps of batch {} with '
+          'every photometric distortion ({}) under nan_policy raise (every '
+          'loss finite) in {:.1f} s, launches {} ({} steps and {} eval '
+          'batches: phase 4\'s counts a step); loss {:.4f}; evals {}; the '
+          'loop\'s median step {:.2f} ms, of which {:.2f} ms waiting for '
+          'data (phase 4b: {:.2f} ms, {:.2f} ms); exports: latest_exporter '
+          '{}, best_exporter {}; {}'.format(
+              GIN_STEPS, TRAIN_BATCH, GIN_DISTORTIONS, elapsed, launches,
+              GIN_STEPS, evals * GIN_EVAL_STEPS, line['metrics']['loss'],
+              [(e['step'], round(e['metrics']['loss'], 6))
+               for e in line['eval_history']], line['step_ms'],
+              line['data_wait_ms'], RECORDS_LOOP['step_ms'],
+              RECORDS_LOOP['data_wait_ms'], latest, best, smi_line()))
+
+    # 2. A distorted step against its plain rerun, the card's distortions
+    # against the CPU's, and the resident step with and without them.
+    plain_model = t2r_models.\
+        Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+            device=device, network_kwargs={'num_convs': NUM_CONVS})
+    distorted = t2r_models.\
+        Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+            device=device, network_kwargs={'num_convs': NUM_CONVS},
+            preprocessor_cls=functools.partial(
+                t2r_models.DefaultGrasping44ImagePreprocessor,
+                distortion_kwargs=GIN_DISTORTIONS))
+    state = checkpointing.CheckpointManager(gin_dir).restore(GIN_STEPS,
+                                                             device)
+    generator = input_generators.DefaultRecordInputGenerator(
+        file_patterns=os.path.join(data_dir, 'train-*'),
+        batch_size=TRAIN_BATCH, use_native=True)
+    generator.set_specification_from_model(plain_model, ModeKeys.TRAIN)
+    trainer = train_eval.Trainer(plain_model, os.path.join(tmp, 'unused'),
+                                 write_metrics=False)
+    numpy_features, numpy_labels = next(generator.create_dataset_iterator(
+        ModeKeys.TRAIN, seed=0, prefetch=0))
+    raw, labels = (trainer.put_batch(numpy_features),
+                   trainer.put_batch(numpy_labels))
+    offsets = torch.tensor([[0, 0], [40, 168]] * (TRAIN_BATCH // 2),
+                           dtype=torch.int32, device=device)
+    draws = torch.Generator(device=device)
+
+    def distorted_step():
+      draws.manual_seed(11)
+      features, _ = distorted.preprocessor.preprocess(
+          raw, None, ModeKeys.TRAIN, generator=draws, offsets=offsets)
+      return features['state/image'], _gradients(distorted, state, features,
+                                                 labels)
+
+    image, (got_loss, got) = distorted_step()
+    with plain_kernels():
+      plain_image, (want_loss, want) = distorted_step()
+    torch.cuda.synchronize()
+    check(torch.equal(image, plain_image),
+          'the distorted TRAIN image differs from its plain rerun\'s')
+    print('gins: a distorted step, kernels vs plain versions: {}; the '
+          'distorted image bit-equal'.format(compare_critic_steps(
+              'distorted, kernels vs plain', distorted, got_loss, want_loss,
+              got, want)))
+    cropped = pallas_crop.crop_convert(raw['state/image'], offsets,
+                                       t2r_models.TARGET_SHAPE,
+                                       torch.float32, 255.0)
+    draws.manual_seed(12)
+    parameters = image_transformations.draw_photometric_parameters(
+        draws, [cropped], **GIN_DISTORTIONS)
+    card = image_transformations.apply_photometric_image_distortions(
+        [cropped], parameters, **GIN_DISTORTIONS)[0]
+    cpu = image_transformations.apply_photometric_image_distortions(
+        [cropped.cpu()], [{k: v.cpu() for k, v in parameters[0].items()}],
+        **GIN_DISTORTIONS)[0]
+    err = max_abs_err(card.cpu(), cpu)
+    check(err <= DISTORTION_ATOL, 'the card\'s distortions differ from the '
+          'CPU\'s by {:.3g} (tolerance {})'.format(err, DISTORTION_ATOL))
+
+    def distort(_):
+      draws.manual_seed(13)
+      image_transformations.apply_photometric_image_distortions(
+          [cropped], generator=draws, **GIN_DISTORTIONS)
+
+    alone = {}
+    distort_wall = profile('gins distortions alone', distort, 5,
+                           'batch of {}'.format(TRAIN_BATCH), top=6,
+                           out=alone)
+    _, distort_kernels = device_activity(lambda: distort(0))
+    resident = {}
+    for label, model in (('off', plain_model), ('on', distorted)):
+      out = {}
+      current = [state]
+
+      def step(_, model=model, current=current):
+        features, batch_labels = model.preprocessor.preprocess(
+            raw, labels, ModeKeys.TRAIN,
+            generator=trainer.crop_generator(current[0].step))
+        current[0], metrics = model.train_step(current[0], features,
+                                               batch_labels)
+        float(metrics['loss'])
+
+      step(0)
+      wall = profile('gins resident step, distortions ' + label, step, 3,
+                     'step of {}'.format(TRAIN_BATCH), top=6, out=out)
+      resident[label] = (wall, out)
+    print('gins: the card\'s distortions equal the CPU\'s on the same '
+          'parameters within {:.3g} (tolerance {}); the distortions alone '
+          '{} ms of device time a batch of {} ({} kernels, wall {:.2f} ms); '
+          'the resident step {:.2f} ms with them (busy {}), {:.2f} ms '
+          'without (busy {}); {}'.format(
+              err, DISTORTION_ATOL, _ms(alone), TRAIN_BATCH, distort_kernels,
+              distort_wall, resident['on'][0],
+              _share(resident['on'][1], resident['on'][0]),
+              resident['off'][0],
+              _share(resident['off'][1], resident['off'][0]), smi_line()))
+
+    # 3. Distortions off: the gin's final weights against the flags', bit
+    # for bit (cuDNN held to its deterministic algorithms in both runs).
+    torch.backends.cudnn.deterministic = True
+    try:
+      run_gin('gin, no distortions', os.path.join(tmp, 'gin_plain'),
+              gin_bindings(data_dir, 2, 2))
+      with contextlib.redirect_stdout(io.StringIO()):
+        rc = train_eval.main([
+            '--device', device.type, '--model_dir',
+            os.path.join(tmp, 'flags'),
+            '--num_convs', ','.join(str(n) for n in NUM_CONVS),
+            '--train_data', os.path.join(data_dir, 'train-*'),
+            '--batch_size', str(TRAIN_BATCH), '--max_train_steps', '2',
+            '--save_checkpoints_steps', '2', '--log_every_n_steps', '1'])
+    finally:
+      torch.backends.cudnn.deterministic = False
+    check(rc == 0, 'train_eval --model qtopt returned {}'.format(rc))
+    from_gin = checkpointing.CheckpointManager(
+        os.path.join(tmp, 'gin_plain')).restore(2)
+    from_flags = checkpointing.CheckpointManager(
+        os.path.join(tmp, 'flags')).restore(2)
+    check(_states_equal(from_gin, from_flags), 'the gin\'s final state '
+          'differs from train_eval --model qtopt\'s with the same flags')
+    print('gins: without distortions the gin\'s state after 2 steps equals '
+          'train_eval --model qtopt\'s with the same flags and seed, bit for '
+          'bit (cuDNN deterministic in both)')
+
+    # 4. rmsprop with an exponential decay, and a continuous eval of its
+    # checkpoints in a second process.
+    rms_dir = os.path.join(tmp, 'rmsprop')
+    eval_bindings = gin_bindings(
+        data_dir, GIN_SHORT_STEPS, 2, 2, False,
+        'train_eval_model.input_generator_train = None',
+        'train_eval_model.create_exporters_fn = None',
+        'train_eval_model.eval_timeout_secs = {}'.format(GIN_EVAL_TIMEOUT_S))
+    evaluator = subprocess.Popen(
+        [sys.executable, '-m', 'tensor2robot_tpu_torch.trainer.train_eval'] +
+        gin_argv(rms_dir, eval_bindings),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+      # The evaluator writes its config snapshot just before it polls: the
+      # trainer starts then, so that the lags time the polls and not the
+      # second process's start.
+      deadline = time.monotonic() + 120
+      while not os.path.exists(os.path.join(rms_dir, 'config_snapshot.gin')):
+        check(evaluator.poll() is None and time.monotonic() < deadline,
+              'the continuous eval did not start: {}'.format(
+                  evaluator.poll()))
+        time.sleep(0.1)
+      rms_line, _, rms_s = run_gin('rmsprop', rms_dir, gin_bindings(
+          data_dir, GIN_SHORT_STEPS, 2, 2, False,
+          "train_eval_model.nan_policy = 'raise'",
+          '{}.optimizer_override = @create_rms_prop_optimizer'.format(
+              _CRITIC),
+          'create_rms_prop_optimizer.learning_rate = '
+          '@create_exponential_decay_learning_rate()',
+          'create_rms_prop_optimizer.momentum = 0.9',
+          'create_exponential_decay_learning_rate.initial_learning_rate = '
+          '1e-4',
+          'create_exponential_decay_learning_rate.decay_steps = 2',
+          'create_exponential_decay_learning_rate.decay_rate = 0.5',
+          'create_exponential_decay_learning_rate.staircase = False'))
+      mtimes = {step: os.path.getmtime(os.path.join(
+          rms_dir, 'checkpoint_{}.pt'.format(step)))
+                for step in checkpointing.all_checkpoint_steps(rms_dir)}
+      stdout, stderr = evaluator.communicate(timeout=240)
+    finally:
+      if evaluator.poll() is None:
+        evaluator.kill()
+        evaluator.wait()
+    check(rms_line['step'] == GIN_SHORT_STEPS and
+          np.isfinite(rms_line['metrics']['loss']),
+          'rmsprop run: {}'.format(rms_line))
+    check(evaluator.returncode == 0, 'the continuous eval failed: {}'.format(
+        stderr[-2000:]))
+    continuous = json.loads(stdout.strip().splitlines()[-1])
+    trainer_evals = {e['step']: e for e in rms_line['eval_history']}
+    lags, diffs = [], []
+    for entry in continuous['eval_history']:
+      own = trainer_evals.get(entry['step'])
+      check(own is not None, 'the continuous eval evaluated step {}, which '
+            'the trainer did not'.format(entry['step']))
+      diff = abs(entry['metrics']['loss'] - own['metrics']['loss'])
+      check(diff <= 1e-5 * abs(own['metrics']['loss']), 'continuous eval '
+            'at step {}: {} vs the trainer\'s {}'.format(
+                entry['step'], entry['metrics'], own['metrics']))
+      diffs.append(diff)
+      lags.append(entry['wall_time'] - mtimes[entry['step']])
+    check(continuous['eval_history'] and
+          continuous['eval_history'][-1]['step'] == GIN_SHORT_STEPS,
+          'the continuous eval did not reach step {}: {}'.format(
+              GIN_SHORT_STEPS, continuous['eval_history']))
+    print('gins: rmsprop (momentum 0.9, exponential decay 1e-4 x 0.5^(t/2)) '
+          '{} steps in {:.1f} s, every loss finite, loss {:.4f}; a second '
+          'process\'s continuous eval (no train generator) evaluated steps '
+          '{} with the trainer\'s own metrics (|diff| at most {:.3g}, '
+          'tolerance 1e-5 relative), each {} s after the checkpoint\'s '
+          'commit; {}'.format(
+              GIN_SHORT_STEPS, rms_s, rms_line['metrics']['loss'],
+              [e['step'] for e in continuous['eval_history']], max(diffs),
+              ['{:.3f}'.format(lag) for lag in lags], smi_line()))
+
+    # 5. A NaN label under nan_policy 'rollback'.
+    batches, seen = [], []
+
+    class Poisoned(input_generators.DefaultRecordInputGenerator):
+      """The records, with a NaN grasp label in the third batch."""
+
+      def create_dataset_iterator(self, mode, **kwargs):
+        inner = super().create_dataset_iterator(mode, **kwargs)
+        try:
+          for features, batch_labels in inner:
+            batches.append(1)
+            if len(batches) == 3:
+              batch_labels = dict(batch_labels)
+              batch_labels['reward'] = batch_labels['reward'].copy()
+              batch_labels['reward'][0] = np.nan
+            yield features, batch_labels
+        finally:
+          inner.close()
+
+    class Steps(TrainHook):
+      def after_step(self, trainer, state, step, metrics):
+        seen.append(step)
+
+    class StepsBuilder:
+      def create_hooks(self, t2r_model, trainer):
+        return [Steps()]
+
+    counter = get_registry().counter('reliability/nan_rollbacks')
+    before = counter.value
+    result = train_eval.train_eval_model(
+        t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+            device=device, network_kwargs={'num_convs': NUM_CONVS}),
+        os.path.join(tmp, 'rollback'),
+        Poisoned(file_patterns=os.path.join(data_dir, 'train-*'),
+                 batch_size=TRAIN_BATCH),
+        max_train_steps=GIN_SHORT_STEPS, save_checkpoints_steps=2,
+        log_every_n_steps=1, nan_policy='rollback',
+        train_hook_builders=[StepsBuilder()])
+    rollbacks = int(counter.value - before)
+    check(rollbacks == 1 and len(batches) == GIN_SHORT_STEPS + 1 and
+          seen == list(range(1, GIN_SHORT_STEPS + 1)) and
+          result['state'].step == GIN_SHORT_STEPS,
+          'rollback: {} rollbacks, {} batches, steps {}'.format(
+              rollbacks, len(batches), seen))
+    print('gins: nan_policy rollback: the NaN label of batch 3 rolled step 3 '
+          'back to checkpoint 2 ({} rollback counted), and the run went on '
+          'to step {} over {} batches (steps after each: {})'.format(
+              rollbacks, result['state'].step, len(batches), seen))
+
+    # 6. serve.py --export_dir while a newer export lands; its actions
+    # against CheckpointPredictor's on the same step.
+    newer, _ = plain_model.train_step(state, *plain_model.preprocessor
+                                      .preprocess(raw, labels,
+                                                  ModeKeys.TRAIN,
+                                                  offsets=offsets))
+    torch.cuda.synchronize()
+    owner = argparse.Namespace(model=plain_model, model_dir=gin_dir)
+    write_ms = []
+
+    def commit():
+      torch.cuda.synchronize()
+      start = time.monotonic()
+      path = exporters.LatestModelExporter().export(owner, newer, {})
+      write_ms.append((time.monotonic() - start) * 1e3)
+      return int(os.path.basename(path))
+
+    serve_launches, (states, results), new_version = serve_swap(
+        device, 'gins serve', ['--export_dir', latest_root], latest[-1],
+        commit)
+    check(all(r.version == new_version for r in results),
+          'the compare batch was not served on the new export')
+    checkpoint_dir = os.path.join(tmp, 'newer')
+    checkpointing.CheckpointManager(checkpoint_dir).save(newer)
+    from_checkpoint = CheckpointPredictor(plain_model, checkpoint_dir)
+    from_export = ExportedModelPredictor(latest_root, plain_model)
+    check(from_checkpoint.restore() and from_export.restore() and
+          from_export.model_version == new_version and
+          from_export.global_step == newer.step,
+          'the predictors did not load step {}'.format(newer.step))
+    select = plain_model.make_batched_select_action(
+        cem_samples=CEM_SAMPLES, cem_iters=CEM_ITERS, num_elites=NUM_ELITES)
+    got = select(from_export.variables, states, 5)
+    want = select(from_checkpoint.variables, states, 5)
+    action_err = max_abs_err(got['action'], want['action'])
+    served = torch.stack([torch.as_tensor(r.outputs['action'])
+                          for r in results])
+    check(action_err <= 1e-4, 'ExportedModelPredictor\'s actions differ '
+          'from CheckpointPredictor\'s by {:.3g}'.format(action_err))
+    print('gins serve: ExportedModelPredictor\'s actions on step {} equal '
+          'CheckpointPredictor\'s on the same states and CEM seed within '
+          '{:.3g} (tolerance 1e-4); {} served actions on the new export; the '
+          'export wrote in {:.1f} ms (LatestModelExporter: variables, '
+          'assets and a warmup request, committed by one rename); {}'.format(
+              newer.step, action_err, served.shape[0], write_ms[0],
+              smi_line()))
+  torch.cuda.empty_cache()
+  print('gins: phase 4d took {:.1f} s'.format(time.monotonic() - phase_start))
+  return {'gin_train': launches, 'export_serve': serve_launches}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+  """Every kernel's wrapper replaced by its plain version; no launch
+  allowed meanwhile."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.layers import pooling
+  from tensor2robot_tpu_torch.layers import wgrad
+  from tensor2robot_tpu_torch.preprocessors import pallas_crop
+
+  before = dict(kernels.LAUNCHES)
+  with mock.patch.object(pooling, 'max_pool_forward',
+                         pooling.max_pool_plain), \
+      mock.patch.object(pooling, 'max_pool_backward',
+                        pooling.max_pool_backward_plain), \
+      mock.patch.object(wgrad, 'conv5x5_wgrad', wgrad.conv5x5_wgrad_plain), \
+      mock.patch.object(pallas_crop, 'crop_convert',
+                        pallas_crop.crop_convert_plain):
+    yield
+  check(kernels.LAUNCHES == before, 'the plain rerun launched a kernel')
 
 
 def device_activity(run):
@@ -3486,6 +3983,7 @@ def main():
     paths.update(phase_records(device, critic_dir.name))
     paths['records_coef_train'] = phase_records_coef(device,
                                                      critic_dir.name)
+    paths.update(phase_gins(device, critic_dir.name))
   finally:
     critic_dir.cleanup()
   paths.update({'seq2act': phase_seq2act(device),

@@ -14,5 +14,9 @@ its critic (``trainer.train_eval``), and serving the long-context Seq2Act
 policy (``policies.SequentialRegressionPolicy`` ->
 ``predictors.CheckpointPredictor`` -> ``export.export_generators`` ->
 ``research.seq2act`` -> ``layers.transformer`` ->
-``parallel.flash_attention``).
+``parallel.flash_attention``), and the gins driving both
+(``trainer.train_eval --gin_configs`` -> ``config`` ->
+``train_eval_model``, its exporters under ``export`` and hooks under
+``hooks``; ``serving.serve --export_dir`` ->
+``predictors.ExportedModelPredictor``).
 """

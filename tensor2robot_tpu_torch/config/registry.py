@@ -1,0 +1,86 @@
+"""Registers the port's configurables under the JAX package's names.
+
+Each one the port has and the QT-Opt and Seq2Act gins name (the trainer,
+the record input generator, the critic and its preprocessor, the split
+decode's wrapper, Seq2Act's model), the random input generator, and the
+optimizers, learning rates, exporters, export generators and hook
+builders. A gin that names anything else fails in
+``ginlike.check_configurables``, naming it.
+"""
+
+from __future__ import annotations
+
+import threading
+
+from tensor2robot_tpu_torch.config import ginlike
+
+__all__ = ['register_all']
+
+_REGISTERED = False
+_LOCK = threading.Lock()
+
+
+def register_all() -> None:
+  global _REGISTERED
+  with _LOCK:
+    if _REGISTERED:
+      return
+    _REGISTERED = True
+
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.export import export_generators
+  from tensor2robot_tpu_torch.export import exporters
+  from tensor2robot_tpu_torch.hooks import async_export_hook_builder
+  from tensor2robot_tpu_torch.hooks import td3
+  from tensor2robot_tpu_torch.hooks import variable_logger_hook
+  from tensor2robot_tpu_torch.models import optimizers
+  from tensor2robot_tpu_torch.preprocessors import device_decode
+  from tensor2robot_tpu_torch.research import seq2act
+  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  register = ginlike.external_configurable
+
+  # The trainer, exporters and hooks.
+  register(train_eval.train_eval_model, 'train_eval_model')
+  register(exporters.create_default_exporters, 'create_default_exporters')
+  register(export_generators.DefaultExportGenerator,
+           'DefaultExportGenerator')
+  register(export_generators.VariablesExportGenerator,
+           'VariablesExportGenerator')
+  register(async_export_hook_builder.AsyncExportHookBuilder,
+           'AsyncExportHookBuilder')
+  register(td3.TD3Hooks, 'TD3Hooks')
+  register(variable_logger_hook.VariableLoggerHook, 'VariableLoggerHook')
+
+  # Input generators: the gins' records, and random batches.
+  register(input_generators.DefaultRecordInputGenerator,
+           'DefaultRecordInputGenerator')
+  register(input_generators.DefaultRandomInputGenerator,
+           'DefaultRandomInputGenerator')
+
+  # Optimizers and learning rates.
+  register(optimizers.create_adam_optimizer, 'create_adam_optimizer')
+  register(optimizers.create_sgd_optimizer, 'create_sgd_optimizer')
+  register(optimizers.create_momentum_optimizer,
+           'create_momentum_optimizer')
+  register(optimizers.create_rms_prop_optimizer,
+           'create_rms_prop_optimizer')
+  register(optimizers.create_constant_learning_rate,
+           'create_constant_learning_rate')
+  register(optimizers.create_exponential_decay_learning_rate,
+           'create_exponential_decay_learning_rate')
+  register(optimizers.piecewise_constant_learning_rate,
+           'piecewise_constant_learning_rate')
+
+  # The QT-Opt critic, its preprocessor and the split decode's wrapper.
+  register(
+      t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom,
+      'Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom')
+  register(t2r_models.DefaultGrasping44ImagePreprocessor,
+           'DefaultGrasping44ImagePreprocessor')
+  register(device_decode.wrap_model_with_device_decode,
+           'wrap_model_with_device_decode')
+
+  # Seq2Act.
+  register(seq2act.Seq2ActBCModel, 'Seq2ActBCModel')

@@ -28,10 +28,10 @@ all of it.
 
 ``train_state_from_flax`` builds the port's ``TrainState`` from a JAX
 ``TrainState`` whose leaves are numpy arrays: params and batch stats as
-above (apart, as ``params`` and ``model_state``), the optax momentum
-``trace`` or adam's ``mu`` and ``nu`` with each kernel transposed like its
-weight, the optimizer's update count, and the EMA's ``count`` and
-``ema``.
+above (apart, as ``params`` and ``model_state``), the optimizer's update
+count and moments (momentum's ``trace``, rmsprop's ``trace`` and ``nu``,
+adam's ``mu`` and ``nu``; sgd has none) with each kernel transposed like
+its weight, and the EMA's ``count`` and ``ema``.
 """
 
 from __future__ import annotations
@@ -107,17 +107,15 @@ def train_state_from_flax(state: Any):
   count = _field(state.opt_state, 'count')
   moments = {name: _field(state.opt_state, name)
              for name in ('trace', 'mu', 'nu')}
-  if count is not None and moments['trace'] is not None:
-    opt_state = {'count': _count(count),
-                 'trace': _state_dict(moments['trace'], None)}
-  elif count is not None and None not in (moments['mu'], moments['nu']):
-    opt_state = {'count': _count(count),
-                 'mu': _state_dict(moments['mu'], None),
-                 'nu': _state_dict(moments['nu'], None)}
-  else:
-    raise ValueError('The optimizer state holds neither a momentum trace '
-                     'nor adam moments with an update count; only the '
-                     'momentum and adam optimizers convert.')
+  if count is None:
+    raise ValueError('The optimizer state holds no update count; only the '
+                     'sgd, momentum, rmsprop and adam optimizers convert.')
+  # sgd keeps only the count; momentum adds a trace, rmsprop a trace and
+  # nu, adam mu and nu.
+  opt_state = {'count': _count(count)}
+  for name in ('trace', 'mu', 'nu'):
+    if moments[name] is not None:
+      opt_state[name] = _state_dict(moments[name], None)
   avg_params = ema_state = None
   if state.avg_params is not None:
     avg_params = _state_dict(state.avg_params, None)

@@ -115,7 +115,9 @@ class AbstractT2RModel:
                create_optimizer_fn: Optional[Callable[[], Any]] = None,
                avg_model_params_decay: float = 0.9999,
                gradient_clip_norm: Optional[float] = None,
-               process_group=None):
+               process_group=None,
+               warm_start_fn: Optional[Callable[[StateDict],
+                                                StateDict]] = None):
     """Args:
       preprocessor_cls: factory of the model's preprocessor, called with
         the model's feature and label specification functions.
@@ -130,6 +132,9 @@ class AbstractT2RModel:
       gradient_clip_norm: optional global-norm clip ahead of the optimizer.
       process_group: the ``torch.distributed`` group whose ranks each hold a
         shard of the batch; gradients are summed over it.
+      warm_start_fn: ``params -> params``, applied to the fresh trainable
+        weights of ``create_train_state`` (e.g.
+        ``trainer.checkpointing.create_warm_start_fn``).
     """
     self.device = torch.device(device)
     self.process_group = process_group
@@ -139,11 +144,16 @@ class AbstractT2RModel:
     self._create_optimizer_fn = create_optimizer_fn
     self.avg_model_params_decay = avg_model_params_decay
     self.gradient_clip_norm = gradient_clip_norm
+    self._warm_start_fn = warm_start_fn
     if compute_dtype is None:
       compute_dtype = (torch.bfloat16 if device_type == 'tpu'
                        else torch.float32)
     self.compute_dtype = compute_dtype
     self._network: Optional[nn.Module] = None
+
+  @property
+  def warm_start_fn(self):
+    return self._warm_start_fn
 
   @property
   def preprocessor(self):
@@ -268,13 +278,16 @@ class AbstractT2RModel:
                                            self.gradient_clip_norm)
 
   def create_train_state(self, generator: torch.Generator) -> TrainState:
-    """Random weights from ``generator`` (``init_variables``), a fresh
+    """Random weights from ``generator`` (``init_variables``), merged with
+    a warm start's where the model has ``warm_start_fn``, a fresh
     optimizer state and, when the model averages, an EMA that starts from
     the weights."""
     state = self.init_variables(generator)['params']
     names = {name for name, _ in self.network.named_parameters()}
     params = {k: v for k, v in state.items() if k in names}
     model_state = {k: v for k, v in state.items() if k not in names}
+    if self._warm_start_fn is not None:
+      params = self._warm_start_fn(params)
     avg_params = ema_state = None
     if self.use_avg_model_params:
       ema = optimizers.create_ema(self.avg_model_params_decay)

@@ -20,7 +20,6 @@ through ``convert``, its arrays given as numpy.
 from __future__ import annotations
 
 import logging
-import pickle
 import time
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -41,9 +40,7 @@ _POLL_INTERVAL_SECS = 1.0
 # How often the otherwise silent wait for a checkpoint reports itself.
 _WAIT_REPORT_INTERVAL_SECS = 10.0
 CHECKPOINT_WAIT_GAUGE = 'inference/checkpoint_wait_seconds'
-# A checkpoint that fails to load with one of these (half written, removed
-# by the trainer's retention while being read) is skipped.
-_SKIP_ERRORS = (OSError, RuntimeError, EOFError, pickle.UnpicklingError)
+_SKIP_ERRORS = checkpointing.SKIP_ERRORS
 
 
 class _Loaded(NamedTuple):

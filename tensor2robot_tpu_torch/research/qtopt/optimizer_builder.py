@@ -7,10 +7,12 @@
     the optimizer's update count before it is incremented, as optax's
     schedule is.
   * ``'momentum'`` is ``optax.sgd(schedule, momentum)``: ``trace = g +
-    momentum * trace; p = p - lr * trace`` (torch's SGD with dampening 0 and
-    no Nesterov; written out here so that the state converts from optax's).
-  * ``'rmsprop'`` and adam are not ported yet: optax's rmsprop puts epsilon
-    inside the square root, torch's outside, so neither is torch's own.
+    momentum * trace; p = p - lr * trace``; ``'rmsprop'`` is
+    ``optax.rmsprop(schedule, rmsprop_decay, momentum=momentum,
+    eps=rmsprop_epsilon)`` (epsilon inside the square root); any other
+    name is adam with ``b1 = momentum``, ``adam_beta2`` and
+    ``adam_epsilon``. All are ``models/optimizers``' written-out forms, so
+    that their states convert from optax's.
 
 Parameter averaging is not part of the optimizer: the model keeps the EMA
 (``models/optimizers.create_ema``) beside it, as the JAX package does.
@@ -18,14 +20,14 @@ Parameter averaging is not part of the optimizer: the model keeps the EMA
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
-import torch
+from tensor2robot_tpu_torch.models import optimizers
 
-__all__ = ['Momentum', 'build_learning_rate_schedule', 'build_opt',
-           'default_hparams']
+__all__ = ['Momentum', 'StaircaseSchedule', 'build_learning_rate_schedule',
+           'build_opt', 'default_hparams']
 
-Tensors = Dict[str, torch.Tensor]
+Momentum = optimizers.Momentum
 
 
 def default_hparams(**overrides) -> dict:
@@ -49,7 +51,7 @@ def default_hparams(**overrides) -> dict:
   return hparams
 
 
-class StaircaseSchedule:
+class StaircaseSchedule(optimizers.ExponentialDecay):
   """``init * rate ** floor(count / steps)``, in float32 on the count's
   device."""
 
@@ -57,15 +59,7 @@ class StaircaseSchedule:
     if decay_steps <= 0:
       raise ValueError('decay_steps must be positive, not {}.'.format(
           decay_steps))
-    self.init_value = init_value
-    self.decay_steps = decay_steps
-    self.decay_rate = decay_rate
-
-  def __call__(self, count: torch.Tensor) -> torch.Tensor:
-    stairs = torch.div(count, self.decay_steps, rounding_mode='floor')
-    rate = torch.tensor(self.decay_rate, dtype=torch.float32,
-                        device=count.device)
-    return self.init_value * torch.pow(rate, stairs.to(torch.float32))
+    super().__init__(init_value, decay_steps, decay_rate, staircase=True)
 
 
 def build_learning_rate_schedule(hparams: dict) -> StaircaseSchedule:
@@ -75,37 +69,19 @@ def build_learning_rate_schedule(hparams: dict) -> StaircaseSchedule:
                            hparams['learning_rate_decay_factor'])
 
 
-class Momentum:
-  """optax.sgd(learning_rate, momentum): the state is ``{'count': int32,
-  'trace': {name: tensor}}``."""
-
-  def __init__(self, learning_rate: StaircaseSchedule, momentum: float = 0.9):
-    self.learning_rate = learning_rate
-    self.momentum = momentum
-
-  def init(self, params: Tensors) -> dict:
-    device = next(iter(params.values())).device
-    return {'count': torch.zeros((), dtype=torch.int32, device=device),
-            'trace': {k: torch.zeros_like(v) for k, v in params.items()}}
-
-  def update(self, grads: Tensors, state: dict,
-             params: Tensors) -> Tuple[Tensors, dict]:
-    m = self.momentum
-    trace = {k: g + m * state['trace'][k] for k, g in grads.items()}
-    step = -self.learning_rate(state['count'])
-    new_params = {k: p + step.to(p.dtype) * trace[k]
-                  for k, p in params.items()}
-    return new_params, {'count': state['count'] + 1, 'trace': trace}
-
-
-def build_opt(hparams: Optional[dict] = None) -> Momentum:
-  """The legacy optimizer; parameter averaging is not part of it."""
+def build_opt(hparams: Optional[dict] = None):
+  """The legacy optimizer (momentum, rmsprop or the adam fallback);
+  parameter averaging is not part of it."""
   if hparams is None:
     hparams = default_hparams()
+  learning_rate = build_learning_rate_schedule(hparams)
   optimizer = hparams['optimizer']
   if optimizer == 'momentum':
-    return Momentum(build_learning_rate_schedule(hparams),
-                    hparams['momentum'])
-  raise NotImplementedError(
-      'optimizer {!r} is not ported yet: only the legacy momentum optimizer '
-      'is.'.format(optimizer))
+    return optimizers.Momentum(learning_rate, hparams['momentum'])
+  if optimizer == 'rmsprop':
+    return optimizers.RMSProp(learning_rate, decay=hparams['rmsprop_decay'],
+                              momentum=hparams['momentum'],
+                              epsilon=hparams['rmsprop_epsilon'])
+  return optimizers.Adam(learning_rate, beta1=hparams['momentum'],
+                         beta2=hparams.get('adam_beta2', 0.999),
+                         epsilon=hparams.get('adam_epsilon', 1e-8))

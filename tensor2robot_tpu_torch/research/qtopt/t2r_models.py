@@ -7,7 +7,8 @@ The counterpart of the JAX package's ``research/qtopt/t2r_models.py``:
     feature dict and runs ``Grasping44Network``;
   * ``DefaultGrasping44ImagePreprocessor`` crops the uint8 512x640 frame to
     472x472 and divides by 255, through the port's crop + convert kernel
-    K1: at random offsets in TRAIN, in the center otherwise;
+    K1: at random offsets in TRAIN, in the center otherwise; in TRAIN it
+    then applies the photometric distortions it is configured with;
   * ``LegacyGraspingModelWrapper`` holds the legacy hparams (momentum with
     staircase decay, the EMA of the weights) and the loss: mean sigmoid
     cross entropy of the Q logit against the grasp success, plus the l2
@@ -142,9 +143,13 @@ class DefaultGrasping44ImagePreprocessor:
   uint8 [B, 512, 640, 3] frames become float32 [B, 472, 472, 3] in
   [0, 1]: the crop, then ``/ 255``, in one pass of kernel K1. TRAIN crops
   at uniform random offsets drawn from the caller's ``torch.Generator``
-  (or at given ``offsets``); EVAL and PREDICT crop the center. The
-  photometric distortions of the JAX preprocessor (``distortion_kwargs``,
-  off by default there and in ``train_qtopt.gin``) are not ported yet.
+  (or at given ``offsets``); EVAL and PREDICT crop the center. In TRAIN
+  only, the photometric distortions of ``distortion_kwargs`` (the keyword
+  arguments of ``image_transformations.apply_photometric_image_distortions``;
+  none by default, as in JAX and ``train_qtopt.gin``) follow the crop,
+  drawn from the same generator after the offsets (or given as
+  ``distortion_parameters``), so that a resumed run draws what an
+  uninterrupted one would have.
 
   ``feature_spec_fn`` and ``label_spec_fn`` are the model's specification
   functions; the in-specifications (what an input generator makes) are
@@ -154,9 +159,12 @@ class DefaultGrasping44ImagePreprocessor:
   def __init__(self, feature_spec_fn: Optional[Callable] = None,
                label_spec_fn: Optional[Callable] = None,
                distortion_kwargs: Optional[dict] = None):
-    if distortion_kwargs:
-      raise NotImplementedError('The photometric distortions are not ported '
-                                'yet; distortion_kwargs must be empty.')
+    self._distortion_kwargs = dict(distortion_kwargs or {})
+    unknown = sorted(set(self._distortion_kwargs) -
+                     set(image_transformations.PHOTOMETRIC_DEFAULTS))
+    if unknown:
+      raise TypeError('distortion_kwargs has unknown keys {}.'.format(
+          unknown))
     self._feature_spec_fn = feature_spec_fn
     self._label_spec_fn = label_spec_fn
 
@@ -176,7 +184,8 @@ class DefaultGrasping44ImagePreprocessor:
   def preprocess_images(self, images: torch.Tensor,
                         mode: str = ModeKeys.PREDICT,
                         generator: Optional[torch.Generator] = None,
-                        offsets: Optional[torch.Tensor] = None
+                        offsets: Optional[torch.Tensor] = None,
+                        distortion_parameters: Optional[list] = None
                         ) -> torch.Tensor:
     if offsets is None:
       shape = tuple(images.shape[1:3])
@@ -189,16 +198,24 @@ class DefaultGrasping44ImagePreprocessor:
       else:
         offsets = image_transformations.center_crop_offsets(
             images.shape[0], shape, TARGET_SHAPE, device=images.device)
-    return pallas_crop.crop_convert(images, offsets, TARGET_SHAPE,
-                                    torch.float32, 255.0)
+    image = pallas_crop.crop_convert(images, offsets, TARGET_SHAPE,
+                                     torch.float32, 255.0)
+    if mode != ModeKeys.TRAIN or not self._distortion_kwargs:
+      return image
+    return image_transformations.apply_photometric_image_distortions(
+        [image], distortion_parameters, generator,
+        **self._distortion_kwargs)[0]
 
   def preprocess(self, features, labels, mode: str,
                  generator: Optional[torch.Generator] = None,
-                 offsets: Optional[torch.Tensor] = None):
-    """(features, labels) with ``state/image`` cropped and converted."""
+                 offsets: Optional[torch.Tensor] = None,
+                 distortion_parameters: Optional[list] = None):
+    """(features, labels) with ``state/image`` cropped, converted and, in
+    TRAIN, distorted."""
     features = dict(features)
     features['state/image'] = self.preprocess_images(
-        features['state/image'], mode, generator, offsets)
+        features['state/image'], mode, generator, offsets,
+        distortion_parameters)
     return features, labels
 
 

@@ -5,7 +5,7 @@ over the flagship critic's batched CEM selector and answers requests over
 the stdlib HTTP/JSON front end, or drives it with closed-loop synthetic
 clients and prints one JSON stats line.
 
-Weights come from one of two sources:
+Weights come from one of three sources:
 
   * ``--checkpoint_dir``: the trainer's ``model_dir``. A
     ``CheckpointPredictor`` waits up to ``--restore_timeout`` seconds for
@@ -15,6 +15,11 @@ Weights come from one of two sources:
     dropped; a poll that fails keeps the old weights and says so on
     stderr. Telemetry goes to ``<checkpoint_dir>/serving`` unless
     ``--model_dir`` says otherwise;
+  * ``--export_dir``: a versioned export root (an exporter's
+    ``<model_dir>/export/<name>``). An ``ExportedModelPredictor`` waits for
+    its first committed version the same way, and the same poll thread
+    hot-swaps each newer version in; telemetry goes to
+    ``<export_dir>/serving``;
   * ``--init_randomly``: weights drawn from ``--seed``.
 
 Examples:
@@ -30,8 +35,7 @@ Examples:
 The network runs in float32 with TF32 off for convolutions and matrix
 products, unless ``--compute_dtype bfloat16``. Everything runs on
 ``--device`` (``cuda`` by default; ``cpu`` only when asked for).
-Serving exported models (``--export_dir``), replicas behind a router and
-compiled-artifact stores are not ported.
+Replicas behind a router and compiled-artifact stores are not ported.
 """
 
 from __future__ import annotations
@@ -49,6 +53,8 @@ import torch
 from tensor2robot_tpu_torch import kernels
 from tensor2robot_tpu_torch.predictors.checkpoint_predictor import (
     CheckpointPredictor)
+from tensor2robot_tpu_torch.predictors.exported_model_predictor import (
+    ExportedModelPredictor)
 from tensor2robot_tpu_torch.research.qtopt import t2r_models
 from tensor2robot_tpu_torch.serving.frontend import build_http_server
 from tensor2robot_tpu_torch.serving.server import PolicyServer, ServingConfig
@@ -139,9 +145,16 @@ def build_policy(device='cuda', num_convs=(6, 6, 3), cem_samples=64,
 
 def build_predictor(model, args):
   """The weights' source: ``(predictor, polls)``. From
-  ``--checkpoint_dir``, the newest checkpoint within ``--restore_timeout``
-  (else the process exits) and ``polls`` True; else random weights from
-  ``--seed``."""
+  ``--checkpoint_dir`` (``--export_dir``), the newest checkpoint (export)
+  within ``--restore_timeout`` (else the process exits) and ``polls``
+  True; else random weights from ``--seed``."""
+  if getattr(args, 'export_dir', ''):
+    predictor = ExportedModelPredictor(args.export_dir, model,
+                                       timeout=args.restore_timeout)
+    if not predictor.restore():
+      raise SystemExit('no export appeared under {} within {}s'.format(
+          args.export_dir, args.restore_timeout))
+    return predictor, True
   predictor = CheckpointPredictor(model, args.checkpoint_dir or None,
                                   timeout=args.restore_timeout)
   if args.checkpoint_dir:
@@ -161,14 +174,18 @@ def make_parser() -> argparse.ArgumentParser:
   source.add_argument('--checkpoint_dir', default='',
                       help='the trainer model_dir to serve and poll '
                       'checkpoints from')
+  source.add_argument('--export_dir', default='',
+                      help='a versioned export root to serve and poll '
+                      '(<model_dir>/export/latest_exporter)')
   source.add_argument('--init_randomly', action='store_true',
                       help='random weights from --seed (smoke and '
                       'capacity checks)')
   parser.add_argument('--poll_secs', type=float, default=30.0,
-                      help='seconds between looks for a newer checkpoint')
+                      help='seconds between looks for a newer checkpoint '
+                      '(export)')
   parser.add_argument('--restore_timeout', type=float, default=600.0,
-                      help='seconds to wait for the first checkpoint (and '
-                      'for a newer one while polling)')
+                      help='seconds to wait for the first checkpoint or '
+                      'export (and for a newer one while polling)')
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--device', default='cuda',
                       help="'cuda' (default) or 'cpu'")
@@ -178,9 +195,9 @@ def make_parser() -> argparse.ArgumentParser:
                       help='depth of the three conv stacks')
   parser.add_argument('--model_dir', default='',
                       help='where serving telemetry.jsonl lands (default: '
-                      '<checkpoint_dir>/serving, a subdirectory, so that '
-                      'the server never writes into a live trainer\'s '
-                      'files; none for --init_randomly)')
+                      '<checkpoint_dir or export_dir>/serving, a '
+                      'subdirectory, so that the server never writes into '
+                      'a live trainer\'s files; none for --init_randomly)')
   parser.add_argument('--port', type=int, default=8080)
   parser.add_argument('--host', default='127.0.0.1')
   parser.add_argument('--max_batch_size', type=int, default=8)
@@ -203,7 +220,7 @@ def make_parser() -> argparse.ArgumentParser:
 
 class Serving:
   """A running server: the model, its predictor, the ``PolicyServer`` and
-  the poll thread that hot-swaps newer checkpoints into it. ``stop``
+  the poll thread that hot-swaps newer checkpoints (exports) into it. ``stop``
   drains the server and ends the thread."""
 
   def __init__(self, model, predictor, service, feature_spec, polls,
@@ -269,9 +286,9 @@ def start(args) -> Serving:
   batch_select(variables, {name: np.stack([w[name] for w in warm])
                            for name in feature_spec}, 0)
 
+  source_dir = args.checkpoint_dir or args.export_dir
   model_dir = args.model_dir or (
-      os.path.join(args.checkpoint_dir, 'serving') if args.checkpoint_dir
-      else '')
+      os.path.join(source_dir, 'serving') if source_dir else '')
   config = ServingConfig(
       max_batch_size=batch, max_wait_ms=args.max_wait_ms,
       max_queue_depth=args.max_queue_depth, slo_ms=args.slo_ms,

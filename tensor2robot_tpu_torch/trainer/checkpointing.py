@@ -7,6 +7,10 @@ place, so a reader never sees half a checkpoint. The newest
 restored to the device the caller names; ``torch.load`` runs with
 ``weights_only=True``, as the files hold only tensors, numbers and dicts.
 
+``checkpoints_iterator`` yields each new step as it lands (continuous
+eval); ``create_warm_start_fn`` merges a foreign run's weights into fresh
+ones (warm start).
+
 (Restoring the JAX package's Orbax checkpoints without JAX is not ported
 yet; ``convert.train_state_from_flax`` converts a JAX state given as
 numpy arrays.)
@@ -16,17 +20,23 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
 import re
-from typing import List, Optional
+import time
+from typing import Callable, Dict, Iterator, List, Optional
 
 import torch
 
 from tensor2robot_tpu_torch.models.abstract_model import TrainState
 
-__all__ = ['CheckpointManager', 'all_checkpoint_steps',
+__all__ = ['CheckpointManager', 'SKIP_ERRORS', 'all_checkpoint_steps',
+           'checkpoints_iterator', 'create_warm_start_fn',
            'latest_checkpoint_step']
 
 _PATTERN = re.compile(r'^checkpoint_(\d+)\.pt$')
+# A checkpoint that fails to load with one of these (half written, removed
+# by the trainer's retention while being read) is skipped by its readers.
+SKIP_ERRORS = (OSError, RuntimeError, EOFError, pickle.UnpicklingError)
 
 
 def _path(model_dir: str, step: int) -> str:
@@ -89,3 +99,61 @@ class CheckpointManager:
     # Tensors keep their strides through save and load (channels_last
     # weights stay channels_last).
     return TrainState(**_to(saved, torch.device(device)))
+
+
+def checkpoints_iterator(model_dir: str, timeout_secs: float = 600.0,
+                         min_interval_secs: float = 1.0,
+                         stop_fn: Optional[Callable[[], bool]] = None
+                         ) -> Iterator[int]:
+  """Yields the newest checkpoint step each time it changes.
+
+  Ends when no new checkpoint lands within ``timeout_secs`` of the last
+  one (on the monotonic clock, which no wall-clock jump moves), or when
+  ``stop_fn`` returns True.
+  """
+  last_step = None
+  deadline = time.monotonic() + timeout_secs
+  while True:
+    if stop_fn is not None and stop_fn():
+      return
+    step = latest_checkpoint_step(model_dir)
+    if step is not None and step != last_step:
+      last_step = step
+      deadline = time.monotonic() + timeout_secs
+      yield step
+      continue
+    if time.monotonic() > deadline:
+      return
+    time.sleep(min_interval_secs)
+
+
+def create_warm_start_fn(checkpoint_dir: str, step: Optional[int] = None,
+                         include: Optional[Callable[[str], bool]] = None):
+  """``params -> params``, merging the trainable weights of another run's
+  checkpoint (``step``, the newest when None) into fresh ones.
+
+  A fresh tensor is replaced where the checkpoint holds one under the same
+  name with the same shape and ``include`` (given the name) passes it;
+  every other keeps its fresh value. The merged tensors keep the fresh
+  ones' dtype, device and layout. The checkpoint is only read.
+  """
+
+  def warm_start(params: Dict[str, torch.Tensor]) -> Dict[str,
+                                                          torch.Tensor]:
+    restore_step = step if step is not None else latest_checkpoint_step(
+        checkpoint_dir)
+    if restore_step is None:
+      raise FileNotFoundError(
+          'No checkpoint to warm start from in {}.'.format(checkpoint_dir))
+    restored = torch.load(_path(checkpoint_dir, restore_step),
+                          map_location='cpu', weights_only=True)['params']
+    merged = {}
+    for name, value in params.items():
+      candidate = restored.get(name)
+      if (candidate is not None and (include is None or include(name)) and
+          tuple(candidate.shape) == tuple(value.shape)):
+        value = torch.empty_like(value).copy_(candidate)
+      merged[name] = value
+    return merged
+
+  return warm_start

@@ -23,15 +23,22 @@ default, as in the JAX trainer) keeps every tensor of the state at its
 value before the step, on the device and without waiting for it, while
 the step counter advances, and reports ``nonfinite_loss_skipped``;
 ``'raise'`` checks the loss on the host after every step and raises
-``NonFiniteLossError``. Every ``log_every_n_steps`` the metrics reach the
-host and the observability registry (gauges ``train/loss``,
-``train/grasp_loss`` and ``train/l2_loss`` (the critic),
+``NonFiniteLossError``; ``'rollback'`` checks it so too and restores the
+newest committed checkpoint, at most ``nan_rollback_budget`` times a
+``train`` call (then it raises), counting ``reliability/nan_rollbacks``;
+``'off'`` neither checks nor guards. Every ``log_every_n_steps`` the
+metrics reach the host and the observability registry (gauges
+``train/loss``, ``train/grasp_loss`` and ``train/l2_loss`` (the critic),
 ``train/action_accuracy`` and ``train/action_mae`` (Seq2Act),
 ``train/steps_per_sec``, ``train/examples_per_sec``; counter
-``train/nonfinite_loss_skipped``).
-Checkpoints are written every ``save_checkpoints_steps`` and at the end;
-a trainer starts from the newest checkpoint in ``model_dir`` when there is
-one.
+``train/nonfinite_loss_skipped``), and, with ``write_metrics``, a
+TensorBoard event under ``model_dir`` (``trainer/metrics.py``); each eval
+writes its metrics under ``model_dir/eval``. Checkpoints are written every
+``save_checkpoints_steps`` and at the end; a trainer starts from the
+newest checkpoint in ``model_dir`` that restores, else from fresh weights
+(merged with the model's ``warm_start_fn`` where it has one). Hooks
+(``train_hook_builders``) see ``begin``, ``after_step`` after every step
+and ``end``; exporters (``create_exporters_fn``) run after every eval.
 
 The train batch of global step k is drawn from ``seed + k`` and every
 eval's batches from ``seed + EVAL_SEED_OFFSET`` on, apart from every train
@@ -58,10 +65,23 @@ wrapper): the loader ships each frame's quantized DCT coefficients, dense
 wire ('packed'), decoded on the host by the port's own Huffman decoder;
 the feed unpacks them on the card and the step finishes the decode there.
 
-Not ported yet: continuous eval (eval-only), hooks, exporters, fault
-injection, the compiled-artifact store.
+Without a train generator, ``train_eval_model`` is a continuous eval: it
+evaluates each checkpoint that lands in ``model_dir`` (skipping one that
+does not restore yet) until none lands for ``eval_timeout_secs``, and
+never writes a checkpoint there.
 
-Command line, with ``train_qtopt.gin``'s bindings as flags (``--model
+Not ported yet: fault injection, the compiled-artifact store.
+
+Command line, from gin files (``--gin_configs`` and ``--gin_bindings``,
+as ``bin/run_t2r_trainer.py`` takes them, parsed by the port's own
+``config`` package; ``--model_dir`` and ``--device`` still apply)::
+
+    python -m tensor2robot_tpu_torch.trainer.train_eval \
+        --gin_configs tensor2robot_tpu_torch/research/qtopt/configs/train_qtopt.gin \
+        --gin_bindings "TRAIN_DATA = '/data/qtopt/train*'" \
+        --model_dir /tmp/qtopt
+
+or with ``train_qtopt.gin``'s bindings as flags (``--model
 qtopt``, the default) or ``train_seq2act_bc.gin``'s (``--model seq2act``:
 ``--episode_length``, ``--attention_mode``, ``--learning_rate``). For
 either model ``--train_data`` and ``--eval_data`` are the record file
@@ -93,11 +113,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import statistics
 import sys
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -111,6 +132,7 @@ from tensor2robot_tpu_torch.models.abstract_model import TrainState
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.observability import get_registry
 from tensor2robot_tpu_torch.parallel import collectives
+from tensor2robot_tpu_torch.trainer import checkpointing
 from tensor2robot_tpu_torch.trainer.checkpointing import (
     CheckpointManager, latest_checkpoint_step)
 
@@ -118,7 +140,10 @@ __all__ = ['DEVICE_DECODE', 'MODELS', 'NAN_POLICIES', 'NonFiniteLossError',
            'Trainer', 'main', 'make_input_generators', 'make_model',
            'make_parser', 'train_eval_model']
 
-NAN_POLICIES = ('skip', 'raise')
+NAN_POLICIES = ('off', 'skip', 'raise', 'rollback')
+# The model configurables of the gins: ``--device`` binds their device.
+GIN_MODELS = ('Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom',
+              'Seq2ActBCModel')
 MODELS = ('qtopt', 'seq2act')
 # --device_decode: off (pixels), or the split decode's wire.
 DEVICE_DECODE = ('off', 'dense', 'sparse', 'packed')
@@ -130,10 +155,12 @@ CROP_SEED_STRIDE = 1 << 32
 
 
 class NonFiniteLossError(RuntimeError):
-  """The loss of a step was not finite under ``nan_policy='raise'``."""
+  """The loss of a step was not finite under ``nan_policy='raise'``, or
+  under ``'rollback'`` past its budget or with nothing to roll back to."""
 
-  def __init__(self, step: int):
-    super().__init__('Non-finite loss at step {}.'.format(step))
+  def __init__(self, step: int, reason: str = ''):
+    super().__init__('Non-finite loss at step {}{}.'.format(
+        step, ': ' + reason if reason else ''))
     self.step = step
 
 
@@ -146,13 +173,15 @@ def _tree_where(good: torch.Tensor, new, old):
 
 
 class Trainer:
-  """Owns the train and eval loops and the checkpoints of one model."""
+  """Owns the train and eval loops, the checkpoints and the metrics files
+  of one model."""
 
   def __init__(self, model, model_dir: str, seed: int = 0,
                keep_checkpoint_max: int = 5,
                save_checkpoints_steps: int = 500,
                log_every_n_steps: int = 100, nan_policy: str = 'skip',
-               feed_depth: int = 1):
+               feed_depth: int = 1, nan_rollback_budget: int = 3,
+               write_metrics: bool = True, eval_name: Optional[str] = None):
     if nan_policy not in NAN_POLICIES:
       raise ValueError('nan_policy must be one of {}; got {!r}.'.format(
           NAN_POLICIES, nan_policy))
@@ -162,35 +191,79 @@ class Trainer:
     self.save_checkpoints_steps = save_checkpoints_steps
     self.log_every_n_steps = max(1, int(log_every_n_steps))
     self.nan_policy = nan_policy
+    self.nan_rollback_budget = int(nan_rollback_budget)
     # > 1: the train batches are transferred this many ahead, in a thread.
     self.feed_depth = max(1, int(feed_depth))
     self._feed = None
     self.checkpoint_manager = CheckpointManager(model_dir,
                                                 keep_checkpoint_max)
-    # Rank 0 of the model's group writes the checkpoints.
+    # Rank 0 of the model's group writes the checkpoints and metrics.
     self.is_chief = collectives.rank(model.process_group) == 0
     self.registry = get_registry()
     self._crop_generator = None
+    self._write_metrics = write_metrics and self.is_chief
+    self._eval_dir = os.path.join(
+        model_dir, 'eval' if not eval_name else 'eval_' + eval_name)
+    self._train_writer = self._eval_writer = None
     # (steps, seconds, seconds waiting for data) of every log window.
     self.windows: List[tuple] = []
     self.last_metrics: Dict[str, float] = {}
+    self.last_eval_state: Optional[TrainState] = None
+    # The last train generator (its reader and batch size go in the
+    # command's line).
+    self.train_generator = None
+
+  @property
+  def train_metrics_writer(self):
+    """Event files of the log windows, under ``model_dir``."""
+    if self._write_metrics and self._train_writer is None:
+      from tensor2robot_tpu_torch.trainer.metrics import MetricsWriter
+      self._train_writer = MetricsWriter(self.model_dir)
+    return self._train_writer
+
+  @property
+  def eval_metrics_writer(self):
+    """Event files of the evals, under ``model_dir/eval``."""
+    if self._write_metrics and self._eval_writer is None:
+      from tensor2robot_tpu_torch.trainer.metrics import MetricsWriter
+      self._eval_writer = MetricsWriter(self._eval_dir)
+    return self._eval_writer
 
   def crop_generator(self, step: int) -> torch.Generator:
-    """The device generator of the TRAIN preprocessor's random draws at
-    global step ``step``, seeded from ``(seed + 1, step)``: a resumed run
-    draws the crops that an uninterrupted one would have."""
+    """The device generator of the TRAIN preprocessor's random draws (the
+    crops, then the distortions) at global step ``step``, seeded from
+    ``(seed + 1, step)``: a resumed run draws what an uninterrupted one
+    would have."""
     if self._crop_generator is None:
       self._crop_generator = torch.Generator(device=self.model.device)
     self._crop_generator.manual_seed(
         ((self.seed + 1) * CROP_SEED_STRIDE + step) % (1 << 63))
     return self._crop_generator
 
+  def restore_latest(self) -> TrainState:
+    """The newest checkpoint in ``model_dir`` that restores: a newer one
+    that does not (half written by a concurrent trainer, removed by its
+    retention while read) falls back to the one before it. Raises the last
+    error when none restores, FileNotFoundError when there is none."""
+    steps = checkpointing.all_checkpoint_steps(self.model_dir)
+    if not steps:
+      raise FileNotFoundError('No checkpoint in {}.'.format(self.model_dir))
+    error = None
+    for step in reversed(steps):
+      try:
+        return self.checkpoint_manager.restore(step, self.model.device)
+      except checkpointing.SKIP_ERRORS as e:
+        error = e
+        logging.warning('Checkpoint %d in %s failed to restore (%s); trying '
+                        'the one before.', step, self.model_dir, e)
+    raise error
+
   def init_state(self) -> TrainState:
-    """The newest checkpoint in ``model_dir``, else a fresh state from
-    ``seed``."""
-    step = latest_checkpoint_step(self.model_dir)
-    if step is not None:
-      return self.checkpoint_manager.restore(step, self.model.device)
+    """The newest checkpoint in ``model_dir`` that restores, else a fresh
+    state from ``seed`` (the model's warm start merged in, where it has
+    one)."""
+    if checkpointing.all_checkpoint_steps(self.model_dir):
+      return self.restore_latest()
     return self.model.create_train_state(
         torch.Generator().manual_seed(self.seed))
 
@@ -246,9 +319,7 @@ class Trainer:
         features, labels, ModeKeys.TRAIN,
         generator=self.crop_generator(state.step))
     new_state, metrics = self.model.train_step(state, features, labels)
-    if self.nan_policy == 'raise':
-      if not bool(torch.isfinite(metrics['loss']).all()):
-        raise NonFiniteLossError(new_state.step)
+    if self.nan_policy != 'skip':
       return new_state, metrics
     good = torch.isfinite(metrics['loss']).all()
     guarded = _tree_where(good, vars(new_state), vars(state))
@@ -256,8 +327,27 @@ class Trainer:
     metrics['nonfinite_loss_skipped'] = (~good).to(torch.int32)
     return TrainState(**guarded), metrics
 
+  def _rollback(self, step: int, budget: int) -> TrainState:
+    """The newest committed checkpoint, in place of a state whose loss at
+    ``step`` was not finite; raises ``NonFiniteLossError`` past the budget
+    or without a checkpoint."""
+    if budget <= 0:
+      raise NonFiniteLossError(
+          step, 'rollback budget exhausted after {} rollback(s)'.format(
+              self.nan_rollback_budget))
+    try:
+      restored = self.restore_latest()
+    except checkpointing.SKIP_ERRORS as e:
+      raise NonFiniteLossError(
+          step, 'no committed checkpoint to roll back to ({})'.format(e))
+    logging.warning('Non-finite loss at step %d: rolled back to checkpoint '
+                    '%d (%d rollback(s) left).', step, restored.step,
+                    budget - 1)
+    self.registry.counter('reliability/nan_rollbacks').inc()
+    return restored
+
   def _log(self, metrics, steps: int, seconds: float, data_s: float,
-           batch_size: int) -> None:
+           batch_size: int, step: int) -> None:
     values = {k: float(v) for k, v in metrics.items()}
     self.last_metrics = values
     self.windows.append((steps, seconds, data_s))
@@ -269,17 +359,34 @@ class Trainer:
     steps_per_sec = steps / max(seconds, 1e-9)
     registry.gauge('train/steps_per_sec').set(steps_per_sec)
     registry.gauge('train/examples_per_sec').set(steps_per_sec * batch_size)
+    writer = self.train_metrics_writer
+    if writer is not None:
+      scalars = dict(values)
+      scalars['global_step/sec'] = steps_per_sec
+      scalars['examples/sec'] = steps_per_sec * batch_size
+      scalars.update(registry.scalars())
+      writer.write_scalars(step, scalars)
+      writer.flush()
 
   def train(self, input_generator: AbstractInputGenerator,
-            max_train_steps: int,
-            state: Optional[TrainState] = None) -> TrainState:
-    """Trains up to global step ``max_train_steps``; returns the state."""
+            max_train_steps: int, state: Optional[TrainState] = None,
+            hooks: Sequence[Any] = ()) -> TrainState:
+    """Trains up to global step ``max_train_steps``; returns the state.
+    ``hooks`` see ``begin`` before the first step, ``after_step`` after
+    every step and ``end`` after the last."""
     input_generator.set_specification_from_model(self.model, ModeKeys.TRAIN)
+    self.train_generator = input_generator
     if state is None:
       state = self.init_state()
     if state.step >= max_train_steps:
       return state
     skipped = self.registry.counter('train/nonfinite_loss_skipped')
+    # Registered up front, so that a clean run shows an explicit 0.
+    self.registry.counter('reliability/nan_rollbacks')
+    host_check = self.nan_policy in ('raise', 'rollback')
+    budget = self.nan_rollback_budget
+    for hook in hooks:
+      hook.begin(self)
     iterator = self.device_batches(self.dataset_iterator(
         input_generator, ModeKeys.TRAIN, state.step))
     try:
@@ -290,6 +397,13 @@ class Trainer:
         batch = next(iterator)
         data_s += time.perf_counter() - wait_start
         state, metrics = self._step(state, batch)
+        if host_check and not bool(torch.isfinite(metrics['loss']).all()):
+          if self.nan_policy == 'raise':
+            raise NonFiniteLossError(state.step)
+          state = self._rollback(state.step, budget)
+          budget -= 1
+          window_start, window_steps, data_s = time.perf_counter(), 0, 0.0
+          continue
         window_steps += 1
         # Summed on the device; read at the log cadence only.
         window_skipped = window_skipped + metrics.get(
@@ -298,16 +412,20 @@ class Trainer:
             state.step == max_train_steps):
           self._log(metrics, window_steps,
                     time.perf_counter() - window_start, data_s,
-                    input_generator.batch_size)
+                    input_generator.batch_size, state.step)
           skipped.inc(float(window_skipped))
           window_start, window_steps, data_s = time.perf_counter(), 0, 0.0
           window_skipped = 0
         if state.step % self.save_checkpoints_steps == 0:
           self.save(state)
+        for hook in hooks:
+          hook.after_step(self, state, state.step, metrics)
     finally:
       iterator.close()
     if state.step % self.save_checkpoints_steps:
       self.save(state)
+    for hook in hooks:
+      hook.end(self, state)
     return state
 
   def save(self, state: TrainState) -> None:
@@ -315,8 +433,14 @@ class Trainer:
       self.checkpoint_manager.save(state)
 
   def evaluate(self, input_generator: AbstractInputGenerator,
-               eval_steps: int, state: TrainState) -> Dict[str, float]:
-    """Eval metrics averaged over ``eval_steps`` batches."""
+               eval_steps: int,
+               state: Optional[TrainState] = None) -> Dict[str, float]:
+    """Eval metrics averaged over ``eval_steps`` batches, on ``state`` (the
+    newest checkpoint that restores when None), written to the eval
+    event files at its step."""
+    if state is None:
+      state = self.restore_latest()
+    self.last_eval_state = state
     input_generator.set_specification_from_model(self.model, ModeKeys.EVAL)
     iterator = self.device_batches(
         self.dataset_iterator(input_generator, ModeKeys.EVAL), 'eval')
@@ -334,7 +458,32 @@ class Trainer:
         count += 1
     finally:
       iterator.close()
-    return {k: v / max(count, 1) for k, v in totals.items()}
+    averaged = {k: v / max(count, 1) for k, v in totals.items()}
+    writer = self.eval_metrics_writer
+    if writer is not None:
+      writer.write_scalars(state.step, averaged)
+      writer.flush()
+    return averaged
+
+  def close(self) -> None:
+    for writer in (self._train_writer, self._eval_writer):
+      if writer is not None:
+        writer.close()
+    self._train_writer = self._eval_writer = None
+
+
+def _snapshot_config(model_dir: str, filename: str,
+                     operative: bool = False) -> None:
+  """Writes the gin bindings (all of them, or those that configurables
+  consumed) into ``model_dir``, where there are any."""
+  from tensor2robot_tpu_torch.config import ginlike
+
+  text = (ginlike.operative_config_str() if operative
+          else ginlike.config_str())
+  if text.strip():
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, filename), 'w') as f:
+      f.write(text)
 
 
 def train_eval_model(t2r_model, model_dir: str,
@@ -345,43 +494,114 @@ def train_eval_model(t2r_model, model_dir: str,
                      max_train_steps: int = 1000,
                      eval_steps: int = 100,
                      eval_throttle_steps: int = 500,
+                     create_exporters_fn: Optional[Callable] = None,
+                     train_hook_builders: Sequence[Any] = (),
                      keep_checkpoint_max: int = 5,
                      save_checkpoints_steps: int = 500,
                      log_every_n_steps: int = 100,
                      nan_policy: str = 'skip',
-                     seed: int = 0, feed_depth: int = 1) -> Dict[str, Any]:
-  """The main entry point: train-only (no eval generator), or train with
-  an eval of ``eval_steps`` batches every ``eval_throttle_steps`` and at
-  the end; ``feed_depth`` > 1 transfers that many train batches ahead.
-  Returns ``{'state', 'eval_metrics', 'trainer'}``."""
-  if input_generator_train is None:
-    raise NotImplementedError('Eval-only (continuous eval) is not ported '
-                              'yet; pass input_generator_train.')
+                     nan_rollback_budget: int = 3,
+                     seed: int = 0, feed_depth: int = 1,
+                     eval_timeout_secs: float = 30.0,
+                     write_metrics: bool = True,
+                     eval_name: Optional[str] = None) -> Dict[str, Any]:
+  """The main entry point, in the JAX function's three modes:
+
+    * train and eval: train ``eval_throttle_steps`` at a time, then an eval
+      of ``eval_steps`` batches and the exporters, up to
+      ``max_train_steps``;
+    * train only (no eval generator);
+    * eval only (no train generator): continuous eval of each checkpoint
+      that lands in ``model_dir`` (``checkpoints_iterator``), the
+      exporters after each, until none lands for ``eval_timeout_secs``.
+      It never writes, removes or renames a checkpoint.
+
+  ``feed_depth`` > 1 transfers that many train batches ahead. Writes the
+  gin bindings it was given into ``config_snapshot.gin`` and those it
+  used into ``operative_config.gin`` (on rank 0). Returns ``{'state',
+  'eval_metrics', 'eval_history', 'trainer'}``; ``eval_history`` lists
+  every eval's ``{'step', 'metrics', 'wall_time'}``.
+  """
+  if t2r_model.compute_dtype != torch.float32:
+    raise NotImplementedError(
+        '{0}.device_type = "tpu" (bfloat16 training) is not ported; bind '
+        '{0}.device_type = "gpu" to train in float32.'.format(
+            type(t2r_model).__name__))
+  if input_generator_train is None and input_generator_eval is None:
+    raise ValueError('Provide at least one of train/eval input generators.')
+  if eval_name is None and input_generator_eval is not None:
+    eval_name = getattr(input_generator_eval, 'multi_eval_name', None)
   trainer = Trainer(t2r_model, model_dir, seed=seed,
                     keep_checkpoint_max=keep_checkpoint_max,
                     save_checkpoints_steps=save_checkpoints_steps,
                     log_every_n_steps=log_every_n_steps,
-                    nan_policy=nan_policy, feed_depth=feed_depth)
-  eval_metrics: Dict[str, float] = {}
-  if input_generator_eval is None:
-    state = trainer.train(input_generator_train, max_train_steps)
-  else:
-    state, target = None, 0
-    while target < max_train_steps:
-      target = min(target + eval_throttle_steps, max_train_steps)
-      state = trainer.train(input_generator_train, target, state=state)
-      eval_metrics = trainer.evaluate(input_generator_eval, eval_steps,
-                                      state)
-  return {'state': state, 'eval_metrics': eval_metrics, 'trainer': trainer}
+                    nan_policy=nan_policy, feed_depth=feed_depth,
+                    nan_rollback_budget=nan_rollback_budget,
+                    write_metrics=write_metrics, eval_name=eval_name)
+  if trainer.is_chief:
+    _snapshot_config(model_dir, 'config_snapshot.gin')
+  hooks: List[Any] = []
+  for builder in train_hook_builders:
+    hooks.extend(builder.create_hooks(t2r_model, trainer))
+  exporters = create_exporters_fn(t2r_model) if create_exporters_fn else []
+  state, eval_metrics, history = None, {}, []
+
+  def evaluated(current_state, metrics):
+    history.append({'step': current_state.step, 'metrics': metrics,
+                    'wall_time': time.time()})
+    if trainer.is_chief:
+      for exporter in exporters:
+        exporter.export(trainer, current_state, metrics)
+
+  try:
+    if input_generator_train is not None and input_generator_eval is not None:
+      target = 0
+      while target < max_train_steps:
+        target = min(target + eval_throttle_steps, max_train_steps)
+        state = trainer.train(input_generator_train, target, state=state,
+                              hooks=hooks)
+        eval_metrics = trainer.evaluate(input_generator_eval, eval_steps,
+                                        state)
+        evaluated(state, eval_metrics)
+    elif input_generator_train is not None:
+      state = trainer.train(input_generator_train, max_train_steps,
+                            hooks=hooks)
+    else:
+      for step in checkpointing.checkpoints_iterator(
+          model_dir, timeout_secs=eval_timeout_secs):
+        try:
+          state = trainer.restore_latest()
+        except checkpointing.SKIP_ERRORS as e:
+          # A concurrent trainer may be mid-commit: keep polling.
+          logging.warning('Continuous eval: checkpoint %d does not restore '
+                          '(%s); skipping it.', step, e)
+          continue
+        eval_metrics = trainer.evaluate(input_generator_eval, eval_steps,
+                                        state)
+        evaluated(state, eval_metrics)
+  finally:
+    if trainer.is_chief:
+      _snapshot_config(model_dir, 'operative_config.gin', operative=True)
+    trainer.close()
+  return {'state': state, 'eval_metrics': eval_metrics,
+          'eval_history': history, 'trainer': trainer}
 
 
 def make_parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(
       description=__doc__,
       formatter_class=argparse.RawDescriptionHelpFormatter)
-  parser.add_argument('--model_dir', required=True,
+  parser.add_argument('--model_dir', default='',
                       help='where checkpoints are written (and resumed '
-                      'from)')
+                      'from); with --gin_configs, in place of the gin\'s '
+                      'train_eval_model.model_dir')
+  parser.add_argument('--gin_configs', action='append', default=[],
+                      help='a gin file configuring train_eval_model '
+                      '(repeatable); the flags below other than '
+                      '--model_dir and --device then do not apply')
+  parser.add_argument('--gin_bindings', action='append', default=[],
+                      help='one gin binding, e.g. "train_eval_model.'
+                      'max_train_steps = 100" (repeatable)')
   parser.add_argument('--model', default='qtopt', choices=MODELS,
                       help="'qtopt': the Grasping44 critic "
                       "(train_qtopt.gin); 'seq2act': the RT-1-style policy "
@@ -496,9 +716,85 @@ def make_input_generators(args, ranks: int = 1):
           generator(args.eval_data) if args.eval_steps > 0 else None)
 
 
+def _print_line(result, model_name: str, device, world_size: int,
+                seconds: float, **extra) -> None:
+  """The command's JSON line: the loop's numbers, the metrics, the
+  checkpoint."""
+  trainer = result['trainer']
+  train = trainer.train_generator
+  windows = trainer.windows
+  steps = sum(w[0] for w in windows)
+  # A step's wall time and its wait for data, medians over the log windows
+  # after the first (which pays for the first launches).
+  later = windows[1:] or windows
+  state = result['state']
+  print(json.dumps({
+      'data': (getattr(train, 'reader', None) or 'random') if train
+              else 'none',
+      # Seconds the loop waited for its batches, over all steps.
+      'data_wait_sec': sum(w[2] for w in windows),
+      'step_ms': statistics.median(w[1] / w[0] * 1e3 for w in later)
+                 if later else None,
+      'data_wait_ms': statistics.median(w[2] / w[0] * 1e3 for w in later)
+                      if later else None,
+      'step': state.step if state is not None else None,
+      'model': model_name, **extra,
+      # A batch's copies to the device, median ms (on the card, events).
+      'transfer_ms': trainer.feed.transfer_ms(),
+      'device': str(device), 'world_size': world_size,
+      'metrics': trainer.last_metrics, 'eval_metrics': result['eval_metrics'],
+      'eval_history': result['eval_history'],
+      # Episodes (or critic examples) a second, however many ranks share
+      # them.
+      'examples_per_sec': steps * (train.batch_size if train else 0) / max(
+          sum(w[1] for w in windows), 1e-9),
+      'checkpoint_step': latest_checkpoint_step(trainer.model_dir),
+      'seconds': seconds}))
+
+
+def _prepare_device(device: torch.device) -> None:
+  if device.type == 'cuda':
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print('built CUDA kernels in {:.1f}s'.format(kernels.build()))
+
+
+def main_gin(args) -> int:
+  """``train_eval_model`` as the gin files and bindings configure it (the
+  port's ``bin/run_t2r_trainer.py``), with ``--model_dir`` and
+  ``--device`` applied. Every configurable that the gins name must be one
+  the port registers (``config.check_configurables``)."""
+  from tensor2robot_tpu_torch import config
+
+  config.register_framework_configurables()
+  config.add_config_file_search_path(
+      os.path.dirname(os.path.dirname(os.path.dirname(
+          os.path.abspath(__file__)))))
+  config.clear_config()
+  config.parse_config_files_and_bindings(args.gin_configs, [
+      '{}.device = {!r}'.format(name, args.device) for name in GIN_MODELS
+  ] + list(args.gin_bindings))
+  config.check_configurables()
+  device = torch.device(args.device)
+  _prepare_device(device)
+  overrides = {'model_dir': args.model_dir} if args.model_dir else {}
+  start = time.perf_counter()
+  result = config.get_configurable('train_eval_model')(**overrides)
+  trainer = result['trainer']
+  if trainer.is_chief:
+    _print_line(result, type(trainer.model).__name__, device, 1,
+                time.perf_counter() - start,
+                gin_configs=args.gin_configs)
+  return 0
+
+
 def main(argv=None) -> int:
   parser = make_parser()
   args = parser.parse_args(argv)
+  if args.gin_configs or args.gin_bindings:
+    return main_gin(args)
+  if not args.model_dir:
+    parser.error('--model_dir is required without --gin_configs.')
   if args.eval_data and args.eval_steps <= 0:
     parser.error('--eval_data needs --eval_steps > 0.')
   if args.device_decode != 'off' and (
@@ -514,10 +810,7 @@ def main(argv=None) -> int:
     sequence = mesh.init_sequence_group(args.device)
     device, group = sequence.device, sequence.group
   try:
-    if device.type == 'cuda':
-      torch.backends.cudnn.allow_tf32 = False
-      torch.backends.cuda.matmul.allow_tf32 = False
-      print('built CUDA kernels in {:.1f}s'.format(kernels.build()))
+    _prepare_device(device)
     model = make_model(args, device, group)
     # The ranks of a ring are torchrun's processes on this host.
     train, evaluate = make_input_generators(
@@ -534,34 +827,11 @@ def main(argv=None) -> int:
   finally:
     if group is not None:
       dist.destroy_process_group()
-  trainer = result['trainer']
-  if not trainer.is_chief:
+  if not result['trainer'].is_chief:
     return 0
-  steps = sum(w[0] for w in trainer.windows)
-  seconds = sum(w[1] for w in trainer.windows)
-  # A step's wall time and its wait for data, medians over the log windows
-  # after the first (which pays for the first launches).
-  later = trainer.windows[1:] or trainer.windows
-  print(json.dumps({
-      'data': getattr(train, 'reader', None) or 'random',
-      # Seconds the loop waited for its batches, over all steps.
-      'data_wait_sec': sum(w[2] for w in trainer.windows),
-      'step_ms': statistics.median(w[1] / w[0] * 1e3 for w in later)
-                 if later else None,
-      'data_wait_ms': statistics.median(w[2] / w[0] * 1e3 for w in later)
-                      if later else None,
-      'step': result['state'].step, 'model': args.model,
-      'device_decode': args.device_decode, 'feed_depth': args.feed_depth,
-      # A batch's copies to the device, median ms (on the card, events).
-      'transfer_ms': trainer.feed.transfer_ms(),
-      'device': str(device),
-      'world_size': collectives.world_size(group),
-      'metrics': trainer.last_metrics, 'eval_metrics': result['eval_metrics'],
-      # Episodes (or critic examples) a second, however many ranks share
-      # them.
-      'examples_per_sec': steps * args.batch_size / max(seconds, 1e-9),
-      'checkpoint_step': latest_checkpoint_step(args.model_dir),
-      'seconds': time.perf_counter() - start}))
+  _print_line(result, args.model, device, collectives.world_size(group),
+              time.perf_counter() - start,
+              device_decode=args.device_decode, feed_depth=args.feed_depth)
   return 0
 
 

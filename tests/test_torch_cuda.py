@@ -54,7 +54,10 @@ on, with no request failed. The split decode on the card: the sparse and
 packed coefficient wires unpacked by the feed equal the dense planes bit
 for bit, the finish on the card is within 1 level of the CPU's and within
 4 of OpenCV's decode, the coefficient loader binds no card, and the
-pipelined feed hands batches over in order.
+pipelined feed hands batches over in order. The photometric distortions
+(plain PyTorch, no kernel of their own) on the card equal the CPU's on
+the same draws within 1e-5 (the contrast's mean sums in another order),
+the depth distortions bit for bit.
 """
 
 import pytest
@@ -869,3 +872,40 @@ def test_pipelined_feed_on_the_card_is_fifo(device, tmp_path, depth):
          for f, l in pipelined]
   assert pipelined.close()
   assert got == [(i, float(i), 'cuda') for i in range(6)]
+
+
+@pytest.mark.parametrize('shape', [(4, 472, 472, 3), (3, 17, 23, 3)])
+def test_photometric_distortions_on_the_card_equal_the_cpus(device, shape):
+  """Every photometric distortion (plain PyTorch, no kernel of its own) on
+  the card against the CPU on the same image and the same draws: all
+  elementwise float32 but the contrast's per-image mean, whose sum runs in
+  another order, so within 1e-5 on values in [0, 1]; grey pixels and hues
+  at the wrap included; the depth distortions bit for bit."""
+  from tensor2robot_tpu_torch.preprocessors import image_transformations
+
+  options = {'random_brightness': True, 'random_saturation': True,
+             'random_hue': True, 'random_contrast': True,
+             'random_noise_level': 0.05, 'random_channel_swap': True}
+  gen = _generator(device, 3)
+  image = torch.rand(shape, generator=gen, device=device)
+  image[0, :4] = 0.5                               # grey
+  image[0, 4:6] = torch.tensor([1.0, 0.0, 1e-6], device=device)   # wrap
+  parameters = image_transformations.draw_photometric_parameters(
+      gen, [image], **options)
+  assert all(v.device.type == 'cuda' for v in parameters[0].values())
+  card = image_transformations.apply_photometric_image_distortions(
+      [image], parameters, **options)[0]
+  cpu = image_transformations.apply_photometric_image_distortions(
+      [image.cpu()], [{k: v.cpu() for k, v in parameters[0].items()}],
+      **options)[0]
+  assert card.device.type == 'cuda'
+  assert float((card.cpu() - cpu).abs().max()) <= 1e-5
+  depth = image[..., :1]
+  drawn = image_transformations.draw_depth_parameters(gen, [depth],
+                                                      scale_noise=True)
+  card = image_transformations.apply_depth_image_distortions(
+      [depth], drawn, scale_noise=True)[0]
+  cpu = image_transformations.apply_depth_image_distortions(
+      [depth.cpu()], [{k: v.cpu() for k, v in drawn[0].items()}],
+      scale_noise=True)[0]
+  assert torch.equal(card.cpu(), cpu)

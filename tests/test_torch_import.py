@@ -19,7 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, 'tensor2robot_tpu_torch')
 
 _FORBIDDEN = re.compile(
-    r'^\s*(import|from)\s+(jax|flax|optax)\b|\btensor2robot_tpu[. ]',
+    r'^\s*(import|from)\s+(jax|flax|optax|orbax)\b|\btensor2robot_tpu[. ]',
     re.MULTILINE)
 
 
@@ -55,6 +55,15 @@ RECORDS_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
 # The split decode slice's modules.
 DEVICE_DECODE_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
     'data.device_feed', 'data.jpeg_device', 'preprocessors.device_decode'))
+
+
+# The gin-driven slice's modules.
+GIN_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
+    'config', 'config.ginlike', 'config.registry', 'export.exporters',
+    'hooks', 'hooks.async_export_hook_builder', 'hooks.checkpoint_hooks',
+    'hooks.hook_builder', 'hooks.td3', 'hooks.variable_logger_hook',
+    'predictors.exported_model_predictor', 'specs.assets',
+    'trainer.metrics'))
 
 
 def _port_sources():
@@ -94,6 +103,27 @@ def test_importing_every_module_loads_no_jax():
   assert set(RECORDS_MODULES) <= names, set(RECORDS_MODULES) - names
   assert set(DEVICE_DECODE_MODULES) <= names, (
       set(DEVICE_DECODE_MODULES) - names)
+  assert set(GIN_MODULES) <= names, set(GIN_MODULES) - names
+
+
+def test_registering_the_configurables_loads_no_jax():
+  script = textwrap.dedent('''
+      import sys
+      from tensor2robot_tpu_torch import config
+      config.register_framework_configurables()
+      config.parse_config_files_and_bindings([
+          'tensor2robot_tpu_torch/research/qtopt/configs/'
+          'train_qtopt_sparse.gin'])
+      config.check_configurables()
+      bad = sorted(m for m in sys.modules
+                   if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                          'orbax', 'tensor2robot_tpu'))
+      assert not bad, bad
+      ''')
+  env = dict(os.environ, PYTHONPATH=REPO)
+  result = subprocess.run([sys.executable, '-c', script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+  assert result.returncode == 0, result.stderr
 
 
 def test_static_scan_finds_no_jax_import():

@@ -27,12 +27,15 @@ repository around it. Phases, each printing one line or more:
      and bf16) and at odd shapes, O within 1e-5 (f32) or 2e-2 (bf16) and
      LSE within 1e-5, timed beside scaled_dot_product_attention (whose
      kernels the profiler names) at the served shape and at the training
-     shape (batch 8); K5a and
+     shape (batch 8), each also in bf16 beside scaled_dot_product_attention
+     in bf16 (bound: bytes, or the products at the dense bf16 peak, 989
+     TFLOP/s); K5a and
      K5b (the flash attention backward: dk and dv, dq) at the training
      shape (batch 8) in f32 and bf16 and at an odd shape, dq, dk and dv
      within 1e-4 (f32) or 2e-2 (bf16) of each one's max|plain| and the
      same bits run to run, timed each alone beside the plain backward
-     (median of 10) and the backward of scaled_dot_product_attention. K3,
+     (median of 10) and the backward of scaled_dot_product_attention, and
+     in bf16 beside its bf16 backward. K3,
      K4, K5a and K5b (3xTF32 on the tensor cores) print two bounds, the
      CUDA cores' float32 rate's and three TF32 passes at the tensor cores'
      rate (the one in the JSON line's bound_ms), and the HMMA count of
@@ -171,6 +174,32 @@ repository around it. Phases, each printing one line or more:
      through the kernels and through the plain versions (as in phase 6),
      a profiled resident step, and the loop's median step and data wait
      and its loader's numbers beside phase 6's.
+  6c. Seq2Act in bf16: the port's ``train_seq2act_bc.gin`` as written
+     (``device_type = "tpu"``) with the long-context binding (512 frames,
+     flash), configured as ``train_eval --gin_configs`` configures it, at
+     batch 8 on random episodes for SEQ2ACT_BF16_STEPS steps, the counters
+     zeroed just before and read just after: 1 K1 and 8 each of K4, K5a and
+     K5b a step, every q that reaches them bf16; every loss finite; params
+     and adam state float32; the checkpoint restores equal. One step on one
+     episode through the kernels and through the plain versions within
+     BF16_STEP_BOUNDS by group of parameters, a profiled resident step and
+     the peak memory; then SequentialRegressionPolicy over the trained
+     checkpoint: 1 K1 and 8 K4 (bf16) a predict, finite float32 bin
+     centers, the logits within BF16_LOGITS_RTOL of the plain versions'
+     and equal to the trained params' predict_step, the wall ms a call
+     against the 33 ms tick, and a profile.
+  6d. The MoE gin: ``train_eval --gin_configs`` on the port's
+     ``train_seq2act_moe.gin`` as written (6-frame episodes, batch 32, bf16,
+     8 experts, top 2) from MOE_EPISODES records of 6 frames written by the
+     port's writer, MOE_STEPS steps with ``TRAIN_DATA`` bound: 1 K1 a step
+     (48 tokens: 'auto' attention is dense, as in JAX), the loop's step and
+     data wait, the peak memory; on a batch of them the aux loss, the share
+     of (token, choice) pairs dropped over capacity and the MoE layers'
+     device ms a step. A DROPOUT_STEPS run with ``dropout_rate = 0.1`` and
+     its rerun from the same seed, equal bit for bit. Then the same gin
+     with the long-context binding at batch 8 from phase 6b's episodes:
+     1 K1 and 8 each of K4, K5a, K5b (bf16) a step, the peak memory within
+     the card, the same MoE numbers and a profiled resident step.
   7. Ring attention's kernel: K6 (the carried flash update, the ring's
      hop) against its plain version at the 4-rank hop shape [8, 1024, 8,
      64] (diagonal, full and hidden hops from a carried state, f32 and
@@ -204,9 +233,17 @@ repository around it. Phases, each printing one line or more:
      state on the same 8 episodes and crops (loss within 1e-5 relative,
      every gradient within 1e-4 of its scale); the trained checkpoint
      served by the flash SequentialRegressionPolicy gives the trained
-     params' logits (1e-4).
-  9. A JSON line of the kernels, the card's name and power limit, and
-     the last line ``{"ok": true, "device": {...}}``. K1's, K2f's and
+     params' logits (1e-4). Then each rank runs ``train_eval
+     --gin_configs`` on ``train_seq2act_bc.gin`` with ``attention_mode =
+     "ring"`` bound, as torchrun starts it (main_gin builds the NCCL group
+     and destroys it), RING_GIN_STEPS steps in float32 at the same shape
+     and from the same episodes: 8 x N K6 a step a rank, and rank 0's loss
+     within RING_GIN_RTOL of the first run's at that step.
+  9. A JSON line of phases 6c's, 6d's and the ring gin's numbers
+     (``seq2act_variants``), a JSON line of the kernels (K4, K5a and K5b
+     with their bf16 times, bounds at the bf16 peak and the library's bf16
+     times), the card's name and power limit, and the last line ``{"ok":
+     true, "device": {...}}``. K1's, K2f's and
      K2b's ms, plain_ms and library_ms are device time, each call queued
      behind a device sleep; their ms_with_host, and every other kernel's
      ms, is one call between two events as the host queues it.
@@ -239,6 +276,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12   # dense bf16 tensor-core peak
 
 MAX_BATCH = 8
 CEM_SAMPLES, CEM_ITERS, NUM_ELITES = 64, 3, 10
@@ -327,6 +365,15 @@ def tensor_core_bound_ms(flops):
   """The least time for float32-grade products on the tensor cores: three
   TF32 passes (3xTF32, csrc/tf32_mma.cuh) of every product."""
   return 3 * flops / TF32_OPS_PER_S * 1e3
+
+
+def bf16_bound_ms(nbytes, flops):
+  """The least time for bf16 work: the larger of bytes over the memory
+  rate and the products over the dense bf16 tensor-core peak; and which
+  one bounds it."""
+  t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+  t_ops = flops / BF16_OPS_PER_S * 1e3
+  return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
 SASS_OPCODE = re.compile(r'\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)')
@@ -1331,9 +1378,11 @@ def phase_train_serve(model, initial, state):
             q_err, spread, moved, max_abs_err(logits_avg, logits_params)))
 
 
-def train_profile(label, trainer, model, state, raw, labels, steps, batch):
+def train_profile(label, trainer, model, state, raw, labels, steps, batch,
+                  out=None):
   """``profile`` of train steps (crop + forward + backward + optimizer)
-  on a resident batch, after one warm step; prints examples/s."""
+  on a resident batch, after one warm step; prints examples/s. ``out``:
+  as ``profile``'s."""
   from tensor2robot_tpu_torch.modes import ModeKeys
 
   current = [state]
@@ -1347,7 +1396,7 @@ def train_profile(label, trainer, model, state, raw, labels, steps, batch):
     float(metrics['loss'])
 
   step(0)   # warm
-  wall_ms = profile(label, step, steps, 'step of {}'.format(batch))
+  wall_ms = profile(label, step, steps, 'step of {}'.format(batch), out=out)
   print('{}: {:.2f} examples/s on a resident batch'.format(
       label, batch * 1e3 / wall_ms))
   return wall_ms
@@ -2657,6 +2706,29 @@ def phase_flash(device, gen):
             b, l, h, d, train_ms, b * flops / train_ms / 1e9, train_bound,
             train_lib, 8, smi_line()))
   del qkv, q, k, v, bhl
+
+  # bf16 (device_type 'tpu'): the served and the training call, beside
+  # scaled_dot_product_attention in bf16. Bound: q, k, v read and O written
+  # in bf16, the LSE in float32, or the products at the bf16 peak.
+  bf16 = {}
+  for label, batch in (('served', 1), ('training', b)):
+    qkv = torch.randn((batch, l, h, 3, d), device=device,
+                      generator=gen).to(torch.bfloat16)
+    q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+    bhl = [x.transpose(1, 2) for x in (q, k, v)]
+    ms16 = median_ms(lambda: flash_attention.flash_attention(
+        q, k, v, causal=True))
+    lib16 = median_ms(
+        lambda: F.scaled_dot_product_attention(*bhl, is_causal=True))
+    bound16, by16 = bf16_bound_ms(4 * q.numel() * 2 + batch * h * l * 4,
+                                  batch * flops)
+    bf16[label] = (ms16, bound16, by16, lib16)
+    print('flash_attention {} [{},{},{},{}] causal bf16: {:.4f} ms ({:.1f} '
+          'TFLOP/s; bound {:.4f} ms by {} at the bf16 peak), '
+          'scaled_dot_product_attention bf16 {:.4f} ms; {}'.format(
+              label, batch, l, h, d, ms16, batch * flops / ms16 / 1e9,
+              bound16, by16, lib16, smi_line()))
+    del qkv, q, k, v, bhl
   return dict(name='flash_attention_fwd', route='cuda',
               source='tensor2robot_tpu_torch/csrc/flash_attention_fwd.cu',
               replaces='tensor2robot_tpu/parallel/flash_attention.py:202',
@@ -2666,6 +2738,13 @@ def phase_flash(device, gen):
               library_kernels=lib_kernels, sass_hmma=hmma, sass_mix=mix,
               train_ms=train_ms, train_library_ms=train_lib,
               train_bound_ms=train_bound,
+              bf16_ms=bf16['served'][0], bf16_bound_ms=bf16['served'][1],
+              bf16_bound_by=bf16['served'][2],
+              bf16_library_ms=bf16['served'][3],
+              bf16_train_ms=bf16['training'][0],
+              bf16_train_bound_ms=bf16['training'][1],
+              bf16_train_bound_by=bf16['training'][2],
+              bf16_train_library_ms=bf16['training'][3],
               shapes='per launch: [1,{},{},{}] causal f32, q/k/v strided '
               'views of the qkv projection'.format(l, h, d),
               train_shapes='per launch: [{},{},{},{}] causal f32, the same '
@@ -2741,12 +2820,21 @@ def phase_flash_backward(device, gen):
   q_ms = median_ms(lambda: fa.flash_attention_bwd_q(
       q, k, v, d_out, lse, delta, True, scale))
   delta_ms = median_ms(lambda: fa.flash_attention_delta(out, d_out))
-  # K5b in bf16 runs one tensor-core pass where float32 runs three.
+  # K5a and K5b in bf16 (device_type 'tpu') run one tensor-core pass where
+  # float32 runs three; beside them the backward of
+  # scaled_dot_product_attention in bf16.
   qkv16, o16 = qkv.to(torch.bfloat16), d_out.to(torch.bfloat16)
+  q16, k16, v16 = qkv16[..., 0, :], qkv16[..., 1, :], qkv16[..., 2, :]
+  kv_bf16_ms = median_ms(lambda: fa.flash_attention_bwd_kv(
+      q16, k16, v16, o16, lse, delta, True, scale))
   q_bf16_ms = median_ms(lambda: fa.flash_attention_bwd_q(
-      qkv16[..., 0, :], qkv16[..., 1, :], qkv16[..., 2, :], o16, lse, delta,
-      True, scale))
-  del qkv16, o16
+      q16, k16, v16, o16, lse, delta, True, scale))
+  leaves16 = [x.detach().transpose(1, 2).requires_grad_()
+              for x in (q16, k16, v16)]
+  lib16_out = F.scaled_dot_product_attention(*leaves16, is_causal=True)
+  lib16_ms = median_ms(lambda: torch.autograd.grad(
+      lib16_out, leaves16, o16.transpose(1, 2), retain_graph=True))
+  del qkv16, o16, q16, k16, v16, leaves16, lib16_out
   # The plain backward holds five dense [B*H, L, L] float32 tensors (22 GB).
   plain_ms = median_ms(lambda: fa.flash_attention_bwd_plain_blhd(
       q, k, v, out, lse, d_out, True, scale), iters=10, warmup=2)
@@ -2775,6 +2863,10 @@ def phase_flash_backward(device, gen):
   kv_bound, kv_by = tensor_core_bound_ms(4 * 2 * d * pairs), 'operations'
   q_fp32_bound, _ = bound_ms(5 * elem + 2 * rows, 3 * 2 * d * pairs)
   q_bound, q_by = tensor_core_bound_ms(3 * 2 * d * pairs), 'operations'
+  # bf16: q, k, v, dO read and dk, dv (or dq) written in bf16, the LSE and
+  # delta rows in float32; or the products at the bf16 peak.
+  kv_bf16_bound = bf16_bound_ms(6 * elem // 2 + 2 * rows, 4 * 2 * d * pairs)
+  q_bf16_bound = bf16_bound_ms(5 * elem // 2 + 2 * rows, 3 * 2 * d * pairs)
   kv_mix = sass_mix('flash_attention_bwd_kv')
   q_mix = sass_mix('flash_attention_bwd_q')
   kv_hmma, q_hmma = kv_mix['HMMA'], q_mix['HMMA']
@@ -2795,6 +2887,13 @@ def phase_flash_backward(device, gen):
             kv_bound, kv_hmma, q_ms, 6 * d * pairs / q_ms / 1e9, q_fp32_bound,
             q_bound, q_hmma, q_bf16_ms, delta_ms, plain_ms, lib_ms,
             kv_ms + q_ms + delta_ms, lib_err, smi_line(), kv=kv_mix, q=q_mix))
+  print('flash backward training [{},{},{},{}] causal bf16: K5a {:.4f} ms '
+        '(bound {:.4f} ms by {}), K5b {:.4f} ms (bound {:.4f} ms by {}), at '
+        'the bf16 peak; scaled_dot_product_attention backward bf16 {:.4f} ms '
+        'against K5a + K5b + delta {:.4f} ms; {}'.format(
+            b, l, h, d, kv_bf16_ms, kv_bf16_bound[0], kv_bf16_bound[1],
+            q_bf16_ms, q_bf16_bound[0], q_bf16_bound[1], lib16_ms,
+            kv_bf16_ms + q_bf16_ms + delta_ms, smi_line()))
   shapes = 'per launch: [{},{},{},{}] causal f32, q/k/v strided views of ' \
            'the qkv projection'.format(b, l, h, d)
   library_note = ('scaled_dot_product_attention backward, dq, dk and dv '
@@ -2806,7 +2905,10 @@ def phase_flash_backward(device, gen):
                plain_ms=plain_ms, bound_ms=kv_bound, bound_by=kv_by,
                fp32_bound_ms=kv_fp32_bound, library_ms=lib_ms,
                library_note=library_note, sass_hmma=kv_hmma,
-               sass_mix=kv_mix, shapes=shapes),
+               sass_mix=kv_mix, bf16_ms=kv_bf16_ms,
+               bf16_bound_ms=kv_bf16_bound[0],
+               bf16_bound_by=kv_bf16_bound[1], bf16_library_ms=lib16_ms,
+               shapes=shapes),
           dict(name='flash_attention_bwd_q', route='cuda',
                source='tensor2robot_tpu_torch/csrc/flash_attention_bwd_q.cu',
                replaces='tensor2robot_tpu/parallel/flash_attention.py:530',
@@ -2814,7 +2916,8 @@ def phase_flash_backward(device, gen):
                bound_ms=q_bound, bound_by=q_by, fp32_bound_ms=q_fp32_bound,
                library_ms=lib_ms, library_note=library_note,
                sass_hmma=q_hmma, sass_mix=q_mix, bf16_ms=q_bf16_ms,
-               delta_ms=delta_ms,
+               bf16_bound_ms=q_bf16_bound[0], bf16_bound_by=q_bf16_bound[1],
+               bf16_library_ms=lib16_ms, delta_ms=delta_ms,
                shapes=shapes))
 
 
@@ -2930,6 +3033,8 @@ def card_vs_cpu_seq2act(variables, window, logits):
 # backward's activations take some 42 GB at 8, so the gin's 32 would not
 # fit the card's 80 GB).
 SEQ2ACT_TRAIN_BATCH, SEQ2ACT_TRAIN_STEPS = 8, 4
+# Phase 6c's steps (bf16) and 6d's (the MoE gin).
+SEQ2ACT_BF16_STEPS, MOE_STEPS = 4, 4
 # The TokenLearner's softmax runs over the tokens, so the map_out bias (one
 # constant a map) cancels in it: a gradient that is 0 in exact arithmetic.
 SEQ2ACT_ZERO_GRADIENTS = ('tokenizer.token_learner.map_out.bias',)
@@ -3004,7 +3109,7 @@ def phase_seq2act_train(device):
         numpy_labels)
     phase_seq2act_train_vs_plain(model, state, raw, labels)
     RANDOM_SEQ2ACT_LOOP.update(
-        step_ms=step_ms, data_wait_ms=data_ms,
+        step_ms=step_ms, data_wait_ms=data_ms, peak_gb=round(peak_gb, 2),
         resident_ms=train_profile('seq2act train profile', trainer, model,
                                   state, raw, labels, 2, batch))
     del raw, labels
@@ -3012,10 +3117,12 @@ def phase_seq2act_train(device):
   return launches
 
 
-def phase_seq2act_train_vs_plain(model, state, raw, labels):
+def phase_seq2act_train_vs_plain(model, state, raw, labels,
+                                 compare=None):
   """One step on one episode through the kernels and through the plain
-  versions (K1's, K4's and K5's): the loss and every gradient. Batch 1, so
-  that the plain attention's dense [8, 4096, 4096] scores fit."""
+  versions (K1's, K4's and K5's): the loss and every gradient, held by
+  ``compare`` (``compare_steps``). Batch 1, so that the plain attention's
+  dense [8, 4096, 4096] scores fit."""
   from tensor2robot_tpu_torch import kernels
   from tensor2robot_tpu_torch.modes import ModeKeys
   from tensor2robot_tpu_torch.parallel import flash_attention
@@ -3047,9 +3154,10 @@ def phase_seq2act_train_vs_plain(model, state, raw, labels):
   torch.cuda.synchronize()
   check(got.keys() == want.keys() == set(state.params), 'gradient names '
         'differ')
-  print('seq2act train step, kernels vs plain versions (1 episode): {}'
-        .format(compare_steps('kernels vs plain', got_loss, want_loss, got,
-                              want)))
+  print('seq2act train step{}, kernels vs plain versions (1 episode): {}'
+        .format(' (bf16)' if model.compute_dtype == torch.bfloat16 else '',
+                (compare or compare_steps)('kernels vs plain', got_loss,
+                                           want_loss, got, want)))
 
 
 def compare_steps(label, got_loss, want_loss, got, want):
@@ -3133,6 +3241,541 @@ def phase_seq2act_train_serve(model, model_dir, state):
         '{:.3g}'.format(state.step, len(actions), err / scale, scale, moved))
 
 
+# Seq2Act's gins as written (phases 6c, 6d): device_type "tpu" (bfloat16
+# activations), the long-context binding, the MoE gin.
+SEQ2ACT_BC_GIN = ('tensor2robot_tpu_torch/research/seq2act/configs/'
+                  'train_seq2act_bc.gin')
+SEQ2ACT_MOE_GIN = ('tensor2robot_tpu_torch/research/seq2act/configs/'
+                   'train_seq2act_moe.gin')
+LONG_CONTEXT = ('Seq2ActBCModel.episode_length = 512',
+                'Seq2ActBCModel.attention_mode = "flash"')
+# The bf16 step against its plain rerun (K1, K4, K5a, K5b by their plain
+# versions; cuDNN's bf16 convolutions and cuBLAS's bf16 GEMMs in both), by
+# group of parameters: each gradient within this share of its scale (its
+# largest magnitude, no lower than 1e-3 of the network's largest
+# gradient). The kernels and the plain versions both sum exact bf16
+# products in float32, in other orders, and round O, dq, dk and dv to bf16
+# once: one bf16 ulp (2 ** -8 = 3.9e-3 relative) where the two roundings
+# part, which the bf16 activations downstream carry on. The layers behind
+# more bf16 roundings between their gradient and the attention drift more.
+# The bounds are some 3x what this phase measures on an NVIDIA H100 80GB
+# HBM3 at 700 W (in brackets).
+BF16_STEP_BOUNDS = (
+    # 4 bf16 convolutions, their input gradients through every block and
+    # the TokenLearner (7.8e-3).
+    ('tokenizer.conv', 3e-2),
+    # The stem's LNs, embedding and TokenLearner: the same path, the LN
+    # scales summing products of two bf16-rounded terms (9.2e-3).
+    ('tokenizer.', 3e-2),
+    # Summed over the batch's tokens from every block's input gradient, the
+    # most roundings deep (1.3e-2).
+    ('transformer.pos_embedding', 4e-2),
+    # The blocks' attention, MLP (or MoE) and LNs: the attention's dq, dk,
+    # dv one bf16 rounding apart, carried through 8 blocks (7.5e-3).
+    ('transformer.', 3e-2),
+    # float32 on the float32 final LN, one block's rounding away (3.0e-3).
+    ('action_head.', 1e-2),
+)
+# The float32 loss of float32 logits on bf16 activations (2.0e-5).
+BF16_LOSS_RTOL = 1e-4
+# The map_out bias, 0 in exact arithmetic, of the largest gradient (2.6e-5).
+BF16_ZERO_GRADIENT = 1e-4
+# Served logits, kernels vs plain versions, of their max: K4's bf16 O and
+# the plain version's one rounding apart, through 8 blocks (7.0e-3).
+BF16_LOGITS_RTOL = 2e-2
+TICK_MS = 1e3 / 30
+
+
+def compare_steps_bf16(label, got_loss, want_loss, got, want):
+  """A bf16 step's loss and gradients against another's, by group
+  (BF16_STEP_BOUNDS); returns what it found, as text."""
+  got_loss, want_loss = float(got_loss), float(want_loss)
+  loss_err = abs(got_loss - want_loss) / abs(want_loss)
+  check(loss_err <= BF16_LOSS_RTOL, 'bf16 seq2act loss, {}: {} vs {}'.format(
+      label, got_loss, want_loss))
+  largest = max(float(g.abs().max()) for g in want.values())
+  zero = max(max(float(got[k].abs().max()), float(want[k].abs().max()))
+             for k in SEQ2ACT_ZERO_GRADIENTS) / largest
+  check(zero <= BF16_ZERO_GRADIENT, 'bf16 gradients that are 0 in exact '
+        'arithmetic reach {:.3g} of the largest'.format(zero))
+  worst = {}
+  for k in want:
+    if k in SEQ2ACT_ZERO_GRADIENTS:
+      continue
+    group = next(g for g, _ in BF16_STEP_BOUNDS if k.startswith(g))
+    e = max_abs_err(got[k], want[k]) / max(float(want[k].abs().max()),
+                                           1e-3 * largest)
+    worst[group] = max(worst.get(group, (0.0, '')), (e, k))
+  for group, bound in BF16_STEP_BOUNDS:
+    e, k = worst[group]
+    check(e <= bound, 'bf16 seq2act gradients, {}: {} differs by {:.3g} of '
+          'its scale (bound {:g} for {})'.format(label, k, e, bound, group))
+  return ('|dloss| {:.3g} relative (bound {:g}); worst gradient of each '
+          'group, of its scale: {}; the map_out bias at {:.3g} of the largest '
+          '(bound {:g})'.format(
+              loss_err, BF16_LOSS_RTOL, '; '.join(
+                  '{} {:.3g} at {} (bound {:g})'.format(
+                      g, worst[g][0], worst[g][1], b)
+                  for g, b in BF16_STEP_BOUNDS), zero, BF16_ZERO_GRADIENT))
+
+
+def gin_train_eval(gin, bindings, model_dir, device):
+  """``train_eval_model`` as ``gin`` and ``bindings`` configure it (as
+  ``train_eval.main_gin`` parses them), the model on ``device``; its
+  result."""
+  from tensor2robot_tpu_torch import config
+
+  config.register_framework_configurables()
+  config.add_config_file_search_path(os.path.dirname(
+      os.path.abspath(__file__)))
+  config.clear_config()
+  config.parse_config_files_and_bindings(
+      [gin], ['Seq2ActBCModel.device = {!r}'.format(str(device))] +
+      list(bindings))
+  config.check_configurables()
+  return config.get_configurable('train_eval_model')(model_dir=model_dir)
+
+
+def run_bindings(steps, batch=None, data=None, nan_policy='raise'):
+  """The bindings of a short training run on top of a gin: the steps, a
+  log window and a checkpoint at the end, random episodes of ``batch``
+  unless ``data`` (a file pattern) names records."""
+  bindings = ['train_eval_model.max_train_steps = {}'.format(steps),
+              'train_eval_model.log_every_n_steps = 1',
+              'train_eval_model.save_checkpoints_steps = {}'.format(steps),
+              'train_eval_model.nan_policy = {!r}'.format(nan_policy)]
+  if data:
+    bindings.append('TRAIN_DATA = {!r}'.format(data))
+  else:
+    bindings += ['train_eval_model.input_generator_train = '
+                 '@DefaultRandomInputGenerator()',
+                 'DefaultRandomInputGenerator.batch_size = {}'.format(batch)]
+  if batch and data:
+    bindings.append('TRAIN_BATCH_SIZE = {}'.format(batch))
+  return bindings
+
+
+@contextlib.contextmanager
+def attention_dtypes():
+  """The dtypes of every q that reaches the flash kernels' wrappers
+  (forward, backward) meanwhile."""
+  from tensor2robot_tpu_torch.parallel import flash_attention
+
+  seen = collections.Counter()
+  forward = flash_attention.flash_attention_forward
+  backward = flash_attention.flash_attention_backward
+
+  def fwd(q, *args, **kwargs):
+    seen['forward', str(q.dtype)] += 1
+    return forward(q, *args, **kwargs)
+
+  def bwd(q, *args, **kwargs):
+    seen['backward', str(q.dtype)] += 1
+    return backward(q, *args, **kwargs)
+
+  with mock.patch.object(flash_attention, 'flash_attention_forward', fwd), \
+      mock.patch.object(flash_attention, 'flash_attention_backward', bwd):
+    yield seen
+
+
+def seq2act_step_launches(steps):
+  from tensor2robot_tpu_torch import kernels
+
+  want = dict.fromkeys(kernels.LAUNCHES, 0)
+  want.update({'crop_convert': steps,
+               'flash_attention_fwd': 8 * steps,
+               'flash_attention_bwd_kv': 8 * steps,
+               'flash_attention_bwd_q': 8 * steps})
+  return want
+
+
+def phase_seq2act_bf16(device):
+  """train_seq2act_bc.gin's long-context binding as written
+  (device_type "tpu": bf16 activations), at batch 8 on random episodes
+  (cut: the batch, as in phase 6, and the steps): launches, losses, the
+  checkpoint, the step against its plain rerun (BF16_STEP_BOUNDS), a
+  resident step's profile, and the trained checkpoint served in bf16."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.trainer import checkpointing
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  steps, batch = SEQ2ACT_BF16_STEPS, SEQ2ACT_TRAIN_BATCH
+  with tempfile.TemporaryDirectory() as model_dir:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    start = time.monotonic()
+    with attention_dtypes() as dtypes:
+      result = gin_train_eval(SEQ2ACT_BC_GIN, list(LONG_CONTEXT) +
+                              run_bindings(steps, batch), model_dir, device)
+    elapsed = time.monotonic() - start
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state, trainer = result['state'], result['trainer']
+    model = trainer.model
+    check(model.compute_dtype == torch.bfloat16, 'the gin\'s device_type '
+          '"tpu" did not make the compute dtype bfloat16')
+    check(launches == seq2act_step_launches(steps), 'bf16 seq2act launch '
+          'counts {} != expected {}'.format(launches,
+                                            seq2act_step_launches(steps)))
+    check(set(dtypes) == {('forward', 'torch.bfloat16'),
+                          ('backward', 'torch.bfloat16')},
+          'the flash kernels saw other dtypes than bf16: {}'.format(
+              dict(dtypes)))
+    check(all(v.dtype == torch.float32 for v in state.params.values()) and
+          all(v.dtype == torch.float32 for v in state.opt_state['mu'].values()),
+          'bf16 training left float32 params or optimizer state')
+    restored = checkpointing.CheckpointManager(model_dir).restore(
+        device=device)
+    check(_states_equal(restored, state),
+          'the bf16 seq2act checkpoint does not restore the final state')
+    del restored
+    loss = trainer.last_metrics['loss']
+    windows = trainer.windows[1:]
+    step_ms = statistics.median(w[1] * 1e3 for w in windows)
+    data_ms = statistics.median(w[2] * 1e3 for w in windows)
+    print('seq2act bf16 (train_seq2act_bc.gin, long-context binding, '
+          'device_type "tpu"): {} steps of batch {} x {} frames in {:.1f}s, '
+          'launches {} (q, k, v in {}); every loss finite, the last {:.4f}; '
+          'median step {:.1f} ms ({:.2f} episodes/s), {:.1f} ms waiting; '
+          'peak memory {:.2f} GB (phase 6, float32: {}); params and adam '
+          'state float32; checkpoint restores equal; {}'.format(
+              steps, batch, SEQ2ACT_EPISODE, elapsed, launches,
+              sorted({d for _, d in dtypes}), loss, step_ms,
+              batch * 1e3 / step_ms, data_ms, peak_gb,
+              RANDOM_SEQ2ACT_LOOP.get('peak_gb', 'not measured'),
+              smi_line()))
+    numpy_features, numpy_labels = _random_batch(model, batch)
+    raw, labels = trainer.put_batch(numpy_features), trainer.put_batch(
+        numpy_labels)
+    phase_seq2act_train_vs_plain(model, state, raw, labels,
+                                 compare=compare_steps_bf16)
+    out = {}
+    resident_ms = train_profile('seq2act bf16 train profile', trainer, model,
+                                state, raw, labels, 2, batch, out=out)
+    del raw, labels
+    serve_ms = serve_seq2act_bf16(model, model_dir, state)
+  return launches, dict(step_ms=step_ms, data_wait_ms=data_ms,
+                        resident_ms=resident_ms, busy_ms=out.get('busy_ms'),
+                        peak_gb=peak_gb, select_action_ms=serve_ms)
+
+
+def _random_batch(model, batch, seed=1):
+  """One random TRAIN batch of ``model``'s in-specs (numpy)."""
+  from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.modes import ModeKeys
+
+  data = input_generators.DefaultRandomInputGenerator(batch_size=batch)
+  data.set_specification_from_model(model, ModeKeys.TRAIN)
+  iterator = data.create_dataset_iterator(ModeKeys.TRAIN, seed=seed,
+                                          prefetch=0)
+  try:
+    return next(iterator)
+  finally:
+    iterator.close()
+
+
+def serve_seq2act_bf16(model, model_dir, state):
+  """SequentialRegressionPolicy over a CheckpointPredictor of the trained
+  bf16 checkpoint: 1 K1 and 8 K4 a predict, finite bin centers, the
+  logits of one forward against the plain versions' (BF16_LOGITS_RTOL of
+  their max) and the trained params' predict_step; wall ms a call against
+  the 33 ms tick. Returns the median wall ms."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.export import export_generators
+  from tensor2robot_tpu_torch.parallel import flash_attention
+  from tensor2robot_tpu_torch.policies import SequentialRegressionPolicy
+  from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+  from tensor2robot_tpu_torch.preprocessors import pallas_crop
+  from tensor2robot_tpu_torch.research.vrgripper import decoders
+
+  predictor = CheckpointPredictor(model, model_dir, timeout=60.0)
+  policy = SequentialRegressionPolicy(model, predictor=predictor)
+  check(policy.restore() and predictor.model_version == state.step,
+        'CheckpointPredictor did not restore the bf16 checkpoint')
+  rng = np.random.RandomState(8)
+  frames = [rng.randint(0, 256, (136, 168, 3), dtype=np.uint8)
+            for _ in range(SEQ2ACT_STEPS + 1)]
+  policy.reset()
+  actions = [policy.SelectAction({'image': frames[0]}, None, 0)]  # warm
+  torch.cuda.synchronize()
+  wall_ms = []
+  kernels.reset_launches()
+  with attention_dtypes() as dtypes:
+    for step, frame in enumerate(frames[1:], 1):
+      start = time.monotonic()
+      actions.append(policy.SelectAction({'image': frame}, None, step))
+      wall_ms.append((time.monotonic() - start) * 1e3)
+  launches = dict(kernels.LAUNCHES)
+  want = dict.fromkeys(kernels.LAUNCHES, 0)
+  want.update({'crop_convert': SEQ2ACT_STEPS,
+               'flash_attention_fwd': 8 * SEQ2ACT_STEPS})
+  check(launches == want, 'bf16 seq2act serving launch counts {} != {}'
+        .format(launches, want))
+  check(set(dtypes) == {('forward', 'torch.bfloat16')}, 'bf16 serving '
+        'reached the flash kernel in {}'.format(dict(dtypes)))
+  centers = set(decoders.get_discrete_bins(256, -1.0, 1.0).tolist())
+  for action in actions:
+    check(action.shape == (7,) and action.dtype == np.float32 and
+          np.isfinite(action).all() and set(action.tolist()) <= centers,
+          'bad bf16 seq2act action {}'.format(action))
+  window = None
+  for frame in frames:
+    window = model.pack_features({'image': frame}, window, 0)
+  serve = export_generators.make_serve_fn(model)
+  got = serve(predictor.variables, window)['action_logits']
+  trained = serve(state.variables(), window)['action_logits']
+  with mock.patch.object(flash_attention, 'flash_attention',
+                         flash_plain_blhd), \
+      mock.patch.object(pallas_crop, 'crop_convert',
+                        pallas_crop.crop_convert_plain):
+    before = dict(kernels.LAUNCHES)
+    want_logits = serve(predictor.variables, window)['action_logits']
+    check(kernels.LAUNCHES == before, 'the plain forward launched a kernel')
+  torch.cuda.synchronize()
+  scale = float(want_logits.abs().max())
+  e = max_abs_err(got, want_logits)
+  check(got.dtype == torch.float32 and e <= BF16_LOGITS_RTOL * scale,
+        'bf16 seq2act logits, kernels vs plain: {:.3g} of max (bound {:g})'
+        .format(e / scale, BF16_LOGITS_RTOL))
+  check(torch.equal(got, trained), 'the served bf16 logits are not the '
+        'trained params\' predict_step')
+  median = statistics.median(wall_ms)
+  print('seq2act bf16 serving: {} SelectAction calls over a {}-frame window '
+        'from the trained checkpoint (step {}), launches {} (bf16), finite '
+        'float32 bin centers; logits vs plain versions within {:.3g} of '
+        'max {:.3g} (bound {:g}), equal to the trained params\' '
+        'predict_step; wall per call median {:.2f} ms (min {:.2f}, max '
+        '{:.2f}) against the {:.1f} ms tick; {}'.format(
+            SEQ2ACT_STEPS, SEQ2ACT_EPISODE, state.step, launches, e / scale,
+            scale, BF16_LOGITS_RTOL, median, min(wall_ms), max(wall_ms),
+            TICK_MS, smi_line()))
+  profile('seq2act bf16 serving profile', lambda i: policy.SelectAction(
+      {'image': frames[i]}, None, i), 2, 'SelectAction')
+  return median
+
+
+# Phase 6d: train_seq2act_moe.gin as written (6-frame episodes, batch 32,
+# bf16, 8 experts, top 2) from MOE_EPISODES records of 6 frames that the
+# phase writes, then with the long-context binding at batch 8 (cut: the
+# batch, as in phase 6) from phase 6b's episodes; a 2-step dropout run and
+# its rerun.
+MOE_EPISODES, MOE_EPISODE_FILES, MOE_BATCH = 64, 4, 32
+DROPOUT_STEPS = 2
+
+
+def moe_stats(label, model, state, features, labels):
+  """On one TRAIN forward of ``model`` at ``state``: the aux loss and the
+  share of (token, choice) pairs each MoE layer dropped over capacity; and
+  the MoE layers' device ms a step (one layer's forward and backward at
+  the step's shape, median of 10 CUDA-event-timed calls, times the
+  layers)."""
+  from tensor2robot_tpu_torch.layers import moe
+
+  layers = [(name, module) for name, module in model.network.named_modules()
+            if isinstance(module, moe.MoEMlp)]
+  seen = []
+  hooks = [module.register_forward_hook(
+      lambda m, inputs, out: seen.append((inputs[0].detach(),
+                                          m.routing(inputs[0].detach())[1])))
+           for _, module in layers]
+  try:
+    with torch.no_grad():
+      _, (_, outputs, _) = model.loss_fn(state.params, state.model_state,
+                                         features, labels, 'train')
+  finally:
+    for hook in hooks:
+      hook.remove()
+  aux = float(outputs['moe_aux_loss'])
+  dropped = [float(routing.dropped_share()) for _, routing in seen]
+  check(len(seen) == len(layers) and np.isfinite(aux), 'MoE stats missing')
+  name, module = layers[0]
+  params = {k[len(name) + 1:]: v.detach().requires_grad_()
+            for k, v in state.params.items() if k.startswith(name + '.')}
+  x = seen[0][0].requires_grad_()
+  cotangent = torch.randn_like(x)
+
+  def layer_step():
+    out, layer_aux = torch.func.functional_call(module, params, (x,))
+    return torch.autograd.grad((out * cotangent).sum() + layer_aux,
+                               [x] + list(params.values()))
+
+  layer_ms = median_ms(layer_step, iters=10, warmup=2)
+  print('{}: aux loss {:.5f} (summed over {} layers); pairs dropped over '
+        'capacity {} (capacity {} of {} tokens a layer, top {}); the MoE '
+        'layers {:.3f} ms of device time a step ({} x {:.4f} ms, one '
+        'layer\'s forward and backward at [{}]); {}'.format(
+            label, aux, len(layers), ['{:.4f}'.format(d) for d in dropped],
+            seen[0][1].capacity, x.shape[1], module.top_k,
+            len(layers) * layer_ms, len(layers), layer_ms,
+            ', '.join(str(n) for n in x.shape), smi_line()))
+  return dict(aux_loss=aux, dropped=dropped,
+              moe_ms=len(layers) * layer_ms)
+
+
+def phase_moe(device, long_pattern):
+  """train_seq2act_moe.gin through ``train_eval --gin_configs`` as written,
+  from records of its 6-frame episodes; the same gin at the long-context
+  binding from phase 6b's episodes; a dropout run and its rerun."""
+  import contextlib
+  import io
+
+  from tensor2robot_tpu_torch import config
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
+  from tensor2robot_tpu_torch.trainer import checkpointing
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  probe = jpeg_probe()
+  encoder = 'cv2' if probe['cv2'] else 'PIL'
+  report = {}
+  with tempfile.TemporaryDirectory() as root:
+    data_dir = os.path.join(root, 'episodes')
+    os.makedirs(data_dir)
+    spec_model = Seq2ActBCModel(episode_length=6, device=device)
+    files, frame_bytes = write_episodes(data_dir, spec_model, encoder,
+                                        MOE_EPISODES, MOE_EPISODE_FILES)
+    pattern = os.path.join(data_dir, 'episodes-*')
+
+    # (a) The gin as written, through the command line.
+    model_dir = os.path.join(root, 'moe')
+    argv = ['--model_dir', model_dir, '--gin_configs', SEQ2ACT_MOE_GIN]
+    for binding in run_bindings(MOE_STEPS, data=pattern):
+      argv += ['--gin_bindings', binding]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+      check(train_eval.main(argv) == 0, 'the MoE gin failed')
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    # 48 tokens: attention_mode 'auto' is dense here, as JAX picks it.
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want['crop_convert'] = MOE_STEPS
+    check(launches == want, 'MoE gin launch counts {} != {}'.format(
+        launches, want))
+    check(line['step'] == MOE_STEPS and np.isfinite(line['metrics']['loss']),
+          'the MoE gin ended at step {} with loss {}'.format(
+              line['step'], line['metrics']['loss']))
+    # The gin's model, rebuilt from the bindings the run wrote.
+    config.clear_config()
+    config.parse_config_files_and_bindings(
+        [SEQ2ACT_MOE_GIN], ['Seq2ActBCModel.device = "cuda"'] +
+        run_bindings(MOE_STEPS, data=pattern))
+    model = config.query_parameter('train_eval_model.t2r_model')
+    moe_layer = model.network.transformer.block0.moe
+    check(model.compute_dtype == torch.bfloat16 and
+          moe_layer.num_experts == 8 and moe_layer.top_k == 2 and
+          model._moe_aux_weight == 0.01, 'the MoE gin built another model')
+    state = checkpointing.CheckpointManager(model_dir).restore(device=device)
+    trainer = train_eval.Trainer(model, os.path.join(root, 'unused'))
+    generator = config.query_parameter('train_eval_model.input_generator_train')
+    generator.set_specification_from_model(model, ModeKeys.TRAIN)
+    iterator = trainer.dataset_iterator(generator, ModeKeys.TRAIN, 1)
+    numpy_features, numpy_labels = next(iterator)
+    iterator.close()
+    features, labels = model.preprocessor.preprocess(
+        trainer.put_batch(numpy_features), trainer.put_batch(numpy_labels),
+        ModeKeys.TRAIN, generator=trainer.crop_generator(1))
+    print('seq2act MoE gin ({} as written: 6-frame episodes, batch {}, bf16, '
+          '8 experts, top 2, aux weight 0.01, through train_eval '
+          '--gin_configs) from {} episodes of 6 JPEG frames in {} files '
+          '({:.1f} KB a frame, {}): {} steps, launches {} (48 tokens: '
+          'attention_mode \'auto\' is dense, as in JAX); loss {:.4f}; the '
+          'loop\'s median step {:.2f} ms, {:.2f} ms waiting for data; peak '
+          'memory {:.2f} GB; {}'.format(
+              SEQ2ACT_MOE_GIN, MOE_BATCH, MOE_EPISODES, len(files),
+              frame_bytes / MOE_EPISODES / 6 / 1024, encoder, line['step'],
+              launches, line['metrics']['loss'], line['step_ms'],
+              line['data_wait_ms'], peak_gb, smi_line()))
+    stats = moe_stats('seq2act MoE gin', model, state, features, labels)
+    report['gin'] = dict(step_ms=line['step_ms'],
+                         data_wait_ms=line['data_wait_ms'], peak_gb=peak_gb,
+                         **stats)
+
+    # Dropout: two runs of DROPOUT_STEPS from the same seed, bit for bit
+    # (cuDNN deterministic in both).
+    dropout_states = []
+    torch.backends.cudnn.deterministic = True
+    try:
+      for run in range(2):
+        result = gin_train_eval(
+            SEQ2ACT_MOE_GIN, run_bindings(DROPOUT_STEPS, data=pattern) +
+            ['Seq2ActBCModel.dropout_rate = 0.1'],
+            os.path.join(root, 'dropout{}'.format(run)), device)
+        dropout_states.append(result['state'])
+        dropout_loss = result['trainer'].last_metrics['loss']
+    finally:
+      torch.backends.cudnn.deterministic = False
+    check(_states_equal(*dropout_states), 'a dropout run and its rerun from '
+          'the same seed and steps differ')
+    print('seq2act MoE gin with Seq2ActBCModel.dropout_rate = 0.1: {} steps, '
+          'loss {:.4f}; its rerun from the same seed equal bit for bit '
+          '(params, adam state, step)'.format(DROPOUT_STEPS, dropout_loss))
+    del dropout_states
+
+    # (b) The long-context binding at batch 8, from phase 6b's episodes.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with attention_dtypes() as dtypes:
+      result = gin_train_eval(
+          SEQ2ACT_MOE_GIN, list(LONG_CONTEXT) + run_bindings(
+              MOE_STEPS, SEQ2ACT_TRAIN_BATCH, data=long_pattern),
+          os.path.join(root, 'moe_long'), device)
+    launches_long = dict(kernels.LAUNCHES)
+    peak_long = torch.cuda.max_memory_allocated() / 1e9
+    state, trainer = result['state'], result['trainer']
+    model = trainer.model
+    check(launches_long == seq2act_step_launches(MOE_STEPS), 'long-context '
+          'MoE launch counts {} != {}'.format(
+              launches_long, seq2act_step_launches(MOE_STEPS)))
+    check(set(d for _, d in dtypes) == {'torch.bfloat16'}, 'the long MoE '
+          'step reached the flash kernels in {}'.format(dict(dtypes)))
+    total_gb = torch.cuda.get_device_properties(device).total_memory / 1e9
+    check(peak_long < total_gb, 'the long MoE step does not fit the card')
+    windows = trainer.windows[1:]
+    step_ms = statistics.median(w[1] * 1e3 for w in windows)
+    data_ms = statistics.median(w[2] * 1e3 for w in windows)
+    print('seq2act MoE gin, long-context binding (512 frames, flash, batch '
+          '{}, bf16) from phase 6b\'s episodes: {} steps, launches {}; loss '
+          '{:.4f}; the loop\'s median step {:.1f} ms, {:.1f} ms waiting for '
+          'data; peak memory {:.2f} GB of the card\'s {:.2f}; {}'.format(
+              SEQ2ACT_TRAIN_BATCH, MOE_STEPS, launches_long,
+              trainer.last_metrics['loss'], step_ms, data_ms, peak_long,
+              total_gb, smi_line()))
+    iterator = trainer.dataset_iterator(trainer.train_generator,
+                                        ModeKeys.TRAIN, 1)
+    numpy_features, numpy_labels = next(iterator)
+    iterator.close()
+    raw, labels = (trainer.put_batch(numpy_features),
+                   trainer.put_batch(numpy_labels))
+    features, cropped_labels = model.preprocessor.preprocess(
+        raw, labels, ModeKeys.TRAIN, generator=trainer.crop_generator(1))
+    stats = moe_stats('seq2act MoE gin, long-context', model, state,
+                      features, cropped_labels)
+    del features, cropped_labels
+    out = {}
+    resident_ms = train_profile('seq2act MoE long-context train profile',
+                                trainer, model, state, raw, labels, 2,
+                                SEQ2ACT_TRAIN_BATCH, out=out)
+    report['long'] = dict(step_ms=step_ms, data_wait_ms=data_ms,
+                          peak_gb=peak_long, resident_ms=resident_ms,
+                          busy_ms=out.get('busy_ms'), **stats)
+    del raw, labels, state, trainer, result
+  torch.cuda.empty_cache()
+  return launches_long, report
+
+
 # Seq2Act's episodes on disk: train_seq2act_bc.gin's long-context binding
 # (512 frames of 136x168x3 an episode, JPEG, under the JAX model's names),
 # cut to SEQ2ACT_EPISODES episodes in SEQ2ACT_EPISODE_FILES files; the
@@ -3141,8 +3784,10 @@ SEQ2ACT_EPISODES, SEQ2ACT_EPISODE_FILES = 64, 4
 SEQ2ACT_RECORDS_STEPS = 8
 
 
-def write_episodes(directory, model, encoder):
-  """SEQ2ACT_EPISODES episodes of ``model``'s in-specs by the port's writer:
+def write_episodes(directory, model, encoder, episodes=SEQ2ACT_EPISODES,
+                   num_files=SEQ2ACT_EPISODE_FILES):
+  """``episodes`` episodes of ``model``'s in-specs by the port's writer
+  (in ``num_files`` files):
   JPEG frames of smooth ramps that move a frame, with sensor noise; actions
   whose dims 0 and 1 name the episode and the frame (``episode_names``);
   ``state`` and ``task_id`` only where the specs ask for them. Returns
@@ -3168,12 +3813,12 @@ def write_episodes(directory, model, encoder):
     image += noise[(episode + np.arange(t)) % 16]
     return np.clip(image, 0, 255).astype(np.uint8)
 
-  per_file = SEQ2ACT_EPISODES // SEQ2ACT_EPISODE_FILES
+  per_file = episodes // num_files
   files, frame_bytes = [], 0
   with ThreadPoolExecutor(8) as pool:
-    for f in range(SEQ2ACT_EPISODE_FILES):
+    for f in range(num_files):
       files.append(os.path.join(directory, 'episodes-{:05d}-of-{:05d}'
-                                '.tfrecord'.format(f, SEQ2ACT_EPISODE_FILES)))
+                                '.tfrecord'.format(f, num_files)))
       with TFRecordReplayWriter() as writer:
         writer.open(files[-1])
         for e in range(f * per_file, (f + 1) * per_file):
@@ -3182,7 +3827,7 @@ def write_episodes(directory, model, encoder):
           frame_bytes += sum(len(x) for x in frames)
           action = rng.uniform(-1, 1, spec['action'].shape).astype(
               np.float32)
-          action[:, 0] = -1 + 2 * e / (SEQ2ACT_EPISODES - 1)
+          action[:, 0] = -1 + 2 * e / (episodes - 1)
           action[:, 1] = -1 + 2 * np.arange(t) / (t - 1)
           values = {'image': frames, 'action': action}
           if 'state' in spec:
@@ -3665,11 +4310,16 @@ def phase_ring_train(world, pattern):
   for one of ``world`` ranks. Returns rank 0's report."""
   import torch.multiprocessing as torch_mp
 
+  import socket
+
   torch.cuda.synchronize()
   torch.cuda.empty_cache()
+  with socket.socket() as s:
+    s.bind(('127.0.0.1', 0))
+    port = s.getsockname()[1]
   with tempfile.TemporaryDirectory() as out_dir:
     context = torch_mp.start_processes(
-        ring_rank, args=(world, out_dir, pattern), nprocs=world,
+        ring_rank, args=(world, out_dir, pattern, port), nprocs=world,
         join=False, start_method='spawn')
     deadline = time.monotonic() + RING_TIMEOUT_S
     done = False
@@ -3764,13 +4414,45 @@ def check_rank_episodes(data, rank, world, device, group):
   return episodes[..., 0]
 
 
-def ring_rank(rank, world, out_dir, pattern):
+class LossRecorder:
+  """A hook builder whose hook keeps every step's loss (on the host)."""
+
+  def __init__(self):
+    self.losses = []
+
+  def create_hooks(self, t2r_model, trainer):
+    del t2r_model, trainer
+    recorder = self
+
+    class Hook:
+      def begin(self, trainer):
+        pass
+
+      def after_step(self, trainer, state, step, metrics):
+        recorder.losses.append(float(metrics['loss']))
+
+      def end(self, trainer, state):
+        pass
+
+    return [Hook()]
+
+
+# The ring under the gin: steps, and its loss against the flags run's at
+# the same step: the same model, seed and episodes; relative, for cuDNN's
+# weight gradients, whose sums may take another order from run to run.
+RING_GIN_STEPS, RING_GIN_RTOL = 2, 1e-5
+
+
+def ring_rank(rank, world, out_dir, pattern, port):
   """One rank of ``phase_ring_train``: trains RING_STEPS steps through
   ``train_eval_model`` from the episodes at ``pattern`` and checks the
   launches, the losses, the weights on every rank, the checkpoint and the
   rank's episodes and frames (``check_rank_episodes``); one ring step
   against one flash step; a profile; the trained checkpoint served by the
-  flash policy."""
+  flash policy. Then ``train_eval --gin_configs`` with
+  ``Seq2ActBCModel.attention_mode = "ring"`` as torchrun starts it (on
+  ``port``), RING_GIN_STEPS steps at the same shape: its loss equal to the
+  first run's at that step."""
   import torch.distributed as dist
   from tensor2robot_tpu_torch import kernels
   from tensor2robot_tpu_torch.data import input_generators
@@ -3793,13 +4475,15 @@ def ring_rank(rank, world, out_dir, pattern):
   data = recording_episodes(pattern, batch,
                             train_eval.loader_threads(world))
   model_dir = os.path.join(out_dir, 'model')
+  recorder = LossRecorder()
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   kernels.reset_launches()
   start = time.monotonic()
   result = train_eval.train_eval_model(
       model, model_dir, data, max_train_steps=RING_STEPS, log_every_n_steps=1,
-      save_checkpoints_steps=RING_STEPS, nan_policy='raise', seed=0)
+      save_checkpoints_steps=RING_STEPS, nan_policy='raise', seed=0,
+      train_hook_builders=[recorder])
   elapsed = time.monotonic() - start
   launches = dict(kernels.LAUNCHES)
   peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
@@ -3904,9 +4588,68 @@ def ring_rank(rank, world, out_dir, pattern):
                            attention_mode='flash', device=device)
     phase_seq2act_train_serve(flash, model_dir, state)
   dist.barrier()
+  dist.destroy_process_group()
+  del model, state, result, trainer
+  torch.cuda.empty_cache()
+  report['gin'] = ring_gin_rank(rank, world, out_dir, pattern, port, batch,
+                                recorder.losses[RING_GIN_STEPS - 1])
   with open(os.path.join(out_dir, 'rank{}.json'.format(rank)), 'w') as f:
     json.dump(report, f)
-  dist.destroy_process_group()
+
+
+def ring_gin_rank(rank, world, out_dir, pattern, port, batch, flags_loss):
+  """``train_eval.main`` on train_seq2act_bc.gin with the ring bound, as
+  torchrun starts a rank: main_gin builds the group (NCCL on
+  cuda:LOCAL_RANK), hands it to the model and destroys it. float32
+  (device_type "gpu") at the first run's shape, episodes and seed; rank 0
+  holds its loss at RING_GIN_STEPS to the first run's."""
+  import contextlib
+  import io
+
+  import torch.distributed as dist
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                    LOCAL_RANK=str(rank), MASTER_ADDR='127.0.0.1',
+                    MASTER_PORT=str(port))
+  argv = ['--model_dir', os.path.join(out_dir, 'gin_model'),
+          '--gin_configs', SEQ2ACT_BC_GIN]
+  for binding in ['Seq2ActBCModel.episode_length = {}'.format(
+                      SEQ2ACT_EPISODE),
+                  'Seq2ActBCModel.attention_mode = "ring"',
+                  'Seq2ActBCModel.device_type = "gpu"'] + run_bindings(
+                      RING_GIN_STEPS, batch, data=pattern):
+    argv += ['--gin_bindings', binding]
+  kernels.reset_launches()
+  out = io.StringIO()
+  start = time.monotonic()
+  with contextlib.redirect_stdout(out):
+    check(train_eval.main(argv) == 0, 'the ring gin failed')
+  seconds = time.monotonic() - start
+  check(not dist.is_initialized(), 'main_gin left its group')
+  launches = dict(kernels.LAUNCHES)
+  check(launches['flash_attention_carry'] == 8 * world * RING_GIN_STEPS and
+        launches['crop_convert'] == RING_GIN_STEPS, 'rank {}: ring gin '
+        'launches {}'.format(rank, launches))
+  if rank:
+    return {'launches': launches}
+  line = json.loads(out.getvalue().strip().splitlines()[-1])
+  loss = line['metrics']['loss']
+  check(line['world_size'] == world and line['step'] == RING_GIN_STEPS and
+        abs(loss - flags_loss) <= RING_GIN_RTOL * abs(flags_loss),
+        'the ring under the gin: world {}, step {}, loss {} against the '
+        'first run\'s {}'.format(line['world_size'], line['step'], loss,
+                                 flags_loss))
+  print('seq2act ring under train_seq2act_bc.gin (attention_mode "ring" '
+        'bound, main_gin\'s group over {} ranks, batch {}, float32): {} '
+        'steps in {:.1f}s, launches a rank {}; loss at step {} {:.6f}, the '
+        'first run\'s {:.6f} (bound {:g} relative); the loop\'s median step '
+        '{:.1f} ms; {}'.format(world, batch, RING_GIN_STEPS, seconds,
+                               launches, RING_GIN_STEPS, loss, flags_loss,
+                               RING_GIN_RTOL, line['step_ms'], smi_line()))
+  return {'launches': launches, 'loss': loss, 'flags_loss': flags_loss,
+          'step_ms': line['step_ms']}
 
 
 # One ring step against one flash step: batch 8, the flash training phase's
@@ -3988,6 +4731,7 @@ def main():
     critic_dir.cleanup()
   paths.update({'seq2act': phase_seq2act(device),
                 'seq2act_train': phase_seq2act_train(device)})
+  paths['seq2act_bf16_train'], bf16_report = phase_seq2act_bf16(device)
   # K1 and K2f report their serving launches, K2b and K3 their training
   # ones, K4 its seq2act ones, K5a and K5b their seq2act training ones, K6
   # its ring training ones; every path's counts are listed too.
@@ -3998,6 +4742,7 @@ def main():
   try:
     paths['seq2act_records_train'], pattern = phase_seq2act_records(
         device, episodes_dir.name)
+    paths['seq2act_moe_train'], moe_report = phase_moe(device, pattern)
     carry = phase_ring_kernel(device, gen, world)
     ring = phase_ring_train(world, pattern)
   finally:
@@ -4015,6 +4760,8 @@ def main():
                                  for path, launches in paths.items()}
     check(entry['launches'] > 0, '{} never launched on the main path'
           .format(entry['name']))
+  print(json.dumps({'seq2act_variants': {
+      'bf16': bf16_report, 'moe': moe_report, 'ring_gin': ring['gin']}}))
   print(json.dumps({'kernels': [entry for entry, _ in entries]}))
   print(smi_line())
   print(json.dumps({'ok': True, 'device': {

@@ -13,6 +13,7 @@ from tensor2robot_tpu_torch.config.ginlike import (
     ConfigError,
     ConfigurableReference,
     add_config_file_search_path,
+    bind_parameter,
     check_configurables,
     clear_config,
     config_str,
@@ -36,6 +37,7 @@ __all__ = [
     'ConfigError',
     'ConfigurableReference',
     'add_config_file_search_path',
+    'bind_parameter',
     'check_configurables',
     'clear_config',
     'config_str',

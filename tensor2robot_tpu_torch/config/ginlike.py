@@ -18,7 +18,8 @@ the JAX one:
 
 API as gin's: ``configurable``, ``external_configurable``,
 ``parse_config``, ``parse_config_files_and_bindings``, ``clear_config``,
-``query_parameter``, ``config_str``, ``operative_config_str``. The port
+``query_parameter``, ``bind_parameter``, ``config_str``,
+``operative_config_str``. The port
 adds ``check_configurables``: every name that the parsed bindings bind or
 reference must be registered, so that a gin naming a configurable the port
 lacks fails before anything runs instead of being skipped.
@@ -467,6 +468,18 @@ def query_parameter(binding_key: str):
     if key not in _BINDINGS:
       raise ConfigError('No binding for {!r}.'.format(binding_key))
     return _materialize(_BINDINGS[key])
+
+
+def bind_parameter(binding_key: str, value: Any) -> None:
+  """Binds '[scope/]name.param' to ``value``, a Python object as it is
+  (gin.bind_parameter): what a program builds at run time, such as a
+  process group."""
+  match = _BINDING_RE.match(binding_key + ' = 0')
+  if not match:
+    raise ConfigError('Bad binding key {!r}.'.format(binding_key))
+  with _LOCK:
+    _BINDINGS[(match.group('scope') or '', match.group('name'),
+               match.group('param'))] = value
 
 
 def _format(value) -> str:

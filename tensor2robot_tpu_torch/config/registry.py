@@ -2,8 +2,8 @@
 
 Each one the port has and the QT-Opt and Seq2Act gins name (the trainer,
 the record input generator, the critic and its preprocessor, the split
-decode's wrapper, Seq2Act's model), the random input generator, and the
-optimizers, learning rates, exporters, export generators and hook
+decode's wrapper, Seq2Act's model and ``EP_RULES_MOE``), the random input
+generator, and the optimizers, learning rates, exporters, export generators and hook
 builders. A gin that names anything else fails in
 ``ginlike.check_configurables``, naming it.
 """
@@ -34,6 +34,7 @@ def register_all() -> None:
   from tensor2robot_tpu_torch.hooks import td3
   from tensor2robot_tpu_torch.hooks import variable_logger_hook
   from tensor2robot_tpu_torch.models import optimizers
+  from tensor2robot_tpu_torch.parallel import sharding
   from tensor2robot_tpu_torch.preprocessors import device_decode
   from tensor2robot_tpu_torch.research import seq2act
   from tensor2robot_tpu_torch.research.qtopt import t2r_models
@@ -82,5 +83,11 @@ def register_all() -> None:
   register(device_decode.wrap_model_with_device_decode,
            'wrap_model_with_device_decode')
 
-  # Seq2Act.
+  # Seq2Act, and the parameter rules of train_seq2act_moe.gin (zero-arg
+  # factories, as the JAX registry binds them: @EP_RULES_MOE()).
   register(seq2act.Seq2ActBCModel, 'Seq2ActBCModel')
+
+  def _ep_rules_moe():
+    return sharding.EP_RULES_MOE
+
+  register(_ep_rules_moe, 'EP_RULES_MOE')

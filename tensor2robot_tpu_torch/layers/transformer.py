@@ -21,10 +21,22 @@ where the JAX package picks it on a TPU, and dense otherwise. ``'ring'`` is
 ``parallel.ring_attention`` over the ``group`` of ranks that hold the
 sequence in shards (kernel K6 on every hop of a CUDA tensor's forward, the
 plain blockwise backward); ``CausalTransformer`` then adds each rank its
-own slice of the positions. Tensor parallelism (``tp_axis``), the MoE MLP
-(``moe_experts``), the pipelined stack (``pipe_axis``) and dropout in
-training are not ported yet and raise. (Dropout is the identity outside
-training, as flax's is.)
+own slice of the positions.
+
+``moe_experts`` > 0 puts ``layers.moe.MoEMlp`` in place of each block's
+MLP; blocks and the stack return ``(x, aux)`` as the JAX modules do, aux
+the float32 sum of the MoE load-balance losses (0 for dense MLPs).
+
+Dropout (``dropout_rate``) is flax's, split in two: a draw of keep-masks
+from an explicit generator (``DropoutDraw``, handed to the forward as
+``dropout``) and a deterministic apply, ``where(mask, x / keep, 0)``
+(``dropout_apply``). It is the identity outside training, and training
+without a draw raises. Under ring attention each rank draws the masks of
+the whole sequence and keeps its own positions', so that the ring drops
+what one rank would.
+
+Tensor parallelism (``tp_axis``) and the pipelined stack (``pipe_axis``)
+are not ported yet and raise.
 
 Causality is at token granularity: tokens are frame-major, so a frame's
 tokens see all earlier frames and their predecessors within the frame.
@@ -44,12 +56,14 @@ from tensor2robot_tpu_torch.parallel import flash_attention as flash_lib
 from tensor2robot_tpu_torch.parallel import ring_attention as ring_lib
 from tensor2robot_tpu_torch.research.qtopt.networks import Conv
 
-__all__ = ['CausalTransformer', 'Dense', 'ImageTokenizer', 'LayerNorm',
-           'MultiHeadAttention', 'TokenLearner', 'TransformerBlock',
-           'gelu', 'resolve_attention_mode', 'run_attention',
-           'scaled_dot_attention']
+__all__ = ['CausalTransformer', 'Dense', 'DropoutDraw', 'ImageTokenizer',
+           'LayerNorm', 'MultiHeadAttention', 'TokenLearner',
+           'TransformerBlock', 'dropout_apply', 'gelu',
+           'resolve_attention_mode', 'run_attention', 'scaled_dot_attention']
 
 _FLASH_MIN_LENGTH = 2048
+# Tensor and pipeline parallelism come with the next slice of the port.
+_NEXT_SLICE = 'the next slice of the port, with expert parallelism'
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -148,7 +162,7 @@ class MultiHeadAttention(nn.Module):
     super().__init__()
     if tp_axis:
       raise NotImplementedError('Tensor parallelism (tp_axis) is not ported '
-                                'yet.')
+                                'yet: it comes with {}.'.format(_NEXT_SLICE))
     self.num_heads, self.head_dim = num_heads, head_dim
     self.attention_mode, self.causal = attention_mode, causal
     self.group = group
@@ -165,36 +179,85 @@ class MultiHeadAttention(nn.Module):
     return self.out(out.reshape(b, l, self.num_heads * self.head_dim))
 
 
+class DropoutDraw:
+  """Dropout's keep-masks, drawn from ``generator`` in call order: flax's
+  Bernoulli draw, ``uniform[0, 1) < 1 - rate``, a bool tensor."""
+
+  def __init__(self, generator: torch.Generator):
+    self.generator = generator
+
+  def __call__(self, shape, rate: float, device) -> torch.Tensor:
+    return torch.rand(shape, generator=self.generator,
+                      device=device) < 1.0 - rate
+
+
+def dropout_apply(x: torch.Tensor, keep: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+  """flax ``Dropout``'s deterministic half: ``where(keep, x / (1 - rate),
+  0)``, the divisor in x's dtype as flax's weakly typed one."""
+  keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+  return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+
+
 class TransformerBlock(nn.Module):
-  """Pre-LN block: LN -> MHA -> +res, LN -> MLP(gelu) -> +res."""
+  """Pre-LN block: LN -> MHA -> +res, LN -> MLP(gelu) or MoE -> +res;
+  dropout after the attention and after the MLP. ``forward`` returns
+  ``(x, aux)``: aux the MoE's float32 load-balance loss, 0 without one."""
 
   def __init__(self, features: int, num_heads: int, head_dim: int,
                mlp_dim: int, attention_mode: str = 'auto',
                causal: bool = True, tp_axis: Optional[str] = None,
-               moe_experts: int = 0, dropout_rate: float = 0.0,
+               moe_experts: int = 0, moe_top_k: int = 2,
+               moe_capacity_factor: float = 1.25,
+               ep_axis: Optional[str] = None, dropout_rate: float = 0.0,
                dtype: torch.dtype = torch.float32, group=None):
     super().__init__()
-    if moe_experts:
-      raise NotImplementedError('The MoE MLP (moe_experts > 0) is not '
-                                'ported yet.')
     self.dtype, self.dropout_rate = dtype, dropout_rate
+    self.group = group if attention_mode == 'ring' else None
     self.ln_attn = LayerNorm(features)
     self.attn = MultiHeadAttention(features, num_heads, head_dim,
                                    attention_mode, causal, tp_axis, dtype,
                                    group)
     self.ln_mlp = LayerNorm(features)
-    self.mlp_in = Dense(features, mlp_dim, dtype)
-    self.mlp_out = Dense(mlp_dim, features, dtype)
+    if moe_experts:
+      from tensor2robot_tpu_torch.layers.moe import MoEMlp
 
-  def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-    if train and self.dropout_rate:
-      raise NotImplementedError(
-          'Dropout in training (dropout_rate > 0) is not ported yet: it '
-          'needs an explicit generator (see ROADMAP queue 1).')
+      self.moe = MoEMlp(features, moe_experts, mlp_dim, moe_top_k,
+                        moe_capacity_factor, ep_axis, dtype=dtype)
+    else:
+      self.moe = None
+      self.mlp_in = Dense(features, mlp_dim, dtype)
+      self.mlp_out = Dense(mlp_dim, features, dtype)
+
+  def _dropout(self, h: torch.Tensor, dropout) -> torch.Tensor:
+    if dropout is None:
+      raise ValueError('Dropout in training (dropout_rate {}) needs a draw '
+                       'from an explicit generator (dropout=DropoutDraw('
+                       'generator)).'.format(self.dropout_rate))
+    b, l, d = h.shape
+    world = collectives.world_size(self.group)
+    keep = dropout((b, l * world, d), self.dropout_rate, h.device)
+    if world > 1:
+      start = collectives.rank(self.group) * l
+      keep = keep[:, start:start + l]
+    return dropout_apply(h, keep, self.dropout_rate)
+
+  def forward(self, x: torch.Tensor, train: bool = False, dropout=None):
+    drop = train and self.dropout_rate > 0
     h = self.attn(self.ln_attn(x).to(self.dtype))
+    if drop:
+      h = self._dropout(h, dropout)
     x = x + h
-    h = self.mlp_out(gelu(self.mlp_in(self.ln_mlp(x).to(self.dtype))))
-    return x + h
+    h = self.ln_mlp(x).to(self.dtype)
+    if self.moe is not None:
+      h, aux = self.moe(h)
+    else:
+      h = self.mlp_out(gelu(self.mlp_in(h)))
+      aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if drop:
+      h = self._dropout(h, dropout)
+    return x + h, aux
 
 
 class TokenLearner(nn.Module):
@@ -268,19 +331,23 @@ class ImageTokenizer(nn.Module):
 
 class CausalTransformer(nn.Module):
   """Learned positions (a float32 parameter) + N causal blocks + a final
-  float32 LN; returns float32 [B, L, D]. Under ring attention it takes and
-  returns this rank's [B, L/N, D] shard, at positions from ``rank * L/N``."""
+  float32 LN; returns float32 [B, L, D] and the float32 sum of the blocks'
+  aux losses. Under ring attention it takes and returns this rank's
+  [B, L/N, D] shard, at positions from ``rank * L/N``."""
 
   def __init__(self, features: int, num_layers: int, num_heads: int,
                head_dim: int, mlp_dim: int, max_length: int,
                attention_mode: str = 'auto', tp_axis: Optional[str] = None,
-               moe_experts: int = 0, pipe_axis: Optional[str] = None,
+               moe_experts: int = 0, moe_top_k: int = 2,
+               moe_capacity_factor: float = 1.25,
+               ep_axis: Optional[str] = None, pipe_axis: Optional[str] = None,
                dropout_rate: float = 0.0,
                dtype: torch.dtype = torch.float32, group=None):
     super().__init__()
     if pipe_axis:
       raise NotImplementedError('The pipelined stack (pipe_axis) is not '
-                                'ported yet.')
+                                'ported yet: it comes with {}.'.format(
+                                    _NEXT_SLICE))
     self.num_layers, self.max_length = num_layers, max_length
     self.group = group if attention_mode == 'ring' else None
     self.pos_embedding = nn.Parameter(torch.empty(max_length, features))
@@ -288,17 +355,21 @@ class CausalTransformer(nn.Module):
       self.add_module('block{}'.format(i), TransformerBlock(
           features, num_heads, head_dim, mlp_dim, attention_mode,
           causal=True, tp_axis=tp_axis, moe_experts=moe_experts,
-          dropout_rate=dropout_rate, dtype=dtype, group=group))
+          moe_top_k=moe_top_k, moe_capacity_factor=moe_capacity_factor,
+          ep_axis=ep_axis, dropout_rate=dropout_rate, dtype=dtype,
+          group=group))
     self.ln_final = LayerNorm(features)
 
-  def forward(self, tokens: torch.Tensor, train: bool = False
-              ) -> torch.Tensor:
+  def forward(self, tokens: torch.Tensor, train: bool = False, dropout=None):
     l = tokens.shape[1]
     start = collectives.rank(self.group) * l
     if start + l > self.max_length:
       raise ValueError('Sequence length {} exceeds max_length {}.'.format(
           start + l, self.max_length))
     x = tokens + self.pos_embedding[None, start:start + l].to(tokens.dtype)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(self.num_layers):
-      x = getattr(self, 'block{}'.format(i))(x, train=train)
-    return self.ln_final(x)
+      x, aux = getattr(self, 'block{}'.format(i))(x, train=train,
+                                                  dropout=dropout)
+      aux_total = aux_total + aux
+    return self.ln_final(x), aux_total

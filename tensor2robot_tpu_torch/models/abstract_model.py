@@ -28,8 +28,10 @@ rank's share of every episode (the trainer draws only that), and
 ``shard_batch`` cuts it out of a batch of whole episodes.
 
 As in the JAX package, activations are bfloat16 only where
-``device_type == 'tpu'``; the port computes float32 on the GPU unless
-``compute_dtype`` asks for bfloat16.
+``device_type == 'tpu'`` (``train_seq2act_bc.gin`` binds it); the port
+computes float32 on the GPU unless that or ``compute_dtype`` asks for
+bfloat16. Parameters, gradients and optimizer state stay float32 either
+way: a network casts its weights to its compute dtype where it uses them.
 """
 
 from __future__ import annotations
@@ -297,18 +299,36 @@ class AbstractT2RModel:
                       opt_state=self.create_optimizer().init(params),
                       avg_params=avg_params, ema_state=ema_state)
 
+  @property
+  def draws_in_training(self) -> bool:
+    """Whether the TRAIN network draws from the step's generator (the
+    trainer then hands one to ``train_step``)."""
+    return False
+
+  def network_kwargs(self, mode: str,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Dict[str, Any]:
+    """The keyword arguments of the network's forward in ``mode``: the
+    mode, and whatever a model draws from the step's ``generator`` (JAX's
+    step key), such as dropout's masks."""
+    del generator
+    return {'mode': mode}
+
   def loss_fn(self, params: StateDict, model_state: StateDict, features,
-              labels, mode: str = ModeKeys.TRAIN):
+              labels, mode: str = ModeKeys.TRAIN,
+              generator: Optional[torch.Generator] = None):
     """(loss, (train_outputs, outputs, new_model_state)).
 
     The network runs on ``params`` and copies of ``model_state``; in TRAIN
     mode it updates the copies (the batch norm running statistics), which
     come back as ``new_model_state``. ``model_state`` is left as it was.
+    ``generator`` feeds the network's random draws (``network_kwargs``).
     """
     new_model_state = {k: v.clone() for k, v in model_state.items()}
     state = {**params, **new_model_state}
-    outputs = torch.func.functional_call(self.network, state, (features,),
-                                         {'mode': mode}, strict=True)
+    outputs = torch.func.functional_call(
+        self.network, state, (features,),
+        self.network_kwargs(mode, generator), strict=True)
     loss, train_outputs = self.model_train_fn(state, features, labels,
                                               outputs, mode)
     return loss, (train_outputs, outputs, new_model_state)
@@ -327,14 +347,16 @@ class AbstractT2RModel:
       return arrays
     return shard.cut(arrays)
 
-  def gradients(self, state: TrainState, features, labels):
+  def gradients(self, state: TrainState, features, labels,
+                generator: Optional[torch.Generator] = None):
     """(loss, scalar train outputs, new_model_state, grads) of one TRAIN
     forward and backward, all detached; with a ``process_group``, the
     gradients summed over it."""
     params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
     with torch.enable_grad():
       loss, (train_outputs, _, new_model_state) = self.loss_fn(
-          params, state.model_state, features, labels, ModeKeys.TRAIN)
+          params, state.model_state, features, labels, ModeKeys.TRAIN,
+          generator)
       grads = torch.autograd.grad(loss, list(params.values()),
                                   allow_unused=True)
     # A parameter the loss does not reach (the stem bias in training) has
@@ -350,13 +372,15 @@ class AbstractT2RModel:
           grads.values()))))
     return loss.detach(), _scalars(train_outputs), new_model_state, grads
 
-  def train_step(self, state: TrainState, features, labels
+  def train_step(self, state: TrainState, features, labels,
+                 generator: Optional[torch.Generator] = None
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One step: loss and gradients, optimizer, EMA. Returns the new state
     (new tensors; ``state`` is left as it was) and the scalar metrics
-    (``loss`` and the model's train outputs), on the device."""
+    (``loss`` and the model's train outputs), on the device.
+    ``generator``: the step's draws in the network (dropout)."""
     loss, train_outputs, new_model_state, grads = self.gradients(
-        state, features, labels)
+        state, features, labels, generator)
     params = {k: v.detach() for k, v in state.params.items()}
     new_params, opt_state = self.create_optimizer().update(
         grads, state.opt_state, params)

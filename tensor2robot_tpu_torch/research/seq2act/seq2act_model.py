@@ -29,8 +29,19 @@ kernel K6. The loss, ``action_accuracy`` and ``action_mae`` are means over
 the whole episodes (local sums and counts summed over the group), and the
 gradients are summed over it, so the step is the unsharded model's.
 
-The MoE, tensor-parallel and pipelined variants, and dropout in training,
-are not ported yet: they raise.
+``moe_experts`` > 0 (``train_seq2act_moe.gin``: 8 experts, top 2) puts a
+Mixture-of-Experts MLP (``layers/moe.py``) in every block, on one card:
+the loss adds ``moe_aux_weight`` times the summed load-balance losses,
+which the network returns as ``moe_aux_loss``. ``dropout_rate`` > 0 drops
+in training from the step's generator (``network_kwargs``). With
+``device_type='tpu'`` (the gins' binding) the network computes in
+bfloat16: the tokenizer's convolutions, the transformer's dense layers and
+attention (K4, K5a and K5b in their bf16 instances), while the layer
+norms, the TokenLearner's softmax and pooling, the MoE router and the
+action head compute in float32, as in JAX.
+
+Not ported yet: MoE under ring attention (JAX routes the whole sequence
+as one group), expert, tensor and pipeline parallelism. They raise.
 """
 
 from __future__ import annotations
@@ -156,8 +167,10 @@ class RT1StyleNet(nn.Module):
   first call whether the tokenizer needs its TokenLearner).
   ``forward(features, mode)`` takes ``image`` float [B, T, H, W, 3] (and
   ``task_id`` int [B, 1], ``state`` [B, T, S] where configured) and returns
-  ``{'action_logits': float32 [B, T, action_size * vocab_size]}``; under
-  ring attention T is this rank's frames, the r-th T of the episode.
+  ``{'action_logits': float32 [B, T, action_size * vocab_size]}`` (and
+  ``moe_aux_loss``, float32, with experts); under ring attention T is this
+  rank's frames, the r-th T of the episode. ``dropout``: the draw of
+  dropout's masks in TRAIN (``transformer.DropoutDraw``).
   """
 
   def __init__(self, action_size: int, vocab_size: int,
@@ -166,13 +179,16 @@ class RT1StyleNet(nn.Module):
                max_episode_length: int, tokenizer_widths: tuple,
                img_res: Tuple[int, int],
                attention_mode: str = 'auto', tp_axis: Optional[str] = None,
-               moe_experts: int = 0, pipe_axis: Optional[str] = None,
+               moe_experts: int = 0, moe_top_k: int = 2,
+               moe_capacity_factor: float = 1.25,
+               ep_axis: Optional[str] = None, pipe_axis: Optional[str] = None,
                dropout_rate: float = 0.0,
                dtype: torch.dtype = torch.float32,
                use_state_input: bool = False, state_size: int = 7,
                num_task_embeddings: int = 0, group=None):
     super().__init__()
     self.dtype, self.embed_dim = dtype, embed_dim
+    self.moe_experts = moe_experts
     self.num_task_embeddings = num_task_embeddings
     self.use_state_input = use_state_input
     self.tokenizer = transformer_lib.ImageTokenizer(
@@ -190,12 +206,14 @@ class RT1StyleNet(nn.Module):
         embed_dim, num_layers, num_heads, head_dim, mlp_dim,
         max_length=max_episode_length * tokens,
         attention_mode=attention_mode, tp_axis=tp_axis,
-        moe_experts=moe_experts, pipe_axis=pipe_axis,
-        dropout_rate=dropout_rate, dtype=dtype, group=group)
+        moe_experts=moe_experts, moe_top_k=moe_top_k,
+        moe_capacity_factor=moe_capacity_factor, ep_axis=ep_axis,
+        pipe_axis=pipe_axis, dropout_rate=dropout_rate, dtype=dtype,
+        group=group)
     self.action_head = transformer_lib.Dense(
         embed_dim, action_size * vocab_size, torch.float32)
 
-  def forward(self, features, mode: str = ModeKeys.PREDICT):
+  def forward(self, features, mode: str = ModeKeys.PREDICT, dropout=None):
     images = torch.as_tensor(features['image']).to(self.dtype)
     b, t = images.shape[0], images.shape[1]
     tokens = multi_batch_apply(self.tokenizer, 2, images)   # [B, T, K, D]
@@ -211,25 +229,32 @@ class RT1StyleNet(nn.Module):
       groups.append(self.state_token(state)[:, :, None, :])
     tokens = torch.cat(groups, 2) if len(groups) > 1 else tokens
     k = tokens.shape[2]
-    encoded = self.transformer(tokens.reshape(b, t * k, self.embed_dim),
-                               train=mode == ModeKeys.TRAIN)
+    encoded, moe_aux = self.transformer(
+        tokens.reshape(b, t * k, self.embed_dim),
+        train=mode == ModeKeys.TRAIN, dropout=dropout)
     # The last token of each frame has seen the whole frame and the history.
     frame_out = encoded.reshape(b, t, k, -1)[:, :, -1, :]
-    return {'action_logits': self.action_head(frame_out)}
+    outputs = {'action_logits': self.action_head(frame_out)}
+    if self.moe_experts:
+      outputs['moe_aux_loss'] = moe_aux
+    return outputs
 
 
 def _flax_default_init(state: Dict[str, torch.Tensor],
                        generator: torch.Generator
                        ) -> Dict[str, torch.Tensor]:
   """Random weights as the flax modules' own initializers draw them:
-  lecun normal kernels (a truncated normal of variance 1 / fan_in), zero
-  biases, unit layer-norm scales, N(0, 0.02) positions and N(0, 1 /
-  features) task embeddings. (``jax.random`` gives other numbers.)"""
+  lecun normal kernels (a truncated normal of variance 1 / fan_in; the
+  experts' stacked [E, in, out] kernels take fan_in E * in, as flax's
+  ``lecun_normal`` counts it), zero biases, unit layer-norm scales,
+  N(0, 0.02) positions and N(0, 1 / features) task embeddings.
+  (``jax.random`` gives other numbers.)"""
   out = {}
   for name, value in state.items():
     leaf = name.rsplit('.', 1)[-1]
-    if leaf == 'weight':
-      fan_in = value[0].numel()
+    if leaf in ('weight', 'w_in', 'w_out'):
+      fan_in = (value[0].numel() if leaf == 'weight'
+                else value.numel() // value.shape[-1])
       new = torch.empty(value.shape)
       nn.init.trunc_normal_(new, 0.0, 1.0, -2.0, 2.0, generator=generator)
       new *= (1.0 / fan_in) ** 0.5 / _TRUNCATED_STD
@@ -256,7 +281,11 @@ class Seq2ActBCModel(AbstractT2RModel):
   ``process_group`` (in place of JAX's ``mesh``) goes with
   ``attention_mode='ring'`` and no other mode: its N ranks must divide the
   episode, and the rank's tokens must suit the carry kernel's blocks (the
-  first attention raises otherwise).
+  first attention raises otherwise). ``moe_experts`` (with ``moe_top_k``,
+  ``moe_capacity_factor``, ``ep_axis`` and ``moe_aux_weight``) and
+  ``dropout_rate`` are the JAX model's; ``ep_axis`` names an axis that no
+  group of the port provides yet, so the MoE takes its dense path, as JAX's
+  does without a mesh.
   """
 
   label_key = 'action'
@@ -282,6 +311,10 @@ class Seq2ActBCModel(AbstractT2RModel):
                process_group=None,
                tp_axis: Optional[str] = None,
                moe_experts: int = 0,
+               moe_top_k: int = 2,
+               moe_capacity_factor: float = 1.25,
+               ep_axis: Optional[str] = None,
+               moe_aux_weight: float = 0.01,
                pipe_axis: Optional[str] = None,
                max_episode_length: Optional[int] = None,
                dropout_rate: float = 0.0,
@@ -294,6 +327,11 @@ class Seq2ActBCModel(AbstractT2RModel):
       raise ValueError("attention_mode='ring' requires a process_group, and "
                        'a process_group requires ring attention; got {!r} '
                        'and {}.'.format(attention_mode, process_group))
+    if process_group is not None and moe_experts:
+      raise NotImplementedError(
+          'MoE under ring attention is not ported yet: JAX routes the whole '
+          'sequence as one group, so a rank\'s drops depend on the others\' '
+          'counts; it comes with the next slice, with expert parallelism.')
     if process_group is not None:
       world = collectives.world_size(process_group)
       if episode_length % world:
@@ -322,6 +360,10 @@ class Seq2ActBCModel(AbstractT2RModel):
     self._attention_mode = attention_mode
     self._tp_axis = tp_axis
     self._moe_experts = moe_experts
+    self._moe_top_k = moe_top_k
+    self._moe_capacity_factor = moe_capacity_factor
+    self._ep_axis = ep_axis
+    self._moe_aux_weight = moe_aux_weight
     self._pipe_axis = pipe_axis
     self._max_episode_length = max_episode_length or episode_length
     self._dropout_rate = dropout_rate
@@ -373,6 +415,9 @@ class Seq2ActBCModel(AbstractT2RModel):
         attention_mode=self._attention_mode,
         tp_axis=self._tp_axis,
         moe_experts=self._moe_experts,
+        moe_top_k=self._moe_top_k,
+        moe_capacity_factor=self._moe_capacity_factor,
+        ep_axis=self._ep_axis,
         pipe_axis=self._pipe_axis,
         dropout_rate=self._dropout_rate,
         dtype=self.compute_dtype,
@@ -390,6 +435,21 @@ class Seq2ActBCModel(AbstractT2RModel):
     start = collectives.rank(self.process_group) * per_rank
     return FrameShard(self._FRAME_KEYS, start, start + per_rank)
 
+  @property
+  def draws_in_training(self) -> bool:
+    return bool(self._dropout_rate)
+
+  def network_kwargs(self, mode: str,
+                     generator: Optional[torch.Generator] = None):
+    """With dropout in TRAIN, the draw of its masks from ``generator``
+    (the trainer's generator of the step); without a generator the first
+    block raises."""
+    kwargs = {'mode': mode}
+    if (mode == ModeKeys.TRAIN and self._dropout_rate and
+        generator is not None):
+      kwargs['dropout'] = transformer_lib.DropoutDraw(generator)
+    return kwargs
+
   def init_variables(self, generator: torch.Generator) -> Variables:
     """Random weights from ``generator`` at the flax initializers' scales
     (see ``_flax_default_init``), on the model's device."""
@@ -400,8 +460,10 @@ class Seq2ActBCModel(AbstractT2RModel):
   def model_train_fn(self, state, features, labels, inference_outputs,
                      mode: str):
     """(loss, {loss, action_accuracy, action_mae}): the discrete action
-    loss, and the share and mean error of the mode actions against the
-    labels (a prediction within half a bin, plus 1e-6, is accurate).
+    loss (plus ``moe_aux_weight`` times the network's ``moe_aux_loss``
+    with experts, as JAX adds it), and the share and mean error of the
+    mode actions against the labels (a prediction within half a bin, plus
+    1e-6, is accurate).
 
     With a ``process_group`` each rank holds some frames of every episode:
     the three are means over all of them (the local sums and counts summed
@@ -413,6 +475,8 @@ class Seq2ActBCModel(AbstractT2RModel):
     actions = torch.as_tensor(labels[self.label_key]).to(torch.float32)
     loss = decoders.get_discrete_action_loss(
         logits, actions, self._bin_centers, self._vocab_size)
+    if self._moe_experts:
+      loss = loss + self._moe_aux_weight * inference_outputs['moe_aux_loss']
     predicted = decoders.get_discrete_actions(
         logits, self._action_size, self._vocab_size, self._bin_centers)
     bin_width = (self._action_max - self._action_min) / self._vocab_size

@@ -16,7 +16,10 @@ Each train step, on the model's device:
      critic, one per episode for Seq2Act), the random offsets of global
      step k drawn from a device generator seeded from ``(seed + 1, k)``, as
      the JAX step folds the step into its key;
-  3. ``model.train_step``: loss, autograd, optimizer, EMA.
+  3. ``model.train_step``: loss, autograd, optimizer, EMA; the network's
+     own draws (Seq2Act's dropout) from a device generator seeded from
+     ``(seed + 1, k)`` and ``DROPOUT_SEED_OFFSET``, a stream apart from the
+     crops'.
 
 A step whose loss is not finite follows ``nan_policy``: ``'skip'`` (the
 default, as in the JAX trainer) keeps every tensor of the state at its
@@ -152,6 +155,9 @@ DEVICE_DECODE = ('off', 'dense', 'sparse', 'packed')
 EVAL_SEED_OFFSET = 1 << 30
 # The crops of global step k are drawn from seed (seed + 1) * this + k.
 CROP_SEED_STRIDE = 1 << 32
+# The network's draws of global step k (dropout) from the crops' seed plus
+# this (modulo 2 ** 63): a stream of its own.
+DROPOUT_SEED_OFFSET = 1 << 62
 
 
 class NonFiniteLossError(RuntimeError):
@@ -200,7 +206,7 @@ class Trainer:
     # Rank 0 of the model's group writes the checkpoints and metrics.
     self.is_chief = collectives.rank(model.process_group) == 0
     self.registry = get_registry()
-    self._crop_generator = None
+    self._crop_generator = self._dropout_generator = None
     self._write_metrics = write_metrics and self.is_chief
     self._eval_dir = os.path.join(
         model_dir, 'eval' if not eval_name else 'eval_' + eval_name)
@@ -239,6 +245,18 @@ class Trainer:
     self._crop_generator.manual_seed(
         ((self.seed + 1) * CROP_SEED_STRIDE + step) % (1 << 63))
     return self._crop_generator
+
+  def dropout_generator(self, step: int) -> torch.Generator:
+    """The device generator of the network's random draws in TRAIN (the
+    dropout masks) at global step ``step``: apart from the crops' stream,
+    and as reproducible (a resumed run drops what an uninterrupted one
+    would have)."""
+    if self._dropout_generator is None:
+      self._dropout_generator = torch.Generator(device=self.model.device)
+    self._dropout_generator.manual_seed(
+        ((self.seed + 1) * CROP_SEED_STRIDE + step + DROPOUT_SEED_OFFSET) %
+        (1 << 63))
+    return self._dropout_generator
 
   def restore_latest(self) -> TrainState:
     """The newest checkpoint in ``model_dir`` that restores: a newer one
@@ -318,7 +336,10 @@ class Trainer:
     features, labels = self.model.preprocessor.preprocess(
         features, labels, ModeKeys.TRAIN,
         generator=self.crop_generator(state.step))
-    new_state, metrics = self.model.train_step(state, features, labels)
+    draws = ({'generator': self.dropout_generator(state.step)}
+             if self.model.draws_in_training else {})
+    new_state, metrics = self.model.train_step(state, features, labels,
+                                               **draws)
     if self.nan_policy != 'skip':
       return new_state, metrics
     good = torch.isfinite(metrics['loss']).all()
@@ -504,7 +525,9 @@ def train_eval_model(t2r_model, model_dir: str,
                      seed: int = 0, feed_depth: int = 1,
                      eval_timeout_secs: float = 30.0,
                      write_metrics: bool = True,
-                     eval_name: Optional[str] = None) -> Dict[str, Any]:
+                     eval_name: Optional[str] = None,
+                     tp_rules: Optional[Sequence[Any]] = None
+                     ) -> Dict[str, Any]:
   """The main entry point, in the JAX function's three modes:
 
     * train and eval: train ``eval_throttle_steps`` at a time, then an eval
@@ -516,17 +539,23 @@ def train_eval_model(t2r_model, model_dir: str,
       exporters after each, until none lands for ``eval_timeout_secs``.
       It never writes, removes or renames a checkpoint.
 
-  ``feed_depth`` > 1 transfers that many train batches ahead. Writes the
-  gin bindings it was given into ``config_snapshot.gin`` and those it
-  used into ``operative_config.gin`` (on rank 0). Returns ``{'state',
+  ``feed_depth`` > 1 transfers that many train batches ahead.
+  ``tp_rules`` (``train_seq2act_moe.gin``'s ``@EP_RULES_MOE()``): rules
+  that shard parameters over a group of the run decline where the run has
+  no such group, as JAX's decline on a mesh without their axis; one that
+  would shard raises (``parallel/sharding.py``). Writes the gin bindings
+  it was given into ``config_snapshot.gin`` and those it used into
+  ``operative_config.gin`` (on rank 0). Returns ``{'state',
   'eval_metrics', 'eval_history', 'trainer'}``; ``eval_history`` lists
   every eval's ``{'step', 'metrics', 'wall_time'}``.
   """
-  if t2r_model.compute_dtype != torch.float32:
-    raise NotImplementedError(
-        '{0}.device_type = "tpu" (bfloat16 training) is not ported; bind '
-        '{0}.device_type = "gpu" to train in float32.'.format(
-            type(t2r_model).__name__))
+  if tp_rules:
+    from tensor2robot_tpu_torch.parallel import sharding
+
+    # The port's one group holds the sequence, JAX's 'data' axis.
+    sharding.check_rules_decline(
+        dict(t2r_model.network.state_dict()), tp_rules,
+        {'data': collectives.world_size(t2r_model.process_group)})
   if input_generator_train is None and input_generator_eval is None:
     raise ValueError('Provide at least one of train/eval input generators.')
   if eval_name is None and input_generator_eval is not None:
@@ -759,11 +788,23 @@ def _prepare_device(device: torch.device) -> None:
     print('built CUDA kernels in {:.1f}s'.format(kernels.build()))
 
 
+def _gin_attention_mode() -> str:
+  from tensor2robot_tpu_torch import config
+
+  try:
+    return config.query_parameter('Seq2ActBCModel.attention_mode')
+  except config.ConfigError:
+    return 'auto'
+
+
 def main_gin(args) -> int:
   """``train_eval_model`` as the gin files and bindings configure it (the
   port's ``bin/run_t2r_trainer.py``), with ``--model_dir`` and
   ``--device`` applied. Every configurable that the gins name must be one
-  the port registers (``config.check_configurables``)."""
+  the port registers (``config.check_configurables``). Where they bind
+  ``Seq2ActBCModel.attention_mode = "ring"``, the ranks that torchrun
+  starts build the sequence group first (JAX's gin binds its mesh) and the
+  model gets it as its ``process_group`` on ``cuda:LOCAL_RANK``."""
   from tensor2robot_tpu_torch import config
 
   config.register_framework_configurables()
@@ -775,16 +816,27 @@ def main_gin(args) -> int:
       '{}.device = {!r}'.format(name, args.device) for name in GIN_MODELS
   ] + list(args.gin_bindings))
   config.check_configurables()
-  device = torch.device(args.device)
-  _prepare_device(device)
+  device, group, world = torch.device(args.device), None, 1
+  if _gin_attention_mode() == 'ring':
+    from tensor2robot_tpu_torch.parallel import mesh
+
+    sequence = mesh.init_sequence_group(args.device)
+    device, group, world = (sequence.device, sequence.group,
+                            sequence.world_size)
+    config.bind_parameter('Seq2ActBCModel.process_group', group)
+    config.bind_parameter('Seq2ActBCModel.device', str(device))
   overrides = {'model_dir': args.model_dir} if args.model_dir else {}
-  start = time.perf_counter()
-  result = config.get_configurable('train_eval_model')(**overrides)
+  try:
+    _prepare_device(device)
+    start = time.perf_counter()
+    result = config.get_configurable('train_eval_model')(**overrides)
+  finally:
+    if group is not None:
+      dist.destroy_process_group()
   trainer = result['trainer']
   if trainer.is_chief:
-    _print_line(result, type(trainer.model).__name__, device, 1,
-                time.perf_counter() - start,
-                gin_configs=args.gin_configs)
+    _print_line(result, type(trainer.model).__name__, device, world,
+                time.perf_counter() - start, gin_configs=args.gin_configs)
   return 0
 
 

@@ -16,6 +16,12 @@ of every case and writes what it found to ``rank<r>.pt``:
   * the messages of the ValueErrors that a bad configuration raises;
   * the kernels' launch counts (none: every tensor is on the CPU).
 
+``run_gin`` is a rank of ``tests/test_torch_config.py``'s ring under a
+gin (``gin_plan.pt``): ``train_eval.main`` as torchrun starts it, first
+with the flags (``--attention_mode ring``), then with the gin binding
+``Seq2ActBCModel.attention_mode = "ring"``, each over a group of its own,
+with rank 0's printed lines (``gin_rank<r>.pt``).
+
 ``run_records`` is a rank of ``tests/test_torch_seq2act_records.py``'s
 ring from records (``records_plan.pt``): its share of the first train
 batch that the trainer's record iterator reads, the ring's loss and
@@ -153,3 +159,19 @@ def run_records(rank, world, init_file, out_dir):
     found['main_rc'] = train_eval.main(plan['main_argv'])
   found['main_out'] = out.getvalue()
   torch.save(found, os.path.join(out_dir, 'records_rank{}.pt'.format(rank)))
+
+
+def run_gin(rank, world, out_dir):
+  torch.set_num_threads(1)
+  plan = torch.load(os.path.join(out_dir, 'gin_plan.pt'), weights_only=False)
+  found = {}
+  for name in ('flags', 'gin'):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR='127.0.0.1',
+                      MASTER_PORT=str(plan[name + '_port']))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+      found[name + '_rc'] = train_eval.main(plan[name + '_argv'])
+    found[name + '_out'] = out.getvalue()
+    found[name + '_group_left'] = dist.is_initialized()
+  torch.save(found, os.path.join(out_dir, 'gin_rank{}.pt'.format(rank)))

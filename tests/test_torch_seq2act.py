@@ -33,6 +33,7 @@ from tensor2robot_tpu.predictors.abstract_predictor import (
 )
 from tensor2robot_tpu.specs.struct import SpecStruct
 from tensor2robot_tpu_torch import convert
+from tensor2robot_tpu_torch.layers import moe
 from tensor2robot_tpu_torch.layers import transformer
 from tensor2robot_tpu_torch.meta_learning.meta_data import multi_batch_apply
 from tensor2robot_tpu_torch.models.abstract_model import TrainState
@@ -294,14 +295,18 @@ def test_transformer_block_and_stack_match_flax():
       jax_transformer.TransformerBlock(num_heads=2, head_dim=16, mlp_dim=48,
                                        attention_mode='xla'),
       transformer.TransformerBlock(32, 2, 16, 48, attention_mode='xla'), x)
-  _close_to_max(port(torch.from_numpy(x)).detach(), want[0])
+  got, aux = port(torch.from_numpy(x))
+  _close_to_max(got.detach(), want[0])
+  assert float(aux) == float(want[1]) == 0.0    # no MoE: no aux loss
   port, want = _module_pair(
       jax_transformer.CausalTransformer(num_layers=2, num_heads=2,
                                         head_dim=16, mlp_dim=48,
                                         max_length=40, attention_mode='xla'),
       transformer.CausalTransformer(32, 2, 2, 16, 48, max_length=40,
                                     attention_mode='xla'), x)
-  _close_to_max(port(torch.from_numpy(x)).detach(), want[0])
+  got, aux = port(torch.from_numpy(x))
+  _close_to_max(got.detach(), want[0])
+  assert float(aux) == float(want[1]) == 0.0
   with pytest.raises(ValueError, match='max_length'):
     port(torch.zeros(1, 41, 32))
 
@@ -341,8 +346,11 @@ def test_attention_modes_resolve_as_in_jax():
 def test_unported_variants_raise():
   with pytest.raises(NotImplementedError, match='tp_axis'):
     transformer.MultiHeadAttention(32, 2, 16, tp_axis='model')
-  with pytest.raises(NotImplementedError, match='MoE'):
-    transformer.TransformerBlock(32, 2, 16, 48, moe_experts=4)
+  with pytest.raises(NotImplementedError, match='next slice'):
+    moe.MoEMlp(32, 4, 48, ep_axis='expert', expert_group=object())
+  with pytest.raises(NotImplementedError, match='MoE under ring'):
+    Seq2ActBCModel(device='cpu', process_group=object(), moe_experts=4,
+                   **dict(POLICY, attention_mode='ring'))
   with pytest.raises(NotImplementedError, match='pipe_axis'):
     transformer.CausalTransformer(32, 2, 2, 16, 48, 40, pipe_axis='pipe')
   model = Seq2ActBCModel(device='cpu', **POLICY)

@@ -617,6 +617,8 @@ def test_command_line_trains_seq2act_on_the_cpu(tmp_path, capsys):
 
 
 def test_dropout_in_training_raises_and_is_the_identity_otherwise():
+  """Training with dropout needs the draw of its masks (a generator): it
+  raises without one; outside training dropout is the identity."""
   block = transformer.TransformerBlock(32, 2, 16, 48, attention_mode='xla',
                                        dropout_rate=0.1)
   gen = torch.Generator().manual_seed(0)
@@ -624,14 +626,16 @@ def test_dropout_in_training_raises_and_is_the_identity_otherwise():
     for param in block.parameters():
       param.copy_(0.1 * torch.randn(param.shape, generator=gen))
   x = torch.randn(1, 8, 32, generator=gen)
-  with pytest.raises(NotImplementedError, match='generator'):
+  with pytest.raises(ValueError, match='generator'):
     block(x, train=True)
   plain = transformer.TransformerBlock(32, 2, 16, 48, attention_mode='xla')
   plain.load_state_dict(block.state_dict())
-  same = block(x, train=False)
+  same = block(x, train=False)[0]
   assert torch.isfinite(same).all()
-  assert torch.equal(same, plain(x, train=False))
-  assert torch.equal(plain(x, train=True), same)
+  assert torch.equal(same, plain(x, train=False)[0])
+  assert torch.equal(plain(x, train=True)[0], same)
+  dropped = block(x, train=True, dropout=transformer.DropoutDraw(gen))[0]
+  assert torch.isfinite(dropped).all() and not torch.equal(dropped, same)
 
 
 def test_flash_dispatchers_raise_on_other_devices():

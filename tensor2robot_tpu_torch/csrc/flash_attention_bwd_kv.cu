@@ -19,6 +19,11 @@
 // `_bwd_p_ds`, the causal mask at global positions (q_pos >= k_pos, no
 // offset). dk and dv are written in the inputs' type.
 //
+// This file's tile loop is the float32 instance. The bfloat16 instance is
+// a kernel of its own on the bfloat16 tensor cores (flash_bwd_bf16.cuh:
+// mma.sync m16n8k16 with ldmatrix, bfloat16 tiles in shared memory), to
+// which the C entry below dispatches bfloat16 inputs.
+//
 // Inputs q, k, v and dO are [B, L, H, D] views given by their strides
 // (b, h, l; d is unit stride), so q, k and v are read straight out of the
 // head-major [B, L, H, 3, D] qkv projection. lse and delta are contiguous
@@ -26,17 +31,15 @@
 // tiles are copied 4 elements at a time). dk and dv are written by strides
 // too, with unit stride along D.
 //
-// What bounds it on an H100: operations. At the training shape (B*H = 64,
-// L = 4096, D = 64, causal) it does four products per unmasked (q, k) pair
+// What bounds the float32 instance on an H100: operations. At the training
+// shape (B*H = 64, L = 4096, D = 64, causal) it does four products per unmasked (q, k) pair
 // (s, dp, p^T dO, ds^T q), 275 GFLOP, over 0.4 GB of q, k, v, dO, dk and
 // dv: some 700 operations a byte. 4.10 ms at the CUDA cores' 67 TFLOP/s
 // float32 rate; 1.67 ms for the three TF32 passes of float32-grade products
 // at the tensor cores' 495 TFLOP/s. The design:
 //   * all four products on the tensor cores in float32 grade (tf32_mma.cuh):
 //     each operand is split once into TF32 big and small halves, and
-//     mma.sync m16n8k8 sums small*big + big*small + big*big in float32.
-//     bfloat16 inputs are exact in TF32 and take the big pass alone (p and
-//     ds, float32 values, are rounded to TF32 for it);
+//     mma.sync m16n8k8 sums small*big + big*small + big*big in float32;
 //   * one block of 4 warps per (bh, tile of 64 key rows), each warp owning
 //     16 keys. k and v are split once into shared memory and stay there; dK
 //     and dV are accumulated in registers and written once, at the end,
@@ -66,6 +69,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd_bf16.cuh"
 #include "flash_tile.cuh"
 #include "tf32_mma.cuh"
 
@@ -80,14 +84,14 @@ struct Strides {
   int64_t dk_b, dk_h, dk_l, dv_b, dv_h, dv_l;
 };
 
-template <typename T, int D>
+template <int D>
 struct Smem {
   float2 ks[kBlockK * D];   // split tiles, swizzled
   float2 vs[kBlockK * D];
   float2 qs[kBlockQ * D];
   float2 os[kBlockQ * D];
-  T q_raw[kBlockQ * D];     // raw copies of the next query tile
-  T o_raw[kBlockQ * D];
+  float q_raw[kBlockQ * D]; // raw copies of the next query tile
+  float o_raw[kBlockQ * D];
   float lse_raw[kBlockQ];
   float delta_raw[kBlockQ];
   float lse[kBlockQ];       // this tile's
@@ -95,9 +99,9 @@ struct Smem {
 };
 
 // Starts the copy of query tile q0: q and dO rows, lse and delta.
-template <typename T, int D>
-__device__ __forceinline__ void stage_q(Smem<T, D>& sm, const T* qb,
-                                        const T* ob, const float* lse_b,
+template <int D>
+__device__ __forceinline__ void stage_q(Smem<D>& sm, const float* qb,
+                                        const float* ob, const float* lse_b,
                                         const float* delta_b, int64_t q_l,
                                         int64_t o_l, int q0, int Lq) {
   constexpr int kChunks = D / 4;
@@ -120,18 +124,20 @@ __device__ __forceinline__ void stage_q(Smem<T, D>& sm, const T* qb,
   t2r::cp_async_commit();
 }
 
-template <typename T, int D, int kPasses>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ d_out,
+flash_bwd_kv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ d_out,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, int H, int Lq, int Lk, Strides st,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, int H, int Lq, int Lk, Strides st,
                     float scale, int causal) {
+  constexpr int kPasses = 3;
   constexpr int kChunks = D / 4;
   constexpr int kN = D / 8;   // n tiles of dk and dv
   extern __shared__ __align__(16) unsigned char smem_bytes[];
-  Smem<T, D>& sm = *reinterpret_cast<Smem<T, D>*>(smem_bytes);
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_bytes);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -143,10 +149,10 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = k_tile * kBlockK;
   const int b = bh / H;
   const int h = bh % H;
-  const T* qb = q + b * st.q_b + h * st.q_h;
-  const T* kb = k + b * st.k_b + h * st.k_h;
-  const T* vb = v + b * st.v_b + h * st.v_h;
-  const T* ob = d_out + b * st.o_b + h * st.o_h;
+  const float* qb = q + b * st.q_b + h * st.q_h;
+  const float* kb = k + b * st.k_b + h * st.k_h;
+  const float* vb = v + b * st.v_b + h * st.v_h;
+  const float* ob = d_out + b * st.o_b + h * st.o_h;
   const float* lse_b = lse + static_cast<int64_t>(bh) * Lq;
   const float* delta_b = delta + static_cast<int64_t>(bh) * Lq;
 
@@ -236,17 +242,15 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         bo[j].set(0, t2r::at<D>(sm.os, qr, c0));
         bo[j].set(1, t2r::at<D>(sm.os, qr, c0 + 4));
       }
-      if (kPasses == 3) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          t2r::mma_tf32(s[j], ak.small, bq[j].big);
-          t2r::mma_tf32(dp[j], av.small, bo[j].big);
-        }
+      for (int j = 0; j < 4; ++j) {
+        t2r::mma_tf32(s[j], ak.small, bq[j].big);
+        t2r::mma_tf32(dp[j], av.small, bo[j].big);
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          t2r::mma_tf32(s[j], ak.big, bq[j].small);
-          t2r::mma_tf32(dp[j], av.big, bo[j].small);
-        }
+      for (int j = 0; j < 4; ++j) {
+        t2r::mma_tf32(s[j], ak.big, bq[j].small);
+        t2r::mma_tf32(dp[j], av.big, bo[j].small);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -310,17 +314,15 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           bq[n].set(0, t2r::at<D>(sm.qs, r0, c));
           bq[n].set(1, t2r::at<D>(sm.qs, r0 + 1, c));
         }
-        if (kPasses == 3) {
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            t2r::mma_tf32(pv[n], ap.small, bo[n].big);
-            t2r::mma_tf32(pk[n], ads.small, bq[n].big);
-          }
+        for (int n = 0; n < 4; ++n) {
+          t2r::mma_tf32(pv[n], ap.small, bo[n].big);
+          t2r::mma_tf32(pk[n], ads.small, bq[n].big);
+        }
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            t2r::mma_tf32(pv[n], ap.big, bo[n].small);
-            t2r::mma_tf32(pk[n], ads.big, bq[n].small);
-          }
+        for (int n = 0; n < 4; ++n) {
+          t2r::mma_tf32(pv[n], ap.big, bo[n].small);
+          t2r::mma_tf32(pk[n], ads.big, bq[n].small);
         }
 #pragma unroll
         for (int n = 0; n < 4; ++n) {
@@ -343,34 +345,35 @@ flash_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int half = 0; half < 2; ++half) {
     const int k_pos = k0 + kr + 8 * half;
     if (k_pos >= Lk) continue;
-    T* dk_row = dk + b * st.dk_b + h * st.dk_h + k_pos * st.dk_l;
-    T* dv_row = dv + b * st.dv_b + h * st.dv_h + k_pos * st.dv_l;
+    float* dk_row = dk + b * st.dk_b + h * st.dk_h + k_pos * st.dk_l;
+    float* dv_row = dv + b * st.dv_b + h * st.dv_h + k_pos * st.dv_l;
 #pragma unroll
     for (int n = 0; n < kN; ++n) {
       const int c = 8 * n + 2 * t;
-      t2r::store2<T>(dk_row + c, dk_acc[n][2 * half], dk_acc[n][2 * half + 1]);
-      t2r::store2<T>(dv_row + c, dv_acc[n][2 * half], dv_acc[n][2 * half + 1]);
+      t2r::store2<float>(dk_row + c, dk_acc[n][2 * half],
+                         dk_acc[n][2 * half + 1]);
+      t2r::store2<float>(dv_row + c, dv_acc[n][2 * half],
+                         dv_acc[n][2 * half + 1]);
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* d_out,
            const void* lse, const void* delta, void* dk, void* dv, int B,
            int H, int Lq, int Lk, const Strides& st, float scale, int causal,
            cudaStream_t stream) {
-  constexpr int kPasses = sizeof(T) == 4 ? 3 : 1;
-  const int bytes = static_cast<int>(sizeof(Smem<T, D>));
+  const int bytes = static_cast<int>(sizeof(Smem<D>));
   cudaError_t status = cudaFuncSetAttribute(
-      flash_bwd_kv_kernel<T, D, kPasses>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_bwd_kv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (status != cudaSuccess) return static_cast<int>(status);
   const dim3 grid(B * H, (Lk + kBlockK - 1) / kBlockK);
-  flash_bwd_kv_kernel<T, D, kPasses><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(d_out),
+  flash_bwd_kv_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(d_out),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Lq, Lk, st, scale,
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Lq, Lk, st, scale,
       causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -400,18 +403,18 @@ int t2r_flash_attention_bwd_kv(
                       dv_sl};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) {
-    return bf16 ? launch<__nv_bfloat16, 64>(q, k, v, d_out, lse, delta, dk,
-                                            dv, B, H, Lq, Lk, st, scale,
-                                            causal, s)
-                : launch<float, 64>(q, k, v, d_out, lse, delta, dk, dv, B, H,
-                                    Lq, Lk, st, scale, causal, s);
+    return bf16 ? t2r::bwd_bf16::launch_kv<64>(q, k, v, d_out, lse, delta,
+                                                dk, dv, B, H, Lq, Lk, st,
+                                                scale, causal, s)
+                : launch<64>(q, k, v, d_out, lse, delta, dk, dv, B, H, Lq,
+                             Lk, st, scale, causal, s);
   }
   if (D == 128) {
-    return bf16 ? launch<__nv_bfloat16, 128>(q, k, v, d_out, lse, delta, dk,
-                                             dv, B, H, Lq, Lk, st, scale,
-                                             causal, s)
-                : launch<float, 128>(q, k, v, d_out, lse, delta, dk, dv, B,
-                                     H, Lq, Lk, st, scale, causal, s);
+    return bf16 ? t2r::bwd_bf16::launch_kv<128>(q, k, v, d_out, lse, delta,
+                                                 dk, dv, B, H, Lq, Lk, st,
+                                                 scale, causal, s)
+                : launch<128>(q, k, v, d_out, lse, delta, dk, dv, B, H, Lq,
+                              Lk, st, scale, causal, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

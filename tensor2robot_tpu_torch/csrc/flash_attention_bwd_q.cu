@@ -17,6 +17,11 @@
 // arithmetic of `_bwd_p_ds`, the causal mask at global positions (q_pos >=
 // k_pos, no offset). dq is written in the inputs' type.
 //
+// This file's tile loop is the float32 instance. The bfloat16 instance is
+// a kernel of its own on the bfloat16 tensor cores (flash_bwd_bf16.cuh:
+// mma.sync m16n8k16 with ldmatrix, bfloat16 tiles in shared memory), to
+// which the C entry below dispatches bfloat16 inputs.
+//
 // Inputs q, k, v and dO are [B, L, H, D] views given by their strides
 // (b, h, l; d is unit stride), so q, k and v are read straight out of the
 // head-major [B, L, H, 3, D] qkv projection. lse and delta are contiguous
@@ -24,8 +29,8 @@
 // tiles are copied 4 elements at a time). dq is written by strides too,
 // with unit stride along D.
 //
-// What bounds it on an H100: operations. At the training shape (B*H = 64,
-// L = 4096, D = 64, causal) it does three products per unmasked (q, k)
+// What bounds the float32 instance on an H100: operations. At the training
+// shape (B*H = 64, L = 4096, D = 64, causal) it does three products per unmasked (q, k)
 // pair (s, dp, ds k), 206 GFLOP, over 0.34 GB of q, k, v, dO and dq: some
 // 610 operations a byte. 3.08 ms at the CUDA cores' 67 TFLOP/s float32
 // rate; 1.25 ms for the three TF32 passes of float32-grade products at the
@@ -34,8 +39,7 @@
 //   * all three products on the tensor cores in float32 grade (tf32_mma.cuh):
 //     each operand is split once into TF32 big and small halves, and
 //     mma.sync m16n8k8 sums small*big + big*small + big*big in float32.
-//     bfloat16 inputs are exact in TF32 and take the big pass alone (ds, a
-//     float32 value, is rounded to TF32 for it). Each key tile's dq sums
+//     Each key tile's dq sums
 //     start at zero and are added into float32 registers, as the tensor
 //     cores' float32 accumulation keeps fewer bits over long chains;
 //   * one block of 4 warps per (bh, tile of 64 query rows), each warp owning
@@ -63,8 +67,8 @@
 //     them in float32. A key tile then costs a warp 128 8-byte B-fragment
 //     loads for s and dp (D/8 k steps of 4 n tiles, 2 loads each, from k
 //     and from v) and 64 for dq (4 k steps of D/8 n tiles, 2 each, from k):
-//     192 loads against 288 tensor-core products (96 in bfloat16), 0.67 a
-//     product in float32 where the dK/dV kernel makes 0.83. At D = 128 the
+//     192 loads against 288 tensor-core products, 0.67 a product where the
+//     dK/dV kernel makes 0.83. At D = 128 the
 //     fragments do not fit and are read from shared memory in every tile:
 //     512 loads against 576 products (0.89). dq runs over 8 n tiles at a
 //     time, so that two products on one accumulator are eight apart, as in
@@ -73,8 +77,7 @@
 // warps) amortises each key tile's copy and split over 4 warps; 32 keys a
 // tile keep the dK/dV kernel's shared-memory budget. Shared memory:
 // 8 * D * (2 * 64 + 2 * 32) bytes of split tiles and 2 * 32 * D raw
-// elements: 112 KB at D = 64 in float32, 224 KB at D = 128. At D = 64 in
-// float32 the held fragments take the thread to ptxas's 255 registers with
+// elements: 112 KB at D = 64, 224 KB at D = 128. At D = 64 the held fragments take the thread to ptxas's 255 registers with
 // a spill of a few dozen bytes (`-Xptxas=-v`, printed by chip_smoke.py), so
 // registers and shared memory alike allow two blocks (8 warps) a SM; at
 // D = 128, one. The size is set per launch with cudaFuncSetAttribute.
@@ -84,6 +87,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd_bf16.cuh"
 #include "flash_tile.cuh"
 #include "tf32_mma.cuh"
 
@@ -98,20 +102,20 @@ struct Strides {
   int64_t dq_b, dq_h, dq_l;
 };
 
-template <typename T, int D>
+template <int D>
 struct Smem {
   float2 qs[kBlockQ * D];   // split tiles, swizzled
   float2 os[kBlockQ * D];
   float2 ks[kBlockK * D];
   float2 vs[kBlockK * D];
-  T k_raw[kBlockK * D];     // raw copies of the next key tile
-  T v_raw[kBlockK * D];
+  float k_raw[kBlockK * D]; // raw copies of the next key tile
+  float v_raw[kBlockK * D];
 };
 
 // Starts the copy of key tile k0: k and v rows.
-template <typename T, int D>
-__device__ __forceinline__ void stage_kv(Smem<T, D>& sm, const T* kb,
-                                         const T* vb, int64_t k_l,
+template <int D>
+__device__ __forceinline__ void stage_kv(Smem<D>& sm, const float* kb,
+                                         const float* vb, int64_t k_l,
                                          int64_t v_l, int k0, int Lk) {
   constexpr int kChunks = D / 4;
   for (int e = threadIdx.x; e < kBlockK * kChunks; e += kThreads) {
@@ -137,14 +141,16 @@ __device__ __forceinline__ void load_a(t2r::Frag<4>& a, const float2* tile,
   a.set(3, t2r::at<D>(tile, row + 8, c0 + 4));
 }
 
-template <typename T, int D, int kPasses>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ d_out,
+flash_bwd_q_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ d_out,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dq,
+                   const float* __restrict__ delta, float* __restrict__ dq,
                    int H, int Lq, int Lk, Strides st, float scale,
                    int causal) {
+  constexpr int kPasses = 3;
   constexpr int kChunks = D / 4;
   constexpr int kSteps = D / 8;   // k steps of s and dp, n tiles of dq
   constexpr bool kResident = D == 64;
@@ -152,7 +158,7 @@ flash_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kGroup = 8;      // n tiles of dq a pass runs over
   static_assert(kSteps % kGroup == 0, "D is a multiple of 64");
   extern __shared__ __align__(16) unsigned char smem_bytes[];
-  Smem<T, D>& sm = *reinterpret_cast<Smem<T, D>*>(smem_bytes);
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_bytes);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -164,10 +170,10 @@ flash_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (n_q - 1 - blockIdx.y) * kBlockQ;  // longest causal first
   const int b = bh / H;
   const int h = bh % H;
-  const T* qb = q + b * st.q_b + h * st.q_h;
-  const T* kb = k + b * st.k_b + h * st.k_h;
-  const T* vb = v + b * st.v_b + h * st.v_h;
-  const T* ob = d_out + b * st.o_b + h * st.o_h;
+  const float* qb = q + b * st.q_b + h * st.q_h;
+  const float* kb = k + b * st.k_b + h * st.k_h;
+  const float* vb = v + b * st.v_b + h * st.v_h;
+  const float* ob = d_out + b * st.o_b + h * st.o_h;
 
   int n_k = (Lk + kBlockK - 1) / kBlockK;
   if (causal) {
@@ -266,17 +272,15 @@ flash_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
         bv[j].set(0, t2r::at<D>(sm.vs, kr, c0));
         bv[j].set(1, t2r::at<D>(sm.vs, kr, c0 + 4));
       }
-      if (kPasses == 3) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          t2r::mma_tf32(s[j], aq.small, bk[j].big);
-          t2r::mma_tf32(dp[j], ao.small, bv[j].big);
-        }
+      for (int j = 0; j < 4; ++j) {
+        t2r::mma_tf32(s[j], aq.small, bk[j].big);
+        t2r::mma_tf32(dp[j], ao.small, bv[j].big);
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          t2r::mma_tf32(s[j], aq.big, bk[j].small);
-          t2r::mma_tf32(dp[j], ao.big, bv[j].small);
-        }
+      for (int j = 0; j < 4; ++j) {
+        t2r::mma_tf32(s[j], aq.big, bk[j].small);
+        t2r::mma_tf32(dp[j], ao.big, bv[j].small);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -329,15 +333,13 @@ flash_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
           bk[n].set(0, t2r::at<D>(sm.ks, r0, c));
           bk[n].set(1, t2r::at<D>(sm.ks, r0 + 1, c));
         }
-        if (kPasses == 3) {
 #pragma unroll
-          for (int n = 0; n < kGroup; ++n) {
-            t2r::mma_tf32(part[n], ads.small, bk[n].big);
-          }
+        for (int n = 0; n < kGroup; ++n) {
+          t2r::mma_tf32(part[n], ads.small, bk[n].big);
+        }
 #pragma unroll
-          for (int n = 0; n < kGroup; ++n) {
-            t2r::mma_tf32(part[n], ads.big, bk[n].small);
-          }
+        for (int n = 0; n < kGroup; ++n) {
+          t2r::mma_tf32(part[n], ads.big, bk[n].small);
         }
 #pragma unroll
         for (int n = 0; n < kGroup; ++n) {
@@ -356,32 +358,31 @@ flash_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int half = 0; half < 2; ++half) {
     const int q_pos = q0 + qr + 8 * half;
     if (q_pos >= Lq) continue;
-    T* dq_row = dq + b * st.dq_b + h * st.dq_h + q_pos * st.dq_l;
+    float* dq_row = dq + b * st.dq_b + h * st.dq_h + q_pos * st.dq_l;
 #pragma unroll
     for (int n = 0; n < kSteps; ++n) {
-      t2r::store2<T>(dq_row + 8 * n + 2 * t, dq_acc[n][2 * half],
+      t2r::store2<float>(dq_row + 8 * n + 2 * t, dq_acc[n][2 * half],
                      dq_acc[n][2 * half + 1]);
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* d_out,
            const void* lse, const void* delta, void* dq, int B, int H,
            int Lq, int Lk, const Strides& st, float scale, int causal,
            cudaStream_t stream) {
-  constexpr int kPasses = sizeof(T) == 4 ? 3 : 1;
-  const int bytes = static_cast<int>(sizeof(Smem<T, D>));
+  const int bytes = static_cast<int>(sizeof(Smem<D>));
   cudaError_t status = cudaFuncSetAttribute(
-      flash_bwd_q_kernel<T, D, kPasses>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_bwd_q_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (status != cudaSuccess) return static_cast<int>(status);
   const dim3 grid(B * H, (Lq + kBlockQ - 1) / kBlockQ);
-  flash_bwd_q_kernel<T, D, kPasses><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(d_out),
+  flash_bwd_q_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(d_out),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Lq, Lk, st, scale, causal);
+      static_cast<float*>(dq), H, Lq, Lk, st, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -408,18 +409,18 @@ int t2r_flash_attention_bwd_q(
                       o_sb, o_sh, o_sl, dq_sb, dq_sh, dq_sl};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) {
-    return bf16 ? launch<__nv_bfloat16, 64>(q, k, v, d_out, lse, delta, dq,
-                                            B, H, Lq, Lk, st, scale, causal,
-                                            s)
-                : launch<float, 64>(q, k, v, d_out, lse, delta, dq, B, H, Lq,
-                                    Lk, st, scale, causal, s);
+    return bf16 ? t2r::bwd_bf16::launch_q<64>(q, k, v, d_out, lse, delta, dq,
+                                               B, H, Lq, Lk, st, scale,
+                                               causal, s)
+                : launch<64>(q, k, v, d_out, lse, delta, dq, B, H, Lq, Lk,
+                             st, scale, causal, s);
   }
   if (D == 128) {
-    return bf16 ? launch<__nv_bfloat16, 128>(q, k, v, d_out, lse, delta, dq,
-                                             B, H, Lq, Lk, st, scale, causal,
-                                             s)
-                : launch<float, 128>(q, k, v, d_out, lse, delta, dq, B, H,
-                                     Lq, Lk, st, scale, causal, s);
+    return bf16 ? t2r::bwd_bf16::launch_q<128>(q, k, v, d_out, lse, delta,
+                                                dq, B, H, Lq, Lk, st, scale,
+                                                causal, s)
+                : launch<128>(q, k, v, d_out, lse, delta, dq, B, H, Lq, Lk,
+                              st, scale, causal, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -248,11 +248,12 @@ def _rows_aligned(t: torch.Tensor) -> bool:
 
 
 def _check_rows_aligned(name: str, *tensors) -> None:
-  """K4, K5a, K5b and K6 copy rows 4 elements at a time: every row of
-  their [B, L, H, D] operands must start on 16 bytes."""
+  """K4, K5a, K5b and K6 copy rows 4 elements at a time (K5a's and K5b's
+  bf16 instances 16 bytes, 8 elements): every row of their [B, L, H, D]
+  operands must start on 16 bytes."""
   for i, t in enumerate(tensors):
     if not _rows_aligned(t):
-      raise ValueError('{} copies rows 4 elements at a time: operand {} '
+      raise ValueError('{} copies rows in aligned pieces: operand {} '
                        'needs 16-byte aligned rows; got strides {} at '
                        'address {}.'.format(name, i, t.stride(),
                                             t.data_ptr()))

@@ -454,6 +454,20 @@ def test_flash_attention_bwd_q_refuses_unaligned_rows(device):
     flash_attention.flash_attention_bwd_q(k, q, k, k, lse, lse, True, 0.125)
 
 
+def test_flash_attention_backward_bf16_refuses_unaligned_rows(device):
+  """K5a's and K5b's bf16 instances copy rows 16 bytes (8 elements) at a
+  time: a bf16 view whose rows start 8 bytes past 16 raises instead of
+  reading them."""
+  base = torch.randn(4 + 64 * 2 * 64, device=device).to(torch.bfloat16)
+  q = base[4:].view(1, 64, 2, 64)        # 8 bytes past an aligned start
+  k = torch.randn(1, 64, 2, 64, device=device).to(torch.bfloat16)
+  lse = torch.zeros(1, 2, 64, device=device)
+  for backward in (flash_attention.flash_attention_bwd_kv,
+                   flash_attention.flash_attention_bwd_q):
+    with pytest.raises(ValueError, match='16-byte aligned'):
+      backward(q, k, k, k, lse, lse, True, 0.125)
+
+
 def test_flash_attention_autograd_launches_k4_k5a_k5b(device):
   gen = _generator(device, 6)
   qkv = torch.randn((2, 136, 2, 3, 64), device=device, generator=gen)

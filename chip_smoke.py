@@ -1459,8 +1459,8 @@ def train_profile(label, trainer, model, state, raw, labels, steps, batch,
 
 
 # The flash kernels' rows in a profile, by a piece of their function names
-# (K5a's and K5b's bf16 and float32 instances alike).
-FLASH_PROFILE_NAMES = (('K4', 'flash_fwd_kernel'), ('K5a', 'flash_bwd_kv'),
+# (K4's, K5a's and K5b's bf16 and float32 instances alike).
+FLASH_PROFILE_NAMES = (('K4', 'flash_fwd'), ('K5a', 'flash_bwd_kv'),
                        ('K5b', 'flash_bwd_q'))
 
 
@@ -2685,6 +2685,30 @@ FLASH_HEADS, FLASH_LEN, FLASH_DIM = 8, 4096, 64
 FLASH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 LSE_ATOL = 1e-5
 LOGITS_RTOL = 1e-4   # of max|logits|: float32 sums in another order
+# The functions of K4's and K6's libraries: the float32 tile loop
+# (csrc/flash_fwd.cuh) and the bf16 kernel (csrc/flash_fwd_bf16.cuh), by a
+# piece of their mangled names.
+FWD_FUNCTION = 'flash_fwd_kernel'
+FWD_BF16_FUNCTION = 'flash_fwd_bf16_kernel'
+
+
+def bf16_sass(name, function):
+  """The SASS mix of a bf16 flash function, which must hold only bf16
+  m16n8k16 products (HMMA.16816.F32.BF16), none TF32, and ldmatrix
+  (LDSM); printed."""
+  mix = sass_mix(name, function=function)
+  bf16_hmma = mix['forms'].get('HMMA.16816.F32.BF16', 0)
+  check(bf16_hmma > 0 and bf16_hmma == mix['HMMA'] and mix['LDSM'] > 0,
+        'the SASS of {} holds other products than bf16 m16n8k16, or no '
+        'ldmatrix: {}'.format(function, mix))
+  print('bf16 SASS of {} ({}): {} HMMA ({}), {} LDSM ({}), {} LDS, {} '
+        'integer; no TF32 HMMA'.format(
+            function, name, mix['HMMA'], ', '.join(
+                '{} {}'.format(n, f) for f, n in mix['forms'].items()
+                if f.startswith('HMMA')), mix['LDSM'], ', '.join(
+                '{} {}'.format(n, f) for f, n in mix['forms'].items()
+                if f.startswith('LDSM')), mix['LDS'], mix['integer']))
+  return mix
 
 
 def flash_plain_blhd(q, k, v, causal=False):
@@ -2759,14 +2783,16 @@ def phase_flash(device, gen):
   flops = 4 * d * pairs
   fp32_bound, _ = bound_ms(4 * q.numel() * 4 + h * l * 4, flops)
   bound = tensor_core_bound_ms(flops)
-  mix = sass_mix('flash_attention_fwd')
+  mix = sass_mix('flash_attention_fwd', function=FWD_FUNCTION)
   hmma = mix['HMMA']
   check(hmma > 0, 'the SASS of flash_attention_fwd holds no HMMA')
+  bf16_mix = bf16_sass('flash_attention_fwd', FWD_BF16_FUNCTION)
   print('flash_attention served [1,{},{},{}] causal f32: {:.4f} ms ({:.1f} '
         'TFLOP/s), plain {:.4f} ms, scaled_dot_product_attention {:.4f} ms '
         '(differs by {:.3g}; its kernels: {}); bound {:.4f} ms on the CUDA '
         'cores\' float32 rate, {:.4f} ms for 3xTF32 on the tensor cores; its '
-        'SASS: {} HMMA, {} LDS, {} integer ({}); {} calls per predict'.format(
+        'float32 function\'s SASS: {} HMMA, {} LDS, {} integer ({}); {} calls '
+        'per predict'.format(
             l, h, d, ms, flops / ms / 1e9, plain, lib, lib_err,
             ', '.join(lib_kernels), fp32_bound, bound, hmma, mix['LDS'],
             mix['integer'], ' '.join(SASS_INTEGER), 8))
@@ -2788,9 +2814,11 @@ def phase_flash(device, gen):
             train_lib, 8, smi_line()))
   del qkv, q, k, v, bhl
 
-  # bf16 (device_type 'tpu'): the served and the training call, beside
-  # scaled_dot_product_attention in bf16. Bound: q, k, v read and O written
-  # in bf16, the LSE in float32, or the products at the bf16 peak.
+  # bf16 (device_type 'tpu'): the served and the training call on the bf16
+  # kernel (csrc/flash_fwd_bf16.cuh), beside scaled_dot_product_attention in
+  # bf16, each call behind a device sleep (the served call takes the device
+  # less time than the host takes to queue it). Bound: q, k, v read and O
+  # written in bf16, the LSE in float32, or the products at the bf16 peak.
   bf16 = {}
   for label, batch in (('served', 1), ('training', b)):
     qkv = torch.randn((batch, l, h, 3, d), device=device,
@@ -2798,14 +2826,15 @@ def phase_flash(device, gen):
     q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
     bhl = [x.transpose(1, 2) for x in (q, k, v)]
     ms16 = median_ms(lambda: flash_attention.flash_attention(
-        q, k, v, causal=True))
+        q, k, v, causal=True), host_ahead=True)
     lib16 = median_ms(
-        lambda: F.scaled_dot_product_attention(*bhl, is_causal=True))
+        lambda: F.scaled_dot_product_attention(*bhl, is_causal=True),
+        host_ahead=True)
     bound16, by16 = bf16_bound_ms(4 * q.numel() * 2 + batch * h * l * 4,
                                   batch * flops)
     bf16[label] = (ms16, bound16, by16, lib16)
-    print('flash_attention {} [{},{},{},{}] causal bf16: {:.4f} ms ({:.1f} '
-          'TFLOP/s; bound {:.4f} ms by {} at the bf16 peak), '
+    print('flash_attention {} [{},{},{},{}] causal bf16: {:.4f} ms of device '
+          'time ({:.1f} TFLOP/s; bound {:.4f} ms by {} at the bf16 peak), '
           'scaled_dot_product_attention bf16 {:.4f} ms; {}'.format(
               label, batch, l, h, d, ms16, batch * flops / ms16 / 1e9,
               bound16, by16, lib16, smi_line()))
@@ -2817,8 +2846,8 @@ def phase_flash(device, gen):
               bound_by='operations', fp32_bound_ms=fp32_bound,
               tensor_core_bound_ms=bound, library_ms=lib,
               library_kernels=lib_kernels, sass_hmma=hmma, sass_mix=mix,
-              train_ms=train_ms, train_library_ms=train_lib,
-              train_bound_ms=train_bound,
+              bf16_sass_mix=bf16_mix, train_ms=train_ms,
+              train_library_ms=train_lib, train_bound_ms=train_bound,
               bf16_ms=bf16['served'][0], bf16_bound_ms=bf16['served'][1],
               bf16_bound_by=bf16['served'][2],
               bf16_library_ms=bf16['served'][3],
@@ -2960,23 +2989,9 @@ def phase_flash_backward(device, gen):
   kv_hmma, q_hmma = kv_mix['HMMA'], q_mix['HMMA']
   check(kv_hmma > 0, 'the SASS of flash_attention_bwd_kv holds no HMMA')
   check(q_hmma > 0, 'the SASS of flash_attention_bwd_q holds no HMMA')
-  bf16_mix = {}
-  for key, name in (('kv', 'flash_attention_bwd_kv'),
-                    ('q', 'flash_attention_bwd_q')):
-    function = K5_BF16_FUNCTIONS[key]
-    mix = sass_mix(name, function=function)
-    bf16_hmma = mix['forms'].get('HMMA.16816.F32.BF16', 0)
-    check(bf16_hmma > 0 and bf16_hmma == mix['HMMA'] and mix['LDSM'] > 0,
-          'the SASS of {} holds other products than bf16 m16n8k16, or no '
-          'ldmatrix: {}'.format(function, mix))
-    bf16_mix[key] = mix
-    print('flash backward bf16 SASS of {} ({}): {} HMMA ({}), {} LDSM ({}), '
-          '{} LDS, {} integer; no TF32 HMMA'.format(
-              function, name, mix['HMMA'], ', '.join(
-                  '{} {}'.format(n, f) for f, n in mix['forms'].items()
-                  if f.startswith('HMMA')), mix['LDSM'], ', '.join(
-                  '{} {}'.format(n, f) for f, n in mix['forms'].items()
-                  if f.startswith('LDSM')), mix['LDS'], mix['integer']))
+  bf16_mix = {key: bf16_sass(name, K5_BF16_FUNCTIONS[key])
+              for key, name in (('kv', 'flash_attention_bwd_kv'),
+                                ('q', 'flash_attention_bwd_q'))}
   print('flash backward training [{},{},{},{}] causal f32: K5a (dk, dv) '
         '{:.4f} ms ({:.1f} TFLOP/s; bound {:.4f} ms on the CUDA cores\' '
         'float32 rate, {:.4f} ms for 3xTF32 on the tensor cores; {} HMMA in '
@@ -4242,7 +4257,8 @@ def phase_ring_kernel(device, gen, world):
   misaligned view refused; a replay of the four-shard hop schedule on one
   card against K4's O and LSE over the whole sequence; then timed at the
   main path's launch shape and at the 4-rank hop, beside both bounds and
-  its SASS mix."""
+  its SASS mix, and in bf16 at the one-rank launch [8, 4096, 8, 64] and
+  the 4-rank hops beside the bf16 bound and its bf16 function's SASS."""
   from tensor2robot_tpu_torch.parallel import flash_attention as fa
 
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -4361,18 +4377,28 @@ def phase_ring_kernel(device, gen, world):
                                                 lse_err, CARRY_RTOL))
   del qkv, q, k, v, want_o, want_lse, outs, lses
 
-  def timed(shape, q_offset, k_offset, plain=False):
+  def timed(shape, q_offset, k_offset, plain=False, dtype=torch.float32):
     tb, tl, th, td = shape
-    tq = torch.randn((tb, tl, th, 3, td), device=device, generator=gen)
+    tq = torch.randn((tb, tl, th, 3, td), device=device,
+                     generator=gen).to(dtype)
     state = carry_state(tb, th, tl, td, device)
     args = (tq[..., 0, :], tq[..., 1, :], tq[..., 2, :], *state, q_offset,
             k_offset, True, td ** -0.5)
-    ms = median_ms(lambda: fa.flash_attention_carry(*args))
+    # A bf16 hop takes the device less time than the host takes to queue
+    # it: behind a device sleep, the events time the device alone.
+    ms = median_ms(lambda: fa.flash_attention_carry(*args),
+                   host_ahead=dtype == torch.bfloat16)
     plain_ms = (median_ms(lambda: fa.flash_attention_carry_plain(*args),
                           iters=10, warmup=2) if plain else None)
     pairs = causal_pairs(tb, th, tl, tl, q_offset, k_offset)
-    # q, k, v read once; o, m, l read and written.
-    nbytes = 3 * tb * tl * th * td * 4 + 2 * (tb * th * tl * (td + 2) * 4)
+    # q, k, v read once; the float32 o, m, l read and written.
+    state_bytes = 2 * (tb * th * tl * (td + 2) * 4)
+    if dtype == torch.bfloat16:
+      # bf16 q, k, v, or the function's two products at the bf16 peak.
+      bound, by = bf16_bound_ms(3 * tb * tl * th * td * 2 + state_bytes,
+                                4 * td * pairs)
+      return ms, plain_ms, bound, by, pairs, None
+    nbytes = 3 * tb * tl * th * td * 4 + state_bytes
     fp32_bound, _ = bound_ms(nbytes, 4 * td * pairs)
     # 3xTF32 on the tensor cores, or the bytes if they take longer.
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -4396,8 +4422,14 @@ def phase_ring_kernel(device, gen, world):
         .format(err[0]))
   diag = timed(RING_HOP, l, l)
   full_hop = timed(RING_HOP, 2 * l, 0)
-  mix = sass_mix('flash_attention_carry')
+  mix = sass_mix('flash_attention_carry', function=FWD_FUNCTION)
   check(mix['HMMA'] > 0, 'the SASS of flash_attention_carry holds no HMMA')
+  # bf16 (csrc/flash_fwd_bf16.cuh, p split in two halves): the one-rank
+  # launch and the 4-rank hops.
+  bf16_mix = bf16_sass('flash_attention_carry', FWD_BF16_FUNCTION)
+  one16 = timed((8, 4 * l, h, d), 0, 0, dtype=torch.bfloat16)
+  diag16 = timed(RING_HOP, l, l, dtype=torch.bfloat16)
+  full16 = timed(RING_HOP, 2 * l, 0, dtype=torch.bfloat16)
   print('flash_attention_carry per launch at the main path\'s shape {} '
         'causal f32 at offsets {}: {:.4f} ms ({:.1f} TFLOP/s), plain {:.4f} ms, '
         'bound {:.4f} ms ({}) for 3xTF32 on the tensor cores, {:.4f} ms on '
@@ -4409,6 +4441,15 @@ def phase_ring_kernel(device, gen, world):
             plain, bound, by, fp32_bound, b, l, h, d, diag[0], diag[2],
             diag[5], full_hop[0], full_hop[2], full_hop[5], mix['HMMA'],
             mix['LDS'], mix['integer'], smi_line()))
+  print('flash_attention_carry bf16 (p split in two bf16 halves; device '
+        'time): the one-rank launch [8,{},{},{}] causal at offsets (0, 0) '
+        '{:.4f} ms '
+        '({:.1f} TFLOP/s of the function\'s products; bound {:.4f} ms by {} '
+        'at the bf16 peak); at the 4-rank hop [{},{},{},{}]: diagonal {:.4f} '
+        'ms (bound {:.4f} by {}), full {:.4f} ms (bound {:.4f} by {}); '
+        '{}'.format(4 * l, h, d, one16[0], 4 * d * one16[4] / one16[0] / 1e9,
+                    one16[2], one16[3], b, l, h, d, diag16[0], diag16[2],
+                    diag16[3], full16[0], full16[2], full16[3], smi_line()))
   return dict(name='flash_attention_carry', route='cuda',
               source='tensor2robot_tpu_torch/csrc/flash_attention_carry.cu',
               replaces='tensor2robot_tpu/parallel/flash_attention.py:342',
@@ -4422,7 +4463,13 @@ def phase_ring_kernel(device, gen, world):
               hop_ms={'diagonal': diag[0], 'full': full_hop[0]},
               hop_bound_ms={'diagonal': diag[2], 'full': full_hop[2]},
               hop_fp32_bound_ms={'diagonal': diag[5], 'full': full_hop[5]},
-              max_rel_err=max(worst, err[0]))
+              max_rel_err=max(worst, err[0]),
+              bf16_ms=one16[0], bf16_bound_ms=one16[2],
+              bf16_bound_by=one16[3], bf16_sass_mix=bf16_mix,
+              bf16_shapes='per launch: [8,{},{},{}] causal bf16 at offsets '
+              '(0, 0)'.format(4 * l, h, d),
+              bf16_hop_ms={'diagonal': diag16[0], 'full': full16[0]},
+              bf16_hop_bound_ms={'diagonal': diag16[2], 'full': full16[2]})
 
 
 def phase_ring_train(world, pattern):

@@ -14,15 +14,18 @@ share. On the same inputs the script reports:
   * K4's O and LSE from the two builds at ``chip_smoke.py``'s K4 cases (the
     served [1, 4096, 8, 64] causal, [2, 200, 3, 128] causal and [3, 72, 2,
     64] full, each in float32 and bfloat16, and [8, 4096, 8, 64] causal in
-    float32): bit for bit equal or not;
+    float32): in float32 bit for bit equal or not; in bfloat16 each build's
+    largest error from the plain version;
   * K6's o, m and l from each build against its plain version at [8, 4096,
-    8, 64] causal, offsets (0, 0), from an empty state;
+    8, 64] causal, offsets (0, 0), from an empty state, in float32 and
+    bfloat16;
   * K4's time at the served and the training shape and K6's at [8, 4096,
     8, 64] causal at offsets (0, 0) and at the 4-rank hop [8, 1024, 8, 64]
-    (diagonal: offsets 1024/1024; full: 2048/0), medians of 30
-    CUDA-event-timed calls as ``chip_smoke.py`` times them, in turns other,
-    this, this, other;
-  * each build's SASS counts (HMMA, LDS, integer instructions).
+    (diagonal: offsets 1024/1024; full: 2048/0), each in float32 and
+    bfloat16, medians of 30 CUDA-event-timed calls as ``chip_smoke.py``
+    times them, in turns other, this, this, other;
+  * each build's SASS counts (HMMA, LDS, integer instructions), all
+    functions of a library together.
 
 It ends with one JSON line of these numbers and the card's name and power
 limit. Exits non-zero without a card.
@@ -104,12 +107,22 @@ def main():
         outs[which] = fa.flash_attention_forward(q, k, v, causal,
                                                  dim ** -0.5)
       torch.cuda.synchronize()
+      shape = '[{},{},{},{}] {} {}'.format(
+          b, length, heads, dim, 'causal' if causal else 'full',
+          str(dtype).split('.')[-1])
+      if dtype == torch.bfloat16:
+        want = fa.flash_attention_plain_blhd(q, k, v, causal, dim ** -0.5)
+        errs = {which: [chip_smoke.max_abs_err(x, y) for x, y in
+                        zip(outs[which], want)] for which in outs}
+        result.setdefault('k4_bf16_err', {})[shape] = errs
+        print('K4 {}: |dO|, |dLSE| from the plain version: other {}, this '
+              '{}'.format(shape, errs['other'], errs['this']))
+        continue
       same = all(torch.equal(x, y) for x, y in zip(outs['other'],
                                                     outs['this']))
       equal.append(same)
-      print('K4 [{},{},{},{}] {} {}: O and LSE bit-equal between the builds: '
-            '{}'.format(b, length, heads, dim, 'causal' if causal else 'full',
-                        str(dtype).split('.')[-1], same))
+      print('K4 {}: O and LSE bit-equal between the builds: {}'.format(
+          shape, same))
   qkv = torch.randn((8, 4096, 8, 3, 64), device=device, generator=gen)
   q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
   outs = {}
@@ -127,32 +140,45 @@ def main():
   # K6 against its plain version, each build.
   state = chip_smoke.carry_state(8, 8, 4096, 64, device)
   result['k6_rel_err'] = {}
-  for which in ('other', 'this'):
-    use(which)
-    rel, _, _ = chip_smoke.carry_errors(q, k, v, state, 0, 0, True)
-    result['k6_rel_err'][which] = rel
-    print('K6 [8,4096,8,64] causal (0, 0), {} build: o, m, l within {:.3g} '
-          'of their max of the plain version'.format(which, rel))
+  for dtype in (torch.float32, torch.bfloat16):
+    name = str(dtype).split('.')[-1]
+    for which in ('other', 'this'):
+      use(which)
+      rel, _, _ = chip_smoke.carry_errors(q.to(dtype), k.to(dtype),
+                                          v.to(dtype), state, 0, 0, True)
+      result['k6_rel_err'][name, which] = rel
+      print('K6 [8,4096,8,64] causal (0, 0) {}, {} build: o, m, l within '
+            '{:.3g} of their max of the plain version'.format(name, which,
+                                                               rel))
+  result['k6_rel_err'] = {'{} {}'.format(*key): rel for key, rel in
+                          result['k6_rel_err'].items()}
   del qkv, q, k, v, state
 
   # Times, in turns other, this, this, other.
-  def k4(b):
-    x = torch.randn((b, 4096, 8, 3, 64), device=device, generator=gen)
+  def k4(b, dtype):
+    x = torch.randn((b, 4096, 8, 3, 64), device=device,
+                    generator=gen).to(dtype)
     return lambda: fa.flash_attention(x[..., 0, :], x[..., 1, :],
                                       x[..., 2, :], causal=True)
 
-  def k6(b, length, q_offset, k_offset):
-    x = torch.randn((b, length, 8, 3, 64), device=device, generator=gen)
+  def k6(b, length, q_offset, k_offset, dtype):
+    x = torch.randn((b, length, 8, 3, 64), device=device,
+                    generator=gen).to(dtype)
     st = chip_smoke.carry_state(b, 8, length, 64, device)
     return lambda: fa.flash_attention_carry(
         x[..., 0, :], x[..., 1, :], x[..., 2, :], *st, q_offset, k_offset,
         True, 0.125)
 
-  timings = {'K4 served [1,4096,8,64]': k4(1),
-             'K4 training [8,4096,8,64]': k4(8),
-             'K6 [8,4096,8,64] (0, 0)': k6(8, 4096, 0, 0),
-             'K6 hop diagonal [8,1024,8,64]': k6(8, 1024, 1024, 1024),
-             'K6 hop full [8,1024,8,64]': k6(8, 1024, 2048, 0)}
+  timings = {}
+  for dtype in (torch.float32, torch.bfloat16):
+    name = str(dtype).split('.')[-1]
+    timings.update({
+        'K4 served [1,4096,8,64] ' + name: k4(1, dtype),
+        'K4 training [8,4096,8,64] ' + name: k4(8, dtype),
+        'K6 [8,4096,8,64] (0, 0) ' + name: k6(8, 4096, 0, 0, dtype),
+        'K6 hop diagonal [8,1024,8,64] ' + name: k6(8, 1024, 1024, 1024,
+                                                    dtype),
+        'K6 hop full [8,1024,8,64] ' + name: k6(8, 1024, 2048, 0, dtype)})
   result['ms'] = {}
   for label, fn in timings.items():
     got = {'other': [], 'this': []}

@@ -1,6 +1,7 @@
 // bfloat16 products on Hopper's tensor cores through mma.sync, and the
 // 16-byte cp.async copies and ldmatrix fragment loads that feed them.
-// Used by flash_bwd_bf16.cuh (the bfloat16 instances of K5a and K5b).
+// Used by flash_bwd_bf16.cuh (the bfloat16 instances of K5a and K5b) and
+// flash_fwd_bf16.cuh (those of K4 and K6).
 //
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, lane = 4 g + t
 // (g = lane / 4, t = lane % 4), A 16 x 16, B 16 x 8, C 16 x 8 float32; each
@@ -85,6 +86,29 @@ __device__ __forceinline__ void a_from_c(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
+// Two float32 values as two bfloat16 halves: hi rounded to nearest even,
+// lo the rounding of the rest (x - hi is exact in float32). hi + lo keeps
+// some 16 bits of each value: a relative error below 2^-17.
+__device__ __forceinline__ void pack_bf16_split(uint32_t& hi, uint32_t& lo,
+                                                float x, float y) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// `a_from_c` with each value split into its two halves.
+__device__ __forceinline__ void a_from_c_split(uint32_t (&hi)[4],
+                                               uint32_t (&lo)[4],
+                                               const float (&c0)[4],
+                                               const float (&c1)[4]) {
+  pack_bf16_split(hi[0], lo[0], c0[0], c0[1]);
+  pack_bf16_split(hi[1], lo[1], c0[2], c0[3]);
+  pack_bf16_split(hi[2], lo[2], c1[0], c1[1]);
+  pack_bf16_split(hi[3], lo[3], c1[2], c1[3]);
+}
+
 // 16 bytes from global to shared memory without the registers; a copy that
 // is not `valid` writes zeros and reads nothing (`src` must still be a
 // mapped address).
@@ -99,6 +123,23 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 template <int D>
 __device__ __forceinline__ uint32_t swz_offset(int r, int c) {
   return static_cast<uint32_t>(r * (2 * D) + ((c ^ (r & 7)) << 4));
+}
+
+// Starts the copy of kTileRows rows of D bfloat16 from `src` (row stride
+// `ld` elements) from row r0 on into the swizzled tile at shared address
+// `dst`, by kThreads threads; rows from `limit` on are zero-filled.
+template <int D, int kTileRows, int kThreads>
+__device__ __forceinline__ void stage_rows(uint32_t dst,
+                                           const __nv_bfloat16* src,
+                                           int64_t ld, int r0, int limit) {
+  constexpr int kChunks = D / 8;
+  for (int e = threadIdx.x; e < kTileRows * kChunks; e += kThreads) {
+    const int r = e / kChunks;
+    const int c = e % kChunks;
+    const bool in = r0 + r < limit;
+    cp_async16(dst + swz_offset<D>(r, c),
+               in ? src + (r0 + r) * ld + c * 8 : src, in);
+  }
 }
 
 // Where a lane points an x4 ldmatrix of a swizzled tile: `at(r0, c0)` is the

@@ -30,8 +30,11 @@
 // swizzled split tiles by cp.async, the online softmax on the fragments, p
 // made in registers, q's fragments held at D = 64, per-lane fragment offset
 // tables, the mask in a pass of its own, the longest query tiles first):
-// both run flash_fwd.cuh's tile loop, this one as its kCarry instance.
-// What the carry adds:
+// both run flash_fwd.cuh's tile loop, this one as its kCarry instance. In
+// bfloat16 both run flash_fwd_bf16.cuh's kernel instead (mma.sync m16n8k16
+// with ldmatrix, bfloat16 tiles in shared memory), K6 with p split into two
+// bfloat16 halves for p v: one rounding of p would miss the 1e-5 of max
+// that the card holds K6 to. What the carry adds, in both:
 //   * the state in and out: a warp loads its rows' o into its output
 //     accumulator fragments, and m and l into each quad's rows, before the
 //     first key tile, so the first tile's correction takes the carried m;
@@ -52,10 +55,11 @@
 //     be a multiple of a tile and may be negative (Lq > Lk);
 //   * a block whose queries all precede its first key (every block of a hop
 //     that the mask hides) returns before it reads anything, and a warp
-//     whose queries do returns without writing: the state they own stays
-//     bit for bit as it was.
+//     whose queries do returns without writing (in bfloat16, each row
+//     whose query does is left unwritten): the state they own stays bit for
+//     bit as it was.
 // Shared memory and registers are K4's: 192 KB at D = 64 in float32, 224 KB
-// at D = 128.
+// at D = 128; 40 KB and 64 KB in bfloat16 (flash_fwd_bf16.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +67,7 @@
 #include <algorithm>
 
 #include "flash_fwd.cuh"
+#include "flash_fwd_bf16.cuh"
 
 extern "C" {
 
@@ -87,9 +92,15 @@ int t2r_flash_attention_carry(const void* q, const void* k, const void* v,
   // every query.
   const long long delta = std::min<long long>(
       std::max<long long>(q_offset - k_offset, -Lq), Lk);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    // p split into two bfloat16 halves for p v (flash_fwd_bf16.cuh).
+    return t2r::fwd_bf16::launch_any</*kCarry=*/true, /*kSplitP=*/true>(
+        q, k, v, o, m, l, B, H, Lq, Lk, D, st, scale, causal,
+        static_cast<int>(delta), s);
+  }
   return t2r::fwd::launch_any<true>(q, k, v, o, m, l, B, H, Lq, Lk, D, st,
-                                    scale, causal, static_cast<int>(delta),
-                                    bf16, static_cast<cudaStream_t>(stream));
+                                    scale, causal, static_cast<int>(delta), s);
 }
 
 const char* t2r_error_string(int status) {

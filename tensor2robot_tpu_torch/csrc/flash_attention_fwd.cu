@@ -27,7 +27,14 @@
 // 16-byte aligned (the tiles are copied 4 elements at a time). O is written
 // contiguous [B, Lq, H, D]; LSE contiguous [B, H, Lq].
 //
-// What bounds it on an H100: operations. At the served shape (B*H = 8,
+// This file's tile loop (flash_fwd.cuh) is the float32 instance. The
+// bfloat16 instance is a kernel of its own on the bfloat16 tensor cores
+// (flash_fwd_bf16.cuh: mma.sync m16n8k16 with ldmatrix, bfloat16 tiles in
+// shared memory, p rounded to bfloat16 for p v), to which the C entry below
+// dispatches bfloat16 inputs.
+//
+// What bounds the float32 instance on an H100: operations. At the served
+// shape (B*H = 8,
 // L = 4096, D = 64, causal) it does two products per unmasked (q, k) pair
 // (s and p v), 17.2 GFLOP, over 34 MB of q, k, v and o: some 500 operations
 // a byte. 0.26 ms at the CUDA cores' 67 TFLOP/s float32 rate; 0.10 ms for
@@ -37,9 +44,7 @@
 //   * both products on the tensor cores in float32 grade (tf32_mma.cuh):
 //     each operand is split once into TF32 big and small halves, and
 //     mma.sync m16n8k8 sums small*big + big*small + big*big in float32.
-//     bfloat16 q, k and v are exact in TF32, so s takes the big pass alone;
-//     p is float32 (as `_block_update` computes it), so p v takes p's small
-//     and big halves against v's exact big one. Each key tile's p v sums
+//     Each key tile's p v sums
 //     start at zero in their own fragments and are added into the float32
 //     output accumulator after its correction, o = o * corr + tile sum, as
 //     the tensor cores' float32 accumulation keeps fewer bits over long
@@ -76,7 +81,7 @@
 //     the split k tiles go, before the first key tile lands. A tile then
 //     costs a warp 128 8-byte B-fragment loads for s (D/8 k steps of 8 n
 //     tiles, 2 loads each) and 128 for p v (8 k steps of D/8 n tiles)
-//     against 384 tensor-core products (128 + 256 in bfloat16). At D = 128
+//     against 384 tensor-core products. At D = 128
 //     the fragments do not fit: q's split tile stays in shared memory beside
 //     16-row key tiles and is read in every tile, and p v runs over 8 n
 //     tiles at a time, so that two products on one accumulator are eight
@@ -91,15 +96,17 @@
 // warps; at some 245 registers a thread (`-Xptxas=-v`) one block, 8 warps,
 // fills a SM either way. Shared memory: 2 * 8 * D * 2 * kBlockK bytes of
 // split tiles and 2 * 2 * kBlockK * D raw elements, plus at D = 128 q's
-// 8 * 128 * D split tile: 192 KB at D = 64 in float32, 224 KB at D = 128.
+// 8 * 128 * D split tile: 192 KB at D = 64, 224 KB at D = 128.
 // The size is set per launch with cudaFuncSetAttribute.
 //
-// The kernel is flash_fwd.cuh's tile loop, which K6 (the ring hop's carried
-// update, flash_attention_carry.cu) shares; this file is its entry point.
+// The kernels are flash_fwd.cuh's and flash_fwd_bf16.cuh's tile loops,
+// which K6 (the ring hop's carried update, flash_attention_carry.cu)
+// shares; this file is their entry point.
 
 #include <cuda_runtime.h>
 
 #include "flash_fwd.cuh"
+#include "flash_fwd_bf16.cuh"
 
 extern "C" {
 
@@ -118,9 +125,14 @@ int t2r_flash_attention_fwd(const void* q, const void* k, const void* v,
                             int bf16, void* stream) {
   const t2r::fwd::Strides st = {q_sb, q_sh, q_sl, k_sb, k_sh,
                                 k_sl, v_sb, v_sh, v_sl};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    // p rounded to bfloat16 for p v (flash_fwd_bf16.cuh).
+    return t2r::fwd_bf16::launch_any</*kCarry=*/false, /*kSplitP=*/false>(
+        q, k, v, o, lse, nullptr, B, H, Lq, Lk, D, st, scale, causal, 0, s);
+  }
   return t2r::fwd::launch_any<false>(q, k, v, o, lse, nullptr, B, H, Lq, Lk,
-                                     D, st, scale, causal, 0, bf16,
-                                     static_cast<cudaStream_t>(stream));
+                                     D, st, scale, causal, 0, s);
 }
 
 const char* t2r_error_string(int status) {

@@ -116,29 +116,6 @@ struct QCfg<64> : Tiling<2, 4, 64> {};
 template <>
 struct QCfg<128> : Tiling<1, 8, 32> {};
 
-// Starts the copy of kTileRows rows of D bfloat16 from `src` (row stride
-// `ld` elements) from row r0 on into the swizzled tile at shared address
-// `dst`, by kThreads threads; rows from `limit` on are zero-filled.
-template <int D, int kTileRows, int kThreads>
-__device__ __forceinline__ void stage_rows(uint32_t dst, const bf16* src,
-                                           int64_t ld, int r0, int limit) {
-  constexpr int kChunks = D / 8;
-  for (int e = threadIdx.x; e < kTileRows * kChunks; e += kThreads) {
-    const int r = e / kChunks;
-    const int c = e % kChunks;
-    const bool in = r0 + r < limit;
-    cp_async16(dst + swz_offset<D>(r, c),
-               in ? src + (r0 + r) * ld + c * 8 : src, in);
-  }
-}
-
-// 2^x (MUFU.EX2; results below 2^-126 flush to 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // p and ds / scale of one accumulator element: p = exp(s * scale - lse)
 // as 2^(s * scale_log2 - lse2) with lse2 = lse * log2(e), 0 where `keep`
 // is false; dp becomes p * (dp - delta). The scale of ds is applied to the

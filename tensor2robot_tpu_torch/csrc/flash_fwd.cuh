@@ -1,8 +1,10 @@
-// The flash attention forward's tile loop, shared by flash_attention_fwd.cu
-// (K4: O and LSE from scratch) and flash_attention_carry.cu (K6: one update
-// of a carried, unnormalized (o, m, l) at global offsets). The design is
-// described in flash_attention_fwd.cu's header; K6's additions in
-// flash_attention_carry.cu's.
+// The flash attention forward's float32 tile loop, shared by
+// flash_attention_fwd.cu (K4: O and LSE from scratch) and
+// flash_attention_carry.cu (K6: one update of a carried, unnormalized
+// (o, m, l) at global offsets). The design is described in
+// flash_attention_fwd.cu's header; K6's additions in
+// flash_attention_carry.cu's. The bfloat16 instances of both are a kernel
+// of their own (flash_fwd_bf16.cuh).
 //
 // One kernel template, two instances: kCarry false is K4, kCarry true is K6.
 // K6's differences are its state in and out (`if constexpr (kCarry)`) and
@@ -12,12 +14,9 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "flash_tile.cuh"
 #include "tf32_mma.cuh"
@@ -47,21 +46,21 @@ struct Strides {
   int64_t q_b, q_h, q_l, k_b, k_h, k_l, v_b, v_h, v_l;
 };
 
-template <typename T, int D>
+template <int D>
 struct Smem {
   static constexpr int kBlockK = Tiles<D>::kBlockK;
   float2 ks[2][kBlockK * D];   // split tiles, swizzled, double-buffered
   float2 vs[2][kBlockK * D];
-  T k_raw[2][kBlockK * D];     // raw copies of the next key tiles
-  T v_raw[2][kBlockK * D];
+  float k_raw[2][kBlockK * D];   // raw copies of the next key tiles
+  float v_raw[2][kBlockK * D];
   // q's split tile at D = 128; at D = 64 it is staged in ks, both buffers.
   float2 qs[Tiles<D>::kResident ? 1 : kBlockQ * D];
 };
 
 // Starts the copy of key tile k0, its k and v rows, into raw buffer buf.
-template <typename T, int D>
-__device__ __forceinline__ void stage_kv(Smem<T, D>& sm, int buf,
-                                         const T* kb, const T* vb,
+template <int D>
+__device__ __forceinline__ void stage_kv(Smem<D>& sm, int buf,
+                                         const float* kb, const float* vb,
                                          int64_t k_l, int64_t v_l, int k0,
                                          int Lk) {
   constexpr int kBlockK = Tiles<D>::kBlockK;
@@ -70,8 +69,8 @@ __device__ __forceinline__ void stage_kv(Smem<T, D>& sm, int buf,
   static_assert(kBlockK % kRows == 0, "whole passes");
   const int r0 = threadIdx.x / kChunks;
   const int c = (threadIdx.x % kChunks) * 4;
-  const T* k_row = kb + (k0 + r0) * k_l + c;
-  const T* v_row = vb + (k0 + r0) * v_l + c;
+  const float* k_row = kb + (k0 + r0) * k_l + c;
+  const float* v_row = vb + (k0 + r0) * v_l + c;
 #pragma unroll
   for (int i = 0; i < kBlockK / kRows; ++i) {
     const int r = r0 + i * kRows;
@@ -85,8 +84,8 @@ __device__ __forceinline__ void stage_kv(Smem<T, D>& sm, int buf,
 }
 
 // Splits raw key tile buf into the split tiles of buffer buf.
-template <typename T, int D, int kPasses>
-__device__ __forceinline__ void split_kv(Smem<T, D>& sm, int buf) {
+template <int D>
+__device__ __forceinline__ void split_kv(Smem<D>& sm, int buf) {
   constexpr int kBlockK = Tiles<D>::kBlockK;
   constexpr int kChunks = D / 4;
   constexpr int kRows = kThreads / kChunks;
@@ -97,10 +96,10 @@ __device__ __forceinline__ void split_kv(Smem<T, D>& sm, int buf) {
     const int r = r0 + i * kRows;
     // The swizzle reads a row's low 4 bits: one value a lane at kRows = 16.
     const int split = r * D + (c ^ swz(r0 + i * kRows % 16));
-    store_split4<kPasses>(&sm.ks[buf][split],
-                          to_float4(&sm.k_raw[buf][r * D + c]));
-    store_split4<kPasses>(&sm.vs[buf][split],
-                          to_float4(&sm.v_raw[buf][r * D + c]));
+    store_split4<3>(&sm.ks[buf][split],
+                    to_float4(&sm.k_raw[buf][r * D + c]));
+    store_split4<3>(&sm.vs[buf][split],
+                    to_float4(&sm.v_raw[buf][r * D + c]));
   }
 }
 
@@ -169,36 +168,14 @@ __device__ __forceinline__ void load_a(Frag<4>& a, const FragOffsets<D>& frag,
   a.set(3, frag.by_row(tile, 1, kk, 1));
 }
 
-// 2^x in one instruction (relative error near 2^-22); 0 for x below -126,
-// so 0 for a masked score, which the guards zero as well.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// K4 writes O in the inputs' type; K6 carries a float32 o.
-template <typename T, bool kCarry>
-using OutType = std::conditional_t<kCarry, float, T>;
-
 // K4: o is O, stat the LSE; l_state and delta_in are unused (K6's, last,
 // so that K4's parameters lie where they did before K6 shared the loop).
 // K6: o, stat (m) and l_state are the carried state, read and written in
 // place; delta_in = q_offset - k_offset, clamped to [-Lq, Lk] by the caller.
-template <typename T, int D, int kPasses, bool kCarry>
+template <int D, bool kCarry>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, OutType<T, kCarry>* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ stat, int H, int Lq, int Lk, Strides st,
                  float scale, int causal, float* __restrict__ l_state,
                  int delta_in) {
@@ -213,7 +190,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   static_assert(!kResident || 2 * kBlockK >= kBlockQ,
                 "q's split tile is staged in ks and vs");
   extern __shared__ __align__(16) unsigned char smem_bytes[];
-  Smem<T, D>& sm = *reinterpret_cast<Smem<T, D>*>(smem_bytes);
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_bytes);
   float2* qs = kResident ? sm.ks[0] : sm.qs;
   // Key c is hidden from query r when causal and r + delta < c.
   const int delta = kCarry ? delta_in : 0;
@@ -232,9 +209,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0k = q0 + delta;
   const int b = bh / H;
   const int h = bh % H;
-  const T* qb = q + b * st.q_b + h * st.q_h;
-  const T* kb = k + b * st.k_b + h * st.k_h;
-  const T* vb = v + b * st.v_b + h * st.v_h;
+  const float* qb = q + b * st.q_b + h * st.q_h;
+  const float* kb = k + b * st.k_b + h * st.k_h;
+  const float* vb = v + b * st.v_b + h * st.v_h;
 
   if constexpr (kCarry) {
     // Every query of the block precedes the block's first key: the carried
@@ -257,7 +234,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float4 qv = q0 + r < Lq
                           ? to_float4(qb + (q0 + r) * st.q_l + c)
                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    store_split4<kPasses>(&qs[r * D + (c ^ swz(r))], qv);
+    store_split4<3>(&qs[r * D + (c ^ swz(r))], qv);
   }
 
   const int qr = warp * 16 + g;   // this lane's query rows qr and qr + 8
@@ -277,7 +254,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   cp_async_wait_one();   // key tile 0
   __syncthreads();  // tile 0 has landed; q's fragments are read
-  split_kv<T, D, kPasses>(sm, 0);
+  split_kv<D>(sm, 0);
 
   float acc[kSteps][4];
 #pragma unroll
@@ -316,7 +293,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // Split tile `tile` is ready, key tile + 1 has landed, and every warp
     // has ended the last tile's products and splits.
     __syncthreads();
-    if (tile + 1 < n_k) split_kv<T, D, kPasses>(sm, (tile + 1) & 1);
+    if (tile + 1 < n_k) split_kv<D>(sm, (tile + 1) & 1);
     if (tile + 2 < n_k) {
       stage_kv(sm, tile & 1, kb, vb, st.k_l, st.v_l, k0 + 2 * kBlockK, Lk);
     }
@@ -344,15 +321,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         bk[j].set(0, frag.by_row(k_tile, j, kk, 0));
         bk[j].set(1, frag.by_row(k_tile, j, kk, 1));
       }
-      if (kPasses == 3) {
 #pragma unroll
-        for (int j = 0; j < kKeySteps; ++j) {
-          mma_tf32(s[j], aq.small, bk[j].big);
-        }
+      for (int j = 0; j < kKeySteps; ++j) {
+        mma_tf32(s[j], aq.small, bk[j].big);
+      }
 #pragma unroll
-        for (int j = 0; j < kKeySteps; ++j) {
-          mma_tf32(s[j], aq.big, bk[j].small);
-        }
+      for (int j = 0; j < kKeySteps; ++j) {
+        mma_tf32(s[j], aq.big, bk[j].small);
       }
 #pragma unroll
       for (int j = 0; j < kKeySteps; ++j) {
@@ -428,7 +403,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 #pragma unroll
       for (int j = 0; j < kKeySteps; ++j) {
-        Frag<4> ap;   // p is float32: both halves in every type
+        Frag<4> ap;   // p is float32: both halves
         ap.split<3>(0, s[j][0]);
         ap.split<3>(1, s[j][2]);
         ap.split<3>(2, s[j][1]);
@@ -443,11 +418,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int n = 0; n < kGroup; ++n) {
           mma_tf32(part[n], ap.small, bv[n].big);
         }
-        if (kPasses == 3) {
 #pragma unroll
-          for (int n = 0; n < kGroup; ++n) {
-            mma_tf32(part[n], ap.big, bv[n].small);
-          }
+        for (int n = 0; n < kGroup; ++n) {
+          mma_tf32(part[n], ap.big, bv[n].small);
         }
 #pragma unroll
         for (int n = 0; n < kGroup; ++n) {
@@ -490,11 +463,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int q_pos = q0 + qr + 8 * half;
       if (q_pos >= Lq) continue;
       const float l_final = fmaxf(l_row[half], 1e-20f);
-      T* dst = o + ((static_cast<int64_t>(b) * Lq + q_pos) * H + h) * D;
+      float* dst = o + ((static_cast<int64_t>(b) * Lq + q_pos) * H + h) * D;
 #pragma unroll
       for (int n = 0; n < kSteps; ++n) {
-        store2<T>(dst + 8 * n + 2 * t, acc[n][2 * half] / l_final,
-                  acc[n][2 * half + 1] / l_final);
+        store2<float>(dst + 8 * n + 2 * t, acc[n][2 * half] / l_final,
+                      acc[n][2 * half + 1] / l_final);
       }
       if (t == 0) {
         stat[static_cast<int64_t>(bh) * Lq + q_pos] =
@@ -506,47 +479,38 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // Sets the kernel's shared memory and launches it on a (B H, query tiles)
 // grid; returns cudaGetLastError().
-template <typename T, int D, bool kCarry>
+template <int D, bool kCarry>
 int launch(const void* q, const void* k, const void* v, void* o, void* stat,
            void* l_state, int B, int H, int Lq, int Lk, const Strides& st,
            float scale, int causal, int delta, cudaStream_t stream) {
-  constexpr int kPasses = sizeof(T) == 4 ? 3 : 1;
-  const int bytes = static_cast<int>(sizeof(Smem<T, D>));
+  const int bytes = static_cast<int>(sizeof(Smem<D>));
   cudaError_t status = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, kPasses, kCarry>,
+      flash_fwd_kernel<D, kCarry>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (status != cudaSuccess) return static_cast<int>(status);
   const dim3 grid(B * H, (Lq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T, D, kPasses, kCarry><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<OutType<T, kCarry>*>(o),
+  flash_fwd_kernel<D, kCarry><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(stat), H, Lq, Lk, st, scale, causal,
       static_cast<float*>(l_state), delta);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the instance of dtype (bf16 or float32) and head dim D (64 or
-// 128); 1 (cudaErrorInvalidValue) for another D.
+// Launches the float32 instance of head dim D (64 or 128); 1
+// (cudaErrorInvalidValue) for another D.
 template <bool kCarry>
 int launch_any(const void* q, const void* k, const void* v, void* o,
                void* stat, void* l_state, int B, int H, int Lq, int Lk, int D,
                const Strides& st, float scale, int causal, int delta,
-               int bf16, cudaStream_t s) {
+               cudaStream_t s) {
   if (D == 64) {
-    return bf16 ? launch<__nv_bfloat16, 64, kCarry>(
-                      q, k, v, o, stat, l_state, B, H, Lq, Lk, st, scale,
-                      causal, delta, s)
-                : launch<float, 64, kCarry>(q, k, v, o, stat, l_state, B, H,
-                                            Lq, Lk, st, scale, causal, delta,
-                                            s);
+    return launch<64, kCarry>(q, k, v, o, stat, l_state, B, H, Lq, Lk, st,
+                              scale, causal, delta, s);
   }
   if (D == 128) {
-    return bf16 ? launch<__nv_bfloat16, 128, kCarry>(
-                      q, k, v, o, stat, l_state, B, H, Lq, Lk, st, scale,
-                      causal, delta, s)
-                : launch<float, 128, kCarry>(q, k, v, o, stat, l_state, B, H,
-                                             Lq, Lk, st, scale, causal, delta,
-                                             s);
+    return launch<128, kCarry>(q, k, v, o, stat, l_state, B, H, Lq, Lk, st,
+                               scale, causal, delta, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

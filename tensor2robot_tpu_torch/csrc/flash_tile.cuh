@@ -1,9 +1,10 @@
-// The split-tile layout that the flash attention kernels share:
-// flash_attention_fwd.cu (K4), flash_attention_bwd_kv.cu (K5a) and
-// flash_attention_bwd_q.cu (K5b) stage their tiles in shared memory as
-// float2 {big, small} rows of D columns (tf32_mma.cuh) and read their
-// mma.sync fragments through one swizzle, and write their results two
-// elements at a time.
+// What the flash attention kernels share: flash_attention_fwd.cu (K4),
+// flash_attention_bwd_kv.cu (K5a), flash_attention_bwd_q.cu (K5b) and
+// flash_attention_carry.cu (K6) stage their float32 tiles in shared memory
+// as float2 {big, small} rows of D columns (tf32_mma.cuh) and read their
+// mma.sync fragments through one swizzle; all their instances write their
+// results two elements at a time, and take exponentials and a row's max
+// and sum over a quad of lanes alike.
 
 #pragma once
 
@@ -37,6 +38,26 @@ template <>
 __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* dst,
                                                       float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// 2^x in one instruction (MUFU.EX2, relative error near 2^-22); 0 for x
+// below -126, so 0 for a masked score, which the guards zero as well.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The max and the sum over a quad (lanes 4g .. 4g + 3): the lanes that
+// hold one row of an mma.sync C fragment.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 }  // namespace t2r

@@ -9,7 +9,11 @@ two more Pallas kernels that recompute the probabilities from the LSE: one
 for dK and dV (``_flash_bwd_kv_kernel``), one for dQ
 (``_flash_bwd_q_kernel``). Their Hopper counterparts are the CUDA kernels
 in ``csrc/flash_attention_fwd.cu`` (K4), ``csrc/flash_attention_bwd_kv.cu``
-(K5a) and ``csrc/flash_attention_bwd_q.cu`` (K5b).
+(K5a) and ``csrc/flash_attention_bwd_q.cu`` (K5b). Their bf16 instances are
+kernels of their own on the bf16 tensor cores (``csrc/flash_fwd_bf16.cuh``,
+``csrc/flash_bwd_bf16.cuh``), which round p (and ds) to bf16 for the
+products that take them, as FlashAttention does; K6's bf16 instance splits
+p into two bf16 halves instead.
 
 A CUDA tensor goes through those kernels or raises; a CPU tensor goes
 through the plain versions: ``flash_attention_plain``, a dense softmax over
@@ -248,8 +252,8 @@ def _rows_aligned(t: torch.Tensor) -> bool:
 
 
 def _check_rows_aligned(name: str, *tensors) -> None:
-  """K4, K5a, K5b and K6 copy rows 4 elements at a time (K5a's and K5b's
-  bf16 instances 16 bytes, 8 elements): every row of their [B, L, H, D]
+  """K4, K5a, K5b and K6 copy rows 4 elements at a time (their bf16
+  instances 16 bytes, 8 elements): every row of their [B, L, H, D]
   operands must start on 16 bytes."""
   for i, t in enumerate(tensors):
     if not _rows_aligned(t):

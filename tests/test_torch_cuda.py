@@ -40,7 +40,11 @@ was, bit for bit), a hop hidden from its first warp's queries only (whose
 rows must stay bit for bit as they were), head dim 128 in bf16 at the
 4-rank hop's offsets, and a carried state as well as the initial one; the
 same bits run to run, and a view whose rows are not 16-byte aligned is
-refused.
+refused. K4's and K6's bf16 instances (their own kernel, p rounded to bf16
+in K4 and split into two bf16 halves in K6) are held to the same bounds
+at lengths one short of, at and one past their 128-query blocks, 32-query
+warps and 64-key tiles, and K6's bf16 rows that see no key, also beside
+rows of their warp that do, stay bit for bit as they were.
 The record path on the card: the native loader's batch (decoded by nvJPEG
 where the host has no libjpeg) copied to the card equals the batch on the
 host bit for bit, and its pixels are within 4 of libjpeg's (OpenCV's) on
@@ -575,6 +579,141 @@ def test_flash_attention_carry_refuses_what_it_does_not_take(device):
   with pytest.raises(ValueError, match='16-byte aligned'):
     x = torch.randn(1, 64, 2, 65, device=device)[..., 1:]
     flash_attention.flash_attention_carry(x, q, q, *state, 0, 0, True, 0.125)
+
+
+# The bf16 instances of K4 and K6 (csrc/flash_fwd_bf16.cuh) tile 128 queries
+# a block (K4 at D = 64: warps of 32 queries; K6 and D = 128: warps of 16)
+# and 64 keys (K6 at D = 128: 32): lengths one short of, at and one past
+# those edges, Lq != Lk, and both head dims.
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('b,l_q,l_k,h,d', [
+    (2, 127, 127, 2, 64),
+    (1, 129, 129, 3, 64),
+    (2, 33, 65, 2, 64),
+    (1, 257, 63, 2, 128),
+    (2, 96, 160, 1, 128),
+])
+def test_flash_attention_bf16_matches_plain_at_tile_edges(device, b, l_q, l_k,
+                                                          h, d, causal):
+  gen = _generator(device, 9)
+  q = torch.randn((b, l_q, h, d), device=device, generator=gen).to(
+      torch.bfloat16)
+  kv = torch.randn((b, l_k, h, 2, d), device=device, generator=gen).to(
+      torch.bfloat16)
+  k, v = kv[..., 0, :], kv[..., 1, :]
+  before = kernels.LAUNCHES['flash_attention_fwd']
+  out, lse = flash_attention.flash_attention_forward(q, k, v, causal,
+                                                     d ** -0.5)
+  assert kernels.LAUNCHES['flash_attention_fwd'] == before + 1
+  want_o, want_lse = flash_attention.flash_attention_plain_blhd(
+      q, k, v, causal, d ** -0.5)
+  torch.cuda.synchronize()
+  assert out.dtype == torch.bfloat16 and out.shape == (b, l_q, h, d)
+  assert float((out.float() - want_o.float()).abs().max()) <= (
+      FLASH_ATOL[torch.bfloat16])
+  assert float((lse - want_lse).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize('scale', [-0.125, 0.0])
+def test_flash_attention_bf16_takes_a_scale_that_is_not_positive(device,
+                                                                 scale):
+  """The bf16 kernels take a tile's max from the unscaled scores only for a
+  positive scale; any other scale takes the guarded path."""
+  gen = _generator(device, 12)
+  qkv = torch.randn((2, 256, 2, 3, 64), device=device, generator=gen).to(
+      torch.bfloat16)
+  q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+  out, lse = flash_attention.flash_attention_forward(q, k, v, True, scale)
+  want_o, want_lse = flash_attention.flash_attention_plain_blhd(
+      q, k, v, True, scale)
+  state = (torch.zeros((2, 2, 256, 64), device=device),
+           torch.full((2, 2, 256), flash_attention.NEG_INF, device=device),
+           torch.zeros((2, 2, 256), device=device))
+  got = tuple(x.clone() for x in state)
+  flash_attention.flash_attention_carry(q, k, v, *got, 0, 0, True, scale)
+  flash_attention.flash_attention_carry_plain(q, k, v, *state, 0, 0, True,
+                                              scale)
+  torch.cuda.synchronize()
+  assert float((out.float() - want_o.float()).abs().max()) <= (
+      FLASH_ATOL[torch.bfloat16])
+  assert float((lse - want_lse).abs().max()) <= 1e-5
+  for name, g, w in zip('oml', got, state):
+    err = float((g - w).abs().max())
+    assert err <= CARRY_RTOL * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize('b,l_q,l_k,h,d,q_offset,k_offset', [
+    (2, 128, 128, 2, 64, 128, 148),   # rows 0-19 see no key
+    (1, 256, 72, 3, 128, 40, 100),    # rows 0-59 see no key
+])
+def test_flash_attention_carry_bf16_leaves_rows_that_see_no_key(
+    device, b, l_q, l_k, h, d, q_offset, k_offset):
+  """K6's bf16 instance writes no row whose query precedes every key, also
+  where the row shares its warp with rows that do see keys."""
+  gen = _generator(device, 10)
+  qkv = torch.randn((b, l_q, h, 3, d), device=device, generator=gen).to(
+      torch.bfloat16)
+  kv = torch.randn((b, l_k, h, 2, d), device=device, generator=gen).to(
+      torch.bfloat16)
+  q, k, v = qkv[..., 0, :], kv[..., 0, :], kv[..., 1, :]
+  scale = d ** -0.5
+  state = (torch.zeros((b, h, l_q, d), device=device),
+           torch.full((b, h, l_q), flash_attention.NEG_INF, device=device),
+           torch.zeros((b, h, l_q), device=device))
+  flash_attention.flash_attention_carry_plain(
+      q, qkv[..., 1, :], qkv[..., 2, :], *state, q_offset, q_offset - l_q,
+      True, scale)
+  got = tuple(x.clone() for x in state)
+  want = tuple(x.clone() for x in state)
+  flash_attention.flash_attention_carry(q, k, v, *got, q_offset, k_offset,
+                                        True, scale)
+  flash_attention.flash_attention_carry_plain(q, k, v, *want, q_offset,
+                                              k_offset, True, scale)
+  torch.cuda.synchronize()
+  for name, g, w in zip('oml', got, want):
+    err = float((g - w).abs().max())
+    assert err <= CARRY_RTOL * float(w.abs().max()), (name, err)
+  hidden = k_offset - q_offset
+  assert all(torch.equal(g[:, :, :hidden], x[:, :, :hidden])
+             for g, x in zip(got, state))
+  assert not torch.equal(got[0][:, :, hidden:], state[0][:, :, hidden:])
+
+
+def test_flash_attention_carry_bf16_same_bits_run_to_run(device):
+  gen = _generator(device, 11)
+  qkv = torch.randn((2, 256, 2, 3, 64), device=device, generator=gen).to(
+      torch.bfloat16)
+  runs = []
+  for _ in range(2):
+    state = (torch.zeros((2, 2, 256, 64), device=device),
+             torch.full((2, 2, 256), flash_attention.NEG_INF, device=device),
+             torch.zeros((2, 2, 256), device=device))
+    flash_attention.flash_attention_carry(
+        qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :], *state, 256, 200,
+        True, 0.125)
+    runs.append(state)
+  torch.cuda.synchronize()
+  assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_flash_attention_fwd_and_carry_bf16_refuse_unaligned_rows(device):
+  """K4's and K6's bf16 instances copy rows 16 bytes (8 elements) at a
+  time: a bf16 view whose rows start 8 bytes past 16 raises instead of
+  reading them."""
+  base = torch.randn(4 + 64 * 2 * 64, device=device).to(torch.bfloat16)
+  q = base[4:].view(1, 64, 2, 64)        # 8 bytes past an aligned start
+  k = torch.randn(1, 64, 2, 64, device=device).to(torch.bfloat16)
+  state = (torch.zeros(1, 2, 64, 64, device=device),
+           torch.zeros(1, 2, 64, device=device),
+           torch.zeros(1, 2, 64, device=device))
+  before = dict(kernels.LAUNCHES)
+  for args in ((q, k, k), (k, q, k), (k, k, q)):
+    with pytest.raises(ValueError, match='16-byte aligned'):
+      flash_attention.flash_attention_forward(*args, True, 0.125)
+    with pytest.raises(ValueError, match='16-byte aligned'):
+      flash_attention.flash_attention_carry(*args, *state, 0, 0, True,
+                                            0.125)
+  assert kernels.LAUNCHES == before
 
 
 def _write_frames(path, rng, count, shape=(48, 64, 3)):

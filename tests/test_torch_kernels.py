@@ -301,21 +301,29 @@ def test_an_included_header_rebuilds_the_kernel(tmp_path, monkeypatch):
   for name in ('flash_attention_fwd', 'flash_attention_carry'):
     assert {'flash_fwd.cuh', 'flash_tile.cuh', 'tf32_mma.cuh'} <= {
         p.name for p in kernels._sources(kernels.source_path(name))}
-  # K5a's and K5b's bf16 instances live in one header on the bf16 mma.sync
-  # helpers: an edit to either rebuilds both libraries, and no other.
+  # K5a's and K5b's bf16 instances live in one header, K4's and K6's in
+  # another, all four on the bf16 mma.sync helpers: an edit to a kernel
+  # header rebuilds its two libraries, one to the helpers all four, and no
+  # other.
   bf16 = ('flash_attention_bwd_kv', 'flash_attention_bwd_q')
+  fwd_bf16 = ('flash_attention_fwd', 'flash_attention_carry')
   for name in bf16:
     assert {'flash_bwd_bf16.cuh', 'bf16_mma.cuh'} <= {
+        p.name for p in kernels._sources(kernels.source_path(name))}
+  for name in fwd_bf16:
+    assert {'flash_fwd_bf16.cuh', 'bf16_mma.cuh'} <= {
         p.name for p in kernels._sources(kernels.source_path(name))}
   copy = tmp_path / 'csrc'
   shutil.copytree(kernels.CSRC_DIR, copy)
   monkeypatch.setattr(kernels, 'CSRC_DIR', copy)
   names = tuple(kernels.KERNELS)
   before = {name: kernels.library_path(name) for name in names}
-  for header in ('flash_bwd_bf16.cuh', 'bf16_mma.cuh'):
+  for header, rebuilt in (('flash_bwd_bf16.cuh', bf16),
+                          ('flash_fwd_bf16.cuh', fwd_bf16),
+                          ('bf16_mma.cuh', bf16 + fwd_bf16)):
     with open(copy / header, 'a') as f:
       f.write('// edited\n')
     after = {name: kernels.library_path(name) for name in names}
     assert {name for name in names if after[name] != before[name]} == set(
-        bf16), header
+        rebuilt), header
     before = after

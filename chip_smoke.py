@@ -135,6 +135,30 @@ repository around it. Phases, each printing one line or more:
      swap within SWAP_POLLS polls, phase 4b's serving counts; the export's
      write time printed), and ExportedModelPredictor's actions against
      CheckpointPredictor's on the same step and CEM seed (1e-4).
+  4e. Off-policy QT-Opt (phase ``qtopt_offpolicy``; nothing of the earlier
+     records): ``run_collect_eval`` from ``run_collect_grasping_sim.gin``
+     collects QTOPT_EPISODES random episodes of ``SimGraspingEnv(seed=0)``
+     at 512x640 (no kernel launched), then DeviceCEMPolicy (the full-width
+     critic at random weights, CEM 64 x 3, 10 elites) QTOPT_CEM_EPISODES
+     through ``collect_eval_loop``, the counters zeroed just before and
+     read just after: 1 K1 and CEM_ITERS + 3 K2f an action; its action on
+     a fixed observation against its plain rerun (1e-5); episodes/s and
+     records/s. Then ``BellmanQTOptTrainer`` trains the flagship critic
+     (use_avg_model_params False, Adam 3e-3) from those records through
+     the split decode (coef_sparse, the next frames too) for QTOPT_STEPS
+     steps at batch 32 with 16 candidates, gamma 0.8 and the target
+     exported every 20 steps, the counters zeroed before and read after
+     each 20 steps (the evals between them not counted): 2 K1, 6 K2f, 3
+     K2b and 6 K3 a step; every loss finite; 14 refreshes after the seed,
+     the target bit-equal after each to the weights exported one interval
+     back; the held-out ranking accuracy of 3 x 24 pairs (both arms in one
+     forward) every 20 steps, by family. On one resident batch: the target
+     forward leaves every running statistic as it was; one Bellman step
+     against its plain rerun, which replays the kernels' pool windows and
+     ReLU gates (y 1e-4, loss 1e-5 relative, each updated tensor 1e-4 of
+     its update); the resident step and the target forward profiled; the
+     loop's step, data wait, peak memory, and the step and seconds at
+     which the accuracy reached 0.9 (printed, not checked).
   5. Seq2Act serving: the long-context RT-1-style policy at full width
      (512-frame episodes, 4,096 tokens, 8 blocks, attention_mode 'flash',
      float32 with TF32 off) restored by CheckpointPredictor from a
@@ -239,7 +263,8 @@ repository around it. Phases, each printing one line or more:
      and destroys it), RING_GIN_STEPS steps in float32 at the same shape
      and from the same episodes: 8 x N K6 a step a rank, and rank 0's loss
      within RING_GIN_RTOL of the first run's at that step.
-  9. A JSON line of phases 6c's, 6d's and the ring gin's numbers
+  9. A JSON line of phase 4e's numbers (``qtopt_offpolicy``), one of
+     phases 6c's, 6d's and the ring gin's numbers
      (``seq2act_variants``), a JSON line of the kernels (K4, K5a and K5b
      with their bf16 times, bounds at the bf16 peak and the library's bf16
      times), the card's name and power limit, and the last line ``{"ok":
@@ -255,6 +280,7 @@ import argparse
 import collections
 import contextlib
 import functools
+import glob
 import io
 import json
 import os
@@ -1259,6 +1285,65 @@ def card_vs_cpu_served_q(model, weights, states, actions):
         '(tolerance 1e-4); the CPU took {:.1f} s'.format(b, *errors, seconds))
 
 
+@contextlib.contextmanager
+def recording_choices(choices):
+  """Records, in call order, every max pool's window index and every
+  ReLU's gate (on their device) into ``choices['pool']`` and
+  ``choices['relu']``."""
+  from tensor2robot_tpu_torch.layers import pooling
+
+  functional = torch.nn.functional
+  pool_forward, relu = pooling.max_pool_forward, functional.relu
+
+  def record_pool(x, window, strides, padding='VALID', return_index=False):
+    out, idx = pool_forward(x, window, strides, padding, True)
+    choices['pool'].append(idx)
+    return (out, idx) if return_index else out
+
+  def record_relu(x, inplace=False):
+    choices['relu'].append(x > 0)
+    return relu(x, inplace)
+
+  with mock.patch.object(pooling, 'max_pool_forward', record_pool), \
+      mock.patch.object(functional, 'relu', record_relu):
+    yield
+
+
+@contextlib.contextmanager
+def replaying_choices(choices, other):
+  """Replays recorded choices in call order, through the plain pool on the
+  replaying device: each pool takes the recorded window cells, each ReLU
+  the recorded gate. ``other`` counts the choices the replay would have
+  made otherwise ('pool', 'relu'); every recorded choice must be used."""
+  from tensor2robot_tpu_torch.layers import pooling
+
+  functional = torch.nn.functional
+  pools, gates = iter(choices['pool']), iter(choices['relu'])
+
+  def replay_pool(x, window, strides, padding='VALID', return_index=False):
+    idx = next(pools).to(x.device)
+    other['pool'] += int((pooling.max_pool_plain(
+        x, window, strides, padding, True)[1] != idx).sum())
+    chosen = pooling.max_pool_backward_plain(
+        torch.ones(idx.shape, dtype=x.dtype, device=x.device), idx, x.shape,
+        window, padding) > 0
+    out = pooling.max_pool_plain(
+        torch.where(chosen, x, x.new_full((), -float('inf'))), window,
+        strides, padding)
+    return (out, idx) if return_index else out
+
+  def replay_relu(x, inplace=False):
+    gate = next(gates).to(x.device)
+    other['relu'] += int((gate != (x > 0)).sum())
+    return x * gate.to(x.dtype)
+
+  with mock.patch.object(pooling, 'max_pool_forward', replay_pool), \
+      mock.patch.object(functional, 'relu', replay_relu):
+    yield
+  check(next(pools, None) is None and next(gates, None) is None,
+        'the replay made fewer pools or ReLUs than the recording')
+
+
 def card_vs_cpu_critic_step(model, state, raw, labels, offsets):
   """One critic train step's loss and gradients on the card (cuDNN
   convolutions, TF32 off, and the kernels) against the same on the CPU
@@ -1274,12 +1359,9 @@ def card_vs_cpu_critic_step(model, state, raw, labels, offsets):
   made otherwise are counted.
 
   """
-  from tensor2robot_tpu_torch.layers import pooling
   from tensor2robot_tpu_torch.models.abstract_model import TrainState
   from tensor2robot_tpu_torch.modes import ModeKeys
 
-  functional = torch.nn.functional
-  pool_forward, relu = pooling.max_pool_forward, functional.relu
   cpu = cpu_critic()
   cpu_state = TrainState(step=state.step, params=to_cpu(state.params),
                          model_state=to_cpu(state.model_state),
@@ -1291,48 +1373,14 @@ def card_vs_cpu_critic_step(model, state, raw, labels, offsets):
 
   def compare():
     choices = {'pool': [], 'relu': []}
-
-    def record_pool(x, window, strides, padding='VALID', return_index=False):
-      out = pool_forward(x, window, strides, padding, return_index)
-      if return_index:
-        choices['pool'].append(out[1].cpu())
-      return out
-
-    def record_relu(x, inplace=False):
-      choices['relu'].append((x > 0).cpu())
-      return relu(x, inplace)
-
-    with mock.patch.object(pooling, 'max_pool_forward', record_pool), \
-        mock.patch.object(functional, 'relu', record_relu):
+    with recording_choices(choices):
       got_loss, got = _gradients(model, state, card_features, labels)
-    pools, gates = iter(choices['pool']), iter(choices['relu'])
     other = {'pool': 0, 'relu': 0}
-
-    def replay_pool(x, window, strides, padding='VALID', return_index=False):
-      idx = next(pools)
-      other['pool'] += int((pooling.max_pool_plain(
-          x, window, strides, padding, True)[1] != idx).sum())
-      chosen = pooling.max_pool_backward_plain(
-          torch.ones(idx.shape, dtype=x.dtype), idx, x.shape, window,
-          padding) > 0
-      out = pooling.max_pool_plain(
-          torch.where(chosen, x, torch.full((), -float('inf'))), window,
-          strides, padding)
-      return (out, idx) if return_index else out
-
-    def replay_relu(x, inplace=False):
-      gate = next(gates)
-      other['relu'] += int((gate != (x > 0)).sum())
-      return x * gate.to(x.dtype)
-
     start = time.monotonic()
-    with mock.patch.object(pooling, 'max_pool_forward', replay_pool), \
-        mock.patch.object(functional, 'relu', replay_relu):
+    with replaying_choices(choices, other):
       want_loss, want = _gradients(cpu, cpu_state, cpu_features,
                                    to_cpu(labels))
     seconds = time.monotonic() - start
-    check(next(pools, None) is None and next(gates, None) is None,
-          'the CPU step made fewer pools or ReLUs than the card\'s')
     return ('the CPU replays the card\'s {} window indices and {} ReLU gates, '
             'of which it would have chosen {} and {} otherwise; {}; the CPU '
             'took {:.1f} s'.format(
@@ -2625,6 +2673,422 @@ def phase_gins(device, data_dir):
   torch.cuda.empty_cache()
   print('gins: phase 4d took {:.1f} s'.format(time.monotonic() - phase_start))
   return {'gin_train': launches, 'export_serve': serve_launches}
+
+
+# Phase 4e, off-policy QT-Opt (JAX bench.py's _bench_qtopt_offpolicy): the
+# replay the collector writes, the CEM episodes, the Bellman steps, the
+# target's export interval, the ranking pairs a family, and the interval of
+# the accuracy curve.
+QTOPT_EPISODES, QTOPT_CEM_EPISODES = 150, 8
+QTOPT_CANDIDATES, QTOPT_INTERVAL = 16, 20
+QTOPT_STEPS, QTOPT_EVAL_EVERY, QTOPT_CRITERION = 300, 20, 0.9
+QTOPT_PER_TYPE = 24
+COLLECT_GIN = os.path.join('tensor2robot_tpu_torch', 'research', 'qtopt',
+                           'configs', 'run_collect_grasping_sim.gin')
+# A Bellman step's launches: the TRAIN crop and the target's PREDICT crop;
+# the live tower's 3 pools and the target's 3; the backward's 3 pools and
+# 6 body convs. A CEM action's: its crop, the tower's 2 pools and pool3 in
+# each of the CEM_ITERS scorings and the chosen action's.
+BELLMAN_STEP_LAUNCHES = {'crop_convert': 2, 'max_pool': 6,
+                         'max_pool_backward': 3, 'conv5x5_wgrad': BODY_CONVS}
+CEM_ACTION_LAUNCHES = {'crop_convert': 1, 'max_pool': CEM_ITERS + 3}
+
+
+def family_accuracies(scores, arm_rows):
+  """Each pair family's ranking accuracy, from one score vector over the
+  arms of ``concat_ranking_pairs``."""
+  from tensor2robot_tpu_torch.rl import offpolicy
+
+  out, offset = [], 0
+  for i in range(0, len(arm_rows), 2):
+    rows = arm_rows[i] + arm_rows[i + 1]
+    out.append(offpolicy.ranking_accuracy_from_scores(
+        scores[offset:offset + rows], arm_rows[i:i + 2]))
+    offset += rows
+  return out
+
+
+def collect_with_the_entry_point(device, root):
+  """``run_collect_eval`` from its gin, on ``device``: QTOPT_EPISODES
+  random episodes at 512x640 into ``root/policy_collect``. Returns its JSON
+  line."""
+  from tensor2robot_tpu_torch.rl import run_collect_eval
+
+  out = io.StringIO()
+  with contextlib.redirect_stdout(out):
+    check(run_collect_eval.main([
+        '--device', device.type, '--gin_configs', COLLECT_GIN, '--gin_bindings',
+        'collect_eval_loop.root_dir = {!r}'.format(root), '--gin_bindings',
+        'collect_eval_loop.num_collect = {}'.format(QTOPT_EPISODES)]) == 0,
+          'run_collect_eval failed')
+  return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def collect_with_device_cem(device, root):
+  """QTOPT_CEM_EPISODES episodes by DeviceCEMPolicy (the full-width critic
+  at random weights, CEM CEM_SAMPLES x CEM_ITERS, NUM_ELITES elites)
+  through ``collect_eval_loop``, the counters zeroed just before and read
+  just after; its action on a fixed observation against its plain rerun.
+  Returns (launches, report)."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.data.writer import TFRecordReplayWriter
+  from tensor2robot_tpu_torch.policies import policies
+  from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+  from tensor2robot_tpu_torch.research.qtopt import grasping_sim
+  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+  from tensor2robot_tpu_torch.rl import collect_eval
+  from tensor2robot_tpu_torch.rl import run_collect_eval
+  from tensor2robot_tpu_torch.rl import run_env
+
+  model = t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+      device=device, network_kwargs={'num_convs': NUM_CONVS})
+  predictor = CheckpointPredictor(model)
+  policy = policies.DeviceCEMPolicy(model, cem_iters=CEM_ITERS,
+                                    cem_samples=CEM_SAMPLES,
+                                    num_elites=NUM_ELITES, seed=0,
+                                    predictor=predictor)
+  run_agent = functools.partial(
+      run_env.run_env,
+      episode_to_transitions_fn=grasping_sim.episode_to_transitions_grasping,
+      replay_writer=TFRecordReplayWriter(), close_env=False)
+  policy.init_randomly()
+  policy.sample_action(grasping_sim.SimGraspingEnv(seed=2).reset(), 0.0)
+  torch.cuda.synchronize()
+  kernels.reset_launches()
+  start = time.monotonic()
+  collect_eval.collect_eval_loop(
+      collect_env=grasping_sim.SimGraspingEnv(seed=1), eval_env=None,
+      policy_class=lambda: policy, num_collect=QTOPT_CEM_EPISODES,
+      num_eval=0, run_agent_fn=run_agent, root_dir=root,
+      init_with_random_variables=True)
+  seconds = time.monotonic() - start
+  launches = dict(kernels.LAUNCHES)
+  actions = run_collect_eval.count_records(root)['collect']['records']
+  want = dict.fromkeys(launches, 0)
+  want.update({k: v * actions for k, v in CEM_ACTION_LAUNCHES.items()})
+  check(launches == want, 'DeviceCEMPolicy launches {} != {} for {} '
+        'actions'.format(launches, want, actions))
+  with open(os.path.join(root, 'live_eval_0', 'metrics-collect.jsonl')) as f:
+    metrics = json.loads(f.read())['values']
+
+  # One action on a fixed observation, through the kernels and through the
+  # plain versions, from the same CEM seed.
+  select = model.make_on_device_select_action(CEM_SAMPLES, CEM_ITERS,
+                                              NUM_ELITES)
+  obs = grasping_sim.SimGraspingEnv(seed=3).reset()
+  action, q = select(predictor.variables, obs, 123)
+  with plain_kernels():
+    plain_action, plain_q = select(predictor.variables, obs, 123)
+  err = max(max_abs_err(action, plain_action), max_abs_err(q, plain_q))
+  check(err <= 1e-5, 'DeviceCEMPolicy\'s action differs from its plain '
+        'rerun by {:.3g}'.format(err))
+  report = {'episodes': QTOPT_CEM_EPISODES, 'actions': actions,
+            'seconds': seconds, 'episodes_per_s': QTOPT_CEM_EPISODES / seconds,
+            'actions_per_s': actions / seconds,
+            'episode_reward': metrics['episode_reward'],
+            'plain_rerun_err': err}
+  print('qtopt_offpolicy collect (DeviceCEMPolicy, CEM {} x {}, {} elites, '
+        'random weights): {} episodes, {} actions in {:.2f} s: {:.2f} '
+        'episodes/s, {:.2f} actions/s ({:.2f} ms an action, the host\'s '
+        'render and JPEG encode included), mean reward {:.3f}; launches {} '
+        '(1 K1 and {} K2f an action); the action on a fixed observation '
+        'equals its plain rerun within {:.3g} (tolerance 1e-5); {}'.format(
+            CEM_SAMPLES, CEM_ITERS, NUM_ELITES, QTOPT_CEM_EPISODES, actions,
+            seconds, report['episodes_per_s'], report['actions_per_s'],
+            seconds * 1e3 / actions, metrics['episode_reward'], launches,
+            CEM_ACTION_LAUNCHES['max_pool'], err, smi_line()))
+  return launches, report
+
+
+def offpolicy_step_vs_plain(bqt, state, features, labels):
+  """One Bellman step through the kernels against the same step through
+  the plain versions on the card, from the same state, batch, crops and
+  candidates; the plain step replays the kernels' pool windows and ReLU
+  gates (cuDNN deterministic in both). y within 1e-4 of max|y|, the loss
+  within 1e-5 relative, and each updated tensor within 1e-4 of its
+  update's largest magnitude (the updates of K3's weights differ by its
+  float32 sums in another order). Returns what it found, as text."""
+  flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+  torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+      True, False)
+  try:
+    choices = {'pool': [], 'relu': []}
+    with recording_choices(choices):
+      got, got_metrics, got_y = bqt.step(state, features, labels)
+    other = {'pool': 0, 'relu': 0}
+    with plain_kernels(), replaying_choices(choices, other):
+      want, want_metrics, want_y = bqt.step(state, features, labels)
+    torch.cuda.synchronize()
+  finally:
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = flags
+  y_err = max_abs_err(got_y, want_y) / max(float(want_y.abs().max()), 1e-12)
+  loss, want_loss = float(got_metrics['loss']), float(want_metrics['loss'])
+  loss_err = abs(loss - want_loss) / abs(want_loss)
+  check(y_err <= 1e-4, 'Bellman targets, kernels vs plain: {:.3g} of max'
+        .format(y_err))
+  check(loss_err <= 1e-5, 'Bellman loss, kernels vs plain: {} vs {}'.format(
+      loss, want_loss))
+  errors, equal = [], 0
+  for name, value in want.params.items():
+    update = value - state.params[name]
+    scale = float(update.abs().max())
+    err = max_abs_err(got.params[name], value)
+    equal += int(err == 0)
+    errors.append((err / scale if scale else float(err > 0), name))
+  worst = max(errors)
+  check(worst[0] <= 1e-4, 'Bellman step, kernels vs plain: {} differs by '
+        '{:.3g} of its update'.format(worst[1], worst[0]))
+  return ('y within {:.3g} of max (tolerance 1e-4), loss within {:.3g} '
+          'relative (1e-5); {} of {} updated tensors bit-equal, the worst '
+          '{:.3g} of its update at {} (tolerance 1e-4); the plain step '
+          'replays {} window indices and {} ReLU gates, of which it would '
+          'have chosen {} and {} otherwise'.format(
+              y_err, loss_err, equal, len(errors), worst[0], worst[1],
+              sum(int(i.numel()) for i in choices['pool']),
+              sum(int(g.numel()) for g in choices['relu']), other['pool'],
+              other['relu']))
+
+
+def phase_qtopt_offpolicy(device):
+  """Off-policy QT-Opt at full width: collect at 512x640, then train the
+  flagship critic by lagged-target Bellman backups from the records.
+  Returns (the Bellman steps' launches, DeviceCEMPolicy's launches, the
+  report)."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.data import native_loader
+  from tensor2robot_tpu_torch.models import optimizers
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.preprocessors import device_decode
+  from tensor2robot_tpu_torch.research.qtopt import grasping_sim
+  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+  from tensor2robot_tpu_torch.rl import offpolicy
+  from tensor2robot_tpu_torch.trainer.train_eval import Trainer
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  phase_start = time.monotonic()
+  report = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    # (i) Collection: the replay, then DeviceCEMPolicy's episodes.
+    replay_dir = os.path.join(tmp, 'replay')
+    kernels.reset_launches()
+    line = collect_with_the_entry_point(device, replay_dir)
+    check(not any(kernels.LAUNCHES.values()), 'the random collect launched '
+          '{}'.format(kernels.LAUNCHES))
+    written = line['written']['collect']
+    records = sorted(glob.glob(os.path.join(replay_dir, 'policy_collect',
+                                            '*')))
+    report['collect_random'] = {
+        'episodes': QTOPT_EPISODES, 'records': written['records'],
+        'seconds': line['seconds'],
+        'episodes_per_s': QTOPT_EPISODES / line['seconds'],
+        'records_per_s': written['records'] / line['seconds']}
+    print('qtopt_offpolicy collect (run_collect_eval, {}, random policy, '
+          'SimGraspingEnv(seed=0) at 512x640): {} episodes, {} records in '
+          '{} file(s) in {:.2f} s: {:.2f} episodes/s, {:.2f} records/s '
+          'written; {}'.format(COLLECT_GIN, QTOPT_EPISODES,
+                               written['records'], written['files'],
+                               line['seconds'],
+                               report['collect_random']['episodes_per_s'],
+                               report['collect_random']['records_per_s'],
+                               smi_line()))
+    collect_launches, report['collect_cem'] = collect_with_device_cem(
+        device, os.path.join(tmp, 'cem'))
+
+    # (ii) Learning: the flagship critic through the split decode.
+    model = (t2r_models.
+             Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+                 device=device, use_avg_model_params=False,
+                 network_kwargs={'num_convs': NUM_CONVS},
+                 optimizer_override=lambda: optimizers.create_adam_optimizer(
+                     3e-3)))
+    device_decode.wrap_model_with_device_decode(model, wire_format='sparse')
+    wrapped = model.preprocessor
+    raw = dict(wrapped.raw_in_feature_specification(ModeKeys.TRAIN))
+    raw.update(grasping_sim.offpolicy_extra_feature_specs(raw['state/image']))
+    plan = native_loader.plan_for_specs(
+        raw, wrapped.get_in_label_specification(ModeKeys.TRAIN),
+        image_mode='coef_sparse')
+    check(plan is not None, 'the loader plans no coef_sparse replay')
+    stream = native_loader.NativeBatchedStream(
+        plan, records, batch_size=TRAIN_BATCH, shuffle=True, seed=0,
+        validate=False)
+    trainer = Trainer(model, os.path.join(tmp, 'run'),
+                      save_checkpoints_steps=10**9, log_every_n_steps=10**9,
+                      write_metrics=False)
+    bqt = offpolicy.BellmanQTOptTrainer(
+        model, trainer,
+        grasping_sim.make_candidate_actions_fn(QTOPT_CANDIDATES),
+        num_candidates=QTOPT_CANDIDATES, gamma=grasping_sim.GAMMA,
+        target_update_steps=QTOPT_INTERVAL)
+    pairs = grasping_sim.build_ranking_pairs(
+        grasping_sim.SimGraspingEnv(seed=9), per_type=QTOPT_PER_TYPE)
+    combined, arm_rows = offpolicy.concat_ranking_pairs(pairs)
+    combined = {k: torch.as_tensor(v).to(device)
+                for k, v in combined.items()}
+
+    def scores(state):
+      """Both arms of every pair in one TRAIN-mode (batch statistics)
+      forward, the running statistics copied."""
+      features, _ = wrapped.inner.preprocess(combined, None,
+                                             ModeKeys.PREDICT)
+      weights = {**state.params, **{k: v.clone() for k, v in
+                                    state.model_state.items()}}
+      with torch.no_grad():
+        return torch.func.functional_call(
+            model.network, weights, (features,), {'mode': ModeKeys.TRAIN},
+            strict=True)['q_predicted'].cpu().numpy()
+
+    batches = iter(stream)
+    state = trainer.init_state()
+    live_at = {0: to_cpu({**state.params, **state.model_state})}
+    torch.cuda.reset_peak_memory_stats()
+    launches = dict.fromkeys(kernels.LAUNCHES, 0)
+    finite = torch.ones((), dtype=torch.bool, device=device)
+    curve, windows, reached, elapsed = [], [], None, 0.0
+    while state.step < QTOPT_STEPS:
+      kernels.reset_launches()
+      start, data_s = time.perf_counter(), 0.0
+      for _ in range(QTOPT_EVAL_EVERY):
+        wait = time.perf_counter()
+        features, labels = next(batches)
+        data_s += time.perf_counter() - wait
+        state, metrics = bqt.train_step(state, {'features': features,
+                                                'labels': labels})
+        finite &= torch.isfinite(metrics['loss'])
+      loss = float(metrics['loss'])
+      seconds = time.perf_counter() - start
+      for name, count in kernels.LAUNCHES.items():
+        launches[name] += count
+      windows.append((seconds, data_s))
+      # The target after this window's refresh: the weights exported one
+      # interval back, bit for bit (the seed until the second export).
+      live_at[state.step] = to_cpu({**state.params, **state.model_state})
+      lagged = live_at[0 if state.step < 2 * QTOPT_INTERVAL
+                       else state.step - QTOPT_INTERVAL]
+      target = bqt.target_variables['params']
+      check(target.keys() == lagged.keys() and all(
+          torch.equal(target[k].cpu(), lagged[k]) for k in lagged),
+            'the target at step {} is not the export of step {}'.format(
+                state.step, state.step - QTOPT_INTERVAL))
+      live_at.pop(state.step - 2 * QTOPT_INTERVAL, None)
+      eval_start = time.perf_counter()
+      q = scores(state)
+      elapsed += seconds + time.perf_counter() - eval_start
+      acc = offpolicy.ranking_accuracy_from_scores(q, arm_rows)
+      curve.append({'step': state.step, 'accuracy': acc,
+                    'families': family_accuracies(q, arm_rows),
+                    'loss': loss, 'refreshes': bqt.refreshes,
+                    'seconds': elapsed})
+      if reached is None and acc >= QTOPT_CRITERION:
+        reached = {'step': state.step, 'seconds': elapsed}
+    check(bool(finite), 'a Bellman step\'s loss was not finite')
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = state.step
+    # The seed, then a new lagged version at every export from the second
+    # on: steps // QTOPT_INTERVAL - 1 refreshes.
+    check(bqt.refreshes == steps // QTOPT_INTERVAL - 1,
+          '{} target refreshes in {} steps, not {}'.format(
+              bqt.refreshes, steps, steps // QTOPT_INTERVAL - 1))
+    want = dict.fromkeys(launches, 0)
+    want.update({k: v * steps for k, v in BELLMAN_STEP_LAUNCHES.items()})
+    check(launches == want, 'Bellman step launches {} != {} for {} steps'
+          .format(launches, want, steps))
+    step_ms = statistics.median(w[0] * 1e3 / QTOPT_EVAL_EVERY
+                                for w in windows[1:])
+    data_ms = statistics.median(w[1] * 1e3 / QTOPT_EVAL_EVERY
+                                for w in windows[1:])
+    for point in curve:
+      print('qtopt_offpolicy step {:3d}: ranking accuracy {:.3f} (families '
+            '{}), loss {:.4f}, {} refreshes, {:.2f} s'.format(
+                point['step'], point['accuracy'],
+                ', '.join('{:.3f}'.format(a) for a in point['families']),
+                point['loss'], point['refreshes'], point['seconds']))
+
+    # (iii) The gates on one resident batch.
+    host_features, host_labels = next(batches)
+    features, labels = bqt.put_batch({'features': host_features,
+                                      'labels': host_labels})
+    _, next_features, done = offpolicy.split_offpolicy_batch(features)
+    before = {k: v.clone() for k, v in bqt.target_variables['params'].items()}
+    live = {k: v.clone() for k, v in state.model_state.items()}
+    bqt.bellman_targets(bqt.target_variables, next_features,
+                        labels['reward'], done,
+                        bqt.candidate_generator(state.step))
+    check(all(torch.equal(v, before[k]) for k, v in
+              bqt.target_variables['params'].items()) and
+          all(torch.equal(v, live[k]) for k, v in state.model_state.items()),
+          'the target forward changed running statistics')
+    stepped, _, _ = bqt.step(state, features, labels)
+    moved = sum(int(not torch.equal(stepped.model_state[k], live[k]))
+                for k in live)
+    check(moved > 0, 'the live step left its running statistics')
+    vs_plain = offpolicy_step_vs_plain(bqt, state, features, labels)
+    print('qtopt_offpolicy step, kernels vs plain versions: {}'.format(
+        vs_plain))
+    def resident_step(_):
+      float(bqt.step(state, features, labels)[1]['loss'])
+
+    # The resident step without the profiler, whose own host work slows a
+    # host-bound step; then profiled, for its device time.
+    resident_step(0)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for i in range(5):
+      resident_step(i)
+    resident_ms = (time.perf_counter() - start) * 1e3 / 5
+    resident = {}
+    profiled_ms = profile('qtopt_offpolicy resident Bellman step',
+                          resident_step, 3, 'step of {}'.format(TRAIN_BATCH),
+                          out=resident)
+    target = {}
+    profile('qtopt_offpolicy target forward ({} states x {} candidates)'
+            .format(TRAIN_BATCH, QTOPT_CANDIDATES),
+            lambda _: bqt.bellman_targets(
+                bqt.target_variables, next_features, labels['reward'], done,
+                bqt.candidate_generator(state.step)), 3, 'step', top=6,
+            out=target)
+    stream.close()
+  busy = resident.get('busy_ms')
+  report['train'] = {
+      'steps': steps, 'batch': TRAIN_BATCH, 'candidates': QTOPT_CANDIDATES,
+      'step_ms': step_ms, 'data_wait_ms': data_ms,
+      'resident_ms': resident_ms, 'profiled_ms': profiled_ms,
+      'busy_ms': busy,
+      'target_forward_ms': target.get('busy_ms'), 'peak_gb': peak_gb,
+      'refreshes': bqt.refreshes, 'reached': reached,
+      'final_accuracy': curve[-1]['accuracy'],
+      'final_families': curve[-1]['families'], 'seconds': elapsed,
+      'curve': [(p['step'], p['accuracy']) for p in curve]}
+  print('qtopt_offpolicy train ({} steps of batch {}, K {}, gamma {}, target '
+        'every {} steps, Adam 3e-3, coef_sparse records): the loop\'s median '
+        'step {:.2f} ms, of which {:.2f} ms waiting for data; a resident '
+        'step {:.2f} ms ({:.2f} profiled), kernels busy {} ({}); the target '
+        'forward {} ms of '
+        'device time a step; peak memory {:.2f} GB; {} refreshes after the '
+        'seed (the target bit-equal to the export one interval back at '
+        'every one); launches {} ({} a step); ranking accuracy {} at step '
+        '{} (families {}); {}; {}'.format(
+            steps, TRAIN_BATCH, QTOPT_CANDIDATES, grasping_sim.GAMMA,
+            QTOPT_INTERVAL, step_ms, data_ms, resident_ms, profiled_ms,
+            'not measured' if busy is None else '{:.2f} ms'.format(busy),
+            'not measured' if busy is None else
+            '{:.1%} of the resident step, {:.1%} of the loop\'s'.format(
+                busy / resident_ms, busy / step_ms),
+            'not measured' if target.get('busy_ms') is None else
+            '{:.2f}'.format(target['busy_ms']), peak_gb, bqt.refreshes,
+            launches, BELLMAN_STEP_LAUNCHES, '{:.3f}'.format(
+                curve[-1]['accuracy']), steps, ', '.join(
+                    '{:.3f}'.format(a) for a in curve[-1]['families']),
+            'reached {} at step {} after {:.2f} s'.format(
+                QTOPT_CRITERION, reached['step'], reached['seconds'])
+            if reached else 'did not reach {} in {} steps'.format(
+                QTOPT_CRITERION, steps), smi_line()))
+  torch.cuda.empty_cache()
+  print('qtopt_offpolicy: phase 4e took {:.1f} s'.format(
+      time.monotonic() - phase_start))
+  return launches, collect_launches, report
 
 
 @contextlib.contextmanager
@@ -4898,6 +5362,8 @@ def main():
     paths.update(phase_gins(device, critic_dir.name))
   finally:
     critic_dir.cleanup()
+  (paths['qtopt_offpolicy_train'], paths['qtopt_offpolicy_collect'],
+   offpolicy_report) = phase_qtopt_offpolicy(device)
   paths.update({'seq2act': phase_seq2act(device),
                 'seq2act_train': phase_seq2act_train(device)})
   paths['seq2act_bf16_train'], bf16_report = phase_seq2act_bf16(device)
@@ -4929,6 +5395,7 @@ def main():
                                  for path, launches in paths.items()}
     check(entry['launches'] > 0, '{} never launched on the main path'
           .format(entry['name']))
+  print(json.dumps({'qtopt_offpolicy': offpolicy_report}))
   print(json.dumps({'seq2act_variants': {
       'bf16': bf16_report, 'moe': moe_report, 'ring_gin': ring['gin']}}))
   print(json.dumps({'kernels': [entry for entry, _ in entries]}))

@@ -4,8 +4,10 @@ Each one the port has and the QT-Opt and Seq2Act gins name (the trainer,
 the record input generator, the critic and its preprocessor, the split
 decode's wrapper, Seq2Act's model and ``EP_RULES_MOE``), the random input
 generator, and the optimizers, learning rates, exporters, export generators and hook
-builders. A gin that names anything else fails in
-``ginlike.check_configurables``, naming it.
+builders; and the collect job's (``collect_eval_loop``, ``run_env``, the
+replay writer, the policies and ``CheckpointPredictor``, and the synthetic
+grasping MDP's env, random policy and transitions). A gin that names
+anything else fails in ``ginlike.check_configurables``, naming it.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ def register_all() -> None:
     _REGISTERED = True
 
   from tensor2robot_tpu_torch.data import input_generators
+  from tensor2robot_tpu_torch.data import writer
   from tensor2robot_tpu_torch.export import export_generators
   from tensor2robot_tpu_torch.export import exporters
   from tensor2robot_tpu_torch.hooks import async_export_hook_builder
@@ -35,9 +38,14 @@ def register_all() -> None:
   from tensor2robot_tpu_torch.hooks import variable_logger_hook
   from tensor2robot_tpu_torch.models import optimizers
   from tensor2robot_tpu_torch.parallel import sharding
+  from tensor2robot_tpu_torch.policies import policies
+  from tensor2robot_tpu_torch.predictors import checkpoint_predictor
   from tensor2robot_tpu_torch.preprocessors import device_decode
   from tensor2robot_tpu_torch.research import seq2act
+  from tensor2robot_tpu_torch.research.qtopt import grasping_sim
   from tensor2robot_tpu_torch.research.qtopt import t2r_models
+  from tensor2robot_tpu_torch.rl import collect_eval
+  from tensor2robot_tpu_torch.rl import run_env
   from tensor2robot_tpu_torch.trainer import train_eval
 
   register = ginlike.external_configurable
@@ -82,6 +90,24 @@ def register_all() -> None:
            'DefaultGrasping44ImagePreprocessor')
   register(device_decode.wrap_model_with_device_decode,
            'wrap_model_with_device_decode')
+
+  # The collect job: its loop, episode runner and writer, the policies and
+  # their predictor, and the synthetic grasping MDP.
+  register(collect_eval.collect_eval_loop, 'collect_eval_loop')
+  register(run_env.run_env, 'run_env')
+  register(writer.TFRecordReplayWriter, 'TFRecordReplayWriter')
+  register(policies.CEMPolicy, 'CEMPolicy')
+  register(policies.DeviceCEMPolicy, 'DeviceCEMPolicy')
+  register(policies.RegressionPolicy, 'RegressionPolicy')
+  register(policies.OUExploreRegressionPolicy, 'OUExploreRegressionPolicy')
+  register(policies.ScheduledExplorationRegressionPolicy,
+           'ScheduledExplorationRegressionPolicy')
+  register(policies.PerEpisodeSwitchPolicy, 'PerEpisodeSwitchPolicy')
+  register(checkpoint_predictor.CheckpointPredictor, 'CheckpointPredictor')
+  register(grasping_sim.SimGraspingEnv, 'SimGraspingEnv')
+  register(grasping_sim.SimGraspingRandomPolicy, 'SimGraspingRandomPolicy')
+  register(grasping_sim.episode_to_transitions_grasping,
+           'episode_to_transitions_grasping')
 
   # Seq2Act, and the parameter rules of train_seq2act_moe.gin (zero-arg
   # factories, as the JAX registry binds them: @EP_RULES_MOE()).

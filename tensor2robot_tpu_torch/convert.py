@@ -14,17 +14,19 @@ as:
   * ``batch_stats`` ``mean`` / ``var`` join the state dict of both
     ``params`` and ``avg_params`` (the EMA averages weights only).
 
-The port's modules carry the flax names, so both networks map leaf for
+The port's modules carry the flax names, so the networks map leaf for
 leaf: the Grasping44 critic (fc0 needs no row permutation: the port
-flattens final_conv in the same H, W, C order as the JAX network) and
+flattens final_conv in the same H, W, C order as the JAX network),
 ``RT1StyleNet`` (``tokenizer.conv{i}``, ``ln{i}``, ``embed``,
 ``token_learner.{ln,map_in,map_out}``; ``transformer.pos_embedding``,
 ``block{i}.{ln_attn,attn.qkv,attn.out,ln_mlp,mlp_in,mlp_out}``,
 ``ln_final``; ``action_head`` and, where configured, ``task_embedding``
-and ``state_token``). The attention mode does not change the weights: a
-model trained with ring attention (JAX's ``mesh=``, the port's
-``process_group=``) has the flash model's state dict, and each rank holds
-all of it.
+and ``state_token``), and the off-policy tests' sim critic
+(``research/qtopt/grasping_sim.SimQNet``: ``Conv_0``, ``Conv_1`` and
+``Dense_0`` to ``Dense_3``, its flatten in the same H, W, C order). The
+attention mode does not change the weights: a model trained with ring
+attention (JAX's ``mesh=``, the port's ``process_group=``) has the flash
+model's state dict, and each rank holds all of it.
 
 ``train_state_from_flax`` builds the port's ``TrainState`` from a JAX
 ``TrainState`` whose leaves are numpy arrays: params and batch stats as

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,11 +25,29 @@ class CriticModel(AbstractT2RModel):
   """A network producing ``outputs['q_predicted']`` for state + action.
 
   The feature specification is the state's keys under ``state/`` and the
-  action's under ``action/``.
+  action's under ``action/``. ``action_batch_size`` is the number of
+  candidate actions a predict call scores against each state, where the
+  network wants its state rows repeated to match (None: the network takes
+  B states and B*K action rows itself, as Grasping44's megabatch does).
   """
 
   q_key = 'q_predicted'
   reward_key = 'reward'
+
+  def __init__(self, action_batch_size: Optional[int] = None, **kwargs):
+    super().__init__(**kwargs)
+    self._action_batch_size = action_batch_size
+
+  def tile_state_for_action_batch(self, features):
+    """State rows [B, ...] repeated to [B*action_batch_size, ...], each
+    state's copies next to each other (row b*K + j is state b with its j-th
+    action); the features as they are where ``action_batch_size`` is
+    None."""
+    if self._action_batch_size is None:
+      return features
+    return {key: (value.repeat_interleave(self._action_batch_size, dim=0)
+                  if key.startswith('state/') else value)
+            for key, value in features.items()}
 
   def get_state_specification(self) -> Dict[str, tuple]:
     raise NotImplementedError

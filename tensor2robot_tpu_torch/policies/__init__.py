@@ -2,11 +2,19 @@
 
 from tensor2robot_tpu_torch.policies.policies import (
     CEMPolicy,
+    DeviceCEMPolicy,
+    LSTMCEMPolicy,
+    OUExploreRegressionPolicy,
     POLICY_LATENCY_HISTOGRAM,
+    PerEpisodeSwitchPolicy,
     Policy,
     RegressionPolicy,
+    ScheduledExplorationRegressionPolicy,
     SequentialRegressionPolicy,
 )
 
-__all__ = ['CEMPolicy', 'POLICY_LATENCY_HISTOGRAM', 'Policy',
-           'RegressionPolicy', 'SequentialRegressionPolicy']
+__all__ = ['CEMPolicy', 'DeviceCEMPolicy', 'LSTMCEMPolicy',
+           'OUExploreRegressionPolicy', 'POLICY_LATENCY_HISTOGRAM',
+           'PerEpisodeSwitchPolicy', 'Policy', 'RegressionPolicy',
+           'ScheduledExplorationRegressionPolicy',
+           'SequentialRegressionPolicy']

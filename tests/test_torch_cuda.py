@@ -1062,3 +1062,107 @@ def test_photometric_distortions_on_the_card_equal_the_cpus(device, shape):
       [depth.cpu()], [{k: v.cpu() for k, v in drawn[0].items()}],
       scale_noise=True)[0]
   assert torch.equal(card.cpu(), cpu)
+
+
+def _narrow_critic(device, **kwargs):
+  from tensor2robot_tpu_torch.models import optimizers
+  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+
+  return t2r_models.Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+      device=device, network_kwargs={'num_convs': (1, 1, 1)},
+      optimizer_override=lambda: optimizers.create_adam_optimizer(3e-3),
+      **kwargs)
+
+
+def _offpolicy_batch(batch, seed):
+  import numpy as np
+
+  from tensor2robot_tpu_torch.research.qtopt import grasping_sim
+
+  rng = np.random.RandomState(seed)
+  features = {}
+  for prefix in ('', 'next/'):
+    features[prefix + 'state/image'] = rng.randint(
+        0, 256, (batch, 512, 640, 3)).astype(np.uint8)
+    for key in ('gripper_closed', 'height_to_bottom'):
+      features[prefix + 'action/' + key] = rng.rand(batch, 1).astype(
+          np.float32)
+  for key, size in grasping_sim.ACTION_DIM_LAYOUT:
+    features['action/' + key] = rng.rand(batch, size).astype(np.float32)
+  features['done'] = (rng.rand(batch, 1) > 0.5).astype(np.float32)
+  return features, {'reward': (rng.rand(batch, 1) > 0.5).astype(np.float32)}
+
+
+def test_bellman_steps_launch_the_critics_kernels(device, tmp_path):
+  """A Bellman step of the narrow critic on the card: 2 K1 (the TRAIN crop
+  and the target's PREDICT crop), 6 K2f (the live and the target tower), 3
+  K2b and 1 K3 (its one 5x5 body conv); the candidates drawn on the card;
+  the target refreshed on the interval; the same step from the same state
+  gives the same bits."""
+  from tensor2robot_tpu_torch.research.qtopt import grasping_sim
+  from tensor2robot_tpu_torch.rl import offpolicy
+  from tensor2robot_tpu_torch.trainer.train_eval import Trainer
+
+  model = _narrow_critic(device, use_avg_model_params=False)
+  trainer = Trainer(model, str(tmp_path), save_checkpoints_steps=10**9,
+                    log_every_n_steps=10**9, write_metrics=False)
+  bqt = offpolicy.BellmanQTOptTrainer(
+      model, trainer, grasping_sim.make_candidate_actions_fn(4),
+      num_candidates=4, gamma=grasping_sim.GAMMA, target_update_steps=2)
+  state = trainer.init_state()
+  features, labels = _offpolicy_batch(4, 0)
+  batch = {'features': features, 'labels': labels}
+  state, _ = bqt.train_step(state, batch)
+  torch.cuda.synchronize()
+  before = dict(kernels.LAUNCHES)
+  for _ in range(3):
+    state, metrics = bqt.train_step(state, batch)
+  torch.cuda.synchronize()
+  launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+  assert launched['crop_convert'] == 6 and launched['max_pool'] == 18
+  assert launched['max_pool_backward'] == 9
+  assert launched['conv5x5_wgrad'] == 3
+  assert bool(torch.isfinite(metrics['loss']))
+  assert state.step == 4 and bqt.refreshes == 1
+  assert all(v.device.type == 'cuda'
+             for v in bqt.target_variables['params'].values())
+  dev_features, dev_labels = bqt.put_batch(batch)
+  a = bqt.step(state, dev_features, dev_labels)
+  b = bqt.step(state, dev_features, dev_labels)
+  assert a[2].device.type == 'cuda' and torch.equal(a[2], b[2])
+  candidates = grasping_sim.make_candidate_actions_fn(4)(
+      bqt.candidate_generator(7), 4,
+      offpolicy.split_offpolicy_batch(dev_features)[1])
+  assert all(v.device.type == 'cuda' for v in candidates.values())
+
+
+def test_device_cem_policy_launches_and_matches_plain(device):
+  """DeviceCEMPolicy on the card: 1 K1 and cem_iters + 3 K2f an action,
+  and its action equal to its plain rerun from the same CEM seed."""
+  from unittest import mock
+
+  from tensor2robot_tpu_torch.policies import policies
+  from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+  from tensor2robot_tpu_torch.research.qtopt import grasping_sim
+
+  model = _narrow_critic(device)
+  predictor = CheckpointPredictor(model)
+  policy = policies.DeviceCEMPolicy(model, cem_iters=2, cem_samples=16,
+                                    num_elites=4, predictor=predictor)
+  policy.init_randomly()
+  obs = grasping_sim.SimGraspingEnv(seed=1).reset()
+  policy.sample_action(obs, 0.0)
+  torch.cuda.synchronize()
+  before = dict(kernels.LAUNCHES)
+  action, debug = policy.sample_action(obs, 0.0)
+  assert kernels.LAUNCHES['crop_convert'] == before['crop_convert'] + 1
+  assert kernels.LAUNCHES['max_pool'] == before['max_pool'] + 5
+  select = model.make_on_device_select_action(16, 2, 4)
+  got = select(predictor.variables, obs, 5)
+  with mock.patch.object(pooling, 'max_pool_forward',
+                         pooling.max_pool_plain), \
+      mock.patch.object(pallas_crop, 'crop_convert',
+                        pallas_crop.crop_convert_plain):
+    want = select(predictor.variables, obs, 5)
+  assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+  assert action.shape == (8,) and 0.0 < debug['q'] < 1.0

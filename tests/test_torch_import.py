@@ -66,6 +66,13 @@ GIN_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
     'trainer.metrics'))
 
 
+# The off-policy QT-Opt slice's modules.
+OFFPOLICY_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
+    'models.critic_model', 'policies.policies',
+    'research.qtopt.grasping_sim', 'rl', 'rl.collect_eval', 'rl.offpolicy',
+    'rl.run_collect_eval', 'rl.run_env', 'utils.image'))
+
+
 def _port_sources():
   for root, _, files in os.walk(PORT):
     for name in sorted(files):
@@ -104,6 +111,7 @@ def test_importing_every_module_loads_no_jax():
   assert set(DEVICE_DECODE_MODULES) <= names, (
       set(DEVICE_DECODE_MODULES) - names)
   assert set(GIN_MODULES) <= names, set(GIN_MODULES) - names
+  assert set(OFFPOLICY_MODULES) <= names, set(OFFPOLICY_MODULES) - names
 
 
 def test_registering_the_configurables_loads_no_jax():
@@ -111,10 +119,12 @@ def test_registering_the_configurables_loads_no_jax():
       import sys
       from tensor2robot_tpu_torch import config
       config.register_framework_configurables()
-      config.parse_config_files_and_bindings([
-          'tensor2robot_tpu_torch/research/qtopt/configs/'
-          'train_qtopt_sparse.gin'])
-      config.check_configurables()
+      for gin in ('train_qtopt_sparse.gin', 'run_collect_grasping_sim.gin',
+                  'run_collect_grasping_sim_cem.gin'):
+        config.clear_config()
+        config.parse_config_files_and_bindings([
+            'tensor2robot_tpu_torch/research/qtopt/configs/' + gin])
+        config.check_configurables()
       bad = sorted(m for m in sys.modules
                    if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
                                           'orbax', 'tensor2robot_tpu'))
@@ -155,6 +165,8 @@ def test_scan_pattern_tells_the_packages_apart():
 def test_entry_points_default_to_cuda():
   from tensor2robot_tpu_torch.models.abstract_model import AbstractT2RModel
   from tensor2robot_tpu_torch.research.qtopt import t2r_models
+  from tensor2robot_tpu_torch.research.qtopt import grasping_sim
+  from tensor2robot_tpu_torch.rl import run_collect_eval
   from tensor2robot_tpu_torch.serving import serve
 
   from tensor2robot_tpu_torch.trainer import train_eval
@@ -171,6 +183,8 @@ def test_entry_points_default_to_cuda():
       'device'].default == 'cuda'
   assert inspect.signature(AbstractT2RModel).parameters[
       'device'].default == 'cuda'
+  assert run_collect_eval.make_parser().parse_args([]).device == 'cuda'
+  assert grasping_sim.make_sim_critic_model().device == torch.device('cuda')
   from tensor2robot_tpu_torch.research.seq2act import Seq2ActBCModel
 
   model = (t2r_models.

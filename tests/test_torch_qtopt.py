@@ -15,15 +15,13 @@ that stays below 1e-4, the bound used for logits and feature maps
 rounding of the refitted mean and std: 1e-5.
 """
 
-import sys
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_jax_qtopt import jax_qtopt_fixture
 from tensor2robot_tpu_torch import convert
 from tensor2robot_tpu_torch.research.qtopt import networks
 from tensor2robot_tpu_torch.research.qtopt import t2r_models
@@ -34,37 +32,11 @@ ATOL = 1e-4
 
 @pytest.fixture(scope='module')
 def ref():
-  """The JAX package's qtopt modules.
-
-  networks.py registers a vmap rule behind an ``in`` test that jax 0.9's
-  batching proxy does not answer. For the import only, the proxy answers
-  ``in`` from the table it fronts; afterwards the proxy is as it was, and
-  the qtopt modules leave ``sys.modules``, so later imports elsewhere see
-  the package as before.
-  """
-  from jax._src.interpreters import batching
-
-  proxy = batching.PrimitiveBatchersProxy
-  shimmed = not hasattr(proxy, '__contains__')
-  if shimmed:
-    proxy.__contains__ = (
-        lambda self, prim: prim in batching.fancy_primitive_batchers)
-  try:
-    from tensor2robot_tpu.research.qtopt import networks as jax_networks
-    from tensor2robot_tpu.research.qtopt import t2r_models as jax_t2r
-    from tensor2robot_tpu.utils import cross_entropy as jax_cem
-  finally:
-    if shimmed:
-      del proxy.__contains__
-  yield types.SimpleNamespace(networks=jax_networks, t2r_models=jax_t2r,
-                              cross_entropy=jax_cem)
-  if shimmed:
-    for name in [n for n in sys.modules
-                 if n.startswith('tensor2robot_tpu.research.qtopt')]:
-      del sys.modules[name]
-    research = sys.modules.get('tensor2robot_tpu.research')
-    if research is not None:
-      vars(research).pop('qtopt', None)
+  """The JAX package's qtopt modules, imported under the shim of
+  ``_torch_jax_qtopt`` (which leaves ``sys.modules`` as it found it)."""
+  yield from jax_qtopt_fixture('research.qtopt.networks',
+                               'research.qtopt.t2r_models',
+                               'utils.cross_entropy')
 
 
 def _draw(tree, rng, path=()):

@@ -159,6 +159,40 @@ repository around it. Phases, each printing one line or more:
      its update); the resident step and the target forward profiled; the
      loop's step, data wait, peak memory, and the step and seconds at
      which the accuracy reached 0.9 (printed, not checked).
+  4f. The live actor-learner loop (phase ``rl_loop``): (i) the JAX
+     package's learning test on the card, ``build_grasping_loop`` with the
+     sim critic (8 envs at 32x40, its tiny config, 120 s or 350 learner
+     steps): greedy success at least 0.6 and the first window's + 0.25, a
+     swap, no dropped swap, 3 buckets. (ii) ``RLLoop`` through its
+     constructor at full width: the flagship critic (use_avg_model_params
+     False, Adam 3e-3), ``VecGraspingEnv`` of RL_LOOP_ENVS slots at
+     512x640 with randomized scenarios, a ReplayService of RL_LOOP_SHARDS
+     ring shards capped at RL_LOOP_SHARD_BYTES each, a Bellman learner at
+     batch 32 (K 16, gamma 0.8, the target every 20), CEM RL_LOOP_CEM,
+     publish every 10, poll every 4, for RL_LOOP_STEPS learner steps or
+     RL_LOOP_SECONDS, the counters zeroed just before and read just after:
+     act step ms, env steps/s and episodes/s beside the learner and with
+     the actor alone (RL_LOOP_ALONE steps), the learner's steps/s beside
+     the actor and its step alone, swaps, the busy share of a window of
+     both sides (RL_LOOP_PROFILE_STEPS learner steps from the run's first
+     on, device activity only), peak memory, the replay's resident bytes
+     and the greedy success before and after (printed). (iii) Gates: the
+     totals equal RL_ACT_STEP_LAUNCHES an acting step plus
+     BELLMAN_STEP_LAUNCHES a learner step, each side's count taken from a
+     step run alone (paths ``rl_loop_act`` and ``rl_loop_train``, built
+     from those counts); an acting step equals its plain rerun from the
+     same weights, env state and draws (actions and transition bit-equal,
+     q within RL_LOOP_Q_ATOL), from the initial weights, from the actor's
+     last and from the actor's last with their running statistics set to
+     a scoring batch's. The critic's batch norms keep 0.9997 of their
+     running statistics a step, so a short run leaves them near their
+     initial values, under which the logit is near 0 from the initial
+     weights and huge from trained ones: q rounds to one value for every
+     CEM sample and would not show a wrong kernel. The spread of q over
+     the CEM samples is printed for each, and the calibrated weights'
+     median spread must reach RL_LOOP_Q_SPREAD. Each adopted snapshot bit-equal
+     to the learner's weights of its version; sampled transitions
+     bit-equal to the fetched ones that made them; every loss finite.
   5. Seq2Act serving: the long-context RT-1-style policy at full width
      (512-frame episodes, 4,096 tokens, 8 blocks, attention_mode 'flash',
      float32 with TF32 off) restored by CheckpointPredictor from a
@@ -264,6 +298,7 @@ repository around it. Phases, each printing one line or more:
      and from the same episodes: 8 x N K6 a step a rank, and rank 0's loss
      within RING_GIN_RTOL of the first run's at that step.
   9. A JSON line of phase 4e's numbers (``qtopt_offpolicy``), one of
+     phase 4f's (``rl_loop``), one of
      phases 6c's, 6d's and the ring gin's numbers
      (``seq2act_variants``), a JSON line of the kernels (K4, K5a and K5b
      with their bf16 times, bounds at the bf16 peak and the library's bf16
@@ -3091,6 +3126,577 @@ def phase_qtopt_offpolicy(device):
   return launches, collect_launches, report
 
 
+# The live loop at full width (section (ii) of phase 4f): the flagship critic
+# behind RLLoop, 16 slots at 512x640, a 2-shard replay capped at 512 MiB a
+# shard; its learner's steps and seconds; the actor's lone steps.
+RL_LOOP_ENVS, RL_LOOP_SHARDS, RL_LOOP_SHARD_BYTES = 16, 2, 512 * 2**20
+RL_LOOP_STEPS, RL_LOOP_SECONDS, RL_LOOP_ALONE = 200, 60.0, 20
+RL_LOOP_CEM = (16, 2, 4)   # samples, iterations, elites
+RL_LOOP_PROFILE_STEPS = 30
+RL_LOOP_Q_ATOL = 1e-4
+# The least median, over the slots, of q's spread over the CEM samples of
+# the acting step compared with its plain rerun: ten times RL_LOOP_Q_ATOL,
+# so that q depends on what K1 and K2f compute and a wrong kernel moves an
+# action or q past the tolerance.
+RL_LOOP_Q_SPREAD = 10 * RL_LOOP_Q_ATOL
+# An acting step's launches: the PREDICT crop of the 16 frames, and the 3
+# pools of the whole network in each of the CEM iterations' scorings and the
+# chosen action's. A learner step's: a Bellman step's.
+RL_ACT_STEP_LAUNCHES = {'crop_convert': 1,
+                        'max_pool': 3 * (RL_LOOP_CEM[1] + 1)}
+
+
+def rl_loop_learning_run(device, root):
+  """The JAX package's learning test (``tests/test_rl_loop.py``) on the
+  card: ``build_grasping_loop`` with the sim critic, 8 envs at 32x40, its
+  tiny config, 120 s or 350 learner steps; its gates. Returns the report."""
+  from tensor2robot_tpu_torch.rl import loop as loop_lib
+
+  config = loop_lib.RLLoopConfig(
+      cem_samples=8, cem_iters=2, num_elites=3, batch_size=8,
+      num_candidates=8, publish_every_steps=10, swap_poll_steps=2,
+      min_resident_examples=16, report_interval_s=2.0, seed=0)
+  loop = loop_lib.build_grasping_loop(root, num_envs=8, height=32, width=40,
+                                      config=config, device=device)
+  start = time.monotonic()
+  try:
+    summary = loop.run(max_seconds=120, max_learner_steps=350,
+                       join_timeout_s=60.0)
+    final = loop.measure_success(episodes=32)
+  finally:
+    loop.close()
+  seconds = time.monotonic() - start
+  baseline = summary['windows'][0]['success_rate_cumulative']
+  report = {key: summary[key] for key in (
+      'seconds', 'episodes', 'learner_steps', 'swaps', 'dropped_swaps',
+      'actor_version', 'env_steps_per_sec', 'episodes_per_sec')}
+  report.update({'greedy_success': final, 'baseline': baseline,
+                 'buckets': len(summary['buckets']), 'wall_s': seconds})
+  print('rl_loop (i) the JAX learning test on the card (sim critic, 8 envs at '
+        '32x40, 350 learner steps or 120 s): {:.2f} s, {} episodes, {} '
+        'learner steps, {} swaps ({} dropped), actor version {}, {:.1f} env '
+        'steps/s, {:.1f} episodes/s, {} buckets; greedy success {:.3f} '
+        'against the first window\'s {:.3f}; {}'.format(
+            seconds, summary['episodes'], summary['learner_steps'],
+            summary['swaps'], summary['dropped_swaps'],
+            summary['actor_version'], summary['env_steps_per_sec'],
+            summary['episodes_per_sec'], len(summary['buckets']), final,
+            baseline, smi_line()))
+  check(final >= 0.6 and final >= baseline + 0.25,
+        'the learning run\'s greedy success {:.3f} (first window {:.3f}) '
+        'misses 0.6 or the first window + 0.25'.format(final, baseline))
+  check(summary['swaps'] >= 1 and summary['actor_version'] > 1 and
+        summary['dropped_swaps'] == 0,
+        'the learning run\'s swaps: {}'.format(report))
+  check(len(summary['buckets']) >= 3, 'the learning run saw {} buckets'
+        .format(len(summary['buckets'])))
+  return report
+
+
+def rl_full_width_loop(device, root):
+  """RLLoop through its constructor at full width (module note of phase
+  4f). Returns the loop and its replay service."""
+  from tensor2robot_tpu_torch.envs import ScenarioConfig, VecGraspingEnv
+  from tensor2robot_tpu_torch.models import optimizers
+  from tensor2robot_tpu_torch.replay.client import LocalReplayClient
+  from tensor2robot_tpu_torch.replay.service import (ReplayConfig,
+                                                     ReplayService)
+  from tensor2robot_tpu_torch.research.qtopt import grasping_sim
+  from tensor2robot_tpu_torch.research.qtopt import t2r_models
+  from tensor2robot_tpu_torch.rl import loop as loop_lib
+  from tensor2robot_tpu_torch.rl import offpolicy
+  from tensor2robot_tpu_torch.trainer.train_eval import Trainer
+
+  samples, iters, elites = RL_LOOP_CEM
+  config = loop_lib.RLLoopConfig(
+      cem_samples=samples, cem_iters=iters, num_elites=elites,
+      explore_prob=0.15, batch_size=TRAIN_BATCH,
+      num_candidates=QTOPT_CANDIDATES, gamma=grasping_sim.GAMMA,
+      target_update_steps=QTOPT_INTERVAL, publish_every_steps=10,
+      swap_poll_steps=4, min_resident_examples=64, report_interval_s=5.0,
+      seed=0)
+  model = (t2r_models.
+           Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
+               device=device, use_avg_model_params=False,
+               network_kwargs={'num_convs': NUM_CONVS},
+               optimizer_override=lambda: optimizers.create_adam_optimizer(
+                   3e-3)))
+  env = VecGraspingEnv(RL_LOOP_ENVS, 512, 640, episode_length=3,
+                       scenario_config=ScenarioConfig.randomized(), seed=0,
+                       device=device)
+  service = ReplayService(ReplayConfig(
+      num_shards=RL_LOOP_SHARDS, batch_size=TRAIN_BATCH, retention='ring',
+      capacity_bytes_per_shard=RL_LOOP_SHARD_BYTES, seed=0))
+  trainer = Trainer(model, root, save_checkpoints_steps=10**9,
+                    log_every_n_steps=10**9, write_metrics=False)
+  learner = offpolicy.BellmanQTOptTrainer(
+      model, trainer,
+      grasping_sim.make_candidate_actions_fn(QTOPT_CANDIDATES),
+      num_candidates=QTOPT_CANDIDATES, gamma=grasping_sim.GAMMA,
+      target_update_steps=QTOPT_INTERVAL)
+  loop = loop_lib.RLLoop(model, env, LocalReplayClient(service), trainer,
+                         learner, root, config=config,
+                         owned_service=service)
+  return loop, service
+
+
+def rl_watch(loop, keep_steps=40):
+  """Wraps the loop's publish, poll, fetch and learner step, to gate and
+  time the run without a host sync of their own: a second clone of the
+  learner's weights at each publish, compared on the card with the actor's
+  at each adoption (``watch['mismatch']``, a device flag), the last
+  ``keep_steps`` fetched transitions by action, and the learner's step
+  times and losses."""
+  import collections as collections_lib
+
+  watch = {'published': {}, 'adopted': 0, 'fetched': {},
+           'order': collections_lib.deque(), 'learner_t': [], 'losses': [],
+           'mismatch': torch.zeros((), dtype=torch.bool,
+                                   device=loop.model.device)}
+  publish, poll, fetch = loop._publish, loop._poll_swap, loop.fetch
+  train_step = loop.learner.train_step
+
+  def watched_publish(state):
+    watch['published'][loop.bus.version + 1] = {
+        k: v.detach().clone() for k, v in state.variables()['params'].items()}
+    publish(state)
+
+  def watched_poll():
+    before = loop._actor_version
+    poll()
+    version = loop._actor_version
+    if version != before:
+      published = watch['published'].pop(version)
+      adopted = loop._actor_variables['params']
+      if adopted.keys() != published.keys():
+        watch['mismatch'] |= True
+      for key, value in published.items():
+        watch['mismatch'] |= (adopted[key] != value).any()
+      watch['adopted'] += 1
+      for old in [v for v in list(watch['published']) if v < version]:
+        del watch['published'][old]
+
+  def watched_fetch(transition):
+    fetched = fetch(transition)
+    watch['order'].append(fetched)
+    for slot, action in enumerate(fetched['action']):
+      watch['fetched'][action.tobytes()] = (fetched, slot)
+    if len(watch['order']) > keep_steps:
+      old = watch['order'].popleft()
+      for action in old['action']:
+        if watch['fetched'].get(action.tobytes(), (None,))[0] is old:
+          del watch['fetched'][action.tobytes()]
+    return fetched
+
+  def watched_step(state, host_batch):
+    start = time.perf_counter()
+    state, metrics = train_step(state, host_batch)
+    watch['learner_t'].append((start, time.perf_counter()))
+    watch['losses'].append(metrics['loss'])
+    return state, metrics
+
+  loop._publish, loop._poll_swap, loop.fetch = (watched_publish,
+                                                watched_poll, watched_fetch)
+  loop.learner.train_step = watched_step
+  return watch
+
+
+def rl_act_vs_plain(loop, variables):
+  """One acting step from ``variables`` through the kernels against its
+  plain rerun on the card: the same env state, generator state and injected
+  draws (cuDNN deterministic in both). Returns (err of q, the launches of
+  the kernel step, the features and outputs of its first scoring: the
+  first CEM iteration's samples)."""
+  from tensor2robot_tpu_torch import kernels
+
+  env, device = loop.env, loop.model.device
+  samples, iters, _ = RL_LOOP_CEM
+  gen = torch.Generator(device=device).manual_seed(5)
+  draws = {'cem_noise': torch.randn((iters, env.num_envs, samples, 8),
+                                    generator=gen, device=device),
+           'uniform': torch.rand((env.num_envs, 8), generator=gen,
+                                 device=device) * 2 - 1,
+           'close': torch.rand(env.num_envs, generator=gen,
+                               device=device) < 0.4,
+           'explore': torch.rand(env.num_envs, generator=gen,
+                                 device=device) < 0.5}
+  env_state, obs = env.reset(seed=11)
+  env_rng = env.generator.get_state()
+  flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+  torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+      True, False)
+  scorings = []
+  try:
+    handle = loop.actor_network.register_forward_hook(
+        lambda module, args, output: scorings.append((args[0], output)))
+    try:
+      kernels.reset_launches()
+      _, _, got = loop._act(variables, env_state, obs, draws=draws)
+      torch.cuda.synchronize()
+      launches = dict(kernels.LAUNCHES)
+    finally:
+      handle.remove()
+    env.generator.set_state(env_rng)
+    with plain_kernels():
+      _, _, want = loop._act(variables, env_state, obs, draws=draws)
+    torch.cuda.synchronize()
+  finally:
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = flags
+  check(torch.equal(got['action'], want['action']),
+        'the acting step\'s actions differ from its plain rerun\'s')
+  for key in ('obs_image', 'reward', 'done', 'terminal', 'next_image',
+              'next_height'):
+    check(torch.equal(got[key], want[key]), 'the acting step\'s {} differs '
+          'from its plain rerun\'s'.format(key))
+  err = max_abs_err(got['q'], want['q'])
+  check(err <= RL_LOOP_Q_ATOL, 'the acting step\'s q differs from its plain '
+        'rerun\'s by {:.3g}'.format(err))
+  return err, launches, scorings[0]
+
+
+def rl_q_spread(loop, variables, scoring):
+  """How far q depends on the action in an acting step's first scoring:
+  per slot, the spread (max - min) over its CEM samples of q and of the
+  logit under ``variables``' running statistics (PREDICT, as the actor
+  scores), the mean |logit|, and q's spread under the batch's statistics
+  (the critic in TRAIN mode on the same features). Returns (a dict of
+  each spread's min, median and max over the slots, ``variables`` with
+  their running statistics set to that batch's)."""
+  import copy
+
+  from tensor2robot_tpu_torch.research.qtopt.networks import BatchNorm
+  from tensor2robot_tpu_torch.modes import ModeKeys
+
+  features, outputs = scoring
+  samples = RL_LOOP_CEM[0]
+
+  def spread(values):
+    values = values.reshape(-1, samples)
+    per_slot = (values.max(1).values - values.min(1).values).double()
+    return [float(per_slot.min()), float(per_slot.median()),
+            float(per_slot.max())]
+
+  # A copy of the critic whose batch norms keep none of their running
+  # statistics: a TRAIN forward sets them to the batch's.
+  network = copy.deepcopy(loop.actor_network)
+  for module in network.modules():
+    if isinstance(module, BatchNorm):
+      module.momentum = 0.0
+  calibrated = {name: {key: value.clone() for key, value in tree.items()}
+                for name, tree in variables.items()}
+  with torch.no_grad():
+    batch = torch.func.functional_call(
+        network, loop.model.select_params(calibrated), (features,),
+        {'mode': ModeKeys.TRAIN}, strict=True)
+  return {'q': spread(outputs['q_predicted']),
+          'logit': spread(outputs['q_logits']),
+          'abs_logit': float(outputs['q_logits'].abs().mean()),
+          'q_batch_stats': spread(batch['q_predicted'])}, calibrated
+
+
+def rl_actor_alone(loop, steps):
+  """``steps`` acting steps with the learner idle, each fetched and flushed
+  into the replay as the loop does. Returns (act ms, env steps/s,
+  episodes/s, launches)."""
+  from tensor2robot_tpu_torch import kernels
+
+  env = loop.env
+  env_state, obs = env.reset(seed=13)
+  buffers = [[] for _ in range(env.num_envs)]
+  episodes = loop._episodes
+  act_s = 0.0
+  torch.cuda.synchronize()
+  kernels.reset_launches()
+  start = time.perf_counter()
+  for i in range(steps):
+    t0 = time.perf_counter()
+    env_state, obs, transition = loop._act(
+        loop._actor_variables, env_state, obs, loop.act_generator(10**6 + i))
+    fetched = loop.fetch(transition)
+    act_s += time.perf_counter() - t0
+    for slot in range(env.num_envs):
+      loop._flush_slot(fetched, slot, buffers)
+  seconds = time.perf_counter() - start
+  return (act_s * 1e3 / steps, steps * env.num_envs / seconds,
+          (loop._episodes - episodes) / seconds, dict(kernels.LAUNCHES))
+
+
+def rl_learner_alone(loop, steps):
+  """``steps`` learner steps from the replay with the actor idle, from a
+  fresh state. Returns (step ms after the first, launches of one step)."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.replay.feed import ReplayBatchIterator
+
+  batches = ReplayBatchIterator(loop.client, TRAIN_BATCH)
+  state = loop.init_learner_state()
+  times, launches = [], None
+  for i in range(steps):
+    features, labels = next(batches)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    start = time.perf_counter()
+    state, metrics = loop.learner.train_step(
+        state, {'features': features, 'labels': labels})
+    float(metrics['loss'])
+    times.append(time.perf_counter() - start)
+    if i == 0:
+      launches = dict(kernels.LAUNCHES)
+  return statistics.median(times[1:]) * 1e3, launches
+
+
+def phase_rl_loop(device):
+  """The live actor-learner loop (phase 4f). Returns (the acting steps'
+  launches, the learner steps' launches, the report)."""
+  from torch.profiler import ProfilerActivity, profile as torch_profile
+
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.replay.service import ReplayEmpty
+  from tensor2robot_tpu_torch.rl import loop as loop_lib
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  phase_start = time.monotonic()
+  report = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    report['learning_run'] = rl_loop_learning_run(
+        device, os.path.join(tmp, 'sim'))
+    loop, service = rl_full_width_loop(device, os.path.join(tmp, 'full'))
+    try:
+      initial = loop_lib.snapshot_variables(loop.init_learner_state())
+      before = loop.measure_success(variables=initial, episodes=32)
+      watch = rl_watch(loop)
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      kernels.reset_launches()
+      summary = loop.run(max_seconds=RL_LOOP_SECONDS,
+                         max_learner_steps=RL_LOOP_STEPS,
+                         join_timeout_s=120.0)
+      torch.cuda.synchronize()
+      totals = dict(kernels.LAUNCHES)
+      peak_gb = torch.cuda.max_memory_allocated() / 1e9
+      resident_bytes = service.occupancy_bytes
+      learner_t = list(watch['learner_t'])
+      after = loop.measure_success(episodes=32)
+      finite = all(bool(torch.isfinite(loss)) for loss in watch['losses'])
+      check(finite, 'a learner step\'s loss was not finite')
+      acts, steps = summary['actor_steps'], summary['learner_steps']
+      check(steps > 0 and acts > 0, 'the loop ran {} acting and {} learner '
+            'steps'.format(acts, steps))
+
+      # An acting step against its plain rerun: from the initial weights,
+      # the actor's last, and the actor's last with their running
+      # statistics set to a scoring batch's, whose q depends on the action
+      # (phase note). Each side's launches from steps run alone, then the
+      # totals.
+      err, act_launches, scoring = rl_act_vs_plain(loop, initial)
+      spreads = {'initial': rl_q_spread(loop, initial, scoring)[0]}
+      err_last, launches_last, scoring = rl_act_vs_plain(
+          loop, loop._actor_variables)
+      spreads['last'], calibrated = rl_q_spread(loop, loop._actor_variables,
+                                                scoring)
+      err_calibrated, launches_calibrated, scoring = rl_act_vs_plain(
+          loop, calibrated)
+      spreads['calibrated'] = rl_q_spread(loop, calibrated, scoring)[0]
+      err = max(err, err_last, err_calibrated)
+      check(act_launches == launches_last == launches_calibrated,
+            'acting steps launched {}, {} and {}'.format(
+                act_launches, launches_last, launches_calibrated))
+      check(spreads['calibrated']['q'][1] >= RL_LOOP_Q_SPREAD,
+            'q\'s spread over the CEM samples, {} (min, median, max over '
+            'the slots), leaves a median under {}: the plain rerun would '
+            'not see a wrong kernel'.format(spreads['calibrated']['q'],
+                                            RL_LOOP_Q_SPREAD))
+      after_calibrated = loop.measure_success(variables=calibrated,
+                                              episodes=32)
+      act_ms_alone, env_rate_alone, episode_rate_alone, alone = (
+          rl_actor_alone(loop, RL_LOOP_ALONE))
+      learner_ms_alone, learner_launches = rl_learner_alone(loop, 3)
+      want_act = dict.fromkeys(totals, 0)
+      want_act.update(RL_ACT_STEP_LAUNCHES)
+      want_learner = dict.fromkeys(totals, 0)
+      want_learner.update(BELLMAN_STEP_LAUNCHES)
+      check(act_launches == want_act, 'an acting step launched {}, not {}'
+            .format(act_launches, want_act))
+      check(alone == {k: v * RL_LOOP_ALONE for k, v in want_act.items()},
+            'the actor\'s {} lone steps launched {}'.format(RL_LOOP_ALONE,
+                                                           alone))
+      check(learner_launches == want_learner, 'a learner step launched {}, '
+            'not {}'.format(learner_launches, want_learner))
+      act_path = {k: v * acts for k, v in act_launches.items()}
+      train_path = {k: v * steps for k, v in learner_launches.items()}
+      check(totals == {k: act_path[k] + train_path[k] for k in totals},
+            'the loop launched {} in {} acting and {} learner steps, not '
+            '{} + {}'.format(totals, acts, steps, act_path, train_path))
+
+      # Each adoption bit-equal to the learner's weights of that version.
+      check(not bool(watch['mismatch']), 'an adopted snapshot differs from '
+            'the learner\'s weights of its version')
+      check(watch['adopted'] == summary['swaps'] >= 1,
+            '{} adoptions for {} swaps'.format(watch['adopted'],
+                                               summary['swaps']))
+      # Transitions sampled back bit-equal to the fetched ones.
+      matched = 0
+      for _ in range(4):
+        try:
+          batch = loop.client.sample(TRAIN_BATCH)
+        except ReplayEmpty:
+          break
+        for row in range(TRAIN_BATCH):
+          flat = np.concatenate([batch.features['action/' + key][row]
+                                 for key in ('world_vector',
+                                             'vertical_rotation',
+                                             'close_gripper', 'open_gripper',
+                                             'terminate_episode')])
+          found = watch['fetched'].get(flat.astype(np.float32).tobytes())
+          if found is None:
+            continue
+          fetched, slot = found
+          pairs = (('state/image', fetched['obs_image'][slot]),
+                   ('next/state/image', fetched['next_image'][slot]),
+                   ('action/height_to_bottom', fetched['obs_height'][slot:
+                                                                  slot + 1]),
+                   ('next/action/height_to_bottom',
+                    fetched['next_height'][slot:slot + 1]),
+                   ('done', fetched['terminal'][slot:slot + 1].astype(
+                       np.float32)))
+          for key, value in pairs:
+            check(np.array_equal(batch.features[key][row], value),
+                  'a sampled transition\'s {} differs from the fetched one'
+                  .format(key))
+          check(np.array_equal(batch.labels['reward'][row],
+                               fetched['reward'][slot:slot + 1]),
+                'a sampled transition\'s reward differs from the fetched one')
+          matched += 1
+      check(matched > 0, 'no sampled transition was among the last fetched')
+
+      # A profiled window of both sides, from the learner's first step of
+      # the run on (past the fresh state and the first publish), with
+      # device activity only (no host-side profiling in the window): the
+      # device's busy share.
+      prof = torch_profile(activities=[ProfilerActivity.CUDA])
+      window = {'acts': 0}
+      first, act = len(watch['learner_t']), loop._act
+
+      def profiled_act(*args, **kwargs):
+        if 'start' not in window and len(watch['learner_t']) > first:
+          prof.start()
+          window['start'] = time.perf_counter()
+          window['learner'] = len(watch['learner_t'])
+        if 'start' in window:
+          window['acts'] += 1
+        return act(*args, **kwargs)
+
+      loop._act = profiled_act
+      try:
+        loop.run(max_seconds=45.0, max_learner_steps=RL_LOOP_PROFILE_STEPS,
+                 join_timeout_s=120.0)
+        torch.cuda.synchronize()
+        window['end'] = time.perf_counter()
+      finally:
+        loop._act = act
+        if 'start' in window:
+          prof.stop()
+      check('start' in window, 'the profiled run took no learner step')
+      profile_ms = (window['end'] - window['start']) * 1e3
+      profiled = {'actor_steps': window['acts'], 'learner_steps':
+                  len(watch['learner_t']) - window['learner']}
+      rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                     for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0), reverse=True)
+      busy_ms = sum(ms for ms, _, _ in rows) if rows else None
+    finally:
+      loop.close()
+  windows = [w for w in summary['windows'] if w['actor_steps']]
+  act_ms = (sum(w['act_step_ms'] * w['actor_steps'] for w in windows)
+            / max(sum(w['actor_steps'] for w in windows), 1))
+  learner_rate = ((len(learner_t) - 1) / (learner_t[-1][1] - learner_t[0][1])
+                  if len(learner_t) > 1 else 0.0)
+  report['full_width'] = {
+      'envs': RL_LOOP_ENVS, 'cem': RL_LOOP_CEM, 'batch': TRAIN_BATCH,
+      'seconds': summary['seconds'], 'actor_steps': acts,
+      'learner_steps': steps, 'act_step_ms': act_ms,
+      'env_steps_per_s': summary['env_steps_per_sec'],
+      'episodes_per_s': summary['episodes_per_sec'],
+      'act_step_ms_alone': act_ms_alone, 'env_steps_per_s_alone':
+          env_rate_alone, 'episodes_per_s_alone': episode_rate_alone,
+      'learner_step_ms': 1e3 / learner_rate if learner_rate else None,
+      'learner_steps_per_s': learner_rate,
+      'learner_step_ms_alone': learner_ms_alone,
+      'swaps': summary['swaps'], 'actor_version': summary['actor_version'],
+      'learner_version': summary['learner_version'],
+      'busy_ms': busy_ms, 'profile_ms': profile_ms,
+      'profile_learner_steps': profiled['learner_steps'],
+      'profile_actor_steps': profiled['actor_steps'],
+      'peak_gb': peak_gb, 'replay_resident_bytes': resident_bytes,
+      'greedy_success_before': before, 'greedy_success_after': after,
+      'greedy_success_after_calibrated': after_calibrated,
+      'q_spread': spreads, 'act_vs_plain_q_err': err,
+      'sampled_matched': matched, 'launches': totals,
+      'act_step_launches': act_launches,
+      'learner_step_launches': learner_launches}
+  full = report['full_width']
+  print('rl_loop (ii) full width (the flagship critic behind RLLoop, {} '
+        'slots at 512x640, CEM {} x {}, {} elites, explore 0.15; replay {} '
+        'shards x {} MiB ring; learner batch {}, K {}, gamma {}, target every '
+        '{}, publish every 10, poll every 4): {:.2f} s, {} acting and {} '
+        'learner steps; with the learner running: act step {:.2f} ms, {:.1f} '
+        'env steps/s, {:.2f} episodes/s; the actor alone ({} steps): act '
+        'step {:.2f} ms, {:.1f} env steps/s, {:.2f} episodes/s; learner step '
+        '{} ms ({:.2f} steps/s) beside the actor, {:.2f} ms alone; {} swaps, '
+        'actor version {}, learner version {}; peak {:.2f} GB, replay '
+        'resident {:.1f} MB; greedy success {:.3f} before, {:.3f} after '
+        '(printed, not gated); {}'.format(
+            RL_LOOP_ENVS, *RL_LOOP_CEM, RL_LOOP_SHARDS,
+            RL_LOOP_SHARD_BYTES >> 20, TRAIN_BATCH, QTOPT_CANDIDATES, 0.8,
+            QTOPT_INTERVAL, summary['seconds'], acts, steps, act_ms,
+            summary['env_steps_per_sec'], summary['episodes_per_sec'],
+            RL_LOOP_ALONE, act_ms_alone, env_rate_alone, episode_rate_alone,
+            'not measured' if not learner_rate else
+            '{:.2f}'.format(1e3 / learner_rate), learner_rate,
+            learner_ms_alone, summary['swaps'], summary['actor_version'],
+            summary['learner_version'], peak_gb, resident_bytes / 1e6,
+            before, after, smi_line()))
+  print('rl_loop (iii) gates: launches {} in {} acting and {} learner steps '
+        '= {} an acting step + {} a learner step (each from a step run '
+        'alone); an acting step equals its plain rerun (actions and every '
+        'transition array bit-equal, q within {:.3g}, tolerance {}); {} '
+        'adoptions bit-equal to the learner\'s published weights; {} sampled '
+        'transitions bit-equal to the fetched ones; every loss finite'.format(
+            totals, acts, steps, act_launches, learner_launches, err,
+            RL_LOOP_Q_ATOL, watch['adopted'], matched))
+  for name, label in (('initial', 'the initial weights'),
+                      ('last', 'the actor\'s last weights'),
+                      ('calibrated', 'the actor\'s last weights, running '
+                       'statistics set to the scoring batch\'s')):
+    spread = spreads[name]
+    print('rl_loop q over the compared acting step\'s {} CEM samples, from '
+          '{} (min, median, max over the {} slots): spread of q {}, of the '
+          'logit {}, mean |logit| {:.6g}; spread of q under the batch\'s '
+          'statistics {}'.format(RL_LOOP_CEM[0], label, RL_LOOP_ENVS,
+                                 spread['q'], spread['logit'],
+                                 spread['abs_logit'], spread['q_batch_stats']))
+  print('rl_loop greedy success after, the running statistics set to a '
+        'scoring batch\'s: {:.3f} (printed, not gated)'.format(
+            after_calibrated))
+  if busy_ms is None:
+    print('rl_loop profiled window: the profiler saw no device time; busy '
+          'share not measured')
+  else:
+    print('rl_loop profiled window ({} acting and {} learner steps, both '
+          'sides): {:.1f} ms wall, kernels busy {:.1f} ms ({:.1%}); {}'.format(
+              profiled['actor_steps'], profiled['learner_steps'], profile_ms,
+              busy_ms, busy_ms / profile_ms, smi_line()))
+    for ms, count, name in rows[:12]:
+      print('  {:9.3f} ms {:5.1%} x{:<5d} {}'.format(ms, ms / busy_ms, count,
+                                                     name[:90]))
+  torch.cuda.empty_cache()
+  report['seconds'] = time.monotonic() - phase_start
+  print('rl_loop: phase 4f took {:.1f} s'.format(report['seconds']))
+  return act_path, train_path, report
+
+
 @contextlib.contextmanager
 def plain_kernels():
   """Every kernel's wrapper replaced by its plain version; no launch
@@ -5364,6 +5970,8 @@ def main():
     critic_dir.cleanup()
   (paths['qtopt_offpolicy_train'], paths['qtopt_offpolicy_collect'],
    offpolicy_report) = phase_qtopt_offpolicy(device)
+  paths['rl_loop_act'], paths['rl_loop_train'], rl_loop_report = (
+      phase_rl_loop(device))
   paths.update({'seq2act': phase_seq2act(device),
                 'seq2act_train': phase_seq2act_train(device)})
   paths['seq2act_bf16_train'], bf16_report = phase_seq2act_bf16(device)
@@ -5396,6 +6004,7 @@ def main():
     check(entry['launches'] > 0, '{} never launched on the main path'
           .format(entry['name']))
   print(json.dumps({'qtopt_offpolicy': offpolicy_report}))
+  print(json.dumps({'rl_loop': rl_loop_report}))
   print(json.dumps({'seq2act_variants': {
       'bf16': bf16_report, 'moe': moe_report, 'ring_gin': ring['gin']}}))
   print(json.dumps({'kernels': [entry for entry, _ in entries]}))

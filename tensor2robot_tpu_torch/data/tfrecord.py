@@ -1,5 +1,5 @@
-"""TFRecord files without TensorFlow (the JAX package's ``data/tfrecord.py``
-and the corrupt-record budget of its ``reliability/quarantine.py``).
+"""TFRecord files without TensorFlow (the JAX package's ``data/tfrecord.py``;
+the corrupt-record budget is ``reliability/quarantine.py``'s).
 
 Each record is ``[uint64 length][uint32 masked_crc32c(length)][bytes
 data][uint32 masked_crc32c(data)]``, little-endian. CRC32C comes from
@@ -18,8 +18,11 @@ from __future__ import annotations
 
 import os
 import struct
-import threading
-from typing import Dict, Iterator, List, Optional
+from typing import Iterator, List, Optional
+
+from tensor2robot_tpu_torch.reliability.errors import (
+    CorruptionBudgetExceeded, CorruptRecordError)
+from tensor2robot_tpu_torch.reliability.quarantine import RecordQuarantine
 
 __all__ = ['CorruptRecordError', 'CorruptionBudgetExceeded',
            'RecordQuarantine', 'TFRecordWriter', 'masked_crc',
@@ -48,92 +51,6 @@ except ImportError:
 def masked_crc(data: bytes) -> int:
   crc = _crc32c(data)
   return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
-
-
-class CorruptRecordError(IOError):
-  """One unreadable record (bad CRC or truncation)."""
-
-  def __init__(self, path: str, reason: str,
-               record_index: Optional[int] = None):
-    at = '' if record_index is None else ' (record #{})'.format(record_index)
-    super().__init__('Corrupt TFRecord {} in {}{}'.format(reason, path, at))
-    self.path = path
-    self.reason = reason
-    self.record_index = record_index
-
-
-class CorruptionBudgetExceeded(IOError):
-  """More corrupt records than the quarantine's budget allows."""
-
-  def __init__(self, path: str, scope: str, limit: int):
-    super().__init__(
-        'Corrupt-record budget exhausted: more than {} corrupt record(s) {} '
-        '- last offender: {}. The data is damaged beyond the configured '
-        'tolerance; repair or exclude it.'.format(
-            limit, 'in one file' if scope == 'file' else 'across the run',
-            path))
-    self.path = path
-    self.scope = scope
-    self.limit = limit
-
-
-class RecordQuarantine:
-  """Counts corrupt records against a per-file and a global budget.
-
-  The (N+1)-th corrupt record over either budget raises; 0 fails on the
-  first. A record is charged once however many epochs read it again.
-  """
-
-  def __init__(self, max_corrupt_records: int = 100,
-               max_corrupt_records_per_file: int = 10):
-    self._lock = threading.Lock()
-    self._max_total = int(max_corrupt_records)
-    self._max_per_file = int(max_corrupt_records_per_file)
-    self._skipped_by_file: Dict[str, int] = {}
-    self._abandoned_files: Dict[str, str] = {}
-    self._skipped_total = 0
-    self._charged: set = set()
-
-  @property
-  def records_skipped(self) -> int:
-    with self._lock:
-      return self._skipped_total
-
-  @property
-  def files_abandoned(self) -> int:
-    with self._lock:
-      return len(self._abandoned_files)
-
-  def record_skipped(self, path: str, reason: str = '',
-                     record_index: Optional[int] = None) -> None:
-    """Charges one corrupt record to ``path``; raises when a budget is
-    exceeded."""
-    del reason
-    with self._lock:
-      if record_index is not None:
-        if (path, record_index) in self._charged:
-          return
-        self._charged.add((path, record_index))
-      self._skipped_total += 1
-      in_file = self._skipped_by_file.get(path, 0) + 1
-      self._skipped_by_file[path] = in_file
-      over_file = in_file > self._max_per_file
-      over_total = self._skipped_total > self._max_total
-    if over_file:
-      raise CorruptionBudgetExceeded(path, 'file', self._max_per_file)
-    if over_total:
-      raise CorruptionBudgetExceeded(path, 'global', self._max_total)
-
-  def file_abandoned(self, path: str, reason: str = '') -> None:
-    """Marks the rest of ``path`` unreadable (its framing is lost)."""
-    with self._lock:
-      self._abandoned_files.setdefault(path, reason)
-
-  def summary(self) -> Dict[str, object]:
-    with self._lock:
-      return {'records_skipped': self._skipped_total,
-              'by_file': dict(self._skipped_by_file),
-              'abandoned_files': dict(self._abandoned_files)}
 
 
 class TFRecordWriter:

@@ -50,7 +50,7 @@ def _read_varint(buf: bytes, pos: int) -> Tuple[int, int]:
       raise ValueError('Malformed varint')
 
 
-def _write_varint(out: bytearray, value: int) -> None:
+def write_varint(out: bytearray, value: int) -> None:
   value &= 0xFFFFFFFFFFFFFFFF
   while True:
     bits = value & 0x7F
@@ -202,8 +202,8 @@ def parse_sequence_example(serialized: bytes):
 # -- encode ------------------------------------------------------------------
 
 def _emit_bytes_field(out: bytearray, field: int, data: bytes) -> None:
-  _write_varint(out, (field << 3) | _WIRE_BYTES)
-  _write_varint(out, len(data))
+  write_varint(out, (field << 3) | _WIRE_BYTES)
+  write_varint(out, len(data))
   out.extend(data)
 
 
@@ -233,7 +233,7 @@ def encode_feature(value) -> bytes:
     inner = bytearray()
     packed = bytearray()
     for v in arr.ravel().tolist():
-      _write_varint(packed, int(v))
+      write_varint(packed, int(v))
     _emit_bytes_field(inner, 1, bytes(packed))
     _emit_bytes_field(out, 3, bytes(inner))
   else:

@@ -33,8 +33,8 @@ from typing import Dict, Iterable, List
 
 import torch
 
-__all__ = ['LAUNCHES', 'KERNELS', 'build', 'launch', 'library_path',
-           'reset_launches', 'source_path']
+__all__ = ['LAUNCHES', 'KERNELS', 'build', 'count_launch', 'launch',
+           'library_path', 'reset_launches', 'source_path']
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / 'csrc'
@@ -195,9 +195,17 @@ def launch(name: str, device: torch.device, *args) -> None:
   if status != 0:
     raise RuntimeError('CUDA kernel {} failed to launch: {}'.format(
         name, error_string(status).decode()))
-  LAUNCHES[name] += 1
+  count_launch(name)
+
+
+def count_launch(name: str) -> None:
+  """Adds one to ``name``'s count, under the lock: an actor and a learner
+  launch the same kernels from two threads."""
+  with _lock:
+    LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-  for name in LAUNCHES:
-    LAUNCHES[name] = 0
+  with _lock:
+    for name in LAUNCHES:
+      LAUNCHES[name] = 0

@@ -40,7 +40,7 @@ __all__ = ['MetricsWriter', 'read_events']
 
 emit_bytes_field = wire._emit_bytes_field
 iter_fields = wire._iter_fields
-write_varint = wire._write_varint
+write_varint = wire.write_varint
 
 
 def _emit_varint_field(out: bytearray, field: int, value: int) -> None:

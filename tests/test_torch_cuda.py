@@ -61,7 +61,11 @@ for bit, the finish on the card is within 1 level of the CPU's and within
 pipelined feed hands batches over in order. The photometric distortions
 (plain PyTorch, no kernel of their own) on the card equal the CPU's on
 the same draws within 1e-5 (the contrast's mean sums in another order),
-the depth distortions bit for bit.
+the depth distortions bit for bit. The live loop on the card: the
+vectorized env's step from pinned heights without noise equals the CPU's
+bit for bit; an acting step of the narrow critic launches 1 K1 and 9 K2f
+and equals its plain rerun; the narrow critic's loop, its learner in a
+thread, launches exactly its acting and learner steps' kernels.
 """
 
 import pytest
@@ -1166,3 +1170,124 @@ def test_device_cem_policy_launches_and_matches_plain(device):
     want = select(predictor.variables, obs, 5)
   assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
   assert action.shape == (8,) and 0.0 < debug['q'] < 1.0
+
+
+def test_vec_grasping_env_on_the_card_equals_the_cpu(device):
+  """The env's step on the card, from pinned heights without noise, equals
+  the CPU's bit for bit: frames, heights, rewards and flags."""
+  import numpy as np
+
+  from tensor2robot_tpu_torch.envs import ScenarioConfig, VecGraspingEnv
+
+  config = ScenarioConfig(threshold_range=(0.35, 0.65),
+                          descent_scale_range=(0.25, 0.45),
+                          camera_shift_px=2, noise_scale_range=(0.0, 0.0))
+  envs = [VecGraspingEnv(16, 512, 640, scenario_config=config, seed=4,
+                         device=d) for d in (device, 'cpu')]
+  rng = np.random.RandomState(0)
+  heights = rng.uniform(0.05, 1.5, 16).astype(np.float32)
+  action = rng.uniform(-1.5, 1.5, (16, 8)).astype(np.float32)
+  action[:, 5] = rng.rand(16) < 0.4
+  got, want = [env.step(env.state_for_heights(heights), action)
+               for env in envs]
+  assert got.done.device.type == 'cuda'
+  done = want.done
+  for a, b in ((got.reward, want.reward), (got.done, want.done),
+               (got.info['terminal'], want.info['terminal']),
+               (got.info['timeout'], want.info['timeout']),
+               (got.state.t, want.state.t),
+               (got.state.h[~done.cuda()], want.state.h[~done]),
+               (got.info['next_obs']['image'], want.info['next_obs']['image']),
+               (got.info['next_obs']['height_to_bottom'],
+                want.info['next_obs']['height_to_bottom']),
+               (envs[0].render(heights), envs[1].render(heights))):
+    assert torch.equal(a.cpu(), b)
+
+
+def _live_loop_parts(device, root, num_envs=4):
+  from tensor2robot_tpu_torch.envs import ScenarioConfig, VecGraspingEnv
+  from tensor2robot_tpu_torch.replay.client import LocalReplayClient
+  from tensor2robot_tpu_torch.replay.service import (ReplayConfig,
+                                                     ReplayService)
+  from tensor2robot_tpu_torch.research.qtopt import grasping_sim
+  from tensor2robot_tpu_torch.rl import loop as loop_lib
+  from tensor2robot_tpu_torch.rl import offpolicy
+  from tensor2robot_tpu_torch.trainer.train_eval import Trainer
+
+  model = _narrow_critic(device, use_avg_model_params=False)
+  env = VecGraspingEnv(num_envs, 512, 640, seed=0, device=device,
+                       scenario_config=ScenarioConfig.randomized())
+  service = ReplayService(ReplayConfig(num_shards=2, batch_size=4, seed=0))
+  trainer = Trainer(model, root, save_checkpoints_steps=10**9,
+                    log_every_n_steps=10**9, write_metrics=False)
+  learner = offpolicy.BellmanQTOptTrainer(
+      model, trainer, grasping_sim.make_candidate_actions_fn(4),
+      num_candidates=4, gamma=grasping_sim.GAMMA, target_update_steps=4)
+  config = loop_lib.RLLoopConfig(
+      cem_samples=16, cem_iters=2, num_elites=4, batch_size=4,
+      num_candidates=4, publish_every_steps=2, swap_poll_steps=1,
+      min_resident_examples=8, report_interval_s=1.0, seed=0)
+  return loop_lib.RLLoop(model, env, LocalReplayClient(service), trainer,
+                         learner, root, config=config,
+                         owned_service=service)
+
+
+def test_live_loop_act_step_launches_and_matches_plain(device, tmp_path):
+  """An acting step of the narrow critic over 4 slots at 512x640: 1 K1
+  (the PREDICT crop) and 3 K2f in each of 3 scorings; equal to its plain
+  rerun from the same env state and draws."""
+  from unittest import mock
+
+  loop = _live_loop_parts(device, str(tmp_path))
+  try:
+    variables = loop.trainer.model.create_train_state(
+        torch.Generator().manual_seed(0)).variables()
+    env_state, obs = loop.env.reset(seed=1)
+    rng = loop.env.generator.get_state()
+    draws = {'cem_noise': torch.randn((2, 4, 16, 8), device=device),
+             'uniform': torch.rand((4, 8), device=device) * 2 - 1,
+             'close': torch.tensor([1, 0, 0, 1], device=device),
+             'explore': torch.tensor([True, False, False, False],
+                                     device=device)}
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    _, _, got = loop._act(variables, env_state, obs, draws=draws)
+    torch.cuda.synchronize()
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    assert launched['crop_convert'] == 1 and launched['max_pool'] == 9
+    assert sum(launched.values()) == 10
+    loop.env.generator.set_state(rng)
+    with mock.patch.object(pooling, 'max_pool_forward',
+                           pooling.max_pool_plain), \
+        mock.patch.object(pallas_crop, 'crop_convert',
+                          pallas_crop.crop_convert_plain):
+      _, _, want = loop._act(variables, env_state, obs, draws=draws)
+    for key in got:
+      assert torch.equal(got[key], want[key]), key
+  finally:
+    loop.close()
+
+
+def test_live_loop_runs_on_the_card(device, tmp_path):
+  """The narrow critic's loop on the card: the learner in its thread, the
+  launch totals those of its acting and learner steps (1 K1 and 9 K2f;
+  2 K1, 6 K2f, 3 K2b and 1 K3), swaps adopted, every snapshot a copy."""
+  loop = _live_loop_parts(device, str(tmp_path))
+  try:
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    summary = loop.run(max_seconds=120, max_learner_steps=6,
+                       join_timeout_s=60.0)
+    torch.cuda.synchronize()
+  finally:
+    loop.close()
+  launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+  acts, steps = summary['actor_steps'], summary['learner_steps']
+  assert steps == 6 and acts > 0
+  assert launched['crop_convert'] == acts + 2 * steps
+  assert launched['max_pool'] == 9 * acts + 6 * steps
+  assert launched['max_pool_backward'] == 3 * steps
+  assert launched['conv5x5_wgrad'] == steps
+  assert summary['swaps'] >= 1 and summary['actor_version'] > 1
+  _, published = loop.bus.snapshot
+  assert all(v.device.type == 'cuda' for v in published['params'].values())

@@ -73,6 +73,16 @@ OFFPOLICY_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
     'rl.run_collect_eval', 'rl.run_env', 'utils.image'))
 
 
+# The live actor-learner loop slice's modules.
+RL_LOOP_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
+    'envs', 'envs.grasping', 'envs.vec_env', 'observability.rl_metrics',
+    'reliability', 'reliability.errors', 'reliability.fault_injection',
+    'reliability.quarantine', 'reliability.retry',
+    'replay', 'replay.client', 'replay.feed', 'replay.frontend',
+    'replay.run_replay', 'replay.sampling', 'replay.service',
+    'replay.store', 'replay.wire', 'rl.loop', 'rl.run_rl_loop'))
+
+
 def _port_sources():
   for root, _, files in os.walk(PORT):
     for name in sorted(files):
@@ -112,6 +122,7 @@ def test_importing_every_module_loads_no_jax():
       set(DEVICE_DECODE_MODULES) - names)
   assert set(GIN_MODULES) <= names, set(GIN_MODULES) - names
   assert set(OFFPOLICY_MODULES) <= names, set(OFFPOLICY_MODULES) - names
+  assert set(RL_LOOP_MODULES) <= names, set(RL_LOOP_MODULES) - names
 
 
 def test_registering_the_configurables_loads_no_jax():
@@ -214,3 +225,15 @@ def test_flash_ab_refuses_to_run_without_a_card():
                           capture_output=True, text=True, timeout=120)
   assert result.returncode != 0
   assert 'needs a CUDA card' in result.stderr
+
+
+def test_the_live_loop_runs_on_the_card_unless_asked():
+  from tensor2robot_tpu_torch.envs import VecGraspingEnv
+  from tensor2robot_tpu_torch.rl import loop
+  from tensor2robot_tpu_torch.rl import run_rl_loop
+
+  assert inspect.signature(VecGraspingEnv).parameters[
+      'device'].default == 'cuda'
+  assert inspect.signature(loop.build_grasping_loop).parameters[
+      'device'].default == 'cuda'
+  assert run_rl_loop.make_parser().parse_args([]).device == 'cuda'

@@ -327,3 +327,33 @@ def test_an_included_header_rebuilds_the_kernel(tmp_path, monkeypatch):
     assert {name for name in names if after[name] != before[name]} == set(
         rebuilt), header
     before = after
+
+
+def test_launch_counting_is_exact_across_threads():
+  """An actor and a learner count launches of the same kernels from two
+  threads; under the lock no count is lost."""
+  import threading
+
+  saved = dict(kernels.LAUNCHES)
+  kernels.reset_launches()
+  names = ('crop_convert', 'max_pool')
+  per_thread, threads = 20000, 8
+  barrier = threading.Barrier(threads)
+
+  def count(name):
+    barrier.wait()
+    for _ in range(per_thread):
+      kernels.count_launch(name)
+
+  workers = [threading.Thread(target=count, args=(names[i % 2],))
+             for i in range(threads)]
+  try:
+    for worker in workers:
+      worker.start()
+    for worker in workers:
+      worker.join(timeout=60)
+    assert kernels.LAUNCHES['crop_convert'] == per_thread * threads // 2
+    assert kernels.LAUNCHES['max_pool'] == per_thread * threads // 2
+    assert sum(kernels.LAUNCHES.values()) == per_thread * threads
+  finally:
+    kernels.LAUNCHES.update(saved)

@@ -193,6 +193,43 @@ repository around it. Phases, each printing one line or more:
      median spread must reach RL_LOOP_Q_SPREAD. Each adopted snapshot bit-equal
      to the learner's weights of its version; sampled transitions
      bit-equal to the fetched ones that made them; every loss finite.
+  4g. Grasp2Vec (phase ``grasp2vec``): before the run, the FLOP count of a
+     train step (the convs' multiply-adds from one hooked forward a
+     tower, three passes) and its bound at 67 TFLOP/s, and the reckoned
+     activations; G2V_RECORDS examples of three 512x640 JPEG frames
+     (``image``, ``postgrasp_image``, ``present_image``) written by the
+     port's writer; ``train_eval --gin_configs`` on the port's
+     ``train_grasp2vec.gin`` as written (two ResNet-50 towers at
+     472x472, batch 8, Adam 1e-4, float32 with TF32 off) from them for
+     G2V_STEPS steps (cut: the steps; eval batches cut to G2V_EVAL_STEPS),
+     ``nan_policy`` raise, the counters zeroed just before and read just
+     after: 1 K1 a step and an eval batch (the three batches' crops in
+     one launch, each frame at its offset); the native loader read them.
+     Gates: the launches; every loss finite; a step from the trained
+     state equal to its plain rerun bit for bit (crops, loss, every
+     gradient; cuDNN deterministic); the card's EVAL embeddings at batch 2
+     against the CPU's within G2V_CPU_RTOL of max; the latest exporter's
+     artifact through ExportedModelPredictor serving the trained state's
+     embeddings bit for bit. Printed: the loop's step, the resident step
+     (profiled: busy share, device ms by class: cuDNN convs, the batch
+     norms' statistics, elementwise, K1), examples/s, peak memory, the
+     step against its FLOP bound.
+  4h. The pose env with MAML (phase ``pose_env_maml``):
+     ``run_collect_eval`` on ``run_collect_pose_env.gin`` (num_collect
+     bound to POSE_EPISODES) writes the records;
+     ``train_pose_env_from_records.gin`` trains PoseEnvRegressionModel
+     from them and ``run_train_reg_maml.gin`` trains
+     PoseEnvRegressionModelMAML (8 tasks, one inner step, second order),
+     POSE_STEPS steps each (cut: the steps), every loss finite, no kernel
+     launched (the pose nets reach none). A MAML step on one batch of the
+     gin's generator from the trained state on the card against the same
+     step on the CPU: the loss and inner losses within POSE_LOSS_RTOL,
+     every outer gradient within POSE_GRAD_RTOL of its largest; first-
+     and second-order outer gradients differ. ``run_meta_env`` runs a
+     MAMLRegressionPolicy over the trained checkpoint on the hidden-drift
+     env: 4 tasks of a demo and 2 rounds of 2 adapted episodes. Printed:
+     the steps' ms, tasks/s, the inner loss before and after adaptation,
+     the rewards by round.
   5. Seq2Act serving: the long-context RT-1-style policy at full width
      (512-frame episodes, 4,096 tokens, 8 blocks, attention_mode 'flash',
      float32 with TF32 off) restored by CheckpointPredictor from a
@@ -298,7 +335,8 @@ repository around it. Phases, each printing one line or more:
      and from the same episodes: 8 x N K6 a step a rank, and rank 0's loss
      within RING_GIN_RTOL of the first run's at that step.
   9. A JSON line of phase 4e's numbers (``qtopt_offpolicy``), one of
-     phase 4f's (``rl_loop``), one of
+     phase 4f's (``rl_loop``), one of phases 4g's and 4h's (``grasp2vec``,
+     ``pose_env_maml``), one of
      phases 6c's, 6d's and the ring gin's numbers
      (``seq2act_variants``), a JSON line of the kernels (K4, K5a and K5b
      with their bf16 times, bounds at the bf16 peak and the library's bf16
@@ -3697,6 +3735,563 @@ def phase_rl_loop(device):
   return act_path, train_path, report
 
 
+# Phase 4g: Grasp2Vec. Examples of three 512x640 JPEG frames on disk
+# (a few hundred; cut: the count), the gin's steps (cut: the steps) and
+# its eval batches (cut: 200 -> 1).
+G2V_RECORDS, G2V_FILES = 128, 4
+G2V_STEPS, G2V_EVAL_STEPS, G2V_BATCH = 10, 1, 8
+# Resident steps timed without the profiler.
+G2V_RESIDENT_STEPS = 5
+G2V_GIN = os.path.join('tensor2robot_tpu_torch', 'research', 'grasp2vec',
+                       'configs', 'train_grasp2vec.gin')
+# The card's EVAL embeddings at batch 2 against the CPU's: float32 sums in
+# other orders through 50 layers, within 1e-4 of each output's largest.
+G2V_CPU_RTOL = 1e-4
+G2V_IMAGE_KEYS = ('pregrasp_image', 'postgrasp_image', 'goal_image')
+
+
+def write_grasp2vec_records(directory, spec, encoder):
+  """G2V_RECORDS examples in G2V_FILES files by the port's writer, three
+  camera-like JPEG frames each under their on-disk names (``image``,
+  ``postgrasp_image``, ``present_image``); returns the files and the
+  frames' bytes."""
+  from tensor2robot_tpu_torch.data.writer import TFRecordReplayWriter
+
+  rng = np.random.RandomState(5)
+  files, frame_bytes = [], 0
+  for f in range(G2V_FILES):
+    files.append(os.path.join(directory, 'g2v-{:05d}-of-{:05d}.tfrecord'
+                              .format(f, G2V_FILES)))
+    with TFRecordReplayWriter() as writer:
+      writer.open(files[-1])
+      for i in range(G2V_RECORDS // G2V_FILES):
+        example = {}
+        for j, key in enumerate(G2V_IMAGE_KEYS):
+          example[key] = encode_jpeg(
+              camera_frame(rng, 3 * (f * 64 + i) + j), encoder)
+          frame_bytes += len(example[key])
+        writer.write_numpy(spec, example)
+  return files, frame_bytes
+
+
+def grasp2vec_reckoning(model, device):
+  """(conv FLOPs of one train step at G2V_BATCH, the bytes of the TRAIN
+  activations that autograd keeps a step), from one TRAIN forward of each
+  tower at batch 1 with hooks: the convs' multiply-adds (a train step
+  runs each conv three times: forward, input and weight gradients), and
+  twice the outputs of every conv and batch norm (the norm keeps its input
+  and the relu its output)."""
+  from tensor2robot_tpu_torch.layers.basic import BatchNorm
+  from tensor2robot_tpu_torch.research.qtopt.networks import Conv
+
+  macs, kept = [0], [0]
+
+  def hook(module, args, output):
+    if isinstance(module, Conv):
+      macs[0] += output.numel() * module.weight.shape[1] * module.kernel ** 2
+    kept[0] += 2 * output.numel() * output.element_size()
+
+  network = model.create_network().to(device)
+  handles = [m.register_forward_hook(hook) for m in network.modules()
+             if isinstance(m, (Conv, BatchNorm))]
+  images = torch.zeros((1, 472, 472, 3), device=device)
+  with torch.no_grad():
+    network.scene(images, train=True)    # one scene image (2 a example)
+    scene_macs, scene_kept = macs[0], kept[0]
+    network.goal(images, train=True)
+  for handle in handles:
+    handle.remove()
+  goal_macs, goal_kept = macs[0] - scene_macs, kept[0] - scene_kept
+  flops = 3 * 2 * G2V_BATCH * (2 * scene_macs + goal_macs)
+  return flops, G2V_BATCH * (2 * scene_kept + goal_kept)
+
+
+def kernel_classes(kernel_ms):
+  """Device ms of a profile's kernels by class: cuDNN's convolutions (and
+  their GEMMs), the batch norms' statistics (reductions), elementwise
+  passes (the norms' scale and shift, relus, adds, the optimizer), K1 and
+  the rest."""
+  classes = collections.OrderedDict((name, 0.0) for name in (
+      'cuDNN convs', 'batch-norm statistics (reductions)', 'elementwise',
+      'K1 crop_convert', 'other'))
+  for name, ms in kernel_ms.items():
+    low = name.lower()
+    if 'crop_convert' in low:
+      classes['K1 crop_convert'] += ms
+    elif any(piece in low for piece in ('conv', 'xmma', 'gemm', 'cudnn',
+                                        'winograd', 'sm90', 'sm80',
+                                        'cutlass', 'implicit')):
+      classes['cuDNN convs'] += ms
+    elif 'reduce' in low:
+      classes['batch-norm statistics (reductions)'] += ms
+    elif 'elementwise' in low or 'vectorized' in low:
+      classes['elementwise'] += ms
+    else:
+      classes['other'] += ms
+  return classes
+
+
+def phase_grasp2vec(device):
+  """Grasp2Vec at full width (phase 4g): records of three 512x640 JPEG
+  frames, train_grasp2vec.gin through ``train_eval.main`` (ResNet-50
+  towers at 472x472, batch 8, Adam 1e-4), the gates and the numbers.
+  Returns (the launches of its run, the report)."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.data.input_generators import (
+      DefaultRecordInputGenerator)
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.predictors import ExportedModelPredictor
+  from tensor2robot_tpu_torch.preprocessors import pallas_crop
+  from tensor2robot_tpu_torch.research import grasp2vec
+  from tensor2robot_tpu_torch.trainer import checkpointing
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  phase_start = time.monotonic()
+  report = {}
+  model = grasp2vec.Grasp2VecModel(device=device)
+  flops, kept = grasp2vec_reckoning(model, device)
+  report['step_flops'] = flops
+  report['flop_bound_ms'] = flops / FP32_OPS_PER_S * 1e3
+  report['reckoned_activation_gb'] = kept / 1e9
+  print('grasp2vec: reckoned before the run, at batch {} ({} scene and {} '
+        'goal images of 472x472): {:.3f} TFLOP a train step (the convs, 3 '
+        'passes), bound {:.2f} ms at {:.0f} TFLOP/s float32; {:.2f} GB of '
+        'activations kept for the backward'.format(
+            G2V_BATCH, 2 * G2V_BATCH, G2V_BATCH, flops / 1e12,
+            report['flop_bound_ms'], FP32_OPS_PER_S / 1e12, kept / 1e9))
+  probe = jpeg_probe()
+  encoder = 'cv2' if probe['cv2'] else 'PIL'
+  in_spec = model.preprocessor.get_in_feature_specification(ModeKeys.TRAIN)
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.monotonic()
+    files, frame_bytes = write_grasp2vec_records(tmp, in_spec, encoder)
+    print('grasp2vec: wrote {} examples of 3 frames ({}, {:.1f} KiB a '
+          'frame) in {} files in {:.1f} s'.format(
+              G2V_RECORDS, encoder, frame_bytes / 3 / G2V_RECORDS / 1024,
+              len(files), time.monotonic() - start))
+    pattern = os.path.join(tmp, 'g2v-*')
+    model_dir = os.path.join(tmp, 'model')
+    argv = ['--device', 'cuda', '--model_dir', model_dir, '--gin_configs',
+            G2V_GIN]
+    for binding in ('TRAIN_DATA = "{}"'.format(pattern),
+                    'EVAL_DATA = "{}"'.format(pattern),
+                    'train_eval_model.max_train_steps = {}'.format(G2V_STEPS),
+                    'train_eval_model.eval_steps = {}'.format(G2V_EVAL_STEPS),
+                    'train_eval_model.eval_throttle_steps = {}'.format(
+                        G2V_STEPS),
+                    'train_eval_model.save_checkpoints_steps = {}'.format(
+                        G2V_STEPS),
+                    'train_eval_model.log_every_n_steps = 1',
+                    "train_eval_model.nan_policy = 'raise'"):
+      argv += ['--gin_bindings', binding]
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    start = time.monotonic()
+    with contextlib.redirect_stdout(out):
+      rc = train_eval.main(argv)
+    torch.cuda.synchronize()
+    elapsed = time.monotonic() - start
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(rc == 0, 'grasp2vec: train_eval returned {}'.format(rc))
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    want = dict.fromkeys(launches, 0)
+    want['crop_convert'] = G2V_STEPS + G2V_EVAL_STEPS
+    check(launches == want, 'grasp2vec: launches {} != {} (1 K1 a step and '
+          'an eval batch)'.format(launches, want))
+    check(line['step'] == G2V_STEPS and line['data'] == 'native' and
+          np.isfinite(line['metrics']['loss']) and
+          all(np.isfinite(v) for v in line['eval_metrics'].values()),
+          'grasp2vec run: {}'.format(line))
+    report.update(step_ms=line['step_ms'], data_wait_ms=line['data_wait_ms'],
+                  examples_per_sec=line['examples_per_sec'],
+                  loss=line['metrics']['loss'], peak_gb=peak_gb,
+                  run_seconds=elapsed)
+    print('grasp2vec: train_eval --gin_configs {} trained {} steps of batch '
+          '{} from the records (reader {}) in {:.1f} s, every loss finite '
+          '(nan_policy raise), loss {:.4f}, eval {}; launches {} (1 K1 a '
+          'step and an eval batch); the loop\'s median step {:.2f} ms, of '
+          'which {:.2f} ms waiting for data; {:.2f} examples/s; peak memory '
+          '{:.2f} GB (reckoned activations {:.2f} GB); {}'.format(
+              G2V_GIN, G2V_STEPS, G2V_BATCH, line['data'], elapsed,
+              line['metrics']['loss'], line['eval_metrics'], launches,
+              line['step_ms'], line['data_wait_ms'],
+              line['examples_per_sec'], peak_gb, kept / 1e9, smi_line()))
+
+    # A batch of the records on the card, and the trained state.
+    reader = DefaultRecordInputGenerator(file_patterns=pattern,
+                                         batch_size=G2V_BATCH)
+    reader.set_specification_from_model(model, ModeKeys.TRAIN)
+    iterator = reader.create_dataset_iterator(
+        ModeKeys.TRAIN, seed=0, prefetch=0,
+        device=torch.cuda.current_device())
+    raw_np, _ = next(iterator)
+    iterator.close()
+    raw = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+           for k, v in raw_np.items()}
+    state = checkpointing.CheckpointManager(model_dir).restore(G2V_STEPS,
+                                                               device)
+    check(state.step == G2V_STEPS, 'restored step {}'.format(state.step))
+
+    # One step through K1 against its plain rerun, cuDNN deterministic.
+    draws = model.preprocessor.draw(G2V_BATCH, torch.Generator(
+        device=device).manual_seed(11))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+      kernels.reset_launches()
+      features, _ = model.preprocessor.preprocess(raw, None, ModeKeys.TRAIN,
+                                                  draws=draws)
+      loss, _, _, grads = model.gradients(state, features, None)
+      torch.cuda.synchronize()
+      step_launches = dict(kernels.LAUNCHES)
+      with plain_kernels():
+        plain_features, _ = model.preprocessor.preprocess(
+            raw, None, ModeKeys.TRAIN, draws=draws)
+        plain_loss, _, _, plain_grads = model.gradients(
+            state, plain_features, None)
+        torch.cuda.synchronize()
+    finally:
+      torch.backends.cudnn.deterministic = deterministic
+    check(step_launches['crop_convert'] == 1 and
+          sum(step_launches.values()) == 1,
+          'grasp2vec: a step launched {}'.format(step_launches))
+    check(all(torch.equal(features[k], plain_features[k])
+              for k in G2V_IMAGE_KEYS) and torch.equal(loss, plain_loss) and
+          all(torch.equal(grads[k], plain_grads[k]) for k in grads),
+          'grasp2vec: the step differs from its plain rerun')
+    del plain_grads, grads
+    print('grasp2vec: a step (1 K1) equals its plain rerun bit for bit: the '
+          'three crops, the loss {:.6f} and every gradient of {} tensors '
+          '(cuDNN deterministic)'.format(float(loss), len(state.params)))
+
+    # The card's EVAL forward at batch 2 against the CPU's.
+    two = {k: v[:2] for k, v in raw.items()}
+    eval_features, _ = model.preprocessor.preprocess(two, None,
+                                                     ModeKeys.EVAL)
+    got = model.inference_network_fn(state.variables(), eval_features,
+                                     ModeKeys.EVAL)
+    cpu_model = grasp2vec.Grasp2VecModel(device='cpu')
+    cpu_features, _ = cpu_model.preprocessor.preprocess(
+        {k: v.cpu() for k, v in two.items()}, None, ModeKeys.EVAL)
+    with torch.no_grad():
+      want_cpu = cpu_model.inference_network_fn(to_cpu(state.variables()),
+                                                cpu_features, ModeKeys.EVAL)
+    errors = {}
+    for key, value in want_cpu.items():
+      scale = float(value.abs().max())
+      errors[key] = float((got[key].cpu() - value).abs().max()) / max(
+          scale, 1e-12)
+      check(errors[key] <= G2V_CPU_RTOL, 'grasp2vec: {} on the card is {:.3g} '
+            'of max from the CPU\'s'.format(key, errors[key]))
+    report['card_vs_cpu_rtol'] = max(errors.values())
+    print('grasp2vec: the card\'s EVAL embeddings and maps at batch 2 against '
+          'the CPU\'s (CPU convolutions, plain crop): worst {:.3g} of max '
+          '(tolerance {}), {}'.format(max(errors.values()), G2V_CPU_RTOL,
+                                      {k: '{:.2g}'.format(v)
+                                       for k, v in errors.items()}))
+
+    # The exporter's artifact, restored, serves the trained embeddings.
+    export_root = os.path.join(model_dir, 'export', 'latest_exporter')
+    predictor = ExportedModelPredictor(export_root, model, timeout=30)
+    check(predictor.restore(), 'grasp2vec: no export under {}'.format(
+        export_root))
+    torch.backends.cudnn.deterministic = True
+    try:
+      served = predictor.predict({k: v[:2] for k, v in raw_np.items()})
+      direct = model.predict_step(state.variables(), eval_features)
+      torch.cuda.synchronize()
+    finally:
+      torch.backends.cudnn.deterministic = deterministic
+    for key in ('pre_vector', 'post_vector', 'goal_vector'):
+      check(torch.equal(torch.as_tensor(served[key]).to(device),
+                        direct[key]), 'grasp2vec: the export serves other '
+            '{} than the trained state'.format(key))
+    print('grasp2vec: ExportedModelPredictor on {} (step {}) serves the '
+          'trained state\'s embeddings bit for bit'.format(
+              export_root, predictor.global_step))
+    predictor.close()
+
+    # The resident step (timed alone, then profiled): its device time by
+    # kernel class and the busy share.
+    trainer = train_eval.Trainer(model, os.path.join(tmp, 'profile'),
+                                 write_metrics=False)
+    current = [state]
+
+    def resident_step():
+      features, _ = model.preprocessor.preprocess(
+          raw, None, ModeKeys.TRAIN,
+          generator=trainer.crop_generator(current[0].step))
+      current[0], metrics = model.train_step(current[0], features, None)
+      return metrics
+
+    resident_step()
+    torch.cuda.synchronize()
+    start = time.monotonic()
+    for _ in range(G2V_RESIDENT_STEPS):
+      metrics = resident_step()
+    torch.cuda.synchronize()
+    resident_ms = (time.monotonic() - start) * 1e3 / G2V_RESIDENT_STEPS
+    check(bool(torch.isfinite(metrics['loss'])), 'grasp2vec: a resident '
+          'step\'s loss is not finite')
+    profiled = {}
+    profiled_ms = train_profile('grasp2vec resident step, profiled',
+                                trainer, model, state, raw, None, 3,
+                                G2V_BATCH, profiled)
+    trainer.close()
+    classes = kernel_classes(profiled.get('kernel_ms', {}))
+    busy = profiled.get('busy_ms')
+    report.update(resident_ms=resident_ms, profiled_ms=profiled_ms,
+                  busy_ms=busy,
+                  busy_share=None if busy is None else busy / resident_ms,
+                  device_ms_by_class=dict(classes))
+    print('grasp2vec: the step {:.2f} ms wall in the loop, {:.2f} ms '
+          'resident ({:.2f} examples/s; {:.2f} ms under the profiler), '
+          'against its FLOP bound {:.2f} ms ({:.1%} of it); kernels busy {} '
+          'of the resident step; device ms a step by class {}; peak {:.2f} '
+          'GB; {}'.format(
+              line['step_ms'], resident_ms, G2V_BATCH * 1e3 / resident_ms,
+              profiled_ms, report['flop_bound_ms'],
+              report['flop_bound_ms'] / resident_ms,
+              'not measured' if busy is None else '{:.2f} ms ({:.1%})'.format(
+                  busy, busy / resident_ms),
+              {k: round(v, 3) for k, v in classes.items()}, peak_gb,
+              smi_line()))
+  torch.cuda.empty_cache()
+  report['seconds'] = time.monotonic() - phase_start
+  print('grasp2vec: phase 4g took {:.1f} s'.format(report['seconds']))
+  return launches, report
+
+
+# Phase 4h: the pose env with MAML. Collect episodes (the gin's 4, bound to
+# POSE_EPISODES), the records gin and the MAML gin, each POSE_STEPS steps
+# (cut: 1000 and 5000), then run_meta_env's adapted episodes.
+POSE_EPISODES, POSE_STEPS = 64, 20
+POSE_CONFIGS = os.path.join('tensor2robot_tpu_torch', 'research', 'pose_env',
+                            'configs')
+# A MAML step on the card against the CPU's: the loss and inner losses
+# within 1e-4 relative; each outer gradient within 1e-3 of its tensor's
+# largest (float32 second-order products in other orders; the head's
+# gradient is a residual of the adapted output, a few hundredths where a
+# pose dim is nearly right, which carries the outputs' 1e-5 as 1e-4 of it).
+POSE_LOSS_RTOL, POSE_GRAD_RTOL = 1e-4, 1e-3
+
+
+class _PoseDemoPolicy:
+  """The env's true target pose, once: a perfect demonstration."""
+
+  def __init__(self, env):
+    self._env = env
+    self._steps = 0
+
+  def sample_action(self, obs, explore_prob):
+    del obs, explore_prob
+    if self._steps:
+      return None, None
+    self._steps += 1
+    return self._env._target_pose[:2].astype(np.float32), None
+
+
+def phase_pose_env_maml(device):
+  """The pose env and MAML on the card (phase 4h): the collect gin, the
+  records gin, the MAML gin (8 tasks, one inner step, second order), a
+  MAML step against the CPU's, first against second order, and
+  run_meta_env's adapted episodes. Returns (the launches of the train
+  runs, the report)."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.meta_learning import MAMLInnerLoopGradientDescent
+  from tensor2robot_tpu_torch.meta_learning import MAMLRegressionPolicy
+  from tensor2robot_tpu_torch.meta_learning import meta_data
+  from tensor2robot_tpu_torch.meta_learning import run_meta_env
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+  from tensor2robot_tpu_torch.research import pose_env
+  from tensor2robot_tpu_torch.rl import run_collect_eval
+  from tensor2robot_tpu_torch.trainer import checkpointing
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  phase_start = time.monotonic()
+  report = {}
+
+  def main_line(module, argv):
+    out = io.StringIO()
+    start = time.monotonic()
+    with contextlib.redirect_stdout(out):
+      rc = module.main(argv)
+    check(rc == 0, 'pose_env: {} returned {}'.format(argv, rc))
+    return (json.loads(out.getvalue().strip().splitlines()[-1]),
+            time.monotonic() - start)
+
+  with tempfile.TemporaryDirectory() as tmp:
+    collect, seconds = main_line(run_collect_eval, [
+        '--gin_configs', os.path.join(POSE_CONFIGS, 'run_collect_pose_env.gin'),
+        '--gin_bindings', "collect_eval_loop.root_dir = '{}'".format(tmp),
+        '--gin_bindings', 'collect_eval_loop.num_collect = {}'.format(
+            POSE_EPISODES)])
+    written = collect['written'].get('collect', {})
+    check(written.get('records') == POSE_EPISODES, 'pose_env: collected '
+          '{}'.format(collect))
+    report['collect_episodes_per_sec'] = POSE_EPISODES / seconds
+    print('pose_env: run_collect_eval on run_collect_pose_env.gin (num_collect '
+          '{}) wrote {} records in {} file(s) in {:.2f} s ({:.1f} episodes/s)'
+          .format(POSE_EPISODES, written.get('records'), written.get('files'),
+                  seconds, report['collect_episodes_per_sec']))
+
+    kernels.reset_launches()
+    runs = {}
+    for gin, bindings in (
+        ('train_pose_env_from_records.gin',
+         ['TRAIN_DATA = "{}"'.format(os.path.join(tmp, 'policy_collect',
+                                                  '*'))]),
+        ('run_train_reg_maml.gin', [])):
+      argv = ['--device', 'cuda', '--model_dir', os.path.join(tmp, gin),
+              '--gin_configs', os.path.join(POSE_CONFIGS, gin)]
+      for binding in bindings + [
+          'train_eval_model.max_train_steps = {}'.format(POSE_STEPS),
+          'train_eval_model.log_every_n_steps = 1',
+          "train_eval_model.nan_policy = 'raise'"]:
+        argv += ['--gin_bindings', binding]
+      line, seconds = main_line(train_eval, argv)
+      check(line['step'] == POSE_STEPS and
+            np.isfinite(line['metrics']['loss']),
+            'pose_env: {}: {}'.format(gin, line))
+      runs[gin] = (line, seconds)
+    launches = dict(kernels.LAUNCHES)
+    check(not any(launches.values()), 'pose_env: the pose models launched '
+          '{} (they reach no kernel)'.format(launches))
+    records_line = runs['train_pose_env_from_records.gin'][0]
+    maml_line, maml_seconds = runs['run_train_reg_maml.gin']
+    tasks = 8
+    report.update(
+        records_step_ms=records_line['step_ms'],
+        maml_step_ms=maml_line['step_ms'],
+        tasks_per_sec=tasks * 1e3 / maml_line['step_ms'],
+        maml_eval=maml_line['eval_metrics'],
+        inner_loss_before=maml_line['metrics'].get('inner_losses_step_0'),
+        inner_loss_after=maml_line['metrics'].get('inner_losses_step_1'))
+    print('pose_env: train_pose_env_from_records.gin {} steps of batch 8 from '
+          'the records, loss {:.5f}, step {:.2f} ms; run_train_reg_maml.gin '
+          '(8 tasks, 1 inner step, second order, MAMLRandomInputGenerator) {} '
+          'steps in {:.1f} s, loss {:.5f}, step {:.2f} ms ({:.1f} tasks/s), '
+          'inner loss before adaptation {:.5f} and after {:.5f}, eval {}; '
+          'launches {}; {}'.format(
+              POSE_STEPS, records_line['metrics']['loss'],
+              records_line['step_ms'], POSE_STEPS, maml_seconds,
+              maml_line['metrics']['loss'], maml_line['step_ms'],
+              report['tasks_per_sec'], report['inner_loss_before'],
+              report['inner_loss_after'], maml_line['eval_metrics'],
+              launches, smi_line()))
+
+    # A MAML step on the card against the CPU's, and first order against
+    # second, on one batch of the gin's generator from the trained state.
+    def maml_model(where, second_order=True):
+      return pose_env.PoseEnvRegressionModelMAML(
+          base_model=pose_env.PoseEnvRegressionModel(device=where),
+          inner_loop=MAMLInnerLoopGradientDescent(
+              learning_rate=0.001, use_second_order=second_order))
+
+    model = maml_model(device)
+    generator = meta_data.MAMLRandomInputGenerator(num_tasks=tasks)
+    generator.set_specification_from_model(model, ModeKeys.TRAIN)
+    raw_features, raw_labels = next(iter(generator.create_dataset_iterator(
+        ModeKeys.TRAIN, seed=3, prefetch=0)))
+    maml_dir = os.path.join(tmp, 'run_train_reg_maml.gin')
+    state = checkpointing.CheckpointManager(maml_dir).restore(POSE_STEPS,
+                                                              device)
+
+    def step(where, second_order=True, on=None):
+      m = maml_model(where, second_order)
+      s = state if on is None else on
+      f, l = m.preprocessor.preprocess(
+          {k: torch.from_numpy(v).to(where) for k, v in raw_features.items()},
+          {k: torch.from_numpy(v).to(where) for k, v in raw_labels.items()},
+          ModeKeys.TRAIN)
+      loss, outputs, _, grads = m.gradients(s, f, l)
+      return loss, outputs, grads
+
+    loss, outputs, grads = step(device)
+    torch.cuda.synchronize()
+    start = time.monotonic()
+    for _ in range(3):
+      step(device)
+    torch.cuda.synchronize()
+    report['maml_gradients_ms'] = (time.monotonic() - start) / 3 * 1e3
+    cpu_state = type(state)(**to_cpu(vars(state)))
+    cpu_loss, cpu_outputs, cpu_grads = step(torch.device('cpu'),
+                                            on=cpu_state)
+    check(bool(torch.isfinite(loss)), 'pose_env: a MAML loss is not finite')
+    loss_err = abs(float(loss.cpu() - cpu_loss)) / abs(float(cpu_loss))
+    check(loss_err <= POSE_LOSS_RTOL, 'pose_env: the MAML loss on the card '
+          'is {:.3g} relative from the CPU\'s'.format(loss_err))
+    inner_errs = {}
+    for key, value in cpu_outputs.items():
+      inner_errs[key] = abs(float(outputs[key].cpu() - value)) / max(
+          abs(float(value)), 1e-12)
+      check(inner_errs[key] <= POSE_LOSS_RTOL, 'pose_env: {} on the card is '
+            '{:.3g} relative from the CPU\'s'.format(key, inner_errs[key]))
+    grad_errs = {name: float((grads[name].cpu() - value).abs().max()) /
+                 max(float(value.abs().max()), 1e-12)
+                 for name, value in cpu_grads.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    check(grad_errs[worst] <= POSE_GRAD_RTOL, 'pose_env: the outer gradient '
+          'of {} on the card is {:.3g} of max from the CPU\'s'.format(
+              worst, grad_errs[worst]))
+    _, _, first = step(device, second_order=False)
+    order_diff = max(float((grads[k] - first[k]).abs().max()) /
+                     max(float(grads[k].abs().max()), 1e-12)
+                     for k in grads)
+    check(order_diff > 0, 'pose_env: first- and second-order outer '
+          'gradients are equal')
+    report.update(card_vs_cpu={'loss': loss_err, 'inner_losses': inner_errs,
+                               'worst_gradient': grad_errs[worst]},
+                  second_vs_first_order=order_diff)
+    print('pose_env: a MAML step (8 tasks, second order) on the card against '
+          'the CPU\'s: loss {:.6f} ({:.3g} relative, tolerance {}), inner '
+          'losses {} (relative {}), the worst of {} outer gradients {} at '
+          '{:.3g} of its max (tolerance {}); {:.2f} ms a step\'s gradients '
+          'resident; first- against second-order outer gradients differ by '
+          'up to {:.3g} of a tensor\'s max'.format(
+              float(loss), loss_err, POSE_LOSS_RTOL,
+              {k: round(float(v), 6) for k, v in outputs.items()},
+              {k: '{:.2g}'.format(v) for k, v in inner_errs.items()},
+              len(grads), worst, grad_errs[worst], POSE_GRAD_RTOL,
+              report['maml_gradients_ms'], order_diff))
+
+    # run_meta_env: demos, adaptation and trials of the trained model.
+    served = maml_model(device)
+    predictor = CheckpointPredictor(served, maml_dir, timeout=30)
+    check(predictor.restore(), 'pose_env: no MAML checkpoint')
+    policy = MAMLRegressionPolicy(t2r_model=served, predictor=predictor)
+    env = pose_env.PoseToyEnv(seed=7, hidden_drift=True)
+    start = time.monotonic()
+    rewards = run_meta_env(
+        env, policy=policy, demo_policy_cls=_PoseDemoPolicy,
+        root_dir=os.path.join(tmp, 'meta_env'), num_tasks=4,
+        num_adaptations_per_task=2, num_episodes_per_adaptation=2,
+        num_demos=1, write_summary=True)
+    seconds = time.monotonic() - start
+    by_round = [float(np.mean([np.mean(rewards[t][r]) for t in rewards]))
+                for r in range(2)]
+    check(sorted(rewards) == [0, 1, 2, 3] and
+          all(np.isfinite(by_round)), 'pose_env: run_meta_env {}'.format(
+              rewards))
+    report.update(meta_env_seconds=seconds, meta_env_reward_by_round=by_round)
+    print('pose_env: run_meta_env, MAMLRegressionPolicy over the trained '
+          'checkpoint on the hidden-drift env: 4 tasks x (1 demo, 2 rounds x '
+          '2 adapted episodes) in {:.2f} s; mean reward by round {} (printed, '
+          'not gated)'.format(seconds, [round(r, 4) for r in by_round]))
+    predictor.close()
+  report['seconds'] = time.monotonic() - phase_start
+  print('pose_env: phase 4h took {:.1f} s'.format(report['seconds']))
+  return launches, report
+
+
 @contextlib.contextmanager
 def plain_kernels():
   """Every kernel's wrapper replaced by its plain version; no launch
@@ -5972,6 +6567,8 @@ def main():
    offpolicy_report) = phase_qtopt_offpolicy(device)
   paths['rl_loop_act'], paths['rl_loop_train'], rl_loop_report = (
       phase_rl_loop(device))
+  paths['grasp2vec_train'], grasp2vec_report = phase_grasp2vec(device)
+  paths['pose_env_train'], pose_env_report = phase_pose_env_maml(device)
   paths.update({'seq2act': phase_seq2act(device),
                 'seq2act_train': phase_seq2act_train(device)})
   paths['seq2act_bf16_train'], bf16_report = phase_seq2act_bf16(device)
@@ -6005,6 +6602,8 @@ def main():
           .format(entry['name']))
   print(json.dumps({'qtopt_offpolicy': offpolicy_report}))
   print(json.dumps({'rl_loop': rl_loop_report}))
+  print(json.dumps({'grasp2vec': grasp2vec_report,
+                    'pose_env_maml': pose_env_report}))
   print(json.dumps({'seq2act_variants': {
       'bf16': bf16_report, 'moe': moe_report, 'ring_gin': ring['gin']}}))
   print(json.dumps({'kernels': [entry for entry, _ in entries]}))

@@ -1,13 +1,16 @@
 """Registers the port's configurables under the JAX package's names.
 
-Each one the port has and the QT-Opt and Seq2Act gins name (the trainer,
-the record input generator, the critic and its preprocessor, the split
-decode's wrapper, Seq2Act's model and ``EP_RULES_MOE``), the random input
-generator, and the optimizers, learning rates, exporters, export generators and hook
-builders; and the collect job's (``collect_eval_loop``, ``run_env``, the
-replay writer, the policies and ``CheckpointPredictor``, and the synthetic
-grasping MDP's env, random policy and transitions). A gin that names
-anything else fails in ``ginlike.check_configurables``, naming it.
+Each one the port has and the QT-Opt, Seq2Act, Grasp2Vec and pose env
+gins name (the trainer, the record input generator, the critic and its
+preprocessor, the split decode's wrapper, Seq2Act's model and
+``EP_RULES_MOE``), the random input generator, and the optimizers,
+learning rates, exporters, export generators and hook builders; the
+collect job's (``collect_eval_loop``, ``run_env``, the replay writer, the
+policies and ``CheckpointPredictor``, and the synthetic grasping MDP's
+env, random policy and transitions); Grasp2Vec's model, preprocessor and
+losses; MAML's model, inner loop, preprocessors and input generators; the
+pose toy env, its random policy, models and transitions. A gin that names anything else fails in
+``ginlike.check_configurables``, naming it.
 """
 
 from __future__ import annotations
@@ -36,11 +39,17 @@ def register_all() -> None:
   from tensor2robot_tpu_torch.hooks import async_export_hook_builder
   from tensor2robot_tpu_torch.hooks import td3
   from tensor2robot_tpu_torch.hooks import variable_logger_hook
+  from tensor2robot_tpu_torch.meta_learning import maml_inner_loop
+  from tensor2robot_tpu_torch.meta_learning import maml_model
+  from tensor2robot_tpu_torch.meta_learning import meta_data
+  from tensor2robot_tpu_torch.meta_learning import preprocessors as meta_pre
   from tensor2robot_tpu_torch.models import optimizers
   from tensor2robot_tpu_torch.parallel import sharding
   from tensor2robot_tpu_torch.policies import policies
   from tensor2robot_tpu_torch.predictors import checkpoint_predictor
   from tensor2robot_tpu_torch.preprocessors import device_decode
+  from tensor2robot_tpu_torch.research import grasp2vec
+  from tensor2robot_tpu_torch.research import pose_env
   from tensor2robot_tpu_torch.research import seq2act
   from tensor2robot_tpu_torch.research.qtopt import grasping_sim
   from tensor2robot_tpu_torch.research.qtopt import t2r_models
@@ -108,6 +117,31 @@ def register_all() -> None:
   register(grasping_sim.SimGraspingRandomPolicy, 'SimGraspingRandomPolicy')
   register(grasping_sim.episode_to_transitions_grasping,
            'episode_to_transitions_grasping')
+
+  # Grasp2Vec: its model, its preprocessor and its two embedding losses.
+  register(grasp2vec.Grasp2VecModel, 'Grasp2VecModel')
+  register(grasp2vec.Grasp2VecPreprocessor, 'Grasp2VecPreprocessor')
+  register(grasp2vec.losses.n_pairs_loss, 'NPairsLoss')
+  register(grasp2vec.losses.triplet_loss, 'TripletLoss')
+
+  # Meta learning: MAML, its inner loop, preprocessors and inputs.
+  register(maml_model.MAMLRegressionModel, 'MAMLRegressionModel')
+  register(maml_inner_loop.MAMLInnerLoopGradientDescent,
+           'MAMLInnerLoopGradientDescent')
+  register(meta_pre.MAMLPreprocessorV2, 'MAMLPreprocessorV2')
+  register(meta_pre.FixedLenMetaExamplePreprocessor,
+           'FixedLenMetaExamplePreprocessor')
+  register(meta_data.MetaRecordInputGenerator, 'MetaRecordInputGenerator')
+  register(meta_data.MAMLRandomInputGenerator, 'MAMLRandomInputGenerator')
+
+  # The pose toy task: its env and random policy, models and transitions.
+  register(pose_env.PoseToyEnv, 'PoseToyEnv')
+  register(pose_env.PoseEnvRandomPolicy, 'PoseEnvRandomPolicy')
+  register(pose_env.PoseEnvRegressionModel, 'PoseEnvRegressionModel')
+  register(pose_env.PoseEnvContinuousMCModel, 'PoseEnvContinuousMCModel')
+  register(pose_env.PoseEnvRegressionModelMAML, 'PoseEnvRegressionModelMAML')
+  register(pose_env.episode_to_transitions_pose_toy,
+           'episode_to_transitions_pose_toy')
 
   # Seq2Act, and the parameter rules of train_seq2act_moe.gin (zero-arg
   # factories, as the JAX registry binds them: @EP_RULES_MOE()).

@@ -28,6 +28,14 @@ attention mode does not change the weights: a model trained with ring
 attention (JAX's ``mesh=``, the port's ``process_group=``) has the flash
 model's state dict, and each rank holds all of it.
 
+The same rules carry Grasp2Vec's two towers (``scene.resnet.*`` and
+``goal.resnet.*``: ``layers/resnet.py`` keeps flax's names, the conv
+kernels HWIO -> OIHW, the batch norms' statistics beside them) and the
+MAML models' parameters: the base network's leaves under their names, and
+where the inner rates are learned (JAX's ``{'base', 'maml_inner_lrs'}``)
+the base tree at the root and each rate, a scalar, under
+``maml_inner_lrs.<name>`` (a ``kernel``'s rate as ``weight``, untouched).
+
 ``train_state_from_flax`` builds the port's ``TrainState`` from a JAX
 ``TrainState`` whose leaves are numpy arrays: params and batch stats as
 above (apart, as ``params`` and ``model_state``), the optimizer's update
@@ -44,6 +52,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from tensor2robot_tpu_torch.meta_learning.maml_model import INNER_LRS_KEY
 from tensor2robot_tpu_torch.models.abstract_model import TrainState
 
 __all__ = ['from_flax', 'train_state_from_flax']
@@ -57,10 +66,24 @@ def _leaves(tree, prefix=()):
       yield prefix, key, np.asarray(value)
 
 
+def _maml_tree(tree):
+  """A MAML model's tree with learned inner rates, ``{'base': ...,
+  'maml_inner_lrs': ...}``, as the port names it: the base network's
+  leaves at the root, the rates under ``maml_inner_lrs``."""
+  if isinstance(tree, Mapping) and set(tree) == {'base', INNER_LRS_KEY}:
+    return {**tree['base'], INNER_LRS_KEY: tree[INNER_LRS_KEY]}
+  return tree
+
+
 def _state_dict(params, batch_stats) -> Dict[str, torch.Tensor]:
   state = {}
-  for path, leaf, value in _leaves(params):
-    if leaf == 'kernel':
+  for path, leaf, value in _leaves(_maml_tree(params or {})):
+    if leaf == 'kernel' and path[:1] == (INNER_LRS_KEY,):
+      if value.ndim:
+        raise ValueError('A learned inner rate is a scalar; {} is {}.'
+                         .format('/'.join(path + (leaf,)), value.shape))
+      leaf = 'weight'
+    elif leaf == 'kernel':
       if value.ndim == 4:
         value = value.transpose(3, 2, 0, 1)
       elif value.ndim == 2:

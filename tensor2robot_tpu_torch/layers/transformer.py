@@ -90,19 +90,23 @@ class Dense(nn.Module):
 
 class LayerNorm(nn.Module):
   """flax ``nn.LayerNorm(dtype=jnp.float32)`` over the last dim: float32
-  out, whatever the input's dtype."""
+  out, whatever the input's dtype (float64 stays float64); without a
+  scale where ``use_scale`` is False."""
 
-  def __init__(self, features: int, epsilon: float = 1e-6):
+  def __init__(self, features: int, epsilon: float = 1e-6,
+               use_scale: bool = True):
     super().__init__()
     self.epsilon = epsilon
-    self.scale = nn.Parameter(torch.ones(features))
+    self.scale = nn.Parameter(torch.ones(features)) if use_scale else None
     self.bias = nn.Parameter(torch.zeros(features))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    x = x.to(torch.float32)
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     mean = x.mean(-1, keepdim=True)
     var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-    mul = torch.rsqrt(var + self.epsilon) * self.scale
+    mul = torch.rsqrt(var + self.epsilon)
+    if self.scale is not None:
+      mul = mul * self.scale
     return (x - mean) * mul + self.bias
 
 

@@ -25,7 +25,9 @@ nothing waits for the device between steps.
   * ``create_ema``: ``optax.ema(decay, debias=True)``, the parameter
     average that serving reads (``avg_params``);
   * ``maybe_clip_gradients``: ``optax.clip_by_global_norm`` ahead of an
-    optimizer.
+    optimizer;
+  * ``create_default_optimizer``: the JAX models' default optimizer,
+    ``create_adam_optimizer`` as the gins bind it.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ import torch
 __all__ = ['Adam', 'ConstantSchedule', 'EMA', 'ExponentialDecay',
            'GlobalNormClip', 'Momentum', 'PiecewiseConstant', 'RMSProp',
            'SGD', 'create_adam_optimizer', 'create_constant_learning_rate',
-           'create_ema', 'create_exponential_decay_learning_rate',
+           'create_default_optimizer', 'create_ema',
+           'create_exponential_decay_learning_rate',
            'create_momentum_optimizer', 'create_rms_prop_optimizer',
            'create_sgd_optimizer', 'global_norm', 'maybe_clip_gradients',
            'piecewise_constant_learning_rate']
@@ -285,6 +288,19 @@ def create_adam_optimizer(learning_rate: ScalarOrSchedule = 1e-4,
   """Adam: the port's ``optax.adam(learning_rate, b1=beta1, b2=beta2,
   eps=epsilon)``."""
   return Adam(learning_rate, beta1, beta2, epsilon)
+
+
+def create_default_optimizer():
+  """``create_adam_optimizer`` with the gin bindings of its configurable
+  where the port's registry has it (``create_adam_optimizer.learning_rate
+  = ...``), as a JAX model that names no optimizer trains; its defaults
+  otherwise."""
+  from tensor2robot_tpu_torch.config import ginlike
+
+  try:
+    return ginlike.get_configurable('create_adam_optimizer')()
+  except (KeyError, ginlike.ConfigError):
+    return create_adam_optimizer()
 
 
 def create_sgd_optimizer(learning_rate: ScalarOrSchedule = 1e-4) -> SGD:

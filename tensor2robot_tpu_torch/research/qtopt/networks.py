@@ -56,6 +56,7 @@ from torch import nn
 
 from tensor2robot_tpu_torch.layers import pooling
 from tensor2robot_tpu_torch.layers import wgrad
+from tensor2robot_tpu_torch.layers.basic import BatchNorm, Dense, same_padding
 
 __all__ = ['E2E_GRASP_PARAM_KEYS', 'E2E_GRASP_PARAM_NAMES',
            'Grasping44Network', 'final_spatial_size', 'l2_regularization_loss',
@@ -76,13 +77,6 @@ E2E_GRASP_PARAM_NAMES = {
 E2E_GRASP_PARAM_KEYS = (
     'world_vector', 'vertical_rotation', 'close_gripper', 'open_gripper',
     'terminate_episode', 'gripper_closed', 'height_to_bottom')
-
-
-def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
-  """TF-style SAME padding (lo, hi) of one dim; lo is total // 2."""
-  out = -(-size // stride)
-  total = max((out - 1) * stride + kernel - size, 0)
-  return total // 2, total - total // 2
 
 
 class _Conv5x5Same(torch.autograd.Function):
@@ -189,65 +183,6 @@ class Conv(nn.Module):
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
     x = x.contiguous(memory_format=torch.channels_last)
     return self._conv2d(x, weight, bias, self.stride, 0)
-
-
-class Dense(nn.Module):
-  """``x @ weight.T + bias``; ``weight`` is a flax [in, out] kernel
-  transposed."""
-
-  def __init__(self, in_features: int, features: int, bias: bool = True):
-    super().__init__()
-    self.weight = nn.Parameter(torch.empty(features, in_features))
-    self.bias = nn.Parameter(torch.empty(features)) if bias else None
-
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    bias = None if self.bias is None else self.bias.to(x.dtype)
-    return F.linear(x, self.weight.to(x.dtype), bias)
-
-
-class BatchNorm(nn.Module):
-  """flax's batch norm over the channel dim (1 for NCHW, -1 for a dense
-  [N, C]); see the module docstring for the train-mode statistics."""
-
-  def __init__(self, features: int, scale: bool = True,
-               epsilon: float = 0.001, momentum: float = 0.9997):
-    super().__init__()
-    self.epsilon = epsilon
-    self.momentum = momentum
-    self.scale = nn.Parameter(torch.ones(features)) if scale else None
-    self.bias = nn.Parameter(torch.zeros(features))
-    self.register_buffer('mean', torch.zeros(features))
-    self.register_buffer('var', torch.ones(features))
-
-  def batch_statistics(self, x: torch.Tensor, clip: bool = True):
-    """(mean, var) of ``x`` over all but the channel dim, in float32, and
-    the running statistics updated with them."""
-    dims = (0, 2, 3) if x.dim() == 4 else (0,)
-    xf = x.to(torch.float32)
-    mean = xf.mean(dims)
-    var = (xf * xf).mean(dims) - mean * mean
-    if clip:
-      var = torch.clamp(var, min=0.0)
-    with torch.no_grad():
-      m = self.momentum
-      self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-      self.var.copy_(m * self.var + (1.0 - m) * var)
-    return mean, var
-
-  def normalize(self, x: torch.Tensor, mean: torch.Tensor,
-                var: torch.Tensor) -> torch.Tensor:
-    shape = (1, -1, 1, 1) if x.dim() == 4 else (1, -1)
-    dtype = x.dtype
-    mul = torch.rsqrt(var.to(dtype) + self.epsilon)
-    if self.scale is not None:
-      mul = mul * self.scale.to(dtype)
-    return ((x - mean.to(dtype).view(shape)) * mul.view(shape) +
-            self.bias.to(dtype).view(shape))
-
-  def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-    mean, var = (self.batch_statistics(x) if train
-                 else (self.mean, self.var))
-    return self.normalize(x, mean, var)
 
 
 class PrePoolStatsBatchNorm(BatchNorm):

@@ -28,7 +28,9 @@ from tensor2robot_tpu_torch.data import tfrecord
 __all__ = ['GIN_MODELS', 'count_records', 'main', 'make_parser']
 
 # The model configurables that ``--device`` binds.
-GIN_MODELS = ('Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom',)
+GIN_MODELS = ('Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom',
+              'PoseEnvRegressionModel', 'PoseEnvContinuousMCModel',
+              'PoseEnvRegressionModelMAML')
 
 
 def make_parser() -> argparse.ArgumentParser:

@@ -146,7 +146,8 @@ __all__ = ['DEVICE_DECODE', 'MODELS', 'NAN_POLICIES', 'NonFiniteLossError',
 NAN_POLICIES = ('off', 'skip', 'raise', 'rollback')
 # The model configurables of the gins: ``--device`` binds their device.
 GIN_MODELS = ('Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom',
-              'Seq2ActBCModel')
+              'Seq2ActBCModel', 'Grasp2VecModel', 'PoseEnvRegressionModel',
+              'PoseEnvContinuousMCModel', 'PoseEnvRegressionModelMAML')
 MODELS = ('qtopt', 'seq2act')
 # --device_decode: off (pixels), or the split decode's wire.
 DEVICE_DECODE = ('off', 'dense', 'sparse', 'packed')
@@ -526,7 +527,8 @@ def train_eval_model(t2r_model, model_dir: str,
                      eval_timeout_secs: float = 30.0,
                      write_metrics: bool = True,
                      eval_name: Optional[str] = None,
-                     tp_rules: Optional[Sequence[Any]] = None
+                     tp_rules: Optional[Sequence[Any]] = None,
+                     async_checkpoints: bool = False
                      ) -> Dict[str, Any]:
   """The main entry point, in the JAX function's three modes:
 
@@ -540,6 +542,9 @@ def train_eval_model(t2r_model, model_dir: str,
       It never writes, removes or renames a checkpoint.
 
   ``feed_depth`` > 1 transfers that many train batches ahead.
+  ``async_checkpoints`` (the pose env gins bind it False) asks JAX's
+  trainer to write checkpoints in the background; the port writes each
+  before the next step either way, so it changes nothing.
   ``tp_rules`` (``train_seq2act_moe.gin``'s ``@EP_RULES_MOE()``): rules
   that shard parameters over a group of the run decline where the run has
   no such group, as JAX's decline on a mesh without their axis; one that
@@ -549,6 +554,7 @@ def train_eval_model(t2r_model, model_dir: str,
   'eval_metrics', 'eval_history', 'trainer'}``; ``eval_history`` lists
   every eval's ``{'step', 'metrics', 'wall_time'}``.
   """
+  del async_checkpoints
   if tp_rules:
     from tensor2robot_tpu_torch.parallel import sharding
 

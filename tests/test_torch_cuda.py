@@ -66,6 +66,14 @@ vectorized env's step from pinned heights without noise equals the CPU's
 bit for bit; an acting step of the narrow critic launches 1 K1 and 9 K2f
 and equals its plain rerun; the narrow critic's loop, its learner in a
 thread, launches exactly its acting and learner steps' kernels.
+Grasp2Vec on the card: its preprocessor crops and converts the three
+512x640 batches in one K1 launch (two where the goal's crop has another
+size), bit-equal to its plain rerun on the same draws, in TRAIN and EVAL;
+a TRAIN step of the ResNet-18 model at 56x56 launches one K1 and its loss
+and embeddings equal the plain rerun's (cuDNN deterministic). The pose
+env's MAML step (2 tasks, second order) on the card against the CPU's:
+the loss, the inner losses and every outer gradient within 1e-4 of each
+one's largest (other summation orders, float32).
 """
 
 import pytest
@@ -1291,3 +1299,121 @@ def test_live_loop_runs_on_the_card(device, tmp_path):
   assert summary['swaps'] >= 1 and summary['actor_version'] > 1
   _, published = loop.bus.snapshot
   assert all(v.device.type == 'cuda' for v in published['params'].values())
+
+
+def _grasp2vec_frames(device, batch, seed=0):
+  gen = _generator(device, seed)
+  return {key: torch.randint(0, 256, (batch, 512, 640, 3), dtype=torch.uint8,
+                             device=device, generator=gen)
+          for key in ('pregrasp_image', 'postgrasp_image', 'goal_image')}
+
+
+@pytest.mark.parametrize('goal_crop', [(0, 40, 472, 0, 168, 472),
+                                       (0, 24, 488, 0, 152, 488)])
+@pytest.mark.parametrize('mode', ['train', 'eval'])
+def test_grasp2vec_preprocessor_launches_k1_and_matches_plain(device, mode,
+                                                              goal_crop):
+  """The three batches in one K1 launch where the crops have one size (the
+  gin's), two where the goal's differs; bit-equal to the plain rerun on
+  the same draws."""
+  from unittest import mock
+
+  from tensor2robot_tpu_torch.research import grasp2vec
+
+  model = grasp2vec.Grasp2VecModel(
+      device=device, preprocessor_cls=lambda f, l: (
+          grasp2vec.Grasp2VecPreprocessor(f, l, goal_crop=goal_crop)),
+      goal_size=goal_crop[2::3])
+  frames = _grasp2vec_frames(device, 8)
+  draws = model.preprocessor.draw(8, _generator(device, 3))
+  before = kernels.LAUNCHES['crop_convert']
+  got, _ = model.preprocessor.preprocess(frames, None, mode, draws=draws)
+  torch.cuda.synchronize()
+  launches = kernels.LAUNCHES['crop_convert'] - before
+  assert launches == (1 if goal_crop[2] == 472 else 2)
+  with mock.patch.object(pallas_crop, 'crop_convert',
+                         pallas_crop.crop_convert_plain):
+    want, _ = model.preprocessor.preprocess(frames, None, mode, draws=draws)
+  assert kernels.LAUNCHES['crop_convert'] - before == launches
+  for key in want:
+    assert got[key].shape == want[key].shape
+    assert torch.equal(got[key], want[key]), key
+
+
+def test_grasp2vec_train_step_launches_k1_and_matches_plain(device):
+  """A TRAIN step of the small model (ResNet-18, 56x56 crops of 64x64
+  frames, batch 4): one K1 launch, and the loss and every gradient equal
+  to the plain rerun's with cuDNN deterministic."""
+  from unittest import mock
+
+  from tensor2robot_tpu_torch.research import grasp2vec
+
+  model = grasp2vec.Grasp2VecModel(
+      scene_size=(56, 56), goal_size=(56, 56), resnet_size=18, device=device,
+      preprocessor_cls=lambda f, l: grasp2vec.Grasp2VecPreprocessor(
+          f, l, scene_crop=(0, 8, 56, 0, 8, 56),
+          goal_crop=(0, 8, 56, 0, 8, 56), src_img_shape=(64, 64, 3)))
+  state = model.create_train_state(torch.Generator().manual_seed(0))
+  gen = _generator(device, 1)
+  frames = {key: torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8,
+                               device=device, generator=gen)
+            for key in ('pregrasp_image', 'postgrasp_image', 'goal_image')}
+  draws = model.preprocessor.draw(4, _generator(device, 2))
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    results = []
+    for crop in (pallas_crop.crop_convert, pallas_crop.crop_convert_plain):
+      before = kernels.LAUNCHES['crop_convert']
+      with mock.patch.object(pallas_crop, 'crop_convert', crop):
+        features, _ = model.preprocessor.preprocess(frames, None, 'train',
+                                                    draws=draws)
+      results.append(model.gradients(state, features, None))
+      torch.cuda.synchronize()
+      launched = kernels.LAUNCHES['crop_convert'] - before
+      assert launched == (1 if crop is pallas_crop.crop_convert else 0)
+  finally:
+    torch.backends.cudnn.deterministic = deterministic
+  (loss, _, _, grads), (want_loss, _, _, want_grads) = results
+  assert torch.isfinite(loss) and torch.equal(loss, want_loss)
+  for name in want_grads:
+    assert torch.equal(grads[name], want_grads[name]), name
+
+
+def test_pose_env_maml_step_on_the_card_matches_cpu(device):
+  """PoseEnvRegressionModelMAML, 2 tasks of one condition and one
+  inference frame, second order: the card's loss, inner losses and outer
+  gradients against the CPU's from the same weights."""
+  from tensor2robot_tpu_torch.research import pose_env
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  env = pose_env.PoseToyEnv(seed=3)
+  frames = torch.stack([torch.from_numpy(env.reset()) for _ in range(4)])
+  frames = frames.reshape(2, 2, 64, 64, 3)
+  targets = torch.rand((2, 2, 2), generator=torch.Generator().manual_seed(1))
+  rewards = torch.ones((2, 2, 1))
+  features = {'condition/features/state': frames[:, :1],
+              'condition/labels/target_pose': targets[:, :1],
+              'condition/labels/reward': rewards[:, :1],
+              'inference/features/state': frames[:, 1:]}
+  labels = {'target_pose': targets[:, 1:], 'reward': rewards[:, 1:]}
+  results = []
+  for where in (torch.device('cpu'), device):
+    model = pose_env.PoseEnvRegressionModelMAML(
+        base_model=pose_env.PoseEnvRegressionModel(device=where))
+    state = model.create_train_state(torch.Generator().manual_seed(0))
+    f, l = model.preprocessor.preprocess(
+        {k: v.to(where) for k, v in features.items()},
+        {k: v.to(where) for k, v in labels.items()}, 'train')
+    loss, outputs, _, grads = model.gradients(state, f, l)
+    results.append((loss.cpu(), {k: v.cpu() for k, v in outputs.items()},
+                    {k: v.cpu() for k, v in grads.items()}))
+  (want_loss, want_outputs, want_grads), (loss, outputs, grads) = results
+  assert torch.isfinite(loss)
+  assert abs(float(loss - want_loss)) <= 1e-4 * abs(float(want_loss)) + 1e-6
+  for key, value in want_outputs.items():
+    assert abs(float(outputs[key] - value)) <= 1e-4 * abs(float(value)) + 1e-6
+  for name, value in want_grads.items():
+    scale = float(value.abs().max()) + 1e-6
+    assert float((grads[name] - value).abs().max()) <= 1e-4 * scale, name

@@ -83,6 +83,30 @@ RL_LOOP_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
     'replay.store', 'replay.wire', 'rl.loop', 'rl.run_rl_loop'))
 
 
+# The Grasp2Vec and MAML slice's modules.
+GRASP2VEC_MAML_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
+    'layers.basic', 'layers.resnet', 'layers.spatial_softmax',
+    'layers.vision_layers', 'meta_learning', 'meta_learning.maml_inner_loop',
+    'meta_learning.maml_model', 'meta_learning.meta_example',
+    'meta_learning.meta_policies', 'meta_learning.preprocessors',
+    'meta_learning.run_meta_env', 'models.regression_model',
+    'preprocessors.abstract_preprocessor',
+    'preprocessors.spec_transformation_preprocessor', 'research.grasp2vec',
+    'research.grasp2vec.grasp2vec_model', 'research.grasp2vec.losses',
+    'research.grasp2vec.visualization', 'research.pose_env',
+    'research.pose_env.episode_to_transitions', 'research.pose_env.pose_env',
+    'research.pose_env.pose_env_maml_models',
+    'research.pose_env.pose_env_models'))
+
+# The gins of that slice.
+GRASP2VEC_MAML_GINS = (
+    'research/grasp2vec/configs/train_grasp2vec.gin',
+    'research/pose_env/configs/run_collect_pose_env.gin',
+    'research/pose_env/configs/train_pose_env.gin',
+    'research/pose_env/configs/train_pose_env_from_records.gin',
+    'research/pose_env/configs/run_train_reg_maml.gin')
+
+
 def _port_sources():
   for root, _, files in os.walk(PORT):
     for name in sorted(files):
@@ -123,6 +147,8 @@ def test_importing_every_module_loads_no_jax():
   assert set(GIN_MODULES) <= names, set(GIN_MODULES) - names
   assert set(OFFPOLICY_MODULES) <= names, set(OFFPOLICY_MODULES) - names
   assert set(RL_LOOP_MODULES) <= names, set(RL_LOOP_MODULES) - names
+  assert set(GRASP2VEC_MAML_MODULES) <= names, (
+      set(GRASP2VEC_MAML_MODULES) - names)
 
 
 def test_registering_the_configurables_loads_no_jax():
@@ -141,6 +167,36 @@ def test_registering_the_configurables_loads_no_jax():
                                           'orbax', 'tensor2robot_tpu'))
       assert not bad, bad
       ''')
+  env = dict(os.environ, PYTHONPATH=REPO)
+  result = subprocess.run([sys.executable, '-c', script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+  assert result.returncode == 0, result.stderr
+
+
+@pytest.mark.parametrize('gin', GRASP2VEC_MAML_GINS)
+def test_the_grasp2vec_and_pose_env_gins_load_no_jax(gin):
+  """Each gin of the Grasp2Vec and MAML slice parses and names only
+  registered configurables, its model built on the default card, with no
+  JAX loaded."""
+  script = textwrap.dedent('''
+      import sys
+      import torch
+      from tensor2robot_tpu_torch import config
+      config.register_framework_configurables()
+      config.parse_config_files_and_bindings([
+          'tensor2robot_tpu_torch/{}'])
+      config.check_configurables()
+      try:
+        model = config.query_parameter('train_eval_model.t2r_model')
+      except config.ConfigError:
+        model = None
+      if model is not None:
+        assert model.device == torch.device('cuda'), model.device
+      bad = sorted(m for m in sys.modules
+                   if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                          'orbax', 'tensor2robot_tpu'))
+      assert not bad, bad
+      ''').format(gin)
   env = dict(os.environ, PYTHONPATH=REPO)
   result = subprocess.run([sys.executable, '-c', script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -225,6 +281,17 @@ def test_flash_ab_refuses_to_run_without_a_card():
                           capture_output=True, text=True, timeout=120)
   assert result.returncode != 0
   assert 'needs a CUDA card' in result.stderr
+
+
+def test_the_grasp2vec_and_pose_env_models_run_on_the_card_unless_asked():
+  from tensor2robot_tpu_torch.research import grasp2vec
+  from tensor2robot_tpu_torch.research import pose_env
+
+  for model in (grasp2vec.Grasp2VecModel(), pose_env.PoseEnvRegressionModel(),
+                pose_env.PoseEnvContinuousMCModel(),
+                pose_env.PoseEnvRegressionModelMAML()):
+    assert model.device == torch.device('cuda'), type(model).__name__
+    assert model.compute_dtype == torch.float32
 
 
 def test_the_live_loop_runs_on_the_card_unless_asked():

@@ -230,6 +230,33 @@ repository around it. Phases, each printing one line or more:
      env: 4 tasks of a demo and 2 rounds of 2 adapted episodes. Printed:
      the steps' ms, tasks/s, the inner loss before and after adaptation,
      the rewards by round.
+  4i. vrgripper and Watch-Try-Learn (phase ``vrgripper``): before the run,
+     the FLOP count of the vision trial gin's step (the towers' convs,
+     three passes) and its bound at 67 TFLOP/s; K1 at the phase's shape
+     ([320, 220, 300, 3] uint8 -> [320, 200, 280, 3] float32, each
+     episode's 40 frames at its offset) bit-equal to its plain version and
+     timed beside its bound, and the antialiased resize to 100x100 on the
+     card within VRG_RESIZE_ATOL of the CPU's; VRG_TASKS task files of
+     VRG_EPISODES episodes of VRG_T 220x300 JPEG frames with their gripper
+     and full-state poses, actions and success, written by the port's
+     writer; the five gins (``run_train_wtl_vision_{trial,retrial}.gin``,
+     ``train_vrgripper_tec.gin``, ``run_train_wtl_statespace_{trial,
+     retrial}.gin``) as written through ``train_eval --gin_configs`` with
+     ``TRAIN_DATA`` bound, VRG_STEPS steps each (cut: the steps),
+     ``nan_policy`` raise, the counters zeroed just before and read just
+     after: 2 K1 a step (a launch a side of the meta batch) for the vision
+     gins and TEC, none for the state-space ones. On a batch of the
+     records, the vision trial model from its trained checkpoint: a step
+     equal to its plain rerun bit for bit (cuDNN deterministic), the same
+     step on the CPU (the loss within VRG_LOSS_RTOL, every gradient within
+     VRG_GRAD_RTOL of its largest, the frames within VRG_RESIZE_ATOL), the
+     resident step timed and profiled (busy share, device ms by class, K1's
+     ms a step, tasks/s and frames/s, peak memory, against the FLOP bound),
+     and CheckpointPredictor on the checkpoint acting on a
+     ``pack_wtl_meta_features`` episode. Then VRGripperEnvRegressionModelMAML
+     over VRGripperRegressionModel and over VRGripperDomainAdaptiveModel
+     (``var_scope='policy'``), 8 tasks x 40 frames, one inner step, second
+     order, VRG_WRAPPER_STEPS steps each: 2 K1 a step, every loss finite.
   5. Seq2Act serving: the long-context RT-1-style policy at full width
      (512-frame episodes, 4,096 tokens, 8 blocks, attention_mode 'flash',
      float32 with TF32 off) restored by CheckpointPredictor from a
@@ -336,7 +363,7 @@ repository around it. Phases, each printing one line or more:
      within RING_GIN_RTOL of the first run's at that step.
   9. A JSON line of phase 4e's numbers (``qtopt_offpolicy``), one of
      phase 4f's (``rl_loop``), one of phases 4g's and 4h's (``grasp2vec``,
-     ``pose_env_maml``), one of
+     ``pose_env_maml``), one of phase 4i's (``vrgripper``), one of
      phases 6c's, 6d's and the ring gin's numbers
      (``seq2act_variants``), a JSON line of the kernels (K4, K5a and K5b
      with their bf16 times, bounds at the bf16 peak and the library's bf16
@@ -4292,6 +4319,469 @@ def phase_pose_env_maml(device):
   return launches, report
 
 
+# Phase 4i: vrgripper and Watch-Try-Learn. VRG_TASKS task files of
+# VRG_EPISODES episodes of VRG_T 220x300 JPEG frames (the gins' 8 tasks a
+# batch and 40 frames), each of the five gins VRG_STEPS steps (cut:
+# 100,000 or 100) and each MAML wrapper VRG_WRAPPER_STEPS.
+VRG_TASKS, VRG_EPISODES, VRG_T = 8, 4, 40
+VRG_STEPS, VRG_WRAPPER_STEPS, VRG_RESIDENT_STEPS = 20, 3, 5
+VRG_CONFIGS = os.path.join('tensor2robot_tpu_torch', 'research', 'vrgripper',
+                           'configs')
+# (gin, its model, its condition episodes a task, K1 launches a step: one
+# a side of the meta batch where the episodes hold frames).
+VRG_GINS = (
+    ('run_train_wtl_vision_trial.gin', 'VRGripperEnvVisionTrialModel', 1, 2),
+    ('run_train_wtl_vision_retrial.gin', 'VRGripperEnvVisionTrialModel', 2,
+     2),
+    ('train_vrgripper_tec.gin', 'VRGripperEnvTecModel', 1, 2),
+    ('run_train_wtl_statespace_trial.gin', 'VRGripperEnvSimpleTrialModel', 1,
+     0),
+    ('run_train_wtl_statespace_retrial.gin', 'VRGripperEnvSimpleTrialModel',
+     2, 0))
+# The card's step against the CPU's (as phase 4h holds MAML's): the loss
+# within 1e-4 relative, each gradient within 1e-3 of its tensor's largest
+# (float32 sums in other orders through the towers, the mixture's
+# logsumexp and the temporal convs); the resize (F.interpolate, antialias)
+# within 1e-5 of the CPU's.
+VRG_LOSS_RTOL, VRG_GRAD_RTOL, VRG_RESIZE_ATOL = 1e-4, 1e-3, 1e-5
+
+
+def write_vrgripper_records(directory, encoder):
+  """VRG_TASKS files (one a task) of VRG_EPISODES episodes by the port's
+  writer, under the vrgripper records' names: VRG_T 220x300 JPEG frames
+  (``image0``), ``world_pose_gripper`` [T, 14], ``full_state_pose`` [T,
+  32], ``action_world`` [T, 7] and ``success`` [T, 1] (every other
+  episode a success); returns the file pattern and the frames' bytes."""
+  from tensor2robot_tpu_torch.data.writer import TFRecordReplayWriter
+  from tensor2robot_tpu_torch.specs.tensor_spec import TensorSpec
+
+  steps = VRG_T
+  spec = {'image': TensorSpec((steps, 220, 300, 3), np.uint8, name='image0',
+                              data_format='jpeg'),
+          'gripper_pose': TensorSpec((steps, 14), np.float32,
+                                     name='world_pose_gripper'),
+          'full_state_pose': TensorSpec((steps, 32), np.float32,
+                                        name='full_state_pose'),
+          'action': TensorSpec((steps, 7), np.float32, name='action_world'),
+          'success': TensorSpec((steps, 1), np.float32, name='success')}
+  rng = np.random.RandomState(9)
+  # camera_frame's content at 220x300: ramps shifted a frame, and sensor
+  # noise (8 draws, taken in turn: drawing it a frame costs more than the
+  # encode).
+  yy, xx = np.mgrid[0:220, 0:300]
+  ramps = (np.stack([xx, yy, (xx + yy) // 2], -1) % 256).astype(np.uint8)
+  noise = rng.randint(-6, 7, (8,) + ramps.shape).astype(np.int16)
+
+  def frame(index):
+    # uint8 sums wrap: the ramps' % 256.
+    shifted = ramps + np.array([7 * index, 3 * index, 0]).astype(np.uint8)
+    return np.clip(shifted.astype(np.int16) + noise[index % 8], 0,
+                   255).astype(np.uint8)
+
+  frame_bytes = 0
+  for task in range(VRG_TASKS):
+    with TFRecordReplayWriter() as writer:
+      writer.open(os.path.join(directory, 'vrg-task-{:03d}.tfrecord'.format(
+          task)))
+      for episode in range(VRG_EPISODES):
+        frames = [encode_jpeg(frame((task * VRG_EPISODES + episode) * 11 + t),
+                              encoder) for t in range(steps)]
+        frame_bytes += sum(len(f) for f in frames)
+        writer.write_numpy(spec, {
+            'image': frames,
+            'gripper_pose': rng.normal(size=(steps, 14)).astype(np.float32),
+            'full_state_pose': rng.normal(size=(steps, 32)).astype(
+                np.float32),
+            'action': rng.uniform(-1, 1, (steps, 7)).astype(np.float32),
+            'success': np.full((steps, 1), float(episode % 2), np.float32)})
+  return os.path.join(directory, 'vrg-task-*'), frame_bytes
+
+
+def vrgripper_reckoning(model, device, frames):
+  """The conv FLOPs of one TRAIN step of a vision model whose ``frames``
+  100x100 frames each pass one keypoint tower: each conv's multiply-adds
+  from one hooked forward of ``state_features`` at batch 1, run three
+  times (forward, input and weight gradients; the first conv's input
+  gradient is not needed)."""
+  from tensor2robot_tpu_torch.research.qtopt.networks import Conv
+
+  macs = []
+
+  def hook(module, args, output):
+    macs.append((output.numel() * module.weight.shape[1] *
+                 module.kernel ** 2, module.weight.shape[1] == 3))
+
+  tower = model.create_network().state_features.to(device)
+  handles = [m.register_forward_hook(hook) for m in tower.modules()
+             if isinstance(m, Conv)]
+  with torch.no_grad():
+    tower(torch.zeros((1, 100, 100, 3), device=device), train=True)
+  for handle in handles:
+    handle.remove()
+  per_frame = sum(3 * m - (m if first else 0) for m, first in macs)
+  return 2 * frames * per_frame
+
+
+def phase_vrgripper(device):
+  """vrgripper and Watch-Try-Learn at full width (phase 4i): episode
+  records of 220x300 JPEG frames, the five gins through ``train_eval``,
+  the vision gin's gates and numbers, a restored checkpoint's prediction
+  and the two MAML wrappers. Returns (the vision trial gin's launches, the
+  report)."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.meta_learning import MAMLInnerLoopGradientDescent
+  from tensor2robot_tpu_torch.meta_learning import meta_data
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.predictors import CheckpointPredictor
+  from tensor2robot_tpu_torch.preprocessors import pallas_crop
+  from tensor2robot_tpu_torch.research import vrgripper
+  from tensor2robot_tpu_torch.research.vrgripper import vrgripper_env_models
+  from tensor2robot_tpu_torch.trainer import checkpointing
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  phase_start = time.monotonic()
+  report = {}
+  model = vrgripper.VRGripperEnvVisionTrialModel(device=device,
+                                                 num_mixture_components=20)
+  frames_a_step = VRG_TASKS * 2 * VRG_T
+  flops = vrgripper_reckoning(model, device, frames_a_step)
+  report['step_flops'] = flops
+  report['flop_bound_ms'] = flops / FP32_OPS_PER_S * 1e3
+  print('vrgripper: reckoned before the run, the vision trial gin\'s step '
+        '({} tasks, {} frames of 100x100 through the keypoint towers): {:.1f} '
+        'GFLOP (the convs, 3 passes), bound {:.3f} ms at {:.0f} TFLOP/s '
+        'float32'.format(VRG_TASKS, frames_a_step, flops / 1e9,
+                         report['flop_bound_ms'], FP32_OPS_PER_S / 1e12))
+
+  # K1 at the phase's shape: a side's episodes, each at its own offset.
+  gen = torch.Generator(device=device).manual_seed(4)
+  frames = torch.randint(0, 256, (VRG_TASKS * VRG_T, 220, 300, 3),
+                         dtype=torch.uint8, device=device, generator=gen)
+  offsets = torch.stack([
+      torch.randint(0, 21, (VRG_TASKS,), device=device, generator=gen),
+      torch.randint(0, 21, (VRG_TASKS,), device=device, generator=gen)],
+                        -1).to(torch.int32).repeat_interleave(VRG_T, 0)
+  got = pallas_crop.crop_convert(frames, offsets, (200, 280))
+  want = pallas_crop.crop_convert_plain(frames, offsets, (200, 280))
+  torch.cuda.synchronize()
+  check(torch.equal(got, want), 'vrgripper: K1 at [{}, 220, 300, 3] differs '
+        'from its plain version'.format(frames.shape[0]))
+  k1_ms = median_ms(lambda: pallas_crop.crop_convert(frames, offsets,
+                                                     (200, 280)),
+                    host_ahead=True)
+  elements = got.numel()
+  k1_bound, k1_by = bound_ms(elements * 5 + offsets.numel() * 4, elements)
+  resized = vrgripper_env_models.resize_bilinear(got, (100, 100))
+  resize_err = max_abs_err(resized.cpu(), vrgripper_env_models.resize_bilinear(
+      got.cpu(), (100, 100)))
+  check(resize_err <= VRG_RESIZE_ATOL, 'vrgripper: the resize on the card is '
+        '{:.3g} from the CPU\'s'.format(resize_err))
+  report['k1'] = {'frames': frames.shape[0], 'ms': k1_ms, 'bound_ms': k1_bound,
+                  'bound_by': k1_by}
+  report['resize_card_vs_cpu'] = resize_err
+  print('vrgripper: K1 [{}, 220, 300, 3] u8 -> [{}, 200, 280, 3] f32 at '
+        'per-episode offsets bit-equal to its plain version, {:.4f} ms of '
+        'device time (bound {:.4f} ms, {}, {:.1%}); the antialiased resize '
+        'to 100x100 on the card within {:.3g} of the CPU\'s; {}'.format(
+            frames.shape[0], frames.shape[0], k1_ms, k1_bound, k1_by,
+            k1_bound / k1_ms, resize_err, smi_line()))
+  del frames, offsets, got, want, resized
+
+  probe = jpeg_probe()
+  encoder = 'cv2' if probe['cv2'] else 'PIL'
+  with tempfile.TemporaryDirectory() as tmp:
+    start = time.monotonic()
+    pattern, frame_bytes = write_vrgripper_records(tmp, encoder)
+    print('vrgripper: wrote {} tasks x {} episodes of {} frames ({}, {:.1f} '
+          'KiB a frame) in {:.1f} s'.format(
+              VRG_TASKS, VRG_EPISODES, VRG_T, encoder,
+              frame_bytes / (VRG_TASKS * VRG_EPISODES * VRG_T) / 1024,
+              time.monotonic() - start))
+
+    runs = {}
+    for gin, model_name, n_con, k1 in VRG_GINS:
+      model_dir = os.path.join(tmp, gin)
+      argv = ['--device', device.type, '--model_dir', model_dir,
+              '--gin_configs', os.path.join(VRG_CONFIGS, gin)]
+      for binding in ('TRAIN_DATA = "{}"'.format(pattern),
+                      'train_eval_model.max_train_steps = {}'.format(
+                          VRG_STEPS),
+                      'train_eval_model.save_checkpoints_steps = {}'.format(
+                          VRG_STEPS),
+                      'train_eval_model.log_every_n_steps = 1',
+                      "train_eval_model.nan_policy = 'raise'"):
+        argv += ['--gin_bindings', binding]
+      out = io.StringIO()
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      kernels.reset_launches()
+      start = time.monotonic()
+      with contextlib.redirect_stdout(out):
+        rc = train_eval.main(argv)
+      torch.cuda.synchronize()
+      elapsed = time.monotonic() - start
+      launches = dict(kernels.LAUNCHES)
+      check(rc == 0, 'vrgripper: {} returned {}'.format(gin, rc))
+      line = json.loads(out.getvalue().strip().splitlines()[-1])
+      want = dict.fromkeys(launches, 0)
+      want['crop_convert'] = k1 * VRG_STEPS
+      check(launches == want, 'vrgripper: {} launched {} != {} ({} K1 a '
+            'step)'.format(gin, launches, want, k1))
+      check(line['model'] == model_name and line['step'] == VRG_STEPS and
+            line['data'] == 'python' and
+            np.isfinite(line['metrics']['loss']), 'vrgripper: {}: {}'.format(
+                gin, line))
+      frames_a_task = (n_con + 1) * VRG_T if k1 else 0
+      tasks_per_sec = line['examples_per_sec']
+      runs[gin] = {'step_ms': line['step_ms'],
+                   'data_wait_ms': line['data_wait_ms'],
+                   'tasks_per_sec': tasks_per_sec,
+                   'frames_per_sec': tasks_per_sec * frames_a_task,
+                   'loss': line['metrics']['loss'],
+                   'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+                   'seconds': elapsed, 'k1_a_step': k1}
+      print('vrgripper: {} ({}, {} condition episode(s) a task) {} steps of '
+            '{} tasks from the records in {:.1f} s, every loss finite, loss '
+            '{:.4f}; launches {} ({} K1 a step); the loop\'s median step '
+            '{:.2f} ms, of which {:.2f} ms waiting for data; {:.2f} tasks/s, '
+            '{:.0f} frames/s; peak {:.2f} GB; {}'.format(
+                gin, model_name, n_con, VRG_STEPS, VRG_TASKS, elapsed,
+                line['metrics']['loss'], launches, k1, line['step_ms'],
+                line['data_wait_ms'], tasks_per_sec,
+                runs[gin]['frames_per_sec'], runs[gin]['peak_gb'],
+                smi_line()))
+      if gin == VRG_GINS[0][0]:
+        vision_launches = launches
+    report['gins'] = runs
+
+    # The vision trial gin's model on one batch of its records.
+    vision_gin = VRG_GINS[0][0]
+    vision_dir = os.path.join(tmp, vision_gin)
+    reader = meta_data.MetaRecordInputGenerator(file_patterns=pattern,
+                                                num_tasks=VRG_TASKS)
+    reader.set_specification_from_model(model, ModeKeys.TRAIN)
+    iterator = reader.create_dataset_iterator(ModeKeys.TRAIN, seed=0,
+                                              prefetch=0)
+    raw_np, labels_np = next(iterator)
+    iterator.close()
+    to_device = lambda arrays, where: {
+        k: torch.from_numpy(np.ascontiguousarray(v)).to(where)
+        for k, v in arrays.items()}
+    raw, raw_labels = to_device(raw_np, device), to_device(labels_np, device)
+    state = checkpointing.CheckpointManager(vision_dir).restore(VRG_STEPS,
+                                                                device)
+    check(state.step == VRG_STEPS, 'restored step {}'.format(state.step))
+    base = model.preprocessor.base_preprocessor
+    draw_gen = torch.Generator(device=device).manual_seed(11)
+    draws = {side: base.draw(VRG_TASKS, draw_gen)
+             for side in ('condition', 'inference')}
+
+    # A step through K1 against its plain rerun, cuDNN deterministic.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+      kernels.reset_launches()
+      features, labels = model.preprocessor.preprocess(
+          raw, raw_labels, ModeKeys.TRAIN, draws=draws)
+      loss, outputs, _, grads = model.gradients(state, features, labels)
+      torch.cuda.synchronize()
+      step_launches = dict(kernels.LAUNCHES)
+      with plain_kernels():
+        plain_features, plain_labels = model.preprocessor.preprocess(
+            raw, raw_labels, ModeKeys.TRAIN, draws=draws)
+        plain_loss, _, _, plain_grads = model.gradients(
+            state, plain_features, plain_labels)
+        torch.cuda.synchronize()
+    finally:
+      torch.backends.cudnn.deterministic = deterministic
+    check(step_launches['crop_convert'] == 2 and
+          sum(step_launches.values()) == 2,
+          'vrgripper: a vision step launched {}'.format(step_launches))
+    check(all(torch.equal(features[k], plain_features[k]) for k in features)
+          and torch.equal(loss, plain_loss) and
+          all(torch.equal(grads[k], plain_grads[k]) for k in grads),
+          'vrgripper: the vision step differs from its plain rerun')
+    check(bool(torch.isfinite(loss)), 'vrgripper: the vision loss is not '
+          'finite')
+    del plain_grads
+    print('vrgripper: a vision trial step (2 K1) equals its plain rerun bit '
+          'for bit: the crops, the loss {:.6f} and every gradient of {} '
+          'tensors (cuDNN deterministic)'.format(float(loss),
+                                                 len(state.params)))
+
+    # The same step on the CPU, from the same weights, batch and draws.
+    cpu_model = vrgripper.VRGripperEnvVisionTrialModel(
+        device='cpu', num_mixture_components=20)
+    cpu_state = type(state)(**to_cpu(vars(state)))
+    cpu_features, cpu_labels = cpu_model.preprocessor.preprocess(
+        to_device(raw_np, 'cpu'), to_device(labels_np, 'cpu'),
+        ModeKeys.TRAIN, draws=to_cpu(draws))
+    cpu_loss, _, _, cpu_grads = cpu_model.gradients(cpu_state, cpu_features,
+                                                    cpu_labels)
+    loss_err = abs(float(loss.cpu() - cpu_loss)) / abs(float(cpu_loss))
+    check(loss_err <= VRG_LOSS_RTOL, 'vrgripper: the vision loss on the card '
+          'is {:.3g} relative from the CPU\'s'.format(loss_err))
+    grad_errs = {name: float((grads[name].cpu() - value).abs().max()) /
+                 max(float(value.abs().max()), 1e-12)
+                 for name, value in cpu_grads.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    check(grad_errs[worst] <= VRG_GRAD_RTOL, 'vrgripper: the gradient of {} '
+          'on the card is {:.3g} of max from the CPU\'s'.format(
+              worst, grad_errs[worst]))
+    frame_err = max(max_abs_err(features[k].cpu(), cpu_features[k])
+                    for k in features if k.endswith('/image'))
+    check(frame_err <= VRG_RESIZE_ATOL, 'vrgripper: the preprocessed frames '
+          'on the card are {:.3g} from the CPU\'s'.format(frame_err))
+    report['card_vs_cpu'] = {'loss': loss_err,
+                             'worst_gradient': grad_errs[worst],
+                             'frames': frame_err}
+    print('vrgripper: the vision step on the card against the CPU\'s: loss '
+          '{:.6f} ({:.3g} relative, tolerance {}), the worst of {} gradients '
+          '{} at {:.3g} of its max (tolerance {}), the preprocessed frames '
+          'within {:.3g}'.format(float(loss), loss_err, VRG_LOSS_RTOL,
+                                 len(grads), worst, grad_errs[worst],
+                                 VRG_GRAD_RTOL, frame_err))
+    del grads, cpu_grads
+
+    # The resident step, timed alone, then profiled.
+    trainer = train_eval.Trainer(model, os.path.join(tmp, 'profile'),
+                                 write_metrics=False)
+    current = [state]
+
+    def resident_step():
+      f, l = model.preprocessor.preprocess(
+          raw, raw_labels, ModeKeys.TRAIN,
+          generator=trainer.crop_generator(current[0].step))
+      current[0], metrics = model.train_step(current[0], f, l)
+      return metrics
+
+    resident_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.monotonic()
+    for _ in range(VRG_RESIDENT_STEPS):
+      metrics = resident_step()
+    torch.cuda.synchronize()
+    resident_ms = (time.monotonic() - start) * 1e3 / VRG_RESIDENT_STEPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(bool(torch.isfinite(metrics['loss'])), 'vrgripper: a resident '
+          'step\'s loss is not finite')
+    profiled = {}
+    profiled_ms = train_profile('vrgripper vision trial resident step, '
+                                'profiled', trainer, model, state, raw,
+                                raw_labels, 3, VRG_TASKS, profiled)
+    trainer.close()
+    classes = kernel_classes(profiled.get('kernel_ms', {}))
+    busy = profiled.get('busy_ms')
+    vision_run = runs[vision_gin]
+    report.update(
+        resident_ms=resident_ms, profiled_ms=profiled_ms, busy_ms=busy,
+        busy_share=None if busy is None else busy / resident_ms,
+        k1_ms_a_step=classes['K1 crop_convert'] if busy is not None else None,
+        device_ms_by_class=dict(classes), resident_peak_gb=peak_gb,
+        tasks_per_sec_resident=VRG_TASKS * 1e3 / resident_ms,
+        frames_per_sec_resident=frames_a_step * 1e3 / resident_ms)
+    print('vrgripper: the vision trial step {:.2f} ms wall in the loop, '
+          '{:.2f} ms resident ({:.1f} tasks/s, {:.0f} frames/s; {:.2f} ms '
+          'under the profiler), against its FLOP bound {:.3f} ms ({:.1%} of '
+          'it); kernels busy {} of the resident step; K1 {} ms a step; '
+          'device ms a step by class {}; peak {:.2f} GB; {}'.format(
+              vision_run['step_ms'], resident_ms, VRG_TASKS * 1e3 /
+              resident_ms, frames_a_step * 1e3 / resident_ms, profiled_ms,
+              report['flop_bound_ms'], report['flop_bound_ms'] / resident_ms,
+              'not measured' if busy is None else '{:.2f} ms ({:.1%})'.format(
+                  busy, busy / resident_ms),
+              'not measured' if busy is None else '{:.4f}'.format(
+                  classes['K1 crop_convert']),
+              {k: round(v, 3) for k, v in classes.items()}, peak_gb,
+              smi_line()))
+
+    # The trained checkpoint, restored, acts on a packed episode.
+    predictor = CheckpointPredictor(model, vision_dir, timeout=30)
+    check(predictor.restore(), 'vrgripper: no checkpoint in {}'.format(
+        vision_dir))
+    rng = np.random.RandomState(3)
+    obs = lambda: {'image': rng.randint(0, 256, (220, 300, 3)).astype(
+        np.uint8), 'pose': rng.normal(size=14).astype(np.float32)}
+    demo = [(obs(), rng.uniform(-1, 1, 7).astype(np.float32),
+             float(t == 29), None, t == 29, {}) for t in range(30)]
+    packed = model.pack_features(obs(), [demo], 0)
+    torch.backends.cudnn.deterministic = True
+    try:
+      served = predictor.predict(packed)
+      predict_features, _ = model.preprocessor.preprocess(
+          to_device(packed, device), None, ModeKeys.PREDICT)
+      direct = model.predict_step(state.variables(), predict_features)
+      torch.cuda.synchronize()
+    finally:
+      torch.backends.cudnn.deterministic = deterministic
+    action = served['inference_output']
+    check(action.shape == (1, 1, VRG_T, 7) and np.isfinite(action).all() and
+          np.array_equal(action, direct['inference_output'].cpu().numpy()),
+          'vrgripper: the restored checkpoint predicts {} (shape {})'.format(
+              action.reshape(-1)[:7], action.shape))
+    predictor.close()
+    print('vrgripper: CheckpointPredictor on {} (step {}) acts on a '
+          'pack_wtl_meta_features episode (a 30-step demo resampled to {}): '
+          'actions [1, 1, {}, 7], finite, equal to the trained state\'s '
+          'predict_step'.format(vision_dir, VRG_STEPS, VRG_T, VRG_T))
+
+    # The MAML wrappers with no gin: regression, and DAML adapting the
+    # policy only.
+    wrappers = {}
+    for label, base_cls, scope in (
+        ('maml', vrgripper.VRGripperRegressionModel, None),
+        ('daml', vrgripper.VRGripperDomainAdaptiveModel, 'policy')):
+      wrapper = vrgripper.VRGripperEnvRegressionModelMAML(
+          base_model=base_cls(device=device),
+          inner_loop=MAMLInnerLoopGradientDescent(learning_rate=0.001,
+                                                  var_scope=scope))
+      kernels.reset_launches()
+      torch.cuda.reset_peak_memory_stats()
+      start = time.monotonic()
+      result = train_eval.train_eval_model(
+          t2r_model=wrapper, model_dir=os.path.join(tmp, label),
+          input_generator_train=meta_data.MetaRecordInputGenerator(
+              file_patterns=pattern, num_tasks=VRG_TASKS),
+          max_train_steps=VRG_WRAPPER_STEPS, log_every_n_steps=1,
+          save_checkpoints_steps=VRG_WRAPPER_STEPS, nan_policy='raise',
+          write_metrics=False)
+      torch.cuda.synchronize()
+      elapsed = time.monotonic() - start
+      launches = dict(kernels.LAUNCHES)
+      want = dict.fromkeys(launches, 0)
+      want['crop_convert'] = 2 * VRG_WRAPPER_STEPS
+      check(launches == want, 'vrgripper: the {} wrapper launched {} != '
+            '{}'.format(label, launches, want))
+      trainer = result['trainer']
+      metrics = {k: float(v) for k, v in trainer.last_metrics.items()}
+      check(result['state'].step == VRG_WRAPPER_STEPS and
+            all(np.isfinite(v) for v in metrics.values()),
+            'vrgripper: the {} wrapper: {}'.format(label, metrics))
+      later = trainer.windows[1:] or trainer.windows
+      step_ms = statistics.median(w[1] / w[0] * 1e3 for w in later)
+      wrappers[label] = {'step_ms': step_ms, 'metrics': metrics,
+                         'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+                         'seconds': elapsed}
+      trainer.close()
+      print('vrgripper: VRGripperEnvRegressionModelMAML over {} ({} tasks x '
+            '{} frames, one inner step, second order{}) {} steps in {:.1f} '
+            's, step {:.2f} ms, every loss finite, metrics {}; launches {} '
+            '(2 K1 a step); peak {:.2f} GB'.format(
+                base_cls.__name__, VRG_TASKS, VRG_T,
+                ', var_scope policy' if scope else '', VRG_WRAPPER_STEPS,
+                elapsed, step_ms, {k: round(v, 5) for k, v in
+                                   metrics.items()}, launches,
+                wrappers[label]['peak_gb']))
+    report['wrappers'] = wrappers
+  torch.cuda.empty_cache()
+  report['seconds'] = time.monotonic() - phase_start
+  print('vrgripper: phase 4i took {:.1f} s'.format(report['seconds']))
+  return vision_launches, report
+
+
 @contextlib.contextmanager
 def plain_kernels():
   """Every kernel's wrapper replaced by its plain version; no launch
@@ -6569,6 +7059,7 @@ def main():
       phase_rl_loop(device))
   paths['grasp2vec_train'], grasp2vec_report = phase_grasp2vec(device)
   paths['pose_env_train'], pose_env_report = phase_pose_env_maml(device)
+  paths['vrgripper_train'], vrgripper_report = phase_vrgripper(device)
   paths.update({'seq2act': phase_seq2act(device),
                 'seq2act_train': phase_seq2act_train(device)})
   paths['seq2act_bf16_train'], bf16_report = phase_seq2act_bf16(device)
@@ -6604,6 +7095,7 @@ def main():
   print(json.dumps({'rl_loop': rl_loop_report}))
   print(json.dumps({'grasp2vec': grasp2vec_report,
                     'pose_env_maml': pose_env_report}))
+  print(json.dumps({'vrgripper': vrgripper_report}))
   print(json.dumps({'seq2act_variants': {
       'bf16': bf16_report, 'moe': moe_report, 'ring_gin': ring['gin']}}))
   print(json.dumps({'kernels': [entry for entry, _ in entries]}))

@@ -9,7 +9,9 @@ collect job's (``collect_eval_loop``, ``run_env``, the replay writer, the
 policies and ``CheckpointPredictor``, and the synthetic grasping MDP's
 env, random policy and transitions); Grasp2Vec's model, preprocessor and
 losses; MAML's model, inner loop, preprocessors and input generators; the
-pose toy env, its random policy, models and transitions. A gin that names anything else fails in
+pose toy env, its random policy, models and transitions; the vrgripper
+and Watch-Try-Learn models, their preprocessor and action decoders. A gin
+that names anything else fails in
 ``ginlike.check_configurables``, naming it.
 """
 
@@ -51,6 +53,7 @@ def register_all() -> None:
   from tensor2robot_tpu_torch.research import grasp2vec
   from tensor2robot_tpu_torch.research import pose_env
   from tensor2robot_tpu_torch.research import seq2act
+  from tensor2robot_tpu_torch.research import vrgripper
   from tensor2robot_tpu_torch.research.qtopt import grasping_sim
   from tensor2robot_tpu_torch.research.qtopt import t2r_models
   from tensor2robot_tpu_torch.rl import collect_eval
@@ -142,6 +145,16 @@ def register_all() -> None:
   register(pose_env.PoseEnvRegressionModelMAML, 'PoseEnvRegressionModelMAML')
   register(pose_env.episode_to_transitions_pose_toy,
            'episode_to_transitions_pose_toy')
+
+  # VRGripper and Watch-Try-Learn: the models, the preprocessor and the
+  # action decoders.
+  for name in ('VRGripperRegressionModel', 'VRGripperDomainAdaptiveModel',
+               'DefaultVRGripperPreprocessor',
+               'VRGripperEnvRegressionModelMAML', 'VRGripperEnvTecModel',
+               'VRGripperEnvSequentialModel', 'VRGripperEnvSimpleTrialModel',
+               'VRGripperEnvVisionTrialModel', 'MSEDecoder',
+               'MDNActionDecoder', 'MAFDecoder', 'DiscreteDecoder'):
+    register(getattr(vrgripper, name), name)
 
   # Seq2Act, and the parameter rules of train_seq2act_moe.gin (zero-arg
   # factories, as the JAX registry binds them: @EP_RULES_MOE()).

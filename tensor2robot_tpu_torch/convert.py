@@ -7,7 +7,8 @@ state_dict}`` (``avg_params`` only where the input has it). Module paths
 keep their flax names joined by dots (``grasping44.conv2``); the leaves map
 as:
 
-  * conv ``kernel`` HWIO -> ``weight`` OIHW (``transpose(3, 2, 0, 1)``);
+  * conv ``kernel`` HWIO -> ``weight`` OIHW (``transpose(3, 2, 0, 1)``),
+    a 1-D conv's [k, in, out] -> [out, in, k] (``transpose(2, 1, 0)``);
   * dense ``kernel`` [in, out] -> ``weight`` [out, in];
   * ``bias``, batch and layer norm ``scale``, the transformer's
     ``pos_embedding`` and an ``nn.Embed``'s ``embedding`` keep their names;
@@ -35,6 +36,11 @@ MAML models' parameters: the base network's leaves under their names, and
 where the inner rates are learned (JAX's ``{'base', 'maml_inner_lrs'}``)
 the base tree at the root and each rate, a scalar, under
 ``maml_inner_lrs.<name>`` (a ``kernel``'s rate as ``weight``, untouched).
+The vrgripper and Watch-Try-Learn networks map the same way: their 1-D
+convs (TEC's temporal reduction, SNAIL's causal convs, the learned loss)
+as above, and the leaves that flax names by a parameter call keep their
+names and layout (MAF's ``masked_dense_{i}_kernel`` [in, out], the MDN's
+``mdn_stddev_inputs``, the pose nets' ``bias_transform``).
 
 ``train_state_from_flax`` builds the port's ``TrainState`` from a JAX
 ``TrainState`` whose leaves are numpy arrays: params and batch stats as
@@ -86,6 +92,8 @@ def _state_dict(params, batch_stats) -> Dict[str, torch.Tensor]:
     elif leaf == 'kernel':
       if value.ndim == 4:
         value = value.transpose(3, 2, 0, 1)
+      elif value.ndim == 3:
+        value = value.transpose(2, 1, 0)
       elif value.ndim == 2:
         value = value.T
       else:

@@ -1,5 +1,6 @@
 """Layers that several networks of the port share: TF-style SAME padding,
-flax's ``Dense`` and flax's batch norm.
+flax's ``Dense``, flax's 1-D ``Conv`` over [batch, time, channels]
+(``Conv1D``) and flax's batch norm.
 
 ``BatchNorm`` computes ``(x - mean) * (rsqrt(var + eps) * scale) + bias``
 as flax does. In eval mode mean and var are the running statistics. With
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ['BatchNorm', 'Dense', 'same_padding']
+__all__ = ['BatchNorm', 'Conv1D', 'Dense', 'same_padding']
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -43,6 +44,24 @@ class Dense(nn.Module):
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     bias = None if self.bias is None else self.bias.to(x.dtype)
     return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class Conv1D(nn.Module):
+  """flax's ``nn.Conv`` with one spatial dim, VALID, over [batch, time,
+  channels]; ``weight`` is [out, in, k] (a flax [k, in, out] kernel
+  transposed by ``(2, 1, 0)``)."""
+
+  def __init__(self, in_features: int, features: int, kernel: int,
+               dilation: int = 1, bias: bool = True):
+    super().__init__()
+    self.dilation = dilation
+    self.weight = nn.Parameter(torch.empty(features, in_features, kernel))
+    self.bias = nn.Parameter(torch.empty(features)) if bias else None
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    bias = None if self.bias is None else self.bias.to(x.dtype)
+    return F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype), bias,
+                    dilation=self.dilation).transpose(1, 2)
 
 
 class BatchNorm(nn.Module):

@@ -149,6 +149,9 @@ class MetaRecordInputGenerator(AbstractInputGenerator):
   num_samples, ...] in the meta layout. A task file with fewer examples
   than that wraps around."""
 
+  # The reader (the trainer's JSON line names it): the Python parser.
+  reader = 'python'
+
   def __init__(self, file_patterns: str,
                num_condition_samples_per_task: int = 1,
                num_inference_samples_per_task: int = 1,
@@ -179,7 +182,7 @@ class MetaRecordInputGenerator(AbstractInputGenerator):
         records = records * (samples // len(records) + 1)
       idx = (rng.choice(len(records), samples, replace=False)
              if self._shuffle else np.arange(samples))
-      return parser.parse_batch([records[i] for i in idx])
+      return [records[i] for i in idx]
 
     epoch = 0
     while num_epochs is None or epoch < num_epochs:
@@ -187,10 +190,13 @@ class MetaRecordInputGenerator(AbstractInputGenerator):
                else np.arange(len(files)))
       for start in range(0, len(order) - self._num_tasks + 1,
                          self._num_tasks):
-        tasks = [read_task(files[i])
-                 for i in order[start:start + self._num_tasks]]
-        yield to_meta_batch(stack_struct([t[0] for t in tasks]),
-                            stack_struct([t[1] for t in tasks]),
+        # One parse of every task's records: their images decode in the
+        # parser's threads together.
+        features, labels = parser.parse_batch(
+            [record for i in order[start:start + self._num_tasks]
+             for record in read_task(files[i])])
+        yield to_meta_batch(unflatten_batch_examples(features, samples),
+                            unflatten_batch_examples(labels, samples),
                             self._num_condition)
       epoch += 1
 

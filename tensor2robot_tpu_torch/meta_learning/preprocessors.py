@@ -115,18 +115,25 @@ class MAMLPreprocessorV2(AbstractPreprocessor):
                      draws=None):
     """The base transform over the [task, sample] dims, of the condition
     side with its labels and of the inference side with the meta labels
-    (which see the same label transform as the condition labels)."""
+    (which see the same label transform as the condition labels). Each
+    side is one call of the base transform, which draws for itself from
+    ``generator`` (JAX splits its key in three here; the port's sides
+    draw one after the other from the one stream); ``draws`` given is
+    ``{'condition': ..., 'inference': ...}``, each side's base draws."""
     base = self._base_preprocessor
 
-    def apply(feats, labs):
+    def apply(feats, labs, side):
+      side_draws = None if draws is None else draws[side]
+
       def fn(f, l):
-        return base._preprocess_fn(f, l or None, mode, generator, draws)
+        return base._preprocess_fn(f, l or None, mode, generator,
+                                   side_draws)
       return meta_data.multi_batch_apply(fn, 2, feats, labs or {})
 
     cond_f, cond_l = apply(_sub(features, 'condition/features/'),
-                           _sub(features, 'condition/labels/'))
+                           _sub(features, 'condition/labels/'), 'condition')
     inf_f, out_labels = apply(_sub(features, 'inference/features/'),
-                              labels)
+                              labels, 'inference')
     out = {'condition/features/' + k: v for k, v in cond_f.items()}
     out.update({'condition/labels/' + k: v
                 for k, v in (cond_l or {}).items()})

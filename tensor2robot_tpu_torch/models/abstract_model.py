@@ -58,7 +58,8 @@ _TRUNCATED_STD = 0.87962566103423978
 
 def _init_module(module: nn.Module, generator: torch.Generator) -> None:
   """flax's initializers: truncated normal (std 0.01) kernels, zero
-  biases; batch norm scale 1, bias 0, mean 0, var 1."""
+  biases; batch norm scale 1, bias 0, mean 0, var 1. A module with other
+  initializers for its own tensors applies them in ``flax_init``."""
   for name, param in module.named_parameters(recurse=False):
     if name == 'weight':
       nn.init.trunc_normal_(param, 0.0, 1.0, -2.0, 2.0, generator=generator)
@@ -69,6 +70,8 @@ def _init_module(module: nn.Module, generator: torch.Generator) -> None:
       nn.init.zeros_(param)
   for name, buffer in module.named_buffers(recurse=False):
     (nn.init.ones_ if name == 'var' else nn.init.zeros_)(buffer)
+  if hasattr(module, 'flax_init'):
+    module.flax_init(generator)
 
 
 @dataclasses.dataclass
@@ -314,6 +317,13 @@ class AbstractT2RModel:
     del generator
     return {'mode': mode}
 
+  def network_inputs(self, features, labels) -> Tuple[Any, ...]:
+    """The positional arguments of the network's TRAIN and EVAL forwards:
+    the features; a model whose network computes its loss in the forward
+    (the vrgripper meta models' decoders) takes the labels too."""
+    del labels
+    return (features,)
+
   def loss_fn(self, params: StateDict, model_state: StateDict, features,
               labels, mode: str = ModeKeys.TRAIN,
               generator: Optional[torch.Generator] = None):
@@ -327,7 +337,7 @@ class AbstractT2RModel:
     new_model_state = {k: v.clone() for k, v in model_state.items()}
     state = {**params, **new_model_state}
     outputs = torch.func.functional_call(
-        self.network, state, (features,),
+        self.network, state, self.network_inputs(features, labels),
         self.network_kwargs(mode, generator), strict=True)
     loss, train_outputs = self.model_train_fn(state, features, labels,
                                               outputs, mode)
@@ -399,7 +409,7 @@ class AbstractT2RModel:
     variables = self.select_params(state.variables())
     with torch.no_grad():
       outputs = torch.func.functional_call(
-          self.network, variables, (features,), {'mode': ModeKeys.EVAL},
-          strict=True)
+          self.network, variables, self.network_inputs(features, labels),
+          {'mode': ModeKeys.EVAL}, strict=True)
       return self.model_eval_fn(variables, features, labels, outputs,
                                 ModeKeys.EVAL)

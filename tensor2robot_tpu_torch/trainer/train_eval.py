@@ -147,7 +147,11 @@ NAN_POLICIES = ('off', 'skip', 'raise', 'rollback')
 # The model configurables of the gins: ``--device`` binds their device.
 GIN_MODELS = ('Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom',
               'Seq2ActBCModel', 'Grasp2VecModel', 'PoseEnvRegressionModel',
-              'PoseEnvContinuousMCModel', 'PoseEnvRegressionModelMAML')
+              'PoseEnvContinuousMCModel', 'PoseEnvRegressionModelMAML',
+              'VRGripperRegressionModel', 'VRGripperDomainAdaptiveModel',
+              'VRGripperEnvRegressionModelMAML', 'VRGripperEnvTecModel',
+              'VRGripperEnvSequentialModel', 'VRGripperEnvSimpleTrialModel',
+              'VRGripperEnvVisionTrialModel')
 MODELS = ('qtopt', 'seq2act')
 # --device_decode: off (pixels), or the split decode's wire.
 DEVICE_DECODE = ('off', 'dense', 'sparse', 'packed')

@@ -1417,3 +1417,114 @@ def test_pose_env_maml_step_on_the_card_matches_cpu(device):
   for name, value in want_grads.items():
     scale = float(value.abs().max()) + 1e-6
     assert float((grads[name] - value).abs().max()) <= 1e-4 * scale, name
+
+
+def _vrgripper_meta_batch(device, tasks=2, n_con=2, steps=12, seed=0):
+  """Episodes of camera-like 220x300 frames (ramps moving a frame, and
+  sensor noise): uniform noise frames make near-constant keypoint maps,
+  whose float32 gradients cancel to 6e-3 of their largest."""
+  gen = _generator(device, seed)
+  yy, xx = torch.meshgrid(torch.arange(220, device=device),
+                          torch.arange(300, device=device), indexing='ij')
+
+  def frames(n):
+    shift = torch.arange(tasks * n * steps, device=device).reshape(
+        tasks, n, steps, 1, 1, 1)
+    ramps = torch.stack([xx + 7 * shift[..., 0], yy + 3 * shift[..., 0],
+                         (xx + yy) // 2 + 0 * shift[..., 0]], -1) % 256
+    noise = torch.randint(-6, 7, ramps.shape, device=device, generator=gen)
+    return (ramps + noise).clamp(0, 255).to(torch.uint8)
+  uniform = lambda *shape: torch.rand(shape, device=device, generator=gen)
+  features = {'condition/features/image': frames(n_con),
+              'condition/features/gripper_pose': uniform(tasks, n_con,
+                                                         steps, 14),
+              'condition/labels/action': uniform(tasks, n_con, steps, 7),
+              'condition/labels/success': uniform(tasks, n_con, steps, 1),
+              'inference/features/image': frames(1),
+              'inference/features/gripper_pose': uniform(tasks, 1, steps,
+                                                         14)}
+  labels = {'action': uniform(tasks, 1, steps, 7),
+            'success': uniform(tasks, 1, steps, 1)}
+  return features, labels
+
+
+def _vrgripper_draws(model, features, device):
+  base = model.preprocessor.base_preprocessor
+  gen = _generator(device, 5)
+  return {side: base.draw(
+      features[side + '/features/image'].shape[0] *
+      features[side + '/features/image'].shape[1], gen)
+          for side in ('condition', 'inference')}
+
+
+@pytest.mark.parametrize('mode', ['train', 'eval'])
+def test_vrgripper_preprocessor_launches_k1_a_side(device, mode):
+  """The vision retrial model's meta batch: one K1 launch a side (every
+  episode's frames at its offset), the frames bit-equal to the plain
+  rerun's before the resize and the resized frames equal too."""
+  from unittest import mock
+
+  from tensor2robot_tpu_torch.research import vrgripper
+
+  model = vrgripper.VRGripperEnvVisionTrialModel(
+      device=device, episode_length=12, num_condition_samples_per_task=2)
+  features, labels = _vrgripper_meta_batch(device)
+  draws = _vrgripper_draws(model, features, device)
+  before = kernels.LAUNCHES['crop_convert']
+  got, got_labels = model.preprocessor.preprocess(features, labels, mode,
+                                                  draws=draws)
+  torch.cuda.synchronize()
+  assert kernels.LAUNCHES['crop_convert'] - before == 2
+  with mock.patch.object(pallas_crop, 'crop_convert',
+                         pallas_crop.crop_convert_plain):
+    want, _ = model.preprocessor.preprocess(features, labels, mode,
+                                            draws=draws)
+  assert kernels.LAUNCHES['crop_convert'] - before == 2
+  assert got['condition/features/image'].shape == (2, 2, 12, 100, 100, 3)
+  for key in want:
+    assert torch.equal(got[key], want[key]), key
+  assert torch.equal(got_labels['action'], labels['action'])
+
+
+def test_vrgripper_vision_step_on_the_card_matches_cpu(device):
+  """A TRAIN step of the vision retrial model (2 tasks, 12 frames, an MDN
+  of 20 components): 2 K1 launches, the step equal to its plain rerun
+  (cuDNN deterministic), and the loss within 1e-4 and every gradient within 1e-3 of max of the
+  CPU's from the same weights and batch."""
+  from unittest import mock
+
+  from tensor2robot_tpu_torch.research import vrgripper
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  features, labels = _vrgripper_meta_batch(device)
+  results = []
+  deterministic = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  for where, crop in ((device, pallas_crop.crop_convert),
+                      (device, pallas_crop.crop_convert_plain),
+                      (torch.device('cpu'), pallas_crop.crop_convert)):
+    model = vrgripper.VRGripperEnvVisionTrialModel(
+        device=where, episode_length=12, num_condition_samples_per_task=2,
+        num_mixture_components=20)
+    state = model.create_train_state(torch.Generator().manual_seed(0))
+    draws = _vrgripper_draws(model, features, device)
+    before = kernels.LAUNCHES['crop_convert']
+    with mock.patch.object(pallas_crop, 'crop_convert', crop):
+      f, l = model.preprocessor.preprocess(
+          {k: v.to(where) for k, v in features.items()},
+          {k: v.to(where) for k, v in labels.items()}, 'train', draws=draws)
+    loss, _, _, grads = model.gradients(state, f, l)
+    if where.type == 'cuda':
+      torch.cuda.synchronize()
+      assert kernels.LAUNCHES['crop_convert'] - before == (
+          2 if crop is pallas_crop.crop_convert else 0)
+    results.append((loss.cpu(), {k: v.cpu() for k, v in grads.items()}))
+  torch.backends.cudnn.deterministic = deterministic
+  (loss, grads), (plain_loss, plain_grads), (cpu_loss, cpu_grads) = results
+  assert torch.isfinite(loss) and torch.equal(loss, plain_loss)
+  assert abs(float(loss - cpu_loss)) <= 1e-4 * abs(float(cpu_loss))
+  for name, value in cpu_grads.items():
+    assert torch.equal(grads[name], plain_grads[name]), name
+    scale = float(value.abs().max()) + 1e-12
+    assert float((grads[name] - value).abs().max()) <= 1e-3 * scale, name

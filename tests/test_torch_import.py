@@ -98,6 +98,18 @@ GRASP2VEC_MAML_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
     'research.pose_env.pose_env_maml_models',
     'research.pose_env.pose_env_models'))
 
+# The vrgripper and Watch-Try-Learn slice's modules and gins.
+VRGRIPPER_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
+    'layers.maf', 'layers.mdn', 'layers.snail', 'layers.tec',
+    'research.vrgripper', 'research.vrgripper.decoders',
+    'research.vrgripper.episode_to_transitions',
+    'research.vrgripper.vrgripper_env_meta_models',
+    'research.vrgripper.vrgripper_env_models',
+    'research.vrgripper.vrgripper_env_wtl_models'))
+VRGRIPPER_GINS = tuple('research/vrgripper/configs/' + name for name in (
+    'run_train_wtl_vision_trial.gin', 'run_train_wtl_vision_retrial.gin',
+    'train_vrgripper_tec.gin', 'run_train_wtl_statespace_trial.gin',
+    'run_train_wtl_statespace_retrial.gin'))
 # The gins of that slice.
 GRASP2VEC_MAML_GINS = (
     'research/grasp2vec/configs/train_grasp2vec.gin',
@@ -149,6 +161,7 @@ def test_importing_every_module_loads_no_jax():
   assert set(RL_LOOP_MODULES) <= names, set(RL_LOOP_MODULES) - names
   assert set(GRASP2VEC_MAML_MODULES) <= names, (
       set(GRASP2VEC_MAML_MODULES) - names)
+  assert set(VRGRIPPER_MODULES) <= names, set(VRGRIPPER_MODULES) - names
 
 
 def test_registering_the_configurables_loads_no_jax():
@@ -197,6 +210,33 @@ def test_the_grasp2vec_and_pose_env_gins_load_no_jax(gin):
                                           'orbax', 'tensor2robot_tpu'))
       assert not bad, bad
       ''').format(gin)
+  env = dict(os.environ, PYTHONPATH=REPO)
+  result = subprocess.run([sys.executable, '-c', script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+  assert result.returncode == 0, result.stderr
+
+
+def test_the_vrgripper_gins_load_no_jax():
+  """The five vrgripper and Watch-Try-Learn gins parse and name only
+  registered configurables, each model built on the default card, with no
+  JAX loaded (one process for the five)."""
+  script = textwrap.dedent('''
+      import sys
+      import torch
+      from tensor2robot_tpu_torch import config
+      config.register_framework_configurables()
+      for gin in {!r}:
+        config.clear_config()
+        config.parse_config_files_and_bindings(['tensor2robot_tpu_torch/' +
+                                                gin])
+        config.check_configurables()
+        model = config.query_parameter('train_eval_model.t2r_model')
+        assert model.device == torch.device('cuda'), (gin, model.device)
+      bad = sorted(m for m in sys.modules
+                   if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                          'orbax', 'tensor2robot_tpu'))
+      assert not bad, bad
+      ''').format(VRGRIPPER_GINS)
   env = dict(os.environ, PYTHONPATH=REPO)
   result = subprocess.run([sys.executable, '-c', script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)

@@ -223,8 +223,11 @@ repository around it. Phases, each printing one line or more:
      POSE_STEPS steps each (cut: the steps), every loss finite, no kernel
      launched (the pose nets reach none). A MAML step on one batch of the
      gin's generator from the trained state on the card against the same
-     step on the CPU: the loss and inner losses within POSE_LOSS_RTOL,
-     every outer gradient within POSE_GRAD_RTOL of its largest; first-
+     step on the CPU replaying the card's ReLU gates, as phase 4's critic
+     step does (the gates the CPU would have flipped at most
+     CHOICE_FLIP_RATE of them): the loss and inner losses within
+     POSE_LOSS_RTOL, every outer gradient within POSE_GRAD_RTOL of its
+     largest; first-
      and second-order outer gradients differ. ``run_meta_env`` runs a
      MAMLRegressionPolicy over the trained checkpoint on the hidden-drift
      env: 4 tasks of a demo and 2 rounds of 2 adapted episodes. Printed:
@@ -248,8 +251,10 @@ repository around it. Phases, each printing one line or more:
      gins and TEC, none for the state-space ones. On a batch of the
      records, the vision trial model from its trained checkpoint: a step
      equal to its plain rerun bit for bit (cuDNN deterministic), the same
-     step on the CPU (the loss within VRG_LOSS_RTOL, every gradient within
-     VRG_GRAD_RTOL of its largest, the frames within VRG_RESIZE_ATOL), the
+     step on the CPU replaying the card's ReLU gates, as phase 4's critic
+     step does (the loss within VRG_LOSS_RTOL, every gradient within
+     VRG_GRAD_RTOL of its largest, the frames within VRG_RESIZE_ATOL; the
+     gates the CPU would have flipped at most CHOICE_FLIP_RATE of them), the
      resident step timed and profiled (busy share, device ms by class, K1's
      ms a step, tasks/s and frames/s, peak memory, against the FLOP bound),
      and CheckpointPredictor on the checkpoint acting on a
@@ -257,6 +262,38 @@ repository around it. Phases, each printing one line or more:
      over VRGripperRegressionModel and over VRGripperDomainAdaptiveModel
      (``var_scope='policy'``), 8 tasks x 40 frames, one inner step, second
      order, VRG_WRAPPER_STEPS steps each: 2 K1 a step, every loss finite.
+  4j. The trainer under faults (phase ``fault_tolerance``), on phase 4b's
+     records: ``train_eval --gin_configs`` on train_qtopt.gin (batch 32,
+     TF32 off, cuDNN deterministic) for FAULT_STEPS steps, a checkpoint
+     every FAULT_SAVE_STEPS, the faults armed by a binding of
+     ``configure_fault_injector`` (FAULT_FAILURES: two ckpt.save failures
+     the retry rides out, a NaN under nan_policy 'skip', a slow step, a
+     0.25 s data stall, host.preempt at step FAULT_PREEMPT_STEP), which
+     ends in TrainingPreempted with the emergency checkpoint at that step.
+     A new trainer resumes from it (one ckpt.restore failure retried) to
+     the end; its final state must equal, bit for bit, a run without the
+     preemption armed with the same NaN and restarted in process at step
+     FAULT_PREEMPT_STEP (an eval between two train calls): a train call on
+     records starts its stream from seed + step, so a resumed run reads
+     what that run reads, not what one unbroken call would. Gates: each site's fired count; reliability/io_retries,
+     reliability/preemptions and train/nonfinite_loss_skipped; the goodput
+     fractions summing to 1 within 1e-9, the stall in the data seconds; 1
+     K1, 3 K2f, 3 K2b and 6 K3 a step in each run. Then FAULT_READER_STEPS
+     steps through the Python reader with skip_corrupt_records and one
+     data.read fault (exactly one record quarantined), and the command line
+     in a subprocess given a real SIGTERM after its first checkpoint: it
+     ends with TrainingPreempted, the newest checkpoint at the step the
+     signal landed, and a second process resumes to FAULT_SIGTERM_STEPS.
+     One JSON line ``fault_tolerance``: the step ms, the emergency save's
+     ms, the resume's ms to its first step, the goodput split.
+  4k. The pusher (phase ``pusher``): JAX's learning test at JAX's sizes on
+     the card: PUSHER_COLLECT random episodes through collect_eval_loop,
+     the critic trained PUSHER_STEPS steps at batch PUSHER_BATCH (Adam
+     3e-3) from the records, then PUSHER_EVAL episodes of
+     PusherCriticPolicy against random on the same seeds: the trained
+     policy must beat random by 0.4; no kernel launches (a 64-wide MLP);
+     one train step on the card within PUSHER_STEP_ATOL of the CPU's.
+     Episodes/s, train steps/s and the policy's ms an action.
   5. Seq2Act serving: the long-context RT-1-style policy at full width
      (512-frame episodes, 4,096 tokens, 8 blocks, attention_mode 'flash',
      float32 with TF32 off) restored by CheckpointPredictor from a
@@ -385,6 +422,7 @@ import io
 import json
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -1444,6 +1482,23 @@ def replaying_choices(choices, other):
         'the replay made fewer pools or ReLUs than the recording')
 
 
+# A replayed choice may differ from the replaying side's own only at a
+# near-tie: at most this share of each kind (on an H100, the critic's step
+# reads 1.1e-6 to 1.6e-6, the vrgripper vision step's 2e-8 to 6.5e-8).
+# More is no rounding but a fault that the replay would absorb.
+CHOICE_FLIP_RATE = 5e-6
+
+
+def check_choice_flips(what, choices, other):
+  """Fails where the replaying side would have chosen otherwise at more
+  than CHOICE_FLIP_RATE of the recorded window indices or ReLU gates."""
+  for kind in ('pool', 'relu'):
+    total = sum(int(c.numel()) for c in choices[kind])
+    check(other[kind] <= CHOICE_FLIP_RATE * total, '{}: the replaying side '
+          'would have chosen otherwise at {} of {} {} choices (at most {} '
+          'of them)'.format(what, other[kind], total, kind, CHOICE_FLIP_RATE))
+
+
 def card_vs_cpu_critic_step(model, state, raw, labels, offsets):
   """One critic train step's loss and gradients on the card (cuDNN
   convolutions, TF32 off, and the kernels) against the same on the CPU
@@ -1456,7 +1511,8 @@ def card_vs_cpu_critic_step(model, state, raw, labels, offsets):
   gradient then flows through another cell, however exact both sides'
   arithmetic. So the CPU step replays the card's choices (its window
   indices and ReLU gates, in call order); the choices the CPU would have
-  made otherwise are counted.
+  made otherwise are counted, and may be at most CHOICE_FLIP_RATE of each
+  kind.
 
   """
   from tensor2robot_tpu_torch.models.abstract_model import TrainState
@@ -1481,6 +1537,7 @@ def card_vs_cpu_critic_step(model, state, raw, labels, offsets):
       want_loss, want = _gradients(cpu, cpu_state, cpu_features,
                                    to_cpu(labels))
     seconds = time.monotonic() - start
+    check_choice_flips('train step, card vs CPU', choices, other)
     return ('the CPU replays the card\'s {} window indices and {} ReLU gates, '
             'of which it would have chosen {} and {} otherwise; {}; the CPU '
             'took {:.1f} s'.format(
@@ -4242,16 +4299,29 @@ def phase_pose_env_maml(device):
       loss, outputs, _, grads = m.gradients(s, f, l)
       return loss, outputs, grads
 
-    loss, outputs, grads = step(device)
+    # The ReLUs' gates, which the CPU's step below replays.
+    choices = {'pool': [], 'relu': []}
+    with recording_choices(choices):
+      loss, outputs, grads = step(device)
     torch.cuda.synchronize()
     start = time.monotonic()
     for _ in range(3):
       step(device)
     torch.cuda.synchronize()
     report['maml_gradients_ms'] = (time.monotonic() - start) / 3 * 1e3
+    # The same step on the CPU replaying the card's gates: the state trained
+    # on the card differs from run to run, and where it puts a
+    # pre-activation within rounding of 0, a flipped gate moves a small
+    # gradient tensor past the tolerance (on an H100, pose_net.Dense_1 once
+    # read 0.0595 of its max).
     cpu_state = type(state)(**to_cpu(vars(state)))
-    cpu_loss, cpu_outputs, cpu_grads = step(torch.device('cpu'),
-                                            on=cpu_state)
+    flips = {'pool': 0, 'relu': 0}
+    with replaying_choices(choices, flips):
+      cpu_loss, cpu_outputs, cpu_grads = step(torch.device('cpu'),
+                                              on=cpu_state)
+    gates = sum(int(gate.numel()) for gate in choices['relu'])
+    check_choice_flips('pose_env: the MAML step, card vs CPU', choices, flips)
+    del choices
     check(bool(torch.isfinite(loss)), 'pose_env: a MAML loss is not finite')
     loss_err = abs(float(loss.cpu() - cpu_loss)) / abs(float(cpu_loss))
     check(loss_err <= POSE_LOSS_RTOL, 'pose_env: the MAML loss on the card '
@@ -4276,15 +4346,18 @@ def phase_pose_env_maml(device):
     check(order_diff > 0, 'pose_env: first- and second-order outer '
           'gradients are equal')
     report.update(card_vs_cpu={'loss': loss_err, 'inner_losses': inner_errs,
-                               'worst_gradient': grad_errs[worst]},
+                               'worst_gradient': grad_errs[worst],
+                               'relu_gates_replayed': gates,
+                               'relu_gates_the_cpu_flips': flips['relu']},
                   second_vs_first_order=order_diff)
     print('pose_env: a MAML step (8 tasks, second order) on the card against '
-          'the CPU\'s: loss {:.6f} ({:.3g} relative, tolerance {}), inner '
-          'losses {} (relative {}), the worst of {} outer gradients {} at '
-          '{:.3g} of its max (tolerance {}); {:.2f} ms a step\'s gradients '
-          'resident; first- against second-order outer gradients differ by '
-          'up to {:.3g} of a tensor\'s max'.format(
-              float(loss), loss_err, POSE_LOSS_RTOL,
+          'the CPU\'s (replaying the card\'s {} ReLU gates, {} of which the '
+          'CPU would have flipped): loss {:.6f} ({:.3g} relative, tolerance '
+          '{}), inner losses {} (relative {}), the worst of {} outer '
+          'gradients {} at {:.3g} of its max (tolerance {}); {:.2f} ms a '
+          'step\'s gradients resident; first- against second-order outer '
+          'gradients differ by up to {:.3g} of a tensor\'s max'.format(
+              gates, flips['relu'], float(loss), loss_err, POSE_LOSS_RTOL,
               {k: round(float(v), 6) for k, v in outputs.items()},
               {k: '{:.2g}'.format(v) for k, v in inner_errs.items()},
               len(grads), worst, grad_errs[worst], POSE_GRAD_RTOL,
@@ -4585,7 +4658,10 @@ def phase_vrgripper(device):
       kernels.reset_launches()
       features, labels = model.preprocessor.preprocess(
           raw, raw_labels, ModeKeys.TRAIN, draws=draws)
-      loss, outputs, _, grads = model.gradients(state, features, labels)
+      # The ReLUs' gates, which the CPU's step below replays.
+      choices = {'pool': [], 'relu': []}
+      with recording_choices(choices):
+        loss, outputs, _, grads = model.gradients(state, features, labels)
       torch.cuda.synchronize()
       step_launches = dict(kernels.LAUNCHES)
       with plain_kernels():
@@ -4611,15 +4687,25 @@ def phase_vrgripper(device):
           'tensors (cuDNN deterministic)'.format(float(loss),
                                                  len(state.params)))
 
-    # The same step on the CPU, from the same weights, batch and draws.
+    # The same step on the CPU, from the same weights, batch and draws,
+    # replaying the card's ReLU gates: a gate at a near-tie flips between
+    # the two float32 summation orders (a handful of 92M), and one flip
+    # moves a small gradient tensor by more than the tolerance.
     cpu_model = vrgripper.VRGripperEnvVisionTrialModel(
         device='cpu', num_mixture_components=20)
     cpu_state = type(state)(**to_cpu(vars(state)))
     cpu_features, cpu_labels = cpu_model.preprocessor.preprocess(
         to_device(raw_np, 'cpu'), to_device(labels_np, 'cpu'),
         ModeKeys.TRAIN, draws=to_cpu(draws))
-    cpu_loss, _, _, cpu_grads = cpu_model.gradients(cpu_state, cpu_features,
-                                                    cpu_labels)
+    flips = {'pool': 0, 'relu': 0}
+    with replaying_choices(choices, flips):
+      cpu_loss, _, _, cpu_grads = cpu_model.gradients(cpu_state,
+                                                      cpu_features,
+                                                      cpu_labels)
+    gates = sum(int(gate.numel()) for gate in choices['relu'])
+    check_choice_flips('vrgripper: the vision step, card vs CPU', choices,
+                       flips)
+    del choices
     loss_err = abs(float(loss.cpu() - cpu_loss)) / abs(float(cpu_loss))
     check(loss_err <= VRG_LOSS_RTOL, 'vrgripper: the vision loss on the card '
           'is {:.3g} relative from the CPU\'s'.format(loss_err))
@@ -4636,13 +4722,16 @@ def phase_vrgripper(device):
           'on the card are {:.3g} from the CPU\'s'.format(frame_err))
     report['card_vs_cpu'] = {'loss': loss_err,
                              'worst_gradient': grad_errs[worst],
-                             'frames': frame_err}
-    print('vrgripper: the vision step on the card against the CPU\'s: loss '
-          '{:.6f} ({:.3g} relative, tolerance {}), the worst of {} gradients '
-          '{} at {:.3g} of its max (tolerance {}), the preprocessed frames '
-          'within {:.3g}'.format(float(loss), loss_err, VRG_LOSS_RTOL,
-                                 len(grads), worst, grad_errs[worst],
-                                 VRG_GRAD_RTOL, frame_err))
+                             'frames': frame_err,
+                             'relu_gates_replayed': gates,
+                             'relu_gates_the_cpu_flips': flips['relu']}
+    print('vrgripper: the vision step on the card against the CPU\'s '
+          '(replaying the card\'s {} ReLU gates, {} of which the CPU would '
+          'have flipped): loss {:.6f} ({:.3g} relative, tolerance {}), the '
+          'worst of {} gradients {} at {:.3g} of its max (tolerance {}), the '
+          'preprocessed frames within {:.3g}'.format(
+              gates, flips['relu'], float(loss), loss_err, VRG_LOSS_RTOL,
+              len(grads), worst, grad_errs[worst], VRG_GRAD_RTOL, frame_err))
     del grads, cpu_grads
 
     # The resident step, timed alone, then profiled.
@@ -4780,6 +4869,404 @@ def phase_vrgripper(device):
   report['seconds'] = time.monotonic() - phase_start
   print('vrgripper: phase 4i took {:.1f} s'.format(report['seconds']))
   return vision_launches, report
+
+
+# -- phase 4j: the trainer under faults --------------------------------------
+
+FAULT_STEPS, FAULT_SAVE_STEPS, FAULT_PREEMPT_STEP = 12, 4, 9
+# The faults of the preempted run, (site, times, after): two save failures
+# (the retry rides them out), a NaN under 'skip' at step 5, a slow step, a
+# stall of the second batch's transfer, host.preempt at step 9.
+FAULT_FAILURES = [('ckpt.save', 2), ('step.nan', 1, 4), ('step.slow', 1, 6),
+                  ('data.stall', 1, 1),
+                  ('host.preempt', 1, FAULT_PREEMPT_STEP - 1)]
+FAULT_SIGTERM_STEPS = 24
+FAULT_READER_STEPS = 3
+
+
+@contextlib.contextmanager
+def watching_trainers():
+  """The ``Trainer``s made inside, and the monotonic time at which each
+  one's first step finished on the card."""
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  made, first_step = [], {}
+  init, step = train_eval.Trainer.__init__, train_eval.Trainer._step
+
+  def recording_init(self, *args, **kwargs):
+    init(self, *args, **kwargs)
+    made.append(self)
+
+  def timed_step(self, *args, **kwargs):
+    out = step(self, *args, **kwargs)
+    if id(self) not in first_step:
+      torch.cuda.synchronize()
+      first_step[id(self)] = time.monotonic()
+    return out
+
+  with mock.patch.object(train_eval.Trainer, '__init__', recording_init), \
+      mock.patch.object(train_eval.Trainer, '_step', timed_step):
+    yield made, first_step
+
+
+def fault_counters():
+  from tensor2robot_tpu_torch.observability import get_registry
+
+  registry = get_registry()
+  retries = registry.counter_family('reliability/io_retries', ('site',))
+  return {'io_retries/ckpt.save': retries.series('ckpt.save').value,
+          'io_retries/ckpt.restore': retries.series('ckpt.restore').value,
+          'preemptions': registry.counter('reliability/preemptions').value,
+          'nonfinite_loss_skipped': registry.counter(
+              'train/nonfinite_loss_skipped').value,
+          'corrupt_records_skipped': registry.counter(
+              'data/corrupt_records_skipped').value}
+
+
+def counters_moved(before):
+  return {k: v - before[k] for k, v in fault_counters().items()}
+
+
+def failures_binding(failures):
+  return 'configure_fault_injector.failures = {!r}'.format(
+      [tuple(f) for f in failures])
+
+
+def sigterm_run(data_dir, model_dir):
+  """The trainer's command line on train_qtopt.gin in a subprocess: a real
+  SIGTERM after its first checkpoint; then a second process resumes to the
+  end. (the signal's step, the resumed JSON line, seconds)."""
+  bindings = gin_bindings(data_dir, FAULT_SIGTERM_STEPS, FAULT_SAVE_STEPS)
+  argv = ([sys.executable, '-m', 'tensor2robot_tpu_torch.trainer.train_eval']
+          + gin_argv(model_dir, bindings))
+  start = time.monotonic()
+  first = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+  try:
+    deadline = time.monotonic() + 300
+    path = os.path.join(model_dir,
+                        'checkpoint_{}.pt'.format(FAULT_SAVE_STEPS))
+    while not os.path.exists(path):
+      check(first.poll() is None and time.monotonic() < deadline,
+            'the command line ended before its first checkpoint: {}'.format(
+                first.poll()))
+      time.sleep(0.05)
+    first.send_signal(signal.SIGTERM)
+    _, stderr = first.communicate(timeout=120)
+  finally:
+    if first.poll() is None:
+      first.kill()
+      first.wait()
+  landed = re.search(r'TrainingPreempted: Training preempted by signal '
+                     r'{} at step (\d+)'.format(int(signal.SIGTERM)), stderr)
+  check(first.returncode != 0 and landed is not None,
+        'SIGTERM: rc {}, no TrainingPreempted: {}'.format(
+            first.returncode, stderr[-2000:]))
+  step = int(landed.group(1))
+  from tensor2robot_tpu_torch.trainer import checkpointing
+
+  check(checkpointing.latest_checkpoint_step(model_dir) == step,
+        'SIGTERM at step {}: the newest checkpoint is {}'.format(
+            step, checkpointing.latest_checkpoint_step(model_dir)))
+  resumed = subprocess.run(argv, capture_output=True, text=True, timeout=300)
+  check(resumed.returncode == 0, 'the resumed command line failed: {}'.format(
+      resumed.stderr[-2000:]))
+  line = json.loads(resumed.stdout.strip().splitlines()[-1])
+  check(line['step'] == FAULT_SIGTERM_STEPS and
+        checkpointing.latest_checkpoint_step(model_dir) ==
+        FAULT_SIGTERM_STEPS, 'the resumed run: {}'.format(line))
+  return step, line, time.monotonic() - start
+
+
+def phase_fault_tolerance(device, data_dir):
+  """Phase 4j: train_qtopt.gin's flagship critic from phase 4b's records
+  under the faults of ``reliability/``, armed by a gin binding of
+  configure_fault_injector. Returns the launches of the faulted run and its
+  resume, and the report."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.reliability import TrainingPreempted
+  from tensor2robot_tpu_torch.reliability import fault_injection
+  from tensor2robot_tpu_torch.trainer import checkpointing
+  from tensor2robot_tpu_torch.trainer import train_eval
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  phase_start = time.monotonic()
+  print('fault tolerance: {} on phase 4b\'s records, batch {}, faults {}; '
+        '{}'.format(GIN_FILE, TRAIN_BATCH, FAULT_FAILURES, smi_line()))
+  torch.backends.cudnn.deterministic = True
+  try:
+    with tempfile.TemporaryDirectory() as tmp:
+      # 1. The faulted run, preempted at host.preempt.
+      cut_dir = os.path.join(tmp, 'preempted')
+      before = fault_counters()
+      kernels.reset_launches()
+      with watching_trainers() as (made, first_step):
+        try:
+          with contextlib.redirect_stdout(io.StringIO()):
+            train_eval.main(gin_argv(cut_dir, gin_bindings(
+                data_dir, FAULT_STEPS, FAULT_SAVE_STEPS, 0, False,
+                failures_binding(FAULT_FAILURES))))
+          preempted = None
+        except TrainingPreempted as e:
+          preempted = e
+      cut_launches = dict(kernels.LAUNCHES)
+      injector = fault_injection.get_injector()
+      fired = {site: injector.fired_count(site)
+               for site in ('ckpt.save', 'step.nan', 'step.slow',
+                            'data.stall', 'host.preempt')}
+      moved = counters_moved(before)
+      cut = made[-1]
+      check(preempted is not None and preempted.step == FAULT_PREEMPT_STEP
+            and preempted.signum == fault_injection.INJECTED_PREEMPT_SIGNUM,
+            'host.preempt: {!r}'.format(preempted))
+      check(checkpointing.all_checkpoint_steps(cut_dir) ==
+            [FAULT_SAVE_STEPS, 2 * FAULT_SAVE_STEPS, FAULT_PREEMPT_STEP],
+            'checkpoints after the preemption: {}'.format(
+                checkpointing.all_checkpoint_steps(cut_dir)))
+      check(fired == {'ckpt.save': 2, 'step.nan': 1, 'step.slow': 1,
+                      'data.stall': 1, 'host.preempt': 1},
+            'fired at the sites: {}'.format(fired))
+      check(moved['io_retries/ckpt.save'] == 2 and
+            moved['preemptions'] == 1 and
+            moved['nonfinite_loss_skipped'] == 1,
+            'counters of the faulted run: {}'.format(moved))
+      goodput = cut.last_goodput
+      fractions, seconds = goodput.fractions(), goodput.seconds()
+      check(abs(sum(fractions.values()) - 1.0) <= 1e-9,
+            'goodput fractions {} sum to {}'.format(
+                fractions, sum(fractions.values())))
+      check(seconds['data'] >= fault_injection.DATA_STALL_SECONDS and
+            seconds['productive'] >= fault_injection.SLOW_STEP_SECONDS,
+            'the stall and the slow step in the goodput seconds: {}'.format(
+                seconds))
+      want = gin_launches(FAULT_PREEMPT_STEP, 0)
+      check(cut_launches == want, 'faulted run launches {} != {} ({} steps, '
+            'a NaN-skipped one among them)'.format(cut_launches, want,
+                                                   FAULT_PREEMPT_STEP))
+      cut_step_ms = statistics.median(w[1] / w[0] * 1e3
+                                      for w in cut.windows[1:])
+      save_ms = cut.last_preemption_save_s * 1e3
+
+      # 2. A new trainer resumes from the emergency checkpoint, one injected
+      # restore failure retried.
+      before = fault_counters()
+      kernels.reset_launches()
+      with watching_trainers() as (made, first_step):
+        start = time.monotonic()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+          rc = train_eval.main(gin_argv(cut_dir, gin_bindings(
+              data_dir, FAULT_STEPS, FAULT_SAVE_STEPS, 0, False,
+              failures_binding([('ckpt.restore', 1)]))))
+        resume_ms = (first_step[id(made[-1])] - start) * 1e3
+      resume_launches = dict(kernels.LAUNCHES)
+      restore_fired = fault_injection.get_injector().fired_count(
+          'ckpt.restore')
+      moved_resume = counters_moved(before)
+      resumed = json.loads(out.getvalue().strip().splitlines()[-1])
+      check(rc == 0 and resumed['step'] == FAULT_STEPS and
+            restore_fired == 1 and
+            moved_resume['io_retries/ckpt.restore'] == 1,
+            'the resume: rc {}, line {}, ckpt.restore fired {}, {}'.format(
+                rc, resumed, restore_fired, moved_resume))
+      want = gin_launches(FAULT_STEPS - FAULT_PREEMPT_STEP, 0)
+      check(resume_launches == want, 'resumed launches {} != {}'.format(
+          resume_launches, want))
+
+      # 3. The reference: a run without the preemption, armed with the same
+      # NaN, restarted in process at step 9 (an eval between two train
+      # calls). A train call on records starts its stream from seed + step,
+      # so the resume reads what this run reads, not what one unbroken call
+      # would.
+      whole_dir = os.path.join(tmp, 'whole')
+      whole_line, whole_launches, _ = run_gin('restarted', whole_dir,
+                                              gin_bindings(
+          data_dir, FAULT_STEPS, FAULT_SAVE_STEPS, FAULT_PREEMPT_STEP, False,
+          failures_binding([('step.nan', 1, 4)])))
+      want = gin_launches(FAULT_STEPS, 2 * GIN_EVAL_STEPS)
+      check(whole_launches == want, 'restarted launches {} != {}'.format(
+          whole_launches, want))
+      got = checkpointing.CheckpointManager(cut_dir).restore(FAULT_STEPS)
+      ref = checkpointing.CheckpointManager(whole_dir).restore(FAULT_STEPS)
+      check(_states_equal(got, ref), 'the preempted-then-resumed state '
+            'differs from the run restarted in process\'s')
+      check(whole_line['step'] == FAULT_STEPS, 'restarted: {}'.format(
+          whole_line))
+
+      # 4. The Python reader with skip_corrupt_records: one read record
+      # injected corrupt, quarantined, the run finishes.
+      reader_dir = os.path.join(tmp, 'reader')
+      before = fault_counters()
+      with watching_trainers() as (made, _):
+        line, _, reader_s = run_gin('python reader', reader_dir, gin_bindings(
+            data_dir, FAULT_READER_STEPS, FAULT_READER_STEPS, 0, False,
+            'train_input_generator/DefaultRecordInputGenerator.'
+            'skip_corrupt_records = True',
+            failures_binding([('data.read', 1, 5)])))
+      generator = made[-1].train_generator
+      moved_reader = counters_moved(before)
+      check(line['step'] == FAULT_READER_STEPS and line['data'] == 'python'
+            and generator.quarantine.records_skipped == 1 and
+            moved_reader['corrupt_records_skipped'] == 1 and
+            fault_injection.get_injector().fired_count('data.read') == 1,
+            'the Python reader: {}, quarantined {}, {}'.format(
+                line, generator.quarantine.records_skipped, moved_reader))
+      fault_injection.set_injector(None)
+
+      # 5. A real SIGTERM to the command line.
+      sigterm_step, sigterm_line, sigterm_s = sigterm_run(
+          data_dir, os.path.join(tmp, 'sigterm'))
+  finally:
+    torch.backends.cudnn.deterministic = False
+    fault_injection.set_injector(None)
+  report = {
+      'step_ms': cut_step_ms, 'resumed_step_ms': resumed['step_ms'],
+      'emergency_save_ms': save_ms, 'resume_to_first_step_ms': resume_ms,
+      'fired': fired, 'counters': moved, 'goodput': fractions,
+      'goodput_seconds': seconds, 'preempted_step': FAULT_PREEMPT_STEP,
+      'bit_equal_to_restarted_in_process': True,
+      'python_reader': {'steps': FAULT_READER_STEPS, 'quarantined': 1,
+                        'step_ms': line['step_ms'], 'seconds': reader_s},
+      'sigterm': {'step': sigterm_step, 'resumed_to': sigterm_line['step'],
+                  'seconds': sigterm_s},
+      'phase_s': time.monotonic() - phase_start, 'card': smi_line()}
+  print('fault tolerance: host.preempt at step {} of {} (saves every {}): '
+        'ckpt.save failed twice and retried, a NaN skipped at step 5, a '
+        'slow step, a 0.25 s stall; the emergency checkpoint in {:.2f} ms; '
+        'a new trainer resumed (one restore failure retried) to its first '
+        'step in {:.1f} ms and to step {}, its state bit-equal to a run '
+        'restarted in process at step {}; the step {:.2f} ms (resumed '
+        '{:.2f}); goodput {}; the Python reader quarantined 1 record in {} '
+        'steps; SIGTERM landed at step {} of the command line, resumed to {} '
+        '({:.1f} s); phase {:.1f} s; {}'.format(
+            FAULT_PREEMPT_STEP, FAULT_STEPS, FAULT_SAVE_STEPS, save_ms,
+            resume_ms, FAULT_STEPS, FAULT_PREEMPT_STEP, cut_step_ms,
+            resumed['step_ms'],
+            {k: round(v, 4) for k, v in fractions.items()},
+            FAULT_READER_STEPS, sigterm_step, sigterm_line['step'],
+            sigterm_s, report['phase_s'], smi_line()))
+  launches = {k: cut_launches[k] + resume_launches[k] for k in cut_launches}
+  return launches, report
+
+
+# -- phase 4k: the pusher ----------------------------------------------------
+
+PUSHER_COLLECT, PUSHER_STEPS, PUSHER_BATCH, PUSHER_EVAL = 80, 200, 64, 30
+PUSHER_STEP_ATOL = 1e-5
+
+
+def phase_pusher(device):
+  """Phase 4k: JAX's learning test of the pusher env on the card at JAX's
+  sizes. Returns its (all zero) launches and the report."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.data.input_generators import (
+      DefaultRecordInputGenerator)
+  from tensor2robot_tpu_torch.data.writer import TFRecordReplayWriter
+  from tensor2robot_tpu_torch.models import optimizers
+  from tensor2robot_tpu_torch.models.abstract_model import TrainState
+  from tensor2robot_tpu_torch.modes import ModeKeys
+  from tensor2robot_tpu_torch.predictors.checkpoint_predictor import (
+      CheckpointPredictor)
+  from tensor2robot_tpu_torch.research import pusher_env
+  from tensor2robot_tpu_torch.rl.collect_eval import collect_eval_loop
+  from tensor2robot_tpu_torch.rl.run_env import run_env
+  from tensor2robot_tpu_torch.trainer.train_eval import Trainer
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  phase_start = time.monotonic()
+  print('pusher: collect {} random episodes, train {} steps at batch {} on '
+        'the card (Adam 3e-3), evaluate {} episodes; {}'.format(
+            PUSHER_COLLECT, PUSHER_STEPS, PUSHER_BATCH, PUSHER_EVAL,
+            smi_line()))
+  adam = functools.partial(optimizers.create_adam_optimizer,
+                           learning_rate=3e-3)
+  with tempfile.TemporaryDirectory() as root:
+    start = time.monotonic()
+    collect_eval_loop(
+        collect_env=pusher_env.PusherEnv(seed=2), eval_env=None,
+        policy_class=lambda: pusher_env.PusherRandomPolicy(seed=3),
+        num_collect=PUSHER_COLLECT, num_eval=0,
+        run_agent_fn=functools.partial(
+            run_env,
+            episode_to_transitions_fn=(
+                pusher_env.episode_to_transitions_pusher),
+            replay_writer=TFRecordReplayWriter(), close_env=False),
+        root_dir=root)
+    collect_s = time.monotonic() - start
+    pattern = os.path.join(root, 'policy_collect', '*')
+    model = pusher_env.PusherCriticModel(device=device,
+                                         create_optimizer_fn=adam)
+    model_dir = os.path.join(root, 'run')
+    trainer = Trainer(model, model_dir, save_checkpoints_steps=PUSHER_STEPS,
+                      log_every_n_steps=PUSHER_STEPS // 4)
+    generator = DefaultRecordInputGenerator(file_patterns=pattern,
+                                            batch_size=PUSHER_BATCH)
+    kernels.reset_launches()
+    start = time.monotonic()
+    state = trainer.train(generator, PUSHER_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.monotonic() - start
+    launches = dict(kernels.LAUNCHES)
+    trainer.close()
+    check(state.step == PUSHER_STEPS and
+          all(torch.isfinite(v).all() for v in state.params.values()),
+          'pusher training: step {}'.format(state.step))
+    check(not any(launches.values()), 'the pusher\'s MLP launched kernels: '
+          '{}'.format(launches))
+
+    # One step on the card against the CPU's, from the same state and batch.
+    cpu_model = pusher_env.PusherCriticModel(device='cpu',
+                                             create_optimizer_fn=adam)
+    generator.set_specification_from_model(model, ModeKeys.TRAIN)
+    features, labels = next(generator.create_dataset_iterator(
+        ModeKeys.TRAIN, seed=0))
+    card_state, _ = model.train_step(state, *(
+        {k: torch.as_tensor(v).to(device) for k, v in part.items()}
+        for part in (features, labels)))
+    cpu_state, _ = cpu_model.train_step(TrainState(**to_cpu(vars(state))), *(
+        {k: torch.as_tensor(v) for k, v in part.items()}
+        for part in (features, labels)))
+    step_err = max(max_abs_err(card_state.params[k].cpu(), cpu_state.params[k])
+                   for k in cpu_state.params)
+    check(step_err <= PUSHER_STEP_ATOL, 'a pusher step on the card is {} '
+          'from the CPU\'s (atol {})'.format(step_err, PUSHER_STEP_ATOL))
+
+    def mean_reward(policy, seed):
+      return float(np.mean(run_env(
+          pusher_env.PusherEnv(seed=seed), policy=policy,
+          num_episodes=PUSHER_EVAL, tag='eval', root_dir=None,
+          close_env=True)))
+
+    predictor = CheckpointPredictor(pusher_env.PusherCriticModel(
+        device=device), model_dir, timeout=5.0)
+    critic_policy = pusher_env.PusherCriticPolicy(predictor, seed=4)
+    check(critic_policy.restore() and
+          critic_policy.global_step == PUSHER_STEPS,
+          'the pusher predictor did not restore step {}'.format(PUSHER_STEPS))
+    start = time.monotonic()
+    trained = mean_reward(critic_policy, seed=100)
+    eval_s = time.monotonic() - start
+    rand = mean_reward(pusher_env.PusherRandomPolicy(seed=5), seed=100)
+    predictor.close()
+  check(trained > rand + 0.4, 'the trained pusher policy {} does not beat '
+        'random {} by 0.4'.format(trained, rand))
+  report = {
+      'collect_episodes_per_s': PUSHER_COLLECT / collect_s,
+      'train_steps_per_s': PUSHER_STEPS / train_s,
+      'policy_ms_an_action': eval_s * 1e3 / (PUSHER_EVAL * 8),
+      'trained_reward': trained, 'random_reward': rand,
+      'step_vs_cpu': step_err, 'phase_s': time.monotonic() - phase_start,
+      'card': smi_line()}
+  print('pusher: {:.1f} episodes/s collected, {:.1f} train steps/s, the '
+        'critic policy {:.3f} ms an action (128 actions scored); mean episode '
+        'reward {:.4f} trained vs {:.4f} random (bar: random + 0.4); a step '
+        '{:.2e} from the CPU\'s; phase {:.1f} s; {}'.format(
+            report['collect_episodes_per_s'], report['train_steps_per_s'],
+            report['policy_ms_an_action'], trained, rand, step_err,
+            report['phase_s'], smi_line()))
+  return launches, report
 
 
 @contextlib.contextmanager
@@ -7051,6 +7538,8 @@ def main():
     paths['records_coef_train'] = phase_records_coef(device,
                                                      critic_dir.name)
     paths.update(phase_gins(device, critic_dir.name))
+    paths['fault_tolerance_train'], fault_report = phase_fault_tolerance(
+        device, critic_dir.name)
   finally:
     critic_dir.cleanup()
   (paths['qtopt_offpolicy_train'], paths['qtopt_offpolicy_collect'],
@@ -7060,6 +7549,7 @@ def main():
   paths['grasp2vec_train'], grasp2vec_report = phase_grasp2vec(device)
   paths['pose_env_train'], pose_env_report = phase_pose_env_maml(device)
   paths['vrgripper_train'], vrgripper_report = phase_vrgripper(device)
+  paths['pusher_train'], pusher_report = phase_pusher(device)
   paths.update({'seq2act': phase_seq2act(device),
                 'seq2act_train': phase_seq2act_train(device)})
   paths['seq2act_bf16_train'], bf16_report = phase_seq2act_bf16(device)
@@ -7096,6 +7586,8 @@ def main():
   print(json.dumps({'grasp2vec': grasp2vec_report,
                     'pose_env_maml': pose_env_report}))
   print(json.dumps({'vrgripper': vrgripper_report}))
+  print(json.dumps({'fault_tolerance': fault_report}))
+  print(json.dumps({'pusher': pusher_report}))
   print(json.dumps({'seq2act_variants': {
       'bf16': bf16_report, 'moe': moe_report, 'ring_gin': ring['gin']}}))
   print(json.dumps({'kernels': [entry for entry, _ in entries]}))

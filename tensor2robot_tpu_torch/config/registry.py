@@ -10,9 +10,11 @@ policies and ``CheckpointPredictor``, and the synthetic grasping MDP's
 env, random policy and transitions); Grasp2Vec's model, preprocessor and
 losses; MAML's model, inner loop, preprocessors and input generators; the
 pose toy env, its random policy, models and transitions; the vrgripper
-and Watch-Try-Learn models, their preprocessor and action decoders. A gin
-that names anything else fails in
-``ginlike.check_configurables``, naming it.
+and Watch-Try-Learn models, their preprocessor and action decoders; the
+reliability layer's ``configure_fault_injector`` (``RetryPolicy``, which
+the JAX package registers, is not: no configurable of the port takes one).
+A gin that names anything else fails in ``ginlike.check_configurables``,
+naming it.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ def register_all() -> None:
   from tensor2robot_tpu_torch.policies import policies
   from tensor2robot_tpu_torch.predictors import checkpoint_predictor
   from tensor2robot_tpu_torch.preprocessors import device_decode
+  from tensor2robot_tpu_torch.reliability import fault_injection
   from tensor2robot_tpu_torch.research import grasp2vec
   from tensor2robot_tpu_torch.research import pose_env
   from tensor2robot_tpu_torch.research import seq2act
@@ -73,6 +76,11 @@ def register_all() -> None:
            'AsyncExportHookBuilder')
   register(td3.TD3Hooks, 'TD3Hooks')
   register(variable_logger_hook.VariableLoggerHook, 'VariableLoggerHook')
+
+  # The reliability layer: a gin arms faults (the trainer's command line
+  # calls configure_fault_injector where a gin binds it).
+  register(fault_injection.configure_fault_injector,
+           'configure_fault_injector')
 
   # Input generators: the gins' records, and random batches.
   register(input_generators.DefaultRecordInputGenerator,

@@ -23,9 +23,11 @@ that the trainer ships goes through a feed's ``put_batch``:
   * ``PipelinedFeed`` runs a feed ``depth`` batches ahead in a thread, in
     order: the copies and the unpacks overlap the device's steps.
 
-There is no CPU carry-on: a CUDA feed gives CUDA tensors or raises. Not
-ported (the JAX feed's pipeline X-ray stage meter and its ``data.stall``
-fault site): the port has no X-ray or fault injection yet.
+There is no CPU carry-on: a CUDA feed gives CUDA tensors or raises. The
+``data.stall`` fault site fires before each batch's transfer (a host sleep
+of ``DATA_STALL_SECONDS``: in the producer thread under ``PipelinedFeed``).
+Not ported: the JAX feed's pipeline X-ray stage meter (the port has no
+X-ray yet).
 """
 
 from __future__ import annotations
@@ -40,15 +42,14 @@ import torch
 
 from tensor2robot_tpu_torch.data import jpeg_device
 from tensor2robot_tpu_torch.observability import get_registry
-from tensor2robot_tpu_torch.observability.registry import exponential_buckets
+from tensor2robot_tpu_torch.observability.spans import SPAN_BUCKETS_MS
+from tensor2robot_tpu_torch.reliability import fault_injection
 
 __all__ = ['FEED_SHAPES_GAUGE', 'TRANSFER_MS_HISTOGRAM', 'HostDeviceFeed',
            'PipelinedFeed', 'SparseCoefFeed', 'feed_for_model']
 
 FEED_SHAPES_GAUGE = 'data/feed_shape_signatures'
 TRANSFER_MS_HISTOGRAM = 'pipeline/transfer/ms'
-# The JAX package's span buckets: 0.01 ms .. ~168 s in x2 steps.
-SPAN_BUCKETS_MS = exponential_buckets(0.01, 2.0, 25)
 
 Batch = Tuple[Optional[Dict[str, np.ndarray]], Optional[Dict[str, np.ndarray]]]
 
@@ -106,7 +107,11 @@ class HostDeviceFeed:
   def transfer(self, batch: Batch, channel: str = 'train'):
     """``(device batch, ready event)``: the copies, then the feed's device
     work (``_finish``), queued on the copy stream without waiting for
-    them; the event (None on the CPU) marks the batch ready."""
+    them; the event (None on the CPU) marks the batch ready. The
+    ``data.stall`` site sleeps first where it fires."""
+    stall_s = fault_injection.stall_data_seconds()
+    if stall_s > 0.0:
+      time.sleep(stall_s)
     with self._lock:
       return self._transfer(batch, channel)
 

@@ -11,7 +11,10 @@ with ``skip_corrupt``, charges it to a ``RecordQuarantine`` and reads on:
 a bad data CRC skips the record, a bad length CRC or a truncated frame
 abandons the rest of the file (its framing can no longer be trusted). The
 quarantine raises ``CorruptionBudgetExceeded`` once more records than its
-budgets allow are damaged, in one file or in all.
+budgets allow are damaged, in one file or in all. Each record read passes
+the ``data.read`` fault site, whose fired call is a corrupt record (skipped
+and charged, or raised). The native loader reads its own records and takes
+no skip mode.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ import os
 import struct
 from typing import Iterator, List, Optional
 
+from tensor2robot_tpu_torch.reliability import fault_injection
 from tensor2robot_tpu_torch.reliability.errors import (
-    CorruptionBudgetExceeded, CorruptRecordError)
+    CorruptionBudgetExceeded, CorruptRecordError, InjectedFault)
 from tensor2robot_tpu_torch.reliability.quarantine import RecordQuarantine
 
 __all__ = ['CorruptRecordError', 'CorruptionBudgetExceeded',
@@ -128,6 +132,13 @@ def tfrecord_iterator(path: str, verify_crc: bool = False,
         if not skip_corrupt:
           raise CorruptRecordError(path, 'data CRC', index - 1)
         quarantine.record_skipped(path, 'data CRC', index - 1)
+        continue
+      try:
+        fault_injection.maybe_fail(fault_injection.SITE_DATA_READ)
+      except InjectedFault:
+        if not skip_corrupt:
+          raise CorruptRecordError(path, 'injected', index - 1)
+        quarantine.record_skipped(path, 'injected', index - 1)
         continue
       yield data
 

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensor2robot_tpu_torch.layers import initializers
 from tensor2robot_tpu_torch.layers.basic import BatchNorm, Dense
 from tensor2robot_tpu_torch.layers.basic import same_padding
 from tensor2robot_tpu_torch.research.qtopt.networks import Conv
@@ -168,6 +169,11 @@ class ResNet(nn.Module):
     self.final_bn = _norm(features)
     self.final_dense = (Dense(features, num_classes) if include_head
                         else None)
+    # Every conv of the JAX network declares this; the head keeps flax's
+    # default.
+    initializers.declare(
+        (m for m in self.modules() if isinstance(m, Conv)),
+        kernel_init=initializers.variance_scaling(2.0, 'fan_out', 'normal'))
 
   def forward(self, images: torch.Tensor,
               film_gamma_betas: Optional[Sequence[Sequence]] = None,

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensor2robot_tpu_torch.layers import initializers
 from tensor2robot_tpu_torch.layers import pooling
 from tensor2robot_tpu_torch.layers.basic import BatchNorm, Dense
 from tensor2robot_tpu_torch.layers.spatial_softmax import spatial_softmax
@@ -99,6 +100,10 @@ class ImagesToFeaturesNet(nn.Module):
     self.final_conv_1x1 = Conv(features, num_output_maps, 1, 1, 'VALID',
                                bias=True)
     self.final_norm = _make_norm(num_output_maps, True, use_batch_norm)
+    initializers.declare(
+        (m for m in self.modules() if isinstance(m, Conv)),
+        kernel_init=initializers.xavier_uniform,
+        bias_init=initializers.constant(0.01))
 
   def forward(self, images: torch.Tensor,
               film_output_params: Optional[torch.Tensor] = None,
@@ -152,6 +157,9 @@ class ImagesToFeaturesHighResNet(nn.Module):
               _make_norm(32, False, use_batch_norm))
     self.final_conv_1x1 = Conv(32, num_output_maps, 1, 1, 'VALID', bias=True)
     self.final_norm = _make_norm(num_output_maps, True, use_batch_norm)
+    initializers.declare(
+        (m for m in self.modules() if isinstance(m, Conv)),
+        kernel_init=initializers.truncated_normal(0.1))
 
   def _norm_relu(self, name, x, train):
     return F.relu(_normalize(getattr(self, name), x, train))

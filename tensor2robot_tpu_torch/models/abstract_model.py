@@ -42,6 +42,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from tensor2robot_tpu_torch.layers import initializers
 from tensor2robot_tpu_torch.models import optimizers
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.parallel import collectives
@@ -51,19 +52,19 @@ __all__ = ['AbstractT2RModel', 'TrainState', 'Variables']
 StateDict = Dict[str, torch.Tensor]
 Variables = Dict[str, StateDict]
 
-# jax.nn.initializers.truncated_normal divides by the std of a unit normal
-# truncated to [-2, 2], so that the kept draws have the requested std.
-_TRUNCATED_STD = 0.87962566103423978
-
-
 def _init_module(module: nn.Module, generator: torch.Generator) -> None:
-  """flax's initializers: truncated normal (std 0.01) kernels, zero
-  biases; batch norm scale 1, bias 0, mean 0, var 1. A module with other
-  initializers for its own tensors applies them in ``flax_init``."""
+  """flax's initializers, as the module declares them
+  (``layers/initializers.py``): a kernel (a ``weight`` of two or more dims)
+  from its ``kernel_init``, lecun normal by default; a ``bias`` from its
+  ``bias_init``, zeros by default; norm scales 1; every other parameter 0;
+  batch norm buffers mean 0, var 1. A module with other initializers for
+  its own tensors applies them in ``flax_init``."""
   for name, param in module.named_parameters(recurse=False):
-    if name == 'weight':
-      nn.init.trunc_normal_(param, 0.0, 1.0, -2.0, 2.0, generator=generator)
-      param.mul_(0.01 / _TRUNCATED_STD)
+    if name == 'weight' and param.dim() >= 2:
+      getattr(module, 'kernel_init', initializers.lecun_normal)(param,
+                                                                generator)
+    elif name == 'bias':
+      getattr(module, 'bias_init', initializers.zeros)(param, generator)
     elif name == 'scale':
       nn.init.ones_(param)
     else:

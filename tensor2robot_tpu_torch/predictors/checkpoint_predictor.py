@@ -32,6 +32,7 @@ from tensor2robot_tpu_torch.observability import get_registry
 from tensor2robot_tpu_torch.predictors.abstract_predictor import (
     AbstractPredictor,
 )
+from tensor2robot_tpu_torch.reliability.errors import CHECKPOINT_SKIP_ERRORS
 from tensor2robot_tpu_torch.trainer import checkpointing
 
 __all__ = ['CHECKPOINT_WAIT_GAUGE', 'CheckpointPredictor']
@@ -40,7 +41,6 @@ _POLL_INTERVAL_SECS = 1.0
 # How often the otherwise silent wait for a checkpoint reports itself.
 _WAIT_REPORT_INTERVAL_SECS = 10.0
 CHECKPOINT_WAIT_GAUGE = 'inference/checkpoint_wait_seconds'
-_SKIP_ERRORS = checkpointing.SKIP_ERRORS
 
 
 class _Loaded(NamedTuple):
@@ -80,7 +80,9 @@ class CheckpointPredictor(AbstractPredictor):
 
     Returns True once loaded, or at once when nothing is newer than an
     already loaded step; False when ``timeout`` passes first. A
-    checkpoint that fails to load is skipped for the next older one.
+    checkpoint that fails to load transiently or is damaged
+    (``CHECKPOINT_SKIP_ERRORS``) is skipped for the next older one, and
+    left where it is: a reader never renames a training run's files.
     """
     if self._checkpoint_dir is None:
       raise ValueError('CheckpointPredictor constructed without a '
@@ -102,7 +104,7 @@ class CheckpointPredictor(AbstractPredictor):
         for step in candidates:
           try:
             return self._load_step(step)
-          except _SKIP_ERRORS as e:
+          except CHECKPOINT_SKIP_ERRORS as e:
             logging.warning('CheckpointPredictor: step %d in %s failed to '
                             'restore (%s); trying an older checkpoint.',
                             step, self._checkpoint_dir, e)
@@ -121,8 +123,9 @@ class CheckpointPredictor(AbstractPredictor):
       wait_gauge.set(0.0)
 
   def _load_step(self, step: int) -> bool:
-    state = checkpointing.CheckpointManager(self._checkpoint_dir).restore(
-        step, device='cpu')
+    state = checkpointing.CheckpointManager(
+        self._checkpoint_dir, quarantine_damaged=False).restore(
+            step, device='cpu')
     variables = {name: self._model.to_device(weights)
                  for name, weights in state.variables().items()}
     self._loaded = _Loaded(variables=variables, step=step)

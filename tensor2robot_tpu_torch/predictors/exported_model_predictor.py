@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import logging
 import os
+import pickle
 import time
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -35,13 +36,16 @@ from tensor2robot_tpu_torch.predictors.abstract_predictor import (
     AbstractPredictor,
 )
 from tensor2robot_tpu_torch.specs import assets as assets_lib
-from tensor2robot_tpu_torch.trainer import checkpointing
 
 __all__ = ['EXPORT_WAIT_GAUGE', 'ExportedModelPredictor']
 
 _POLL_INTERVAL_SECS = 1.0
 _WAIT_REPORT_INTERVAL_SECS = 10.0
 EXPORT_WAIT_GAUGE = 'inference/export_wait_seconds'
+# A version that fails to load with one of these (removed by retention or
+# half written while read) falls back to the next newest.
+_SKIP_ERRORS = (ValueError, OSError, RuntimeError, EOFError,
+                pickle.UnpicklingError)
 
 
 class _Loaded(NamedTuple):
@@ -89,7 +93,7 @@ class ExportedModelPredictor(AbstractPredictor):
       saved = export_generators.load_exported_variables(version_dir)
       if step is None:
         step = assets_lib.load_global_step_from_file(version_dir)
-    except (ValueError,) + checkpointing.SKIP_ERRORS as e:
+    except _SKIP_ERRORS as e:
       logging.warning('ExportedModelPredictor: version %d in %s failed to '
                       'load (%s); trying an older one.', version,
                       self._export_dir, e)

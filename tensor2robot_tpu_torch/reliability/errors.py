@@ -1,18 +1,36 @@
-"""The exceptions of the port's fault-tolerance layer (a copy of the part of
-the JAX package's ``reliability/errors.py`` that the port uses).
+"""The exceptions of the port's fault-tolerance layer (a copy of the JAX
+package's ``reliability/errors.py``).
 
-  * transient (retry): ``OSError`` / ``TimeoutError``; bounded retry with
-    backoff, then ``RetryError``.
+  * transient (retry): ``InjectedFault`` and ``OSError`` / ``TimeoutError``;
+    bounded retry with backoff, then ``RetryError``.
   * data-local (skip and budget): ``CorruptRecordError``, charged to a
     ``RecordQuarantine`` until ``CorruptionBudgetExceeded``.
+  * checkpoint-local (fall back to an older step): ``RetryError`` and
+    ``CorruptCheckpointError``, together ``CHECKPOINT_SKIP_ERRORS``.
+  * run-level (stop or roll back): ``NonFiniteLossError``,
+    ``TrainingPreempted``.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-__all__ = ['CorruptRecordError', 'CorruptionBudgetExceeded', 'RetryError',
-           'TRANSIENT_IO_ERRORS']
+__all__ = ['CHECKPOINT_SKIP_ERRORS', 'CorruptCheckpointError',
+           'CorruptRecordError', 'CorruptionBudgetExceeded', 'InjectedFault',
+           'NonFiniteLossError', 'RetryError', 'TRANSIENT_IO_ERRORS',
+           'TrainingPreempted']
+
+
+class InjectedFault(IOError):
+  """A failure forced by the ``FaultInjector`` at a named site; an
+  ``IOError``, so that the default ``RetryPolicy`` retries it as the
+  transient I/O error it stands for."""
+
+  def __init__(self, site: str, call_index: int):
+    super().__init__(
+        'Injected fault at site {!r} (call #{})'.format(site, call_index))
+    self.site = site
+    self.call_index = call_index
 
 
 class RetryError(IOError):
@@ -56,6 +74,49 @@ class CorruptionBudgetExceeded(IOError):
     self.limit = limit
 
 
+class CorruptCheckpointError(IOError):
+  """A checkpoint whose file is visibly damaged (truncated, or refused by
+  ``torch.load``). Transient from its reader's side: skip to another step
+  or wait for the next one."""
+
+  def __init__(self, directory: str, step: int, detail: str):
+    super().__init__(
+        'Checkpoint step {} in {} is damaged ({}).'.format(
+            step, directory, detail))
+    self.directory = directory
+    self.step = step
+
+
+class NonFiniteLossError(RuntimeError):
+  """The loss of a step was not finite and the nan policy stops (or its
+  rollback budget ran out, or there was nothing to roll back to)."""
+
+  def __init__(self, step: int, reason: str = ''):
+    super().__init__('Non-finite loss at step {}{}.'.format(
+        step, ': ' + reason if reason else ''))
+    self.step = step
+
+
+class TrainingPreempted(Exception):
+  """SIGTERM or SIGINT (or the injected ``host.preempt``) reached the
+  train loop; the checkpoint of ``step`` was committed before this was
+  raised."""
+
+  def __init__(self, signum: int, step: int):
+    super().__init__(
+        'Training preempted by signal {} at step {} (emergency checkpoint '
+        'committed).'.format(signum, step))
+    self.signum = signum
+    self.step = step
+
+
 # What the retrying wrappers treat as transient by default (IOError is
-# OSError).
+# OSError; InjectedFault and FileNotFoundError are OSErrors).
 TRANSIENT_IO_ERRORS = (OSError, TimeoutError)
+
+# What a checkpoint's reader skips past (to an older step, or to the next
+# poll): the checkpoint manager's restore fails transiently only as these.
+# Narrower than TRANSIENT_IO_ERRORS: an OSError of a data path (a missing
+# dataset, an exhausted corruption budget) is not a checkpoint's and
+# propagates.
+CHECKPOINT_SKIP_ERRORS = (RetryError, CorruptCheckpointError)

@@ -31,7 +31,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 
 from tensor2robot_tpu_torch.observability import TelemetryLogger, get_registry
-from tensor2robot_tpu_torch.observability.registry import exponential_buckets
+from tensor2robot_tpu_torch.observability.spans import SPAN_BUCKETS_MS
 from tensor2robot_tpu_torch.reliability import fault_injection
 from tensor2robot_tpu_torch.reliability.quarantine import RecordQuarantine
 from tensor2robot_tpu_torch.replay import wire
@@ -62,9 +62,6 @@ REPLAY_OCCUPANCY_BYTES_GAUGE = 'replay/occupancy_bytes'
 REPLAY_QUEUE_DEPTH_GAUGE = 'replay/sample_queue_depth'
 REPLAY_SAMPLE_MS_HISTOGRAM = 'replay/sample_ms'
 
-# The span histograms' buckets (the JAX package's
-# ``observability/spans.SPAN_BUCKETS_MS``; the port has no spans module).
-SPAN_BUCKETS_MS = exponential_buckets(0.01, 2.0, 25)
 
 
 class ReplayEmpty(RuntimeError):

@@ -24,7 +24,6 @@ given, so that a test can feed JAX's.
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -239,21 +238,6 @@ class Grasp2VecModel(AbstractT2RModel):
 
   def create_network(self) -> nn.Module:
     return Grasp2VecNet(self._resnet_size, self.compute_dtype)
-
-  def init_variables(self, generator: torch.Generator):
-    """The base initializers, then flax's conv initializer for the
-    ResNet's kernels: normal with variance 2 / fan_out."""
-    variables = super().init_variables(generator)
-    with torch.no_grad():
-      for value in variables['params'].values():
-        if value.dim() == 4:
-          fan_out = value.shape[0] * value.shape[2] * value.shape[3]
-          value.copy_(torch.randn(value.shape, generator=generator) *
-                      math.sqrt(2.0 / fan_out))
-    if 'avg_params' in variables:
-      variables['avg_params'] = {k: v.clone() for k, v in
-                                 variables['params'].items()}
-    return variables
 
   def model_train_fn(self, state, features, labels, inference_outputs,
                      mode: str):

@@ -406,11 +406,6 @@ class SimQNet(nn.Module):
     return {'q_logits': logits, 'q_predicted': torch.sigmoid(logits)}
 
 
-# jax.nn.initializers.lecun_normal draws a normal truncated to [-2, 2] and
-# divides by its std, so that the kept draws have std sqrt(1 / fan_in).
-_TRUNCATED_STD = 0.87962566103423978
-
-
 class SimGraspingCriticModel(CriticModel):
   """The test-scale critic over ``SimGraspingEnv`` observations: the
   flagship's keys and on-disk names at any resolution, ``SimQNet``, flax's
@@ -435,19 +430,6 @@ class SimGraspingCriticModel(CriticModel):
 
   def create_network(self) -> nn.Module:
     return SimQNet(self._height, self._width)
-
-  def init_variables(self, generator: torch.Generator):
-    network = self.create_network()
-    with torch.no_grad():
-      for name, param in network.named_parameters():
-        if name.endswith('weight'):
-          fan_in = param[0].numel()
-          nn.init.trunc_normal_(param, 0.0, 1.0, -2.0, 2.0,
-                                generator=generator)
-          param.mul_(math.sqrt(1.0 / fan_in) / _TRUNCATED_STD)
-        else:
-          nn.init.zeros_(param)
-    return {'params': self.to_device(dict(network.state_dict()))}
 
 
 def make_sim_critic_model(height: int = 64, width: int = 80,

@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tensor2robot_tpu_torch.layers import initializers
 from tensor2robot_tpu_torch.layers import pooling
 from tensor2robot_tpu_torch.layers import wgrad
 from tensor2robot_tpu_torch.layers.basic import BatchNorm, Dense, same_padding
@@ -295,6 +296,11 @@ class Grasping44Network(nn.Module):
     self.logit_name = ('logit' if num_classes == 1 else
                        'logit_{}'.format(num_classes))
     self.add_module(self.logit_name, Dense(width, num_classes))
+    # Every kernel of the JAX network (its stem, convs, denses and logit)
+    # declares truncated_normal(0.01).
+    initializers.declare(
+        (m for m in self.modules() if isinstance(m, (Conv, Dense))),
+        kernel_init=initializers.truncated_normal(0.01))
 
   def _conv_stack(self, x: torch.Tensor, stack, train: bool) -> torch.Tensor:
     for layer in stack:

@@ -158,10 +158,6 @@ class _FixedCountMetaModel(AbstractT2RModel):
     return meta_preprocessors.create_maml_label_spec(
         self._episode_label_specification(mode), self._num_inference)
 
-  def init_variables(self, generator: torch.Generator):
-    return vrgripper_env_models.with_lecun_kernels(
-        super().init_variables(generator), generator)
-
   def network_inputs(self, features, labels):
     """The features and the labels (None or empty: no loss)."""
     return (features, dict(labels) if labels else None)

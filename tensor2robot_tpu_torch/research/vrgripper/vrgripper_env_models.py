@@ -54,7 +54,7 @@ from tensor2robot_tpu_torch.specs.tensor_spec import TensorSpec
 
 __all__ = ['DefaultVRGripperPreprocessor', 'VRGripperDomainAdaptiveModel',
            'VRGripperDomainAdaptiveNet', 'VRGripperRegressionModel',
-           'VRGripperRegressionNet', 'resize_bilinear', 'with_lecun_kernels']
+           'VRGripperRegressionNet', 'resize_bilinear']
 
 # The keypoint tower's output: 32 maps, an (x, y) each.
 POINTS = 64
@@ -185,29 +185,6 @@ class DefaultVRGripperPreprocessor(AbstractPreprocessor):
           if value.is_floating_point():
             struct[key] = lmbda * value + (1 - lmbda) * value.flip(0)
     return features, labels
-
-
-# jax.nn.initializers.truncated_normal divides by the std of a unit normal
-# truncated to [-2, 2], so that the kept draws have the requested std.
-_TRUNCATED_STD = 0.87962566103423978
-
-
-def with_lecun_kernels(variables, generator: torch.Generator):
-  """A model's initial ``variables`` with flax's default kernel
-  initializer: every dense and conv ``weight`` drawn from a normal
-  truncated to two standard deviations, of variance 1 / fan in (the JAX
-  networks of this package keep flax's defaults, where the port's generic
-  draw is the critic's 0.01)."""
-  with torch.no_grad():
-    for name, value in variables['params'].items():
-      if name.endswith('weight') and value.dim() >= 2:
-        draw = torch.empty(value.shape)
-        nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        value.copy_(draw * (value[0].numel() ** -0.5 / _TRUNCATED_STD))
-  if 'avg_params' in variables:
-    variables['avg_params'] = {k: v.clone()
-                               for k, v in variables['params'].items()}
-  return variables
 
 
 def _as_float(value) -> torch.Tensor:
@@ -352,9 +329,6 @@ class VRGripperRegressionModel(RegressionModel):
         output_mixture_sample=self._output_mixture_sample,
         output_mean=self._output_mean if denormalize else None,
         output_stddev=self._output_stddev if denormalize else None)
-
-  def init_variables(self, generator: torch.Generator):
-    return with_lecun_kernels(super().init_variables(generator), generator)
 
   @property
   def draws_in_training(self) -> bool:

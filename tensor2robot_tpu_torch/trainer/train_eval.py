@@ -25,23 +25,45 @@ A step whose loss is not finite follows ``nan_policy``: ``'skip'`` (the
 default, as in the JAX trainer) keeps every tensor of the state at its
 value before the step, on the device and without waiting for it, while
 the step counter advances, and reports ``nonfinite_loss_skipped``;
-``'raise'`` checks the loss on the host after every step and raises
-``NonFiniteLossError``; ``'rollback'`` checks it so too and restores the
-newest committed checkpoint, at most ``nan_rollback_budget`` times a
-``train`` call (then it raises), counting ``reliability/nan_rollbacks``;
-``'off'`` neither checks nor guards. Every ``log_every_n_steps`` the
-metrics reach the host and the observability registry (gauges
-``train/loss``, ``train/grasp_loss`` and ``train/l2_loss`` (the critic),
-``train/action_accuracy`` and ``train/action_mae`` (Seq2Act),
-``train/steps_per_sec``, ``train/examples_per_sec``; counter
-``train/nonfinite_loss_skipped``), and, with ``write_metrics``, a
-TensorBoard event under ``model_dir`` (``trainer/metrics.py``); each eval
-writes its metrics under ``model_dir/eval``. Checkpoints are written every
-``save_checkpoints_steps`` and at the end; a trainer starts from the
-newest checkpoint in ``model_dir`` that restores, else from fresh weights
-(merged with the model's ``warm_start_fn`` where it has one). Hooks
-(``train_hook_builders``) see ``begin``, ``after_step`` after every step
-and ``end``; exporters (``create_exporters_fn``) run after every eval.
+``'raise'`` checks the loss on the host and raises ``NonFiniteLossError``;
+``'rollback'`` checks it so too and restores the newest committed
+checkpoint, at most ``nan_rollback_budget`` times a ``train`` call (then
+it raises), counting ``reliability/nan_rollbacks``; ``'off'`` neither
+checks nor guards. The host's check runs every ``nan_check_every_n_steps``
+and on every step about to be checkpointed (an unchecked save could commit
+the poison that a rollback would then restore). Every
+``log_every_n_steps`` the metrics reach the host and the observability
+registry (gauges ``train/loss``, ``train/grasp_loss`` and
+``train/l2_loss`` (the critic), ``train/action_accuracy`` and
+``train/action_mae`` (Seq2Act), ``train/steps_per_sec``,
+``train/examples_per_sec``; counter ``train/nonfinite_loss_skipped``),
+and, with ``write_metrics``, a TensorBoard event under ``model_dir``
+(``trainer/metrics.py``) with the registry's scalars and the goodput split
+(``observability/goodput.py``: each second of the loop charged to
+productive, data, checkpoint or retry time through the loop's ``span``s);
+each eval writes its metrics under ``model_dir/eval``. Checkpoints are
+written every ``save_checkpoints_steps`` and at the end; a trainer starts
+from the newest checkpoint in ``model_dir`` that restores, else from fresh
+weights (merged with the model's ``warm_start_fn`` where it has one).
+Hooks (``train_hook_builders``) see ``begin``, ``after_step`` after every
+step and ``end``; exporters (``create_exporters_fn``) run after every
+eval.
+
+Faults (``reliability/``), as in the JAX trainer. The loop runs under
+``graceful_shutdown``: a SIGTERM or SIGINT, or the injected
+``host.preempt`` site, is seen at the next step boundary, where the
+checkpoint of that step is committed, ``reliability/preemptions`` counted
+and ``TrainingPreempted(signum, step)`` raised; a new trainer resumes from
+that step. Any other exception out of the loop first commits the state it
+had (the emergency save), except ``NonFiniteLossError``, whose state is
+poisoned. The checkpoint manager retries its I/O and quarantines a damaged
+checkpoint (``trainer/checkpointing.py``); readers skip
+``CHECKPOINT_SKIP_ERRORS``. The trainer's fault sites: ``step.nan`` makes
+the step's loss NaN on the device (no host sync under ``'skip'``: the
+flag is the host's, as PyTorch runs eagerly and has no trace to keep
+stable), ``step.slow`` sleeps after the step (productive time), and
+``host.preempt``; the feed's ``data.stall``, the reader's ``data.read``
+and the manager's ``ckpt.save`` and ``ckpt.restore`` are theirs.
 
 The train batch of global step k is drawn from ``seed + k`` and every
 eval's batches from ``seed + EVAL_SEED_OFFSET`` on, apart from every train
@@ -73,7 +95,10 @@ evaluates each checkpoint that lands in ``model_dir`` (skipping one that
 does not restore yet) until none lands for ``eval_timeout_secs``, and
 never writes a checkpoint there.
 
-Not ported yet: fault injection, the compiled-artifact store.
+Not ported yet: the compiled-artifact store, and the JAX trainer's
+telemetry records (``run_start``, ``preempted``, ``run_abort``,
+``run_end``), its recovery marker and timeline, watchdog, auto-profiler,
+pipeline X-ray and fleet observer.
 
 Command line, from gin files (``--gin_configs`` and ``--gin_bindings``,
 as ``bin/run_t2r_trainer.py`` takes them, parsed by the port's own
@@ -117,6 +142,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import math
 import os
 import statistics
 import sys
@@ -134,14 +160,21 @@ from tensor2robot_tpu_torch.data.input_generators import (
 from tensor2robot_tpu_torch.models.abstract_model import TrainState
 from tensor2robot_tpu_torch.modes import ModeKeys
 from tensor2robot_tpu_torch.observability import get_registry
+from tensor2robot_tpu_torch.observability import goodput as goodput_lib
+from tensor2robot_tpu_torch.observability.spans import span
 from tensor2robot_tpu_torch.parallel import collectives
+from tensor2robot_tpu_torch.reliability import fault_injection
+from tensor2robot_tpu_torch.reliability import quarantine as quarantine_lib
+from tensor2robot_tpu_torch.reliability.errors import (
+    CHECKPOINT_SKIP_ERRORS, NonFiniteLossError, TrainingPreempted)
+from tensor2robot_tpu_torch.reliability.preemption import graceful_shutdown
 from tensor2robot_tpu_torch.trainer import checkpointing
 from tensor2robot_tpu_torch.trainer.checkpointing import (
     CheckpointManager, latest_checkpoint_step)
 
 __all__ = ['DEVICE_DECODE', 'MODELS', 'NAN_POLICIES', 'NonFiniteLossError',
-           'Trainer', 'main', 'make_input_generators', 'make_model',
-           'make_parser', 'train_eval_model']
+           'Trainer', 'TrainingPreempted', 'main', 'make_input_generators',
+           'make_model', 'make_parser', 'train_eval_model']
 
 NAN_POLICIES = ('off', 'skip', 'raise', 'rollback')
 # The model configurables of the gins: ``--device`` binds their device.
@@ -165,16 +198,6 @@ CROP_SEED_STRIDE = 1 << 32
 DROPOUT_SEED_OFFSET = 1 << 62
 
 
-class NonFiniteLossError(RuntimeError):
-  """The loss of a step was not finite under ``nan_policy='raise'``, or
-  under ``'rollback'`` past its budget or with nothing to roll back to."""
-
-  def __init__(self, step: int, reason: str = ''):
-    super().__init__('Non-finite loss at step {}{}.'.format(
-        step, ': ' + reason if reason else ''))
-    self.step = step
-
-
 def _tree_where(good: torch.Tensor, new, old):
   if isinstance(new, dict):
     return {k: _tree_where(good, v, old[k]) for k, v in new.items()}
@@ -192,7 +215,12 @@ class Trainer:
                save_checkpoints_steps: int = 500,
                log_every_n_steps: int = 100, nan_policy: str = 'skip',
                feed_depth: int = 1, nan_rollback_budget: int = 3,
-               write_metrics: bool = True, eval_name: Optional[str] = None):
+               write_metrics: bool = True, eval_name: Optional[str] = None,
+               nan_check_every_n_steps: int = 1,
+               owns_checkpoint_dir: bool = True):
+    """``owns_checkpoint_dir``: whether this trainer writes ``model_dir``'s
+    checkpoints. False for a continuous eval beside a live trainer: its
+    manager then never renames a damaged checkpoint aside."""
     if nan_policy not in NAN_POLICIES:
       raise ValueError('nan_policy must be one of {}; got {!r}.'.format(
           NAN_POLICIES, nan_policy))
@@ -203,11 +231,13 @@ class Trainer:
     self.log_every_n_steps = max(1, int(log_every_n_steps))
     self.nan_policy = nan_policy
     self.nan_rollback_budget = int(nan_rollback_budget)
+    self.nan_check_every_n_steps = max(1, int(nan_check_every_n_steps))
     # > 1: the train batches are transferred this many ahead, in a thread.
     self.feed_depth = max(1, int(feed_depth))
     self._feed = None
-    self.checkpoint_manager = CheckpointManager(model_dir,
-                                                keep_checkpoint_max)
+    self.checkpoint_manager = CheckpointManager(
+        model_dir, keep_checkpoint_max,
+        quarantine_damaged=owns_checkpoint_dir)
     # Rank 0 of the model's group writes the checkpoints and metrics.
     self.is_chief = collectives.rank(model.process_group) == 0
     self.registry = get_registry()
@@ -223,6 +253,10 @@ class Trainer:
     # The last train generator (its reader and batch size go in the
     # command's line).
     self.train_generator = None
+    # The goodput split of the last ``train`` call, and the seconds of its
+    # checkpoint at a preemption (None without one).
+    self.last_goodput: Optional[goodput_lib.GoodputTracker] = None
+    self.last_preemption_save_s: Optional[float] = None
 
   @property
   def train_metrics_writer(self):
@@ -275,7 +309,7 @@ class Trainer:
     for step in reversed(steps):
       try:
         return self.checkpoint_manager.restore(step, self.model.device)
-      except checkpointing.SKIP_ERRORS as e:
+      except CHECKPOINT_SKIP_ERRORS as e:
         error = e
         logging.warning('Checkpoint %d in %s failed to restore (%s); trying '
                         'the one before.', step, self.model_dir, e)
@@ -336,7 +370,9 @@ class Trainer:
     return input_generator.create_dataset_iterator(
         mode, seed=seed, frames=self.model.frame_shard(), device=index)
 
-  def _step(self, state: TrainState, batch):
+  def _step(self, state: TrainState, batch, force_nan: bool = False):
+    """One train step on a device batch; ``force_nan`` (the ``step.nan``
+    site) makes its loss NaN on the device, ahead of the nan policy."""
     features, labels = batch   # on the device
     features, labels = self.model.preprocessor.preprocess(
         features, labels, ModeKeys.TRAIN,
@@ -345,6 +381,8 @@ class Trainer:
              if self.model.draws_in_training else {})
     new_state, metrics = self.model.train_step(state, features, labels,
                                                **draws)
+    if force_nan:
+      metrics['loss'] = torch.full_like(metrics['loss'], math.nan)
     if self.nan_policy != 'skip':
       return new_state, metrics
     good = torch.isfinite(metrics['loss']).all()
@@ -363,9 +401,11 @@ class Trainer:
               self.nan_rollback_budget))
     try:
       restored = self.restore_latest()
-    except checkpointing.SKIP_ERRORS as e:
+    except FileNotFoundError as e:
       raise NonFiniteLossError(
           step, 'no committed checkpoint to roll back to ({})'.format(e))
+    except Exception as e:  # noqa: BLE001 — still unwinds as a poisoned run
+      raise NonFiniteLossError(step, 'rollback failed: {}'.format(e)) from e
     logging.warning('Non-finite loss at step %d: rolled back to checkpoint '
                     '%d (%d rollback(s) left).', step, restored.step,
                     budget - 1)
@@ -373,7 +413,8 @@ class Trainer:
     return restored
 
   def _log(self, metrics, steps: int, seconds: float, data_s: float,
-           batch_size: int, step: int) -> None:
+           batch_size: int, step: int,
+           tracker: goodput_lib.GoodputTracker) -> None:
     values = {k: float(v) for k, v in metrics.items()}
     self.last_metrics = values
     self.windows.append((steps, seconds, data_s))
@@ -391,6 +432,7 @@ class Trainer:
       scalars['global_step/sec'] = steps_per_sec
       scalars['examples/sec'] = steps_per_sec * batch_size
       scalars.update(registry.scalars())
+      scalars.update(tracker.scalars())
       writer.write_scalars(step, scalars)
       writer.flush()
 
@@ -399,60 +441,153 @@ class Trainer:
             hooks: Sequence[Any] = ()) -> TrainState:
     """Trains up to global step ``max_train_steps``; returns the state.
     ``hooks`` see ``begin`` before the first step, ``after_step`` after
-    every step and ``end`` after the last."""
+    every step and ``end`` after the last. Raises ``TrainingPreempted`` at
+    a signal or the ``host.preempt`` site, its step committed first."""
     input_generator.set_specification_from_model(self.model, ModeKeys.TRAIN)
     self.train_generator = input_generator
     if state is None:
       state = self.init_state()
     if state.step >= max_train_steps:
       return state
-    skipped = self.registry.counter('train/nonfinite_loss_skipped')
+    registry = self.registry
+    skipped = registry.counter('train/nonfinite_loss_skipped')
     # Registered up front, so that a clean run shows an explicit 0.
-    self.registry.counter('reliability/nan_rollbacks')
+    for name in ('reliability/nan_rollbacks', 'reliability/preemptions',
+                 quarantine_lib.RECORDS_SKIPPED_COUNTER,
+                 quarantine_lib.FILES_ABANDONED_COUNTER):
+      registry.counter(name)
     host_check = self.nan_policy in ('raise', 'rollback')
     budget = self.nan_rollback_budget
+    # Every second of the loop lands in one of the goodput categories.
+    tracker = self.last_goodput = goodput_lib.GoodputTracker()
+    self.last_preemption_save_s = None
     for hook in hooks:
       hook.begin(self)
     iterator = self.device_batches(self.dataset_iterator(
         input_generator, ModeKeys.TRAIN, state.step))
-    try:
-      window_start, window_steps, data_s = time.perf_counter(), 0, 0.0
-      window_skipped = 0
-      while state.step < max_train_steps:
-        wait_start = time.perf_counter()
-        batch = next(iterator)
-        data_s += time.perf_counter() - wait_start
-        state, metrics = self._step(state, batch)
-        if host_check and not bool(torch.isfinite(metrics['loss']).all()):
-          if self.nan_policy == 'raise':
-            raise NonFiniteLossError(state.step)
-          state = self._rollback(state.step, budget)
-          budget -= 1
-          window_start, window_steps, data_s = time.perf_counter(), 0, 0.0
-          continue
-        window_steps += 1
-        # Summed on the device; read at the log cadence only.
-        window_skipped = window_skipped + metrics.get(
-            'nonfinite_loss_skipped', 0)
-        if (state.step % self.log_every_n_steps == 0 or
-            state.step == max_train_steps):
-          self._log(metrics, window_steps,
-                    time.perf_counter() - window_start, data_s,
-                    input_generator.batch_size, state.step)
-          skipped.inc(float(window_skipped))
-          window_start, window_steps, data_s = time.perf_counter(), 0, 0.0
-          window_skipped = 0
-        if state.step % self.save_checkpoints_steps == 0:
-          self.save(state)
-        for hook in hooks:
-          hook.after_step(self, state, state.step, metrics)
-    finally:
-      iterator.close()
+    window_start, window_steps, window_data_s = time.perf_counter(), 0, 0.0
+    window_skipped = 0
+    # The batch after a rollback is recovery, not data time.
+    refetch = False
+    completed = False
+    with graceful_shutdown() as shutdown:
+      try:
+        while state.step < max_train_steps:
+          iter_start = time.perf_counter()
+          data_s = ckpt_s = retry_s = 0.0
+          # An iteration that ends by continue, preemption or an exception
+          # is still charged.
+          try:
+            with span('data.next') as sp:
+              batch = next(iterator)
+            if refetch:
+              retry_s += sp.elapsed
+              refetch = False
+            else:
+              data_s += sp.elapsed
+            force_nan = fault_injection.fires(fault_injection.SITE_STEP_NAN)
+            with span('train.step'):
+              state, metrics = self._step(state, batch, force_nan)
+            # A host stall that counts as productive time, as a real slow
+            # step would.
+            slow_s = fault_injection.slow_step_seconds()
+            if slow_s > 0.0:
+              time.sleep(slow_s)
+            step = state.step
+            if host_check and (step % self.nan_check_every_n_steps == 0 or
+                               step % self.save_checkpoints_steps == 0 or
+                               step == max_train_steps):
+              with span('train.nan_check') as sp:
+                finite = bool(torch.isfinite(metrics['loss']).all())
+                if not finite:
+                  if self.nan_policy == 'raise':
+                    raise NonFiniteLossError(step, 'nan_policy="raise"')
+                  state = self._rollback(step, budget)
+              if not finite:
+                retry_s += sp.elapsed
+                budget -= 1
+                refetch = True
+                window_start, window_steps = time.perf_counter(), 0
+                window_data_s = 0.0
+                continue
+            window_steps += 1
+            window_data_s += data_s
+            # Summed on the device; read at the log cadence only.
+            window_skipped = window_skipped + metrics.get(
+                'nonfinite_loss_skipped', 0)
+            if step % self.log_every_n_steps == 0 or step == max_train_steps:
+              self._log(metrics, window_steps,
+                        time.perf_counter() - window_start, window_data_s,
+                        input_generator.batch_size, step, tracker)
+              skipped.inc(float(window_skipped))
+              window_start, window_steps = time.perf_counter(), 0
+              window_data_s, window_skipped = 0.0, 0
+            if step % self.save_checkpoints_steps == 0:
+              with span('train.checkpoint') as sp:
+                self.save(state)
+              ckpt_s += sp.elapsed
+            for hook in hooks:
+              hook.after_step(self, state, step, metrics)
+            signum = None
+            if shutdown.requested:
+              signum = int(shutdown.signum)
+            elif fault_injection.fires(fault_injection.SITE_HOST_PREEMPT):
+              signum = fault_injection.INJECTED_PREEMPT_SIGNUM
+            if signum is not None:
+              # The restart resumes from this step, not the last periodic
+              # checkpoint.
+              with span('train.checkpoint') as sp:
+                self._save_once(state)
+              ckpt_s += sp.elapsed
+              self.last_preemption_save_s = sp.elapsed
+              registry.counter('reliability/preemptions').inc()
+              raise TrainingPreempted(signum, step)
+          finally:
+            # Productive time is the remainder: the four categories
+            # partition the iteration.
+            tracker.add(goodput_lib.DATA, data_s)
+            tracker.add(goodput_lib.CHECKPOINT, ckpt_s)
+            tracker.add(goodput_lib.RETRY, retry_s)
+            tracker.add(goodput_lib.PRODUCTIVE,
+                        time.perf_counter() - iter_start - data_s - ckpt_s -
+                        retry_s)
+        completed = True
+      finally:
+        iterator.close()
+        if not completed:
+          # A NonFiniteLossError's state is poisoned ('raise', or a
+          # rollback past its budget): committing it would make the poison
+          # the newest checkpoint.
+          self._emergency_save(state, skip_save=isinstance(
+              sys.exc_info()[1], NonFiniteLossError))
     if state.step % self.save_checkpoints_steps:
-      self.save(state)
+      with span('train.checkpoint') as sp:
+        self.save(state)
+      tracker.add(goodput_lib.CHECKPOINT, sp.elapsed)
     for hook in hooks:
       hook.end(self, state)
     return state
+
+  def _save_once(self, state: TrainState) -> None:
+    """Saves ``state`` unless its step's checkpoint is already committed."""
+    if state.step not in checkpointing.all_checkpoint_steps(self.model_dir):
+      self.save(state)
+
+  def _emergency_save(self, state: TrainState, skip_save: bool) -> None:
+    """The failure path's cleanup: commit the state it has, flush the
+    writers. The exception that is unwinding stays the one raised: a
+    failing save or flush is logged."""
+    if not skip_save:
+      try:
+        self._save_once(state)
+      except Exception as e:  # noqa: BLE001
+        logging.warning('Emergency checkpoint failed: %s', e)
+    for writer in (self._train_writer, self._eval_writer):
+      if writer is not None:
+        try:
+          writer.flush()
+        except Exception as e:  # noqa: BLE001
+          logging.warning('Writer flush on the failure path failed: %s', e)
 
   def save(self, state: TrainState) -> None:
     if self.is_chief:
@@ -527,6 +662,7 @@ def train_eval_model(t2r_model, model_dir: str,
                      log_every_n_steps: int = 100,
                      nan_policy: str = 'skip',
                      nan_rollback_budget: int = 3,
+                     nan_check_every_n_steps: int = 1,
                      seed: int = 0, feed_depth: int = 1,
                      eval_timeout_secs: float = 30.0,
                      write_metrics: bool = True,
@@ -576,7 +712,11 @@ def train_eval_model(t2r_model, model_dir: str,
                     log_every_n_steps=log_every_n_steps,
                     nan_policy=nan_policy, feed_depth=feed_depth,
                     nan_rollback_budget=nan_rollback_budget,
-                    write_metrics=write_metrics, eval_name=eval_name)
+                    nan_check_every_n_steps=nan_check_every_n_steps,
+                    write_metrics=write_metrics, eval_name=eval_name,
+                    # A continuous eval reads a live trainer's directory: it
+                    # never renames a checkpoint there.
+                    owns_checkpoint_dir=input_generator_train is not None)
   if trainer.is_chief:
     _snapshot_config(model_dir, 'config_snapshot.gin')
   hooks: List[Any] = []
@@ -610,8 +750,11 @@ def train_eval_model(t2r_model, model_dir: str,
           model_dir, timeout_secs=eval_timeout_secs):
         try:
           state = trainer.restore_latest()
-        except checkpointing.SKIP_ERRORS as e:
-          # A concurrent trainer may be mid-commit: keep polling.
+        except CHECKPOINT_SKIP_ERRORS as e:
+          # No step restores right now (a concurrent trainer may be
+          # mid-commit): keep polling. Any other error, of the data path
+          # or a checkpoint's contents, is not a checkpoint's transient and
+          # propagates.
           logging.warning('Continuous eval: checkpoint %d does not restore '
                           '(%s); skipping it.', step, e)
           continue
@@ -788,6 +931,9 @@ def _print_line(result, model_name: str, device, world_size: int,
       'examples_per_sec': steps * (train.batch_size if train else 0) / max(
           sum(w[1] for w in windows), 1e-9),
       'checkpoint_step': latest_checkpoint_step(trainer.model_dir),
+      # The loop's seconds by goodput category, as fractions of them all.
+      'goodput': (trainer.last_goodput.fractions()
+                  if trainer.last_goodput is not None else None),
       'seconds': seconds}))
 
 
@@ -807,6 +953,18 @@ def _gin_attention_mode() -> str:
     return 'auto'
 
 
+def _arm_faults_from_gin() -> None:
+  """Installs the fault injector that the gins configure, where they bind
+  ``configure_fault_injector.failures``."""
+  from tensor2robot_tpu_torch import config
+
+  try:
+    config.query_parameter('configure_fault_injector.failures')
+  except config.ConfigError:
+    return
+  config.get_configurable('configure_fault_injector')()
+
+
 def main_gin(args) -> int:
   """``train_eval_model`` as the gin files and bindings configure it (the
   port's ``bin/run_t2r_trainer.py``), with ``--model_dir`` and
@@ -814,7 +972,9 @@ def main_gin(args) -> int:
   the port registers (``config.check_configurables``). Where they bind
   ``Seq2ActBCModel.attention_mode = "ring"``, the ranks that torchrun
   starts build the sequence group first (JAX's gin binds its mesh) and the
-  model gets it as its ``process_group`` on ``cuda:LOCAL_RANK``."""
+  model gets it as its ``process_group`` on ``cuda:LOCAL_RANK``. Where
+  they bind ``configure_fault_injector.failures``, that injector is
+  installed before the run (the faults of ``reliability/``)."""
   from tensor2robot_tpu_torch import config
 
   config.register_framework_configurables()
@@ -826,6 +986,7 @@ def main_gin(args) -> int:
       '{}.device = {!r}'.format(name, args.device) for name in GIN_MODELS
   ] + list(args.gin_bindings))
   config.check_configurables()
+  _arm_faults_from_gin()
   device, group, world = torch.device(args.device), None, 1
   if _gin_attention_mode() == 'ring':
     from tensor2robot_tpu_torch.parallel import mesh

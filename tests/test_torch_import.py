@@ -83,6 +83,15 @@ RL_LOOP_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
     'replay.store', 'replay.wire', 'rl.loop', 'rl.run_rl_loop'))
 
 
+# The fault-tolerance slice's modules (with the pusher env, the five small
+# modules and the initializers).
+FAULT_TOLERANCE_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
+    'layers.initializers', 'models.classification_model',
+    'observability.goodput', 'observability.spans', 'reliability.preemption',
+    'research.dql_grasping', 'research.pusher_env', 'utils.convert_pkl_assets',
+    'utils.global_step_functions', 'utils.subsample'))
+
+
 # The Grasp2Vec and MAML slice's modules.
 GRASP2VEC_MAML_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
     'layers.basic', 'layers.resnet', 'layers.spatial_softmax',
@@ -162,6 +171,8 @@ def test_importing_every_module_loads_no_jax():
   assert set(GRASP2VEC_MAML_MODULES) <= names, (
       set(GRASP2VEC_MAML_MODULES) - names)
   assert set(VRGRIPPER_MODULES) <= names, set(VRGRIPPER_MODULES) - names
+  assert set(FAULT_TOLERANCE_MODULES) <= names, (
+      set(FAULT_TOLERANCE_MODULES) - names)
 
 
 def test_registering_the_configurables_loads_no_jax():

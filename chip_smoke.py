@@ -294,6 +294,37 @@ repository around it. Phases, each printing one line or more:
      policy must beat random by 0.4; no kernel launches (a 64-wide MLP);
      one train step on the card within PUSHER_STEP_ATOL of the CPU's.
      Episodes/s, train steps/s and the policy's ms an action.
+  4l. The serving fleet (phase ``serving_fleet``), through ``serve.start``
+     at serve.py's full-width defaults (the flagship critic, 512x640
+     frames, CEM 64 x 3 with 10 elites, batch 8, the 33 ms SLO) on a
+     checkpoint of fan-in-scale weights: (1) ``--replicas 1`` (one server,
+     no router), then fleets of 1, 2 and 4 replicas behind the router
+     (``serve.start(fleet=True)``; a fleet of one measures the router's own
+     cost) under ``serve.run_synthetic_load`` at
+     FLEET_CLIENTS clients for FLEET_SECONDS, then FLEET_BUSY_SECONDS under
+     the profiler (device activity only): actions/s, p50 and p99 against
+     the SLO, the busy share; (2) each replica records FLEET_RECORD batches
+     a version, each equal to its rerun through the plain K1 and K2f on the
+     card under that version's weights (FLEET_RERUN_ATOL), and the launch
+     totals, zeroed before each fleet's load and read after, are 1 K1 and 6
+     K2f times the batches the replicas counted (path ``serving_fleet``);
+     (3) a newer checkpoint committed under load on the 4-replica fleet is
+     rolled through it by the poll thread, one replica at a time: no
+     failed request, both versions served, gate 2 on batches of each; (4)
+     ``--replicas 1 --autoscale_max 4`` (queues of FLEET_AUTOSCALE_DEPTH)
+     grows to four replicas as clients are added, with no kernel built
+     after the first replica (``kernels.BUILDS``), the time to ready of each
+     scale-up printed; (5) ``serve.py --init_randomly --port P`` in a
+     subprocess on the same card joins a 2-replica fleet through
+     ``HttpReplicaHandle`` (health probe FLEET_HTTP_HEALTH_TIMEOUT_S) and
+     is killed by SIGKILL under load, at a moment when it is in rotation
+     with requests in flight and has not been ejected before: it is
+     ejected once, each request it held is retried once on a local peer, no
+     client sees a failure and none is answered twice; (6) with the
+     replicas held, requests fill the fleet-wide pending cap and a burst
+     over HTTP is answered 503, then one request 200. One JSON line
+     ``serving_fleet``: the JAX package's ``SERVING_FLEET_BENCH_KEYS``
+     (``*_compiles`` count nvcc builds) and the busy shares.
   5. Seq2Act serving: the long-context RT-1-style policy at full width
      (512-frame episodes, 4,096 tokens, 8 blocks, attention_mode 'flash',
      float32 with TF32 off) restored by CheckpointPredictor from a
@@ -400,7 +431,9 @@ repository around it. Phases, each printing one line or more:
      within RING_GIN_RTOL of the first run's at that step.
   9. A JSON line of phase 4e's numbers (``qtopt_offpolicy``), one of
      phase 4f's (``rl_loop``), one of phases 4g's and 4h's (``grasp2vec``,
-     ``pose_env_maml``), one of phase 4i's (``vrgripper``), one of
+     ``pose_env_maml``), one of phase 4i's (``vrgripper``), one of phases
+     4j's, 4k's and 4l's each (``serving_fleet`` beside the card's name and
+     power limit), one of
      phases 6c's, 6d's and the ring gin's numbers
      (``seq2act_variants``), a JSON line of the kernels (K4, K5a and K5b
      with their bf16 times, bounds at the bf16 peak and the library's bf16
@@ -415,14 +448,17 @@ Any failed check raises, so the script exits non-zero.
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import functools
 import glob
+import http.client
 import io
 import json
 import os
 import re
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -3252,7 +3288,7 @@ def phase_qtopt_offpolicy(device):
 # behind RLLoop, 16 slots at 512x640, a 2-shard replay capped at 512 MiB a
 # shard; its learner's steps and seconds; the actor's lone steps.
 RL_LOOP_ENVS, RL_LOOP_SHARDS, RL_LOOP_SHARD_BYTES = 16, 2, 512 * 2**20
-RL_LOOP_STEPS, RL_LOOP_SECONDS, RL_LOOP_ALONE = 200, 60.0, 20
+RL_LOOP_STEPS, RL_LOOP_SECONDS, RL_LOOP_ALONE = 200, 30.0, 20
 RL_LOOP_CEM = (16, 2, 4)   # samples, iterations, elites
 RL_LOOP_PROFILE_STEPS = 30
 RL_LOOP_Q_ATOL = 1e-4
@@ -5266,6 +5302,594 @@ def phase_pusher(device):
             report['collect_episodes_per_s'], report['train_steps_per_s'],
             report['policy_ms_an_action'], trained, rand, step_err,
             report['phase_s'], smi_line()))
+  return launches, report
+
+
+# -- phase 4l: the serving fleet ---------------------------------------------
+
+FLEET_COUNTS = (1, 2, 4)
+# 'server': serve.py --replicas 1, one server without a router; then fleets.
+FLEET_ROWS = ('server',) + FLEET_COUNTS
+FLEET_CLIENTS = 16
+FLEET_SECONDS = 4.0      # each fixed fleet's measured window
+FLEET_BUSY_SECONDS = 1.5  # then a window under the profiler
+FLEET_RECORD = 2         # batches each replica records, per version
+FLEET_SWAP_SECONDS = 4.0
+FLEET_AUTOSCALE_MAX = 4
+FLEET_AUTOSCALE_DEPTH = 16   # --max_queue_depth of the autoscaled fleet
+FLEET_SUBPROCESS_PORT_WAIT_S = 240
+FLEET_RERUN_ATOL = 1e-4  # phase 3's bound on a batch against its plain rerun
+FLEET_HTTP_ID = 10       # the subprocess replica's id in the router
+# Its /healthz probe under load: both processes hold the interpreter lock
+# for tens of ms at a time while they encode and decode 3.5 MB JSON frames,
+# so a 1 s probe can miss a live replica and eject it.
+FLEET_HTTP_HEALTH_TIMEOUT_S = 10.0
+
+
+def fleet_args(model_dir, *extra):
+  """``serve.py``'s arguments at full width (its defaults: the flagship
+  critic, 512x640 frames, CEM 64 x 3 with 10 elites, batch 8, SLO 33 ms)
+  for a fleet; ``model_dir`` is its fleet-shaped serving dir."""
+  from tensor2robot_tpu_torch.serving import serve
+
+  return serve.make_parser().parse_args(
+      ['--model_dir', model_dir, '--fleet_report_interval_s', '0.5',
+       '--report_interval_s', '0.5', '--stale_after_s', '5',
+       '--restore_timeout', '60'] + list(extra))
+
+
+class BatchRecorder:
+  """Wraps a replica's batch function: counts its batches and keeps the
+  first FLEET_RECORD of each weights' version (the variables, the batch,
+  the seed and the outputs) for the plain rerun."""
+
+  def __init__(self, replica_id, inner):
+    self.replica_id = replica_id
+    self.inner = inner
+    self.batches = 0
+    self.kept = []
+    self._lock = threading.Lock()
+
+  def __call__(self, variables, features, seed):
+    outputs = self.inner(variables, features, seed)
+    with self._lock:
+      self.batches += 1
+      if sum(v is variables for v, _, _, _ in self.kept) < FLEET_RECORD:
+        self.kept.append((variables, {k: np.array(v) for k, v in
+                                      features.items()}, int(seed),
+                          {k: v.detach().clone() for k, v in
+                           outputs.items()}))
+    return outputs
+
+
+def replica_servers(service):
+  """{replica id: PolicyServer} of a ServingFleet, or {1: the server} of
+  ``serve.py --replicas 1`` (one server, no router)."""
+  if not hasattr(service, 'router'):
+    return {1: service}
+  return {i: service.router.handle(i).server
+          for i in service.router.replica_ids()}
+
+
+def record_replicas(service):
+  """A BatchRecorder on each replica of ``service``: {replica id:
+  recorder}."""
+  recorders = {}
+  for replica_id, server in replica_servers(service).items():
+    recorders[replica_id] = BatchRecorder(replica_id, server._batch_fn)
+    server._batch_fn = recorders[replica_id]
+  return recorders
+
+
+def check_recorded_batches(label, recorders, versions):
+  """Gate 2: every kept batch equals its rerun through the plain versions
+  of K1 and K2f on the card, under the weights of its version (``versions``
+  maps a version to its variables). Returns {version: batches checked}."""
+  checked = collections.Counter()
+  worst = 0.0
+  with plain_kernels():
+    for recorder in recorders.values():
+      for variables, features, seed, outputs in recorder.kept:
+        version = [v for v, weights in versions.items()
+                   if weights is variables]
+        check(len(version) == 1, '{}: replica {} served weights of no '
+              'known version'.format(label, recorder.replica_id))
+        want = recorder.inner(variables, features, seed)
+        torch.cuda.synchronize()
+        for key in ('action', 'q'):
+          err = max_abs_err(outputs[key], want[key])
+          worst = max(worst, err)
+          check(err <= FLEET_RERUN_ATOL, '{}: replica {} v{} batch {} '
+                'against its plain rerun: max |d{}| {:.3g} (tolerance {})'
+                .format(label, recorder.replica_id, version[0], seed, key,
+                        err, FLEET_RERUN_ATOL))
+        checked[version[0]] += 1
+  print('{}: {} recorded batches of versions {} equal their plain reruns '
+        '(K1 and K2f plain) within {:.3g} (tolerance {})'.format(
+            label, sum(checked.values()), dict(checked), worst,
+            FLEET_RERUN_ATOL))
+  return dict(checked)
+
+
+def fleet_clients(fleet, spec, clients, stop, results, failures, lock):
+  """Closed-loop clients of ``fleet`` until ``stop``: each answer into
+  ``results``, each failure into ``failures``."""
+  from tensor2robot_tpu_torch.serving import serve
+
+  def client(seed):
+    state = serve.synthetic_state(spec, np.random.RandomState(seed))
+    while not stop.is_set():
+      try:
+        result = fleet.select_action(state, timeout_s=120.0)
+      except Exception as e:  # noqa: BLE001 — counted, then fails a gate
+        with lock:
+          failures.append(repr(e))
+        continue
+      with lock:
+        results.append(result)
+
+  threads = [threading.Thread(target=client, args=(1000 + i,), daemon=True)
+             for i in range(clients)]
+  for t in threads:
+    t.start()
+  return threads
+
+
+def fleet_window(fleet, spec, seconds):
+  """``serve.run_synthetic_load`` for ``seconds`` at FLEET_CLIENTS clients,
+  then FLEET_BUSY_SECONDS more under the profiler (device activity only):
+  (load stats, busy share)."""
+  from torch.profiler import ProfilerActivity, profile as torch_profile
+  from tensor2robot_tpu_torch.serving import serve
+
+  load = serve.run_synthetic_load(fleet, spec, FLEET_CLIENTS, seconds)
+  torch.cuda.synchronize()
+  with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+    start = time.monotonic()
+    busy_load = serve.run_synthetic_load(fleet, spec, FLEET_CLIENTS,
+                                         FLEET_BUSY_SECONDS)
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - start) * 1e3
+  device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+  load['failed'] += busy_load['failed']
+  return load, (device_ms / wall_ms if device_ms else None)
+
+
+def phase_serving_fleet(device):
+  """Phase 4l: the serving fleet through ``serve.py --replicas`` at full
+  width. Returns the fleet's launches (the fixed fleets' load windows,
+  counted from 0 at each) and the report. ``--replicas 1`` is one server
+  without a router, as in the JAX package's ``t2r_serve``; the fleets of
+  1, 2 and 4 go through the router."""
+  from tensor2robot_tpu_torch import kernels
+  from tensor2robot_tpu_torch.observability import (
+      TelemetryRegistry, discover_hosts, get_registry, read_telemetry,
+      set_registry)
+  from tensor2robot_tpu_torch.serving import (
+      SERVING_FLEET_BENCH_KEYS, HttpReplicaHandle, serve)
+  from tensor2robot_tpu_torch.serving.frontend import build_http_server
+  from tensor2robot_tpu_torch.trainer import checkpointing
+
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  phase_start = time.monotonic()
+  per_batch = {'crop_convert': 1,
+               'max_pool': sum(pool[-1] for pool in SERVED_POOLS)}
+  report = {}
+  launches = dict.fromkeys(kernels.LAUNCHES, 0)
+  builds_before = kernels.BUILDS
+  previous_registry = get_registry()
+  marks = report['gates_ended_s'] = {}   # seconds into the phase
+
+  def mark(gate):
+    marks[gate] = round(time.monotonic() - phase_start, 1)
+
+  with tempfile.TemporaryDirectory() as root:
+    # Two versions of fan-in-scale weights (as phase 4b's), steps 1 and 2.
+    model_dir = os.path.join(root, 'model')
+    model = serve.build_model(device, NUM_CONVS)
+
+    def state_at(step, seed):
+      state = model.create_train_state(torch.Generator().manual_seed(0))
+      spread = spread_weights({**state.params, **state.model_state},
+                              torch.Generator().manual_seed(seed))
+      state.params = {k: spread[k] for k in state.params}
+      state.model_state = {k: spread[k] for k in state.model_state}
+      state.avg_params = {k: v.clone() for k, v in state.params.items()}
+      state.step = step
+      return state
+
+    checkpointing.CheckpointManager(model_dir).save(state_at(1, 3))
+
+    # 1. Scaling: one server, then fixed fleets of 1, 2 and 4 replicas.
+    curve = {}
+    for row in FLEET_ROWS:
+      count = 1 if row == 'server' else row
+      name = ('one server (serve.py --replicas 1)' if row == 'server' else
+              'fleet of {}'.format(count))
+      set_registry(TelemetryRegistry())   # each fleet's own p99
+      serving = serve.start(fleet_args(
+          os.path.join(root, 'fleet{}'.format(row)), '--checkpoint_dir',
+          model_dir, '--replicas', str(count), '--poll_secs', '0.5'),
+                            fleet=None if row == 'server' else True)
+      fleet = serving.service
+      try:
+        check(sorted(replica_servers(fleet)) == list(range(1, count + 1))
+              and serving.is_fleet == (row != 'server'), '{}: replicas {}'
+              .format(name, sorted(replica_servers(fleet))))
+        recorders = record_replicas(fleet)
+        first = {1: replica_servers(fleet)[1]._params.variables}
+        kernels.reset_launches()
+        builds = kernels.BUILDS
+        load, busy = fleet_window(fleet, serving.feature_spec, FLEET_SECONDS)
+        torch.cuda.synchronize()
+        counted = dict(kernels.LAUNCHES)
+        stats = fleet.stats()
+        batches = sum(r.batches for r in recorders.values())
+        check(kernels.BUILDS == builds, 'a request built a kernel')
+        check(load['failed'] == 0 and load['completed'] > 0,
+              '{}: {}'.format(name, load))
+        check(batches == get_registry().counter('serving/batches').value,
+              '{}: the replicas counted {} batches, the registry '
+              '{}'.format(name, batches,
+                          get_registry().counter('serving/batches').value))
+        want = dict.fromkeys(kernels.LAUNCHES, 0)
+        want.update({k: v * batches for k, v in per_batch.items()})
+        check(counted == want, '{}: launches {} != {} for {} '
+              'batches'.format(name, counted, want, batches))
+        check(all(r.batches > 0 for r in recorders.values()),
+              '{}: a replica served no batch: {}'.format(
+                  name, {i: r.batches for i, r in recorders.items()}))
+        for kernel, value in counted.items():
+          launches[kernel] += value
+        check_recorded_batches(name, recorders, first)
+        latency = stats['latency_ms']
+        curve[row] = {
+            'actions_per_sec': load['actions_per_sec'],
+            'p50_ms': latency.get('p50', 0.0),
+            'p99_ms': latency.get('p99', 0.0), 'busy_share': busy,
+            'batches_by_replica': {str(i): r.batches
+                                   for i, r in recorders.items()},
+            'batch_fill': stats['requests_total'] / (8.0 * batches)}
+        print('{}: {} clients, {:.2f} '
+              'actions/s, p50 {:.2f} ms, p99 {:.2f} ms against the 33 ms '
+              'SLO, busy {}, batches by replica {}, launches {}; {}'.format(
+                  name, FLEET_CLIENTS, load['actions_per_sec'],
+                  latency.get('p50', 0.0), latency.get('p99', 0.0),
+                  'not measured' if busy is None else '{:.1%}'.format(busy),
+                  curve[row]['batches_by_replica'], counted, smi_line()))
+        mark('scaling_{}'.format(row))
+        if row != FLEET_COUNTS[-1]:
+          continue
+
+        # 3. Rolling swap under load on the largest fleet: a newer
+        # checkpoint, rolled through by the poll thread.
+        recorders = record_replicas(fleet)
+        for recorder in recorders.values():   # unwrap the first recorders
+          recorder.inner = recorder.inner.inner
+        results, failures, lock = [], [], threading.Lock()
+        stop = threading.Event()
+        threads = fleet_clients(fleet, serving.feature_spec, FLEET_CLIENTS,
+                                stop, results, failures, lock)
+        time.sleep(FLEET_SWAP_SECONDS / 3)
+        checkpointing.CheckpointManager(model_dir).save(state_at(2, 4))
+        deadline = time.monotonic() + 30
+        while not any(r.version == 2 for r in list(results)):
+          check(time.monotonic() < deadline, 'the poll did not roll '
+                'version 2 through the fleet within 30 s')
+          time.sleep(0.05)
+        time.sleep(FLEET_SWAP_SECONDS * 2 / 3)
+        stop.set()
+        for t in threads:
+          t.join(timeout=120)
+        check(not any(t.is_alive() for t in threads), 'swap clients hung')
+        served = collections.Counter(r.version for r in results)
+        records = read_telemetry(os.path.join(
+            root, 'fleet{}'.format(count), 'telemetry.0.jsonl'))
+        waves = [r['wave'] for r in records
+                 if r['kind'] == 'serving_fleet_swap']
+        check(not failures, 'rolling swap: {} failed requests: {}'.format(
+            len(failures), failures[:3]))
+        check(set(served) == {1, 2}, 'rolling swap: versions served {}'
+              .format(dict(served)))
+        check(waves == [list(range(1, count + 1))], 'rolling swap: waves {}'
+              .format(waves))
+        versions = {1: first[1],
+                    2: replica_servers(fleet)[1]._params.variables}
+        checked = check_recorded_batches('rolling swap', recorders, versions)
+        check(set(checked) == {1, 2}, 'rolling swap: batches of each '
+              'version checked: {}'.format(checked))
+        report['swap'] = {'failed': len(failures),
+                          'versions_served': {str(k): v for k, v in
+                                              sorted(served.items())},
+                          'wave': waves[0], 'checked': checked}
+        print('rolling swap under {} clients: {} answers, {} on v1 and {} on '
+              'v2, 0 failed; wave {}'.format(
+                  FLEET_CLIENTS, len(results), served[1], served[2],
+                  waves[0]))
+        mark('swap')
+        hosts = discover_hosts(os.path.join(root, 'fleet{}'.format(count)))
+        check(sorted(hosts) == list(range(count + 1)), 'the fleet dir\'s '
+              'streams: {}'.format(sorted(hosts)))
+      finally:
+        serving.stop()
+        set_registry(previous_registry)
+    report['scaling'] = {str(n): curve[n] for n in FLEET_ROWS}
+
+    # 5 (started first, so that it boots meanwhile). A replica in another
+    # process on the same card: serve.py behind its HTTP door.
+    with socket.socket() as probe:
+      probe.bind(('127.0.0.1', 0))
+      port = probe.getsockname()[1]
+    child_log = open(os.path.join(root, 'child.log'), 'w')
+    child = subprocess.Popen(
+        [sys.executable, '-m', 'tensor2robot_tpu_torch.serving.serve',
+         '--init_randomly', '--seed', '0', '--port', str(port)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=child_log, stderr=subprocess.STDOUT)
+
+    def child_output():
+      with open(os.path.join(root, 'child.log')) as f:
+        return f.read()[-2000:]
+
+    try:
+      # 4. Autoscaling from one replica to four under rising load.
+      set_registry(TelemetryRegistry())
+      scale_dir = os.path.join(root, 'autoscale')
+      serving = serve.start(fleet_args(
+          scale_dir, '--init_randomly', '--replicas', '1', '--autoscale_max',
+          str(FLEET_AUTOSCALE_MAX), '--max_queue_depth',
+          str(FLEET_AUTOSCALE_DEPTH)))
+      fleet = serving.service
+      builds = kernels.BUILDS
+      results, failures, lock = [], [], threading.Lock()
+      stop = threading.Event()
+      threads = []
+      try:
+        # Each stage adds 7/8 of a replica's queue in closed-loop clients:
+        # the utilization crosses the 0.75 threshold until the fleet has
+        # grown by one.
+        step = FLEET_AUTOSCALE_DEPTH * 7 // 8
+        grown_at = []
+        start = time.monotonic()
+        while len(fleet.router.replica_ids()) < FLEET_AUTOSCALE_MAX:
+          replicas = len(fleet.router.replica_ids())
+          threads += fleet_clients(fleet, serving.feature_spec, step, stop,
+                                   results, failures, lock)
+          deadline = time.monotonic() + 20
+          while len(fleet.router.replica_ids()) == replicas:
+            check(time.monotonic() < deadline, 'autoscale: no scale-up '
+                  'from {} replicas under {} clients in 20 s'.format(
+                      replicas, len(threads)))
+            time.sleep(0.05)
+          grown_at.append((len(threads), round(time.monotonic() - start,
+                                               2)))
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+          t.join(timeout=120)
+        check(not any(t.is_alive() for t in threads), 'autoscale clients '
+              'hung')
+        scale_builds = kernels.BUILDS - builds
+        stats = fleet.stats()
+      finally:
+        stop.set()
+        serving.stop()
+        set_registry(previous_registry)
+      ups = [r for r in read_telemetry(os.path.join(scale_dir,
+                                                    'telemetry.0.jsonl'))
+             if r['kind'] == 'serving_fleet_scale' and r['direction'] == 'up']
+      ready = [r['time_to_ready_s'] for r in ups]
+      check(len(ups) == FLEET_AUTOSCALE_MAX - 1, 'autoscale: {} scale-ups'
+            .format(len(ups)))
+      check(scale_builds == 0, 'autoscale: {} kernel builds after the '
+            'first replica'.format(scale_builds))
+      check(not failures or all('RequestRejected' in f for f in failures),
+            'autoscale: failed requests {}'.format(failures[:3]))
+      report['autoscale'] = {
+          'scale_ups': len(ups), 'time_to_ready_s': ready,
+          'grown_at_clients_and_s': grown_at, 'builds': scale_builds,
+          'shed': len(failures), 'answers': len(results),
+          'scale_ups_total': stats['scale_ups_total']}
+      print('autoscale (serve.py --replicas 1 --autoscale_max {}): grew to '
+            '{} replicas at (clients, s) {}; time to ready {} s (slowest '
+            '{:.3f}); {} kernel builds after the first replica; {} answers, '
+            '{} shed at the door'.format(
+                FLEET_AUTOSCALE_MAX, FLEET_AUTOSCALE_MAX, grown_at,
+                ready, max(ready), scale_builds, len(results),
+                len(failures)))
+      mark('autoscale')
+
+      # 5. The replica in the other process, under load, killed.
+      set_registry(TelemetryRegistry())
+      serving = serve.start(fleet_args(
+          os.path.join(root, 'http'), '--init_randomly', '--seed', '0',
+          '--replicas', '2'))
+      fleet = serving.service
+      try:
+        deadline = time.monotonic() + FLEET_SUBPROCESS_PORT_WAIT_S
+        while True:
+          check(child.poll() is None, 'the serve.py subprocess exited: '
+                '{}'.format(child_output()))
+          try:
+            conn = http.client.HTTPConnection('127.0.0.1', port, timeout=2)
+            conn.request('GET', '/healthz')
+            ready_status = conn.getresponse().status
+            conn.close()
+            if ready_status == 200:
+              break
+          except OSError:
+            pass
+          check(time.monotonic() < deadline, 'the serve.py subprocess did '
+                'not answer /healthz within {} s'.format(
+                    FLEET_SUBPROCESS_PORT_WAIT_S))
+          time.sleep(0.25)
+        mark('subprocess_ready')
+        remote = HttpReplicaHandle(
+            FLEET_HTTP_ID, '127.0.0.1', port,
+            health_timeout_s=FLEET_HTTP_HEALTH_TIMEOUT_S)
+        ejections = get_registry().counter('serving_fleet/ejections')
+        ejections_before = ejections.value
+        fleet.router.add_replica(remote)
+        retries_before = get_registry().counter(
+            'serving_fleet/retries').value
+        results, failures, lock = [], [], threading.Lock()
+        stop = threading.Event()
+        threads = fleet_clients(fleet, serving.feature_spec, FLEET_CLIENTS,
+                                stop, results, failures, lock)
+        deadline = time.monotonic() + 60
+        while not any(r.replica == FLEET_HTTP_ID for r in list(results)):
+          check(time.monotonic() < deadline, 'the HTTP replica answered '
+                'nothing in 60 s')
+          time.sleep(0.05)
+        time.sleep(1.0)
+        # The kill must reach a replica in rotation with requests in
+        # flight, never ejected since it joined.
+        deadline = time.monotonic() + 30
+        while True:
+          check(ejections.value == ejections_before, 'a replica was ejected '
+                'before the kill: {} ejections; the HTTP replica: {}'.format(
+                    ejections.value - ejections_before,
+                    fleet.router.table().get(FLEET_HTTP_ID)))
+          in_flight = fleet.router.table()[FLEET_HTTP_ID]['outstanding']
+          if FLEET_HTTP_ID in fleet.router.healthy_ids() and in_flight > 0:
+            break
+          check(time.monotonic() < deadline, 'the HTTP replica had no '
+                'request in flight in 30 s')
+          time.sleep(0.005)
+        killed = time.monotonic()
+        child.send_signal(signal.SIGKILL)
+        with lock:
+          remote_answers = sum(r.replica == FLEET_HTTP_ID for r in results)
+        child.wait(timeout=30)
+        deadline = killed + 30
+        while FLEET_HTTP_ID not in fleet.router.ejected_ids():
+          check(time.monotonic() < deadline, 'the killed replica was not '
+                'ejected within 30 s')
+          time.sleep(0.02)
+        ejected_s = time.monotonic() - killed
+        time.sleep(2.0)
+        stop.set()
+        for t in threads:
+          t.join(timeout=120)
+        check(not any(t.is_alive() for t in threads), 'clients hung')
+        retried = [r for r in results if r.retried]
+        ids = [r.request_id for r in results]
+        retries = get_registry().counter(
+            'serving_fleet/retries').value - retries_before
+        check(ejections.value - ejections_before == 1, '{} ejections after '
+              'the kill'.format(ejections.value - ejections_before))
+        check(not failures, 'the kill failed {} requests: {}'.format(
+            len(failures), failures[:3]))
+        check(len(set(ids)) == len(ids), 'a request was answered twice')
+        check(retried and all(r.replica != FLEET_HTTP_ID for r in retried),
+              'the killed replica\'s requests were not retried on a local '
+              'peer: {} retried'.format(len(retried)))
+        check(len(retried) == retries, 'retried answers {} != retries {}: '
+              'a request was retried more than once or lost'.format(
+                  len(retried), retries))
+        check(fleet.router.ejected_ids() == [FLEET_HTTP_ID], 'ejected {}'
+              .format(fleet.router.ejected_ids()))
+        fleet.router.remove_replica(FLEET_HTTP_ID).close()
+        report['http_replica'] = {
+            'answers_before_kill': remote_answers,
+            'in_flight_at_kill': in_flight, 'retried': len(retried),
+            'ejected_after_s': round(ejected_s, 3), 'failed': 0,
+            'answers': len(results)}
+        print('replica in another process (serve.py --port {}, SIGKILL under '
+              '{} clients): answered {} before the kill, in rotation with {} '
+              'in flight and not ejected before it, ejected once {:.3f} s '
+              'after it, {} requests retried once each on a local peer, {} '
+              'answers, 0 failed, none twice'.format(
+                  port, FLEET_CLIENTS, remote_answers, in_flight, ejected_s,
+                  len(retried), len(results)))
+        mark('http_replica')
+
+        # 6. The door: a burst past the fleet-wide pending cap is 503.
+        gate = threading.Event()
+        for replica_id in fleet.router.replica_ids():
+          server = fleet.router.handle(replica_id).server
+          inner = server._batch_fn
+          server._batch_fn = (lambda v, f, s, inner=inner:
+                              gate.wait(60) and inner(v, f, s))
+        httpd, door_port = build_http_server(fleet, port=0)
+        door = threading.Thread(target=httpd.serve_forever, daemon=True)
+        door.start()
+        state = serve.synthetic_state(serving.feature_spec,
+                                      np.random.RandomState(5))
+        body = json.dumps({'features': {k: np.asarray(v).tolist()
+                                        for k, v in state.items()}})
+        try:
+          cap = sum(fleet.router.table()[i]['max_queue_depth']
+                    for i in fleet.router.healthy_ids())
+          held = [fleet.submit(state) for _ in range(cap)]
+
+          def post():
+            conn = http.client.HTTPConnection('127.0.0.1', door_port,
+                                              timeout=120)
+            conn.request('POST', '/v1/select_action', body=body,
+                         headers={'Content-Type': 'application/json'})
+            response = conn.getresponse()
+            reply = json.loads(response.read())
+            conn.close()
+            return response.status, reply
+
+          with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            burst = list(pool.map(lambda _: post(), range(4)))
+          gate.set()
+          for future in held:
+            future.result(timeout=120)
+          status, reply = post()
+        finally:
+          gate.set()
+          httpd.shutdown()
+          httpd.server_close()
+        check(all(code == 503 and 'shed at the router' in r['error']
+                  for code, r in burst), 'the door answered {}'.format(
+                      [(code, r.get('error')) for code, r in burst]))
+        check(status == 200 and np.isfinite(reply['outputs']['q']) and
+              len(reply['outputs']['action']) == 8,
+              'the door after the burst: {} {}'.format(status, reply))
+        report['door'] = {'cap': cap, 'burst_503': len(burst),
+                          'after': status}
+        print('door: {} requests held the fleet at its cap of {}; a burst '
+              'of {} over HTTP was answered 503 ("shed at the router"), '
+              'then one 200 (q {:.4f})'.format(cap, cap, len(burst),
+                                                reply['outputs']['q']))
+      finally:
+        serving.stop()
+        set_registry(previous_registry)
+    finally:
+      if child.poll() is None:
+        child.kill()
+      child.wait(timeout=30)
+      child_log.close()
+
+  counts = list(FLEET_COUNTS)
+  rates = [curve[n]['actions_per_sec'] for n in counts]
+  line = {
+      'serving_fleet_scaling_monotonic': all(
+          a < b for a, b in zip(rates, rates[1:])),
+      'serving_fleet_request_time_compiles': kernels.BUILDS - builds_before,
+      'serving_fleet_scaleup_compiles': report['autoscale']['builds'],
+      'fleet_scaleup_time_to_ready_s': max(
+          report['autoscale']['time_to_ready_s']),
+      'serving_fleet_swap_failed': report['swap']['failed'],
+      'serving_fleet_swap_versions_served': sorted(
+          int(v) for v in report['swap']['versions_served']),
+  }
+  for n in counts:
+    line['serving_fleet_actions_per_sec_r{}'.format(n)] = \
+        curve[n]['actions_per_sec']
+    line['serving_fleet_p99_ms_r{}'.format(n)] = curve[n]['p99_ms']
+    line['serving_fleet_busy_share_r{}'.format(n)] = curve[n]['busy_share']
+  check(set(SERVING_FLEET_BENCH_KEYS) <= set(line), 'the fleet line lacks '
+        '{}'.format(set(SERVING_FLEET_BENCH_KEYS) - set(line)))
+  report.update(line)
+  report['phase_s'] = round(time.monotonic() - phase_start, 1)
+  print('serving fleet: phase 4l in {:.1f} s, gates ended at (s) {}; {}'
+        .format(report['phase_s'], marks, smi_line()))
   return launches, report
 
 
@@ -7550,6 +8174,7 @@ def main():
   paths['pose_env_train'], pose_env_report = phase_pose_env_maml(device)
   paths['vrgripper_train'], vrgripper_report = phase_vrgripper(device)
   paths['pusher_train'], pusher_report = phase_pusher(device)
+  paths['serving_fleet'], fleet_report = phase_serving_fleet(device)
   paths.update({'seq2act': phase_seq2act(device),
                 'seq2act_train': phase_seq2act_train(device)})
   paths['seq2act_bf16_train'], bf16_report = phase_seq2act_bf16(device)
@@ -7588,6 +8213,8 @@ def main():
   print(json.dumps({'vrgripper': vrgripper_report}))
   print(json.dumps({'fault_tolerance': fault_report}))
   print(json.dumps({'pusher': pusher_report}))
+  print(json.dumps({'serving_fleet': fleet_report}))
+  print(smi_line())
   print(json.dumps({'seq2act_variants': {
       'bf16': bf16_report, 'moe': moe_report, 'ring_gin': ring['gin']}}))
   print(json.dumps({'kernels': [entry for entry, _ in entries]}))

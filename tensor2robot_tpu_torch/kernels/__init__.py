@@ -8,6 +8,10 @@ of its source, of the ``csrc/*.cuh`` headers it includes and of the flags,
 so an edited source or header is rebuilt and a built one is reused.
 ``build()`` starts one ``nvcc`` per source, all at once.
 
+``BUILDS`` counts the libraries this process compiled: eager PyTorch
+compiles no program, so this is the port's count of compiles (a serving
+fleet's replicas after the first, and every request, build nothing).
+
 Every wrapper counts its kernel launches in ``LAUNCHES``: one per launch,
 added where the kernel is launched and nowhere else, so a run can show
 that its path went through the kernels. (One C call is one launch of its
@@ -33,8 +37,8 @@ from typing import Dict, Iterable, List
 
 import torch
 
-__all__ = ['LAUNCHES', 'KERNELS', 'build', 'count_launch', 'launch',
-           'library_path', 'reset_launches', 'source_path']
+__all__ = ['BUILDS', 'LAUNCHES', 'KERNELS', 'build', 'count_launch',
+           'launch', 'library_path', 'reset_launches', 'source_path']
 
 _PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PACKAGE_DIR / 'csrc'
@@ -79,8 +83,11 @@ KERNELS = {
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+BUILDS = 0
 
-_lock = threading.Lock()
+# Reentrant: _function builds a missing library under the lock, and build
+# counts under it.
+_lock = threading.RLock()
 _functions: Dict[str, tuple] = {}
 
 
@@ -136,8 +143,10 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> float:
   One ``nvcc`` per source, all started together. Each library is written
   to a temporary name and renamed into place, so a reader never loads a
   half-written file. The compiler's output (``-Xptxas=-v``: registers,
-  shared memory, spills) is kept in ``_build/<name>.log``.
+  shared memory, spills) is kept in ``_build/<name>.log``. Each library
+  compiled adds one to ``BUILDS``.
   """
+  global BUILDS
   start = time.monotonic()
   todo = [name for name in names if not library_path(name).exists()]
   if not todo:
@@ -160,6 +169,8 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> float:
       failures.append('{}:\n{}'.format(name, output))
     else:
       os.replace(tmp, target)
+      with _lock:
+        BUILDS += 1
   if failures:
     raise RuntimeError('nvcc failed for ' + '\n'.join(failures))
   return time.monotonic() - start

@@ -14,6 +14,8 @@ from tensor2robot_tpu_torch.observability.registry import (
 )
 from tensor2robot_tpu_torch.observability.telemetry_file import (
     TelemetryLogger,
+    discover_hosts,
+    read_heartbeat,
     read_telemetry,
 )
 
@@ -26,7 +28,9 @@ __all__ = [
     'SLO_LATENCY_BUCKETS_MS',
     'TelemetryLogger',
     'TelemetryRegistry',
+    'discover_hosts',
     'get_registry',
+    'read_heartbeat',
     'read_telemetry',
     'set_registry',
 ]

@@ -327,7 +327,8 @@ class Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
     }
 
   def make_batched_select_action(self, cem_samples: int = 64,
-                                 cem_iters: int = 3, num_elites: int = 10):
+                                 cem_iters: int = 3, num_elites: int = 10,
+                                 network: Optional[nn.Module] = None):
     """The serving batch program: B independent CEM selects in one call.
 
     Returns ``batch_select(variables, states, seed, noise=None)`` with
@@ -340,9 +341,15 @@ class Grasping44E2EOpenCloseTerminateGripperStatusHeightToBottom(
 
     This is the ``batch_fn(variables, features, seed)`` contract of
     ``serving.PolicyServer``.
+
+    ``network`` is the module the weights are called through (the model's
+    own by default). ``torch.func.functional_call`` swaps a module's
+    tensors while it runs, so two threads must not call through one
+    module: each replica of a serving fleet passes a copy of its own.
     """
     device = self.device
-    network = getattr(self.network, _NETWORK)
+    network = getattr(self.network if network is None else network,
+                      _NETWORK)
     prefix = _NETWORK + '.'
 
     def batch_select(variables, states, seed, noise=None):

@@ -1,4 +1,4 @@
-"""Stdlib HTTP/JSON front door for a PolicyServer.
+"""Stdlib HTTP/JSON front door for a PolicyServer or a ServingFleet.
 
 A copy of the JAX package's ``serving/frontend.py``, with the same
 endpoints and wire format. One thread per connection
@@ -7,14 +7,22 @@ callers coalesce into batches behind one batch function. JSON arrays are
 the wire format; the server's ``feature_spec`` casts them to the batch
 function's dtypes, so clients send plain nested lists.
 
+The handler needs only ``submit(features) -> Future`` and ``stats()``, so
+``serve --replicas N`` mounts a :class:`~.fleet.ServingFleet` on the same
+door. The fleet router's shed at the door (:class:`RequestRejected` before
+any replica queue is touched) is answered 503, as a single server's
+admission control is, never as a dropped connection.
+
 Endpoints:
   * ``POST /v1/select_action``: body ``{"features": {name: value}}``;
     200 -> ``{"outputs": {...}, "version": int, "latency_ms": float}``;
     400 on a malformed or spec-violating request, 503 when admission
-    control sheds the request, 500 on a failed batch.
-  * ``GET /healthz``: cumulative ``stats()`` as JSON.
-  * ``GET /metricz``: the registry's ``serving/`` and ``inference/``
-    scalars (flat tag -> value JSON).
+    control (or the fleet router) sheds the request, 500 on a failed
+    batch.
+  * ``GET /healthz``: cumulative ``stats()`` as JSON (a fleet's holds the
+    replica count and the ejection and scale totals).
+  * ``GET /metricz``: the registry's ``serving/``, ``serving_fleet/`` and
+    ``inference/`` scalars (flat tag -> value JSON).
 """
 
 from __future__ import annotations
@@ -64,7 +72,8 @@ class _Handler(BaseHTTPRequestHandler):
     elif self.path == '/metricz':
       scalars = get_registry().scalars()
       self._reply(200, {tag: value for tag, value in sorted(scalars.items())
-                        if tag.startswith(('serving/', 'inference/'))})
+                        if tag.startswith(('serving/', 'serving_fleet/',
+                                           'inference/'))})
     else:
       self._reply(404, {'error': 'unknown path {}'.format(self.path)})
 
@@ -115,10 +124,11 @@ def build_http_server(policy_server,
                       ) -> Tuple[ThreadingHTTPServer, int]:
   """Binds the HTTP front end; returns ``(httpd, bound_port)``.
 
-  ``policy_server`` is a :class:`PolicyServer` (anything with
+  ``policy_server`` is a :class:`PolicyServer` or a
+  :class:`~.fleet.ServingFleet` (anything with
   ``submit``/``stats``). ``port=0`` binds an ephemeral port (tests).
   Call ``httpd.serve_forever()`` (blocking) or drive it from a thread;
-  ``httpd.shutdown()`` stops it; then close the server.
+  ``httpd.shutdown()`` stops it; then close the server or fleet.
   """
   handler = type('PolicyHandler', (_Handler,), {
       'policy_server': policy_server,

@@ -203,6 +203,12 @@ class PolicyServer:
     self._window_rows = 0
     self._window_padded = 0
 
+    # The replica's heartbeat in a fleet: the router reads the last closed
+    # SLO window (its routing weight) and the report's age (liveness). A
+    # serve loop wedged inside a batch stops reporting, so the age grows.
+    self.last_report: Optional[Dict[str, object]] = None
+    self._last_report_at = self._clock()
+
     # Drain accounting: a request is "accepted" at submit and "answered"
     # when its future resolves — so drain() can never observe the gap
     # between a batch leaving the queue and entering execution.
@@ -255,6 +261,18 @@ class PolicyServer:
       if self._owns_telemetry:
         self._telemetry.close()
     self._queue_gauge.set(0.0)
+
+  @property
+  def alive(self) -> bool:
+    """Whether the serve loop thread is running (started, not closed)."""
+    return self._worker is not None and self._worker.is_alive()
+
+  def report_age_s(self) -> float:
+    """Seconds since the serve loop last closed an SLO report window: the
+    heartbeat a fleet router ejects on. A healthy loop reports every
+    ``report_interval_s``; a loop wedged inside a batch, or dead, stops,
+    and the age grows without bound."""
+    return self._clock() - self._last_report_at
 
   def drain(self, timeout_s: float = 30.0) -> bool:
     """Blocks until every accepted request has been ANSWERED (True), or
@@ -411,9 +429,11 @@ class PolicyServer:
 
   def _answer(self, request, result=None, error=None) -> None:
     """Resolves one future, tolerating a caller who cancelled it (their
-    batch slot was already spent; the loop must not die over it).
-    Every accepted request passes through here exactly once — the
-    'answered' side of drain()'s accounting."""
+    batch slot was already spent; the loop must not die over it). A
+    future a fleet router cancelled, having retried the request on a
+    peer, stays cancelled: it is never answered. Every accepted request
+    passes through here exactly once — the 'answered' side of drain()'s
+    accounting."""
     try:
       if error is not None:
         request.future.set_exception(error)
@@ -464,6 +484,8 @@ class PolicyServer:
         'rejected_total': self._admission.rejected_total,
         'params_version': self._params.version,
     }
+    self.last_report = record
+    self._last_report_at = now
     if self._telemetry is not None:
       self._telemetry.log(SERVING_RECORD_KIND, **record)
       self._telemetry.heartbeat()

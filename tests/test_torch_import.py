@@ -127,6 +127,11 @@ GRASP2VEC_MAML_GINS = (
     'research/pose_env/configs/train_pose_env_from_records.gin',
     'research/pose_env/configs/run_train_reg_maml.gin')
 
+# The serving fleet slice's modules.
+FLEET_MODULES = tuple('tensor2robot_tpu_torch.' + name for name in (
+    'serving.admission', 'serving.batcher', 'serving.fleet',
+    'serving.fleet_bench', 'serving.router'))
+
 
 def _port_sources():
   for root, _, files in os.walk(PORT):
@@ -173,6 +178,7 @@ def test_importing_every_module_loads_no_jax():
   assert set(VRGRIPPER_MODULES) <= names, set(VRGRIPPER_MODULES) - names
   assert set(FAULT_TOLERANCE_MODULES) <= names, (
       set(FAULT_TOLERANCE_MODULES) - names)
+  assert set(FLEET_MODULES) <= names, set(FLEET_MODULES) - names
 
 
 def test_registering_the_configurables_loads_no_jax():
@@ -355,3 +361,16 @@ def test_the_live_loop_runs_on_the_card_unless_asked():
   assert inspect.signature(loop.build_grasping_loop).parameters[
       'device'].default == 'cuda'
   assert run_rl_loop.make_parser().parse_args([]).device == 'cuda'
+
+
+def test_the_fleet_runs_on_the_card_unless_asked():
+  from tensor2robot_tpu_torch.serving import fleet_bench
+  from tensor2robot_tpu_torch.serving import serve
+
+  args = serve.make_parser().parse_args(['--init_randomly', '--replicas',
+                                         '4', '--autoscale_max', '8'])
+  assert args.device == 'cuda' and args.replicas == 4
+  assert inspect.signature(fleet_bench.run_bench).parameters[
+      'device'].default == 'cuda'
+  assert inspect.signature(fleet_bench.build_sim_batch_select).parameters[
+      'device'].default == 'cuda'
